@@ -1,14 +1,17 @@
 """Public Python API of the port: load_character, set_reference_audio, tts.
 
-The solo, synchronous subset of ``genie_tts_tpu/api.py``. Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
-device named they raise. Streaming sessions, playback, batching, slots and
-the server are later slices (ROADMAP.md).
+The solo, synchronous subset of ``genie_tts_tpu/api.py``, and its
+in-flight slot serving route (``_make_synth_fn(use_batcher=True)``, one
+``runtime/slot_batcher.py`` scheduler per character). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
+device named they raise. Streaming sessions, playback, the window batcher
+and the server are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
 import logging
 import os
+import threading
 from os import PathLike
 from typing import Dict, Optional, Union
 
@@ -73,6 +76,12 @@ def load_character(character_name: str, model_dir: Union[str, PathLike],
 
 def unload_character(character_name: str) -> None:
     model_manager.remove_character(character_name)
+    # popped under the lock: a concurrent first request in get_slot_batcher
+    # must not re-insert a batcher for the character being unloaded
+    with _slot_batchers_lock:
+        sb = _slot_batchers.pop(character_name, None)
+    if sb is not None:
+        sb.stop()
 
 
 def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
@@ -110,7 +119,37 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
 # Synthesis
 # ---------------------------------------------------------------------------
 
-def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = None):
+_slot_batchers: dict = {}
+_slot_batchers_lock = threading.Lock()
+
+
+def get_slot_batcher(char):
+    """Lazy per-character SlotBatcher (in-flight continuous batching).
+
+    Locked: two concurrent first requests must not each build a batcher
+    (the loser would leak a scheduler thread and a slot KV cache)."""
+    with _slot_batchers_lock:
+        sb = _slot_batchers.get(char.name)
+        if sb is None:
+            from .runtime.slot_batcher import SlotBatcher
+
+            # serving emits PCM16, made on the device
+            sb = SlotBatcher(engine, char, pcm16=True)
+            _slot_batchers[char.name] = sb
+        return sb
+
+
+def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = None,
+                   use_batcher: bool = False):
+    """The synthesis function of one character: sentence -> waveform.
+
+    ``use_batcher`` (the serving route): a sentence that fits the slot
+    machine's buckets joins the character's slot batcher and comes back
+    as int16 PCM, decoding in flight beside concurrent requests (with
+    ``RuntimeConfig.serve_slots``). Until the window batcher is ported
+    (ROADMAP.md, Queue 1 item 8), a sentence that does not fit is
+    synthesized solo, as float32. Without ``use_batcher`` every sentence
+    is synthesized solo."""
     char = model_manager.get(character_name)
     if char is None:
         raise ValueError(f"Character '{character_name}' is not loaded")
@@ -124,6 +163,11 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
         phones, bert = get_phones_and_bert("。" + sentence, char.language)
         if len(phones) == 0:
             return None
+        if use_batcher and engine.cfg.serve_slots:
+            # per-request sampling joins too: it is per-row slot state
+            sb = get_slot_batcher(char)
+            if sb.fits(feats, phones):
+                return sb.synthesize(feats, phones, bert, sampling=sampling)
         return engine.synthesize_utterance(char, feats, phones, bert,
                                            sampling=sampling)
 

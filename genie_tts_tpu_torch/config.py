@@ -88,9 +88,14 @@ class HubertConfig:
     sample_rate: int = 16000
 
 
+def _env_flag(name: str, default: str) -> bool:
+    return os.environ.get(name, default).lower() not in ("0", "false", "off")
+
+
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """The runtime knobs of the solo synthesis path."""
+    """The runtime knobs of the solo synthesis path and of in-flight slot
+    serving (``runtime/slot_batcher.py``)."""
     compute_dtype: str = "bfloat16"
     phoneme_buckets: Tuple[int, ...] = (32, 64, 128, 256)
     prompt_buckets: Tuple[int, ...] = (128, 256, 512)
@@ -98,12 +103,40 @@ class RuntimeConfig:
     # static decode-cap ladder: sizes the token buffer, the Gumbel table
     # and the KV cache of one utterance
     step_caps: Tuple[int, ...] = (64, 128, 256, 512)
+    # batch ladder the pooled slot finisher pads its vocode batch to
+    batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    # In-flight (slot) serving: a persistent slot_batch-slot decode machine
+    # advances slot_steps tokens per dispatch (a "segment"); requests join
+    # free slots between segments. Packed phonemes <= slot_phoneme_bucket,
+    # prompts <= slot_prompt_bucket, a decode ring of slot_ring tokens
+    # (rounded up to a slot_steps multiple, and at most max_decode_steps).
+    slot_batch: int = 8
+    slot_steps: int = 32
+    slot_ring: int = 512
+    slot_phoneme_bucket: int = 192
+    slot_prompt_bucket: int = 192
+    # finished rows pool for one batched vocode: flush at
+    # slot_finisher_batch rows, after slot_finisher_wait_segs segments, or
+    # at once when the machine idles or starves
+    slot_finisher_batch: int = 4
+    slot_finisher_wait_segs: int = 2
+    # int8 KV cache for the slot machine (models/slots.py kv_int8): the big
+    # caches hold int8 codes + per-column fp32 scales, and the big-cache
+    # attention runs through ops/int8_decode.py. GENIE_SLOT_KV_INT8=1 opts
+    # in; off by default, as in the JAX package.
+    slot_kv_int8: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "GENIE_SLOT_KV_INT8", "0").lower() in ("1", "true", "on"))
+    # serving requests (api._make_synth_fn(use_batcher=True)) that fit the
+    # slot buckets join the slot machine; GENIE_SLOT_SERVING=0 serves them
+    # solo
+    serve_slots: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("GENIE_SLOT_SERVING", "1"))
     # weight-only int8 T2S decoder matmuls, applied at character load
     # (models/t2s.py::quantize_params); GENIE_T2S_INT8=0 keeps the
     # compute-dtype weights
     t2s_int8: bool = dataclasses.field(
-        default_factory=lambda: os.environ.get(
-            "GENIE_T2S_INT8", "1").lower() not in ("0", "false", "off"))
+        default_factory=lambda: _env_flag("GENIE_T2S_INT8", "1"))
     # chunked HiFi-GAN: latent frames per chunk and the halo on each side
     # (the generator's receptive field is ~14 frames)
     vocode_chunk: int = 256

@@ -11,22 +11,28 @@ Static-shape layout per batch row (cache length S):
     [ Sx ......... Sx+Sp )    semantic prompt block (right-padded, len p_len[b])
     [ Sx+Sp ............ )    decoded tokens, step t lives at Sx+Sp+t
 
-Decode routes: B = 1 runs each step as ONE launch of the fused all-layer
-kernel (``ops/fused_decode.py``) over ``[L, S, D]`` caches; B > 1 runs
-the per-layer :func:`_layer_decode` with the flash-decode attention kernel
-(``ops/flash_decode.py``) over ``[B, H, S, Dh]`` caches. Both write each
-step's K/V row into the cache in place (the JAX package's write-buffered
-variant exists only for the TPU's tiling; it computes the same tokens).
+Decode routes of :func:`generate`: B = 1 runs each step as ONE launch of
+the fused all-layer kernel (``ops/fused_decode.py``) over ``[L, S, D]``
+caches; B > 1 runs the per-layer :func:`_layer_decode` with the
+flash-decode attention kernel (``ops/flash_decode.py``) over
+``[B, H, S, Dh]`` caches. Both write each step's K/V row into the cache in
+place (the JAX package's write-buffered ``generate`` exists only for the
+TPU's tiling; it computes the same tokens). The slot machine
+(``models/slots.py``) decodes through :func:`_layer_decode_buffered`,
+whose read-only big cache may hold int8 codes (``ops/int8_decode.py``).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import T2SConfig
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.fused_decode import fused_decode_step, pack_decode_params
+from ..ops.int8_decode import int8_big_attention
 from ..ops.layers import (attention, layer_norm, linear, sine_position_table,
                           unstack)
 from ..ops.sampling import SamplingConfig, gumbel_noise, sample_token
@@ -178,6 +184,94 @@ def _layer_decode(lp: Params, h: torch.Tensor, k_cache: torch.Tensor,
     h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att[:, :, None])))
     ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
     return layer_norm(lp["norm2"], h + ff)
+
+
+def _layer_decode_buffered(lp: Params, h: torch.Tensor, k_big, v_big,
+                           k_buf: torch.Tensor, v_buf: torch.Tensor,
+                           buf_mask: torch.Tensor, kv_mask, num_heads: int,
+                           k_scale=None, v_scale=None, kv_kernel_ctx=None):
+    """One-token decode layer against a read-only big cache + write buffer
+    (the slot machine's route, ``models/slots.py::decode_segment``).
+
+    h [B,1,D]; big caches kv-major [B,H,Dh,S] (one region, or a tuple of
+    regions with a tuple of [B,S] masks); the segment's own columns in
+    k_buf/v_buf [B,H,Dh,W] with buf_mask [W]. Attention is one softmax over
+    [big | buffer | self]. Returns (h, k_new [B,H,Dh], v_new [B,H,Dh]); the
+    caller stacks the new columns into the buffer.
+
+    ``k_scale``/``v_scale`` [B,H,S]: per-column fp32 scales when the big
+    caches hold int8 codes. ``kv_kernel_ctx`` = (x_len, p_len,
+    keys_written, ring_head, sx, sp, ring), all segment-frozen: the
+    big-cache attention then runs through ``ops/int8_decode.py`` (which
+    recomputes visibility from these and returns flash partials), merged
+    with the exact buffer and self columns in one log-sum-exp step."""
+    q, k_new, v_new = linear(lp["qkv"], h).chunk(3, dim=-1)
+    q = _split_heads(q, num_heads)                           # [B,H,1,Dh]
+    k_new = _split_heads(k_new, num_heads)[:, :, 0]          # [B,H,Dh]
+    v_new = _split_heads(v_new, num_heads)[:, :, 0]
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q[:, :, 0].float()                                  # [B,H,Dh]
+    W = k_buf.shape[-1]
+    if k_scale is not None and kv_kernel_ctx is not None:
+        x_len, p_len, keys_written, ring_head, sx, sp, ring = kv_kernel_ctx
+        o1, m1, l1 = int8_big_attention(
+            q[:, :, 0].contiguous(), k_big, k_scale, v_big, v_scale,
+            x_len, p_len, keys_written, ring_head, sx=sx, sp=sp, ring=ring)
+        s_buf = torch.einsum("bhd,bhdw->bhw", qf, k_buf.float()) * scale
+        s_buf = s_buf.masked_fill(~buf_mask[None, None, :], -1e10)
+        s_self = (qf * k_new.float()).sum(-1, keepdim=True) * scale   # [B,H,1]
+        s_rest = torch.cat([s_buf, s_self], dim=-1)                   # [B,H,W+1]
+        m_tot = torch.maximum(m1, s_rest.amax(dim=-1))
+        a1 = torch.exp(m1 - m_tot)
+        p_rest = torch.exp(s_rest - m_tot[..., None])
+        l_tot = l1 * a1 + p_rest.sum(dim=-1)
+        att_f = (o1 * a1[..., None]
+                 + torch.einsum("bhw,bhdw->bhd", p_rest[..., :W].to(dt).float(),
+                                v_buf.float())
+                 + p_rest[..., W:] * v_new.float())
+        att = (att_f / l_tot[..., None]).to(dt)[:, :, None]
+    else:
+        # regions concatenate in score space: one softmax over
+        # [regions... | buffer | self]
+        def parts(x, n):
+            return tuple(x) if isinstance(x, (tuple, list)) else (x,) * n
+
+        kb_parts = parts(k_big, 1)
+        vb_parts = parts(v_big, 1)
+        n = len(kb_parts)
+        mask_parts = parts(kv_mask, n)
+        ks_parts, vs_parts = parts(k_scale, n), parts(v_scale, n)
+        s_parts, v_parts = [], []
+        for kb, vb, msk, ks, vs in zip(kb_parts, vb_parts, mask_parts,
+                                       ks_parts, vs_parts):
+            if vs is not None:        # int8 codes: dequantize V in q's dtype
+                vb = vb.to(dt) * vs[:, :, None, :].to(dt)
+            s = torch.einsum("bhd,bhds->bhs", qf, kb.to(dt).float()) * scale
+            if ks is not None:
+                s = s * ks
+            s_parts.append(s.masked_fill(~msk[:, None, :], -1e10))
+            v_parts.append(vb)
+        s_buf = torch.einsum("bhd,bhdw->bhw", qf, k_buf.float()) * scale
+        s_buf = s_buf.masked_fill(~buf_mask[None, None, :], -1e10)
+        s_self = (qf * k_new.float()).sum(-1, keepdim=True) * scale
+        probs = torch.softmax(torch.cat(s_parts + [s_buf, s_self], dim=-1),
+                              dim=-1).to(dt).float()
+        att = torch.zeros_like(qf).to(dt)
+        off = 0
+        for s, vb in zip(s_parts, v_parts):
+            w = s.shape[-1]
+            att = att + torch.einsum("bhs,bhds->bhd", probs[..., off:off + w],
+                                     vb.float()).to(dt)
+            off += w
+        att = (att
+               + torch.einsum("bhw,bhdw->bhd", probs[..., off:off + W],
+                              v_buf.float()).to(dt)
+               + (probs[..., off + W:] * v_new.float()).to(dt))[:, :, None]
+    h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att)))
+    ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
+    h = layer_norm(lp["norm2"], h + ff)
+    return h, k_new, v_new
 
 
 # ---------------------------------------------------------------------------
@@ -363,3 +457,21 @@ def generate_e2e(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
         stats["decode_steps"] = res.steps - 1
         stats["cache_len"] = cache_len
     return finalize_tokens_device(res.tokens, res.counts, cfg.eos_id)
+
+
+def finalize_semantic_tokens(tokens, counts, eos_id: int = 1024):
+    """Host-side post-processing matching the reference quirks: the final
+    emitted token becomes semantic code 0, then anything >= ``eos_id``
+    that remains ends the codes. Returns a list of 1-D numpy arrays."""
+    tokens = np.asarray(tokens)
+    counts = np.asarray(counts)
+    out = []
+    for row, cnt in zip(tokens, counts):
+        seq = row[: int(cnt)].copy()
+        if len(seq):
+            seq[-1] = 0
+        bad = np.nonzero(seq >= eos_id)[0]
+        if len(bad):
+            seq = seq[: bad[0]]
+        out.append(seq)
+    return out

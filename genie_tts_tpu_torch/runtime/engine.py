@@ -3,7 +3,10 @@
 The solo path of ``genie_tts_tpu/runtime/engine.py``:
 
   phones (host G2P) -> [bucket] -> T2S prefill + AR decode -> semantic
-  codes -> SoVITS latent -> chunked HiFi-GAN -> waveform.
+  codes -> SoVITS latent -> chunked HiFi-GAN -> waveform,
+
+and the batched codes -> waveform tail (``vocode_codes_*``) that the slot
+scheduler (``runtime/slot_batcher.py``) runs on the codes it decoded.
 
 Lengths are padded to the same bucket ladders as the JAX package, so both
 packages see the same shapes (and the same masks) for a given input.
@@ -26,6 +29,7 @@ from ..config import RuntimeConfig, SoVITSConfig, T2SConfig, resolve_device
 from ..models import sovits, t2s
 from ..ops.audio import linear_spectrogram
 from ..ops.sampling import SamplingConfig
+from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
 
 logger = logging.getLogger(__name__)
@@ -64,6 +68,36 @@ def _fit_codes(codes: torch.Tensor, bucket: int) -> torch.Tensor:
     if bucket > codes.shape[1]:
         return torch.nn.functional.pad(codes, (0, bucket - codes.shape[1]))
     return codes
+
+
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device: through
+    pinned memory with a non-blocking copy (a pageable copy would wait for
+    the work already queued on the stream)."""
+    t = torch.as_tensor(np.asarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def start_host_copy(t: torch.Tensor):
+    """Enqueue ``t``'s copy to host memory behind the work that made it;
+    :func:`finish_host_copy` waits for it. On the CPU the tensor is its own
+    copy."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
+
+
+def finish_host_copy(handle) -> np.ndarray:
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
 
 
 class _Stages:
@@ -261,6 +295,88 @@ class TTSEngine:
         stages.mark("host")
         self.last_stats = {"codes_len": n_codes, **stats, "stages": stages.times}
         return out if pcm16 else out.astype(np.float32)
+
+    # -- batched codes -> waveform tail (the slot finisher) ----------------
+
+    def vocode_codes(self, char: CharacterModel, ref: ReferenceFeatures,
+                     text_phones: np.ndarray, codes: np.ndarray, seed: int = 0,
+                     noise_scale: float = 0.5, pcm16: bool = False) -> np.ndarray:
+        """Semantic codes [n] -> waveform for one utterance."""
+        return self.vocode_codes_batch(char, [(ref, text_phones, codes)], seed=seed,
+                                       noise_scale=noise_scale, pcm16=pcm16)[0]
+
+    def vocode_codes_batch(self, char: CharacterModel, items, seed: int = 0,
+                           noise_scale: float = 0.5, b_buckets=None,
+                           t_buckets=None, pcm16: bool = False, noise=None):
+        """Batched codes -> waveform tail (dispatch + fetch in one call)."""
+        return self.vocode_codes_fetch(self.vocode_codes_dispatch(
+            char, items, seed=seed, noise_scale=noise_scale, b_buckets=b_buckets,
+            t_buckets=t_buckets, pcm16=pcm16, noise=noise))
+
+    @torch.inference_mode()
+    def vocode_codes_dispatch(self, char: CharacterModel, items, seed: int = 0,
+                              noise_scale: float = 0.5, b_buckets=None,
+                              t_buckets=None, pcm16: bool = False, noise=None):
+        """Device half of the batched tail: ``items`` = [(ref, text_phones,
+        codes)] vocode as ONE batch, padded to ``b_buckets`` (default
+        ``batch_buckets``) with copies of the first row, codes to a
+        ``frame_buckets`` bucket and text to one ``t_buckets`` bucket; one
+        ``synthesize_latent``, a chunked HiFi-GAN, PCM16 made on the device
+        when ``pcm16``. The waveform's copy to host memory is enqueued
+        right behind it; the returned handle goes to
+        :meth:`vocode_codes_fetch`, which may run on any thread.
+
+        The flow noise is drawn from a generator seeded with ``seed``, or
+        given as ``noise`` [len(items), F, 192] (frames beyond a row's
+        codes are masked; F is cut or zero-padded to the frame bucket)."""
+        vcfg = char.sovits_cfg
+        dev = char.device
+        B = len(items)
+        lens = np.array([len(c) for (_, _, c) in items], np.int64)
+        if B == 0 or int(lens.max()) == 0:
+            empty = torch.zeros((B, 0), dtype=torch.int16 if pcm16 else torch.float32)
+            return (empty, None), lens, vcfg.hop_length
+        B_pad = max(pick_bucket(B, b_buckets or self.cfg.batch_buckets), B)
+        items = list(items) + [items[0]] * (B_pad - B)
+        lens = np.concatenate([lens, lens[:1].repeat(B_pad - B)])
+        c_bucket = pick_bucket(int(lens.max()), self.cfg.frame_buckets)
+        lens = np.minimum(lens, c_bucket)           # truncated past the ladder
+        codes_b = np.stack([pad_to(np.asarray(c[:c_bucket], np.int64), c_bucket)
+                            for (_, _, c) in items])
+        t_lens = np.array([len(tp) for (_, tp, _) in items], np.int64)
+        t_bucket = pick_bucket(int(t_lens.max()), t_buckets or self.cfg.phoneme_buckets)
+        t_lens = np.minimum(t_lens, t_bucket)
+        text_b = np.stack([pad_to(np.asarray(tp, np.int64), t_bucket)
+                           for (_, tp, _) in items])
+        ge_b = np.stack([r.ge for (r, _, _) in items]).astype(np.float32)
+        gm_b = np.stack([r.ge_mrte for (r, _, _) in items]).astype(np.float32)
+        lens_d = host_to_device(lens, dev)
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=torch.float32)
+            noise = torch.cat([noise, noise[:1].expand(B_pad - B, *noise.shape[1:])])
+            F2 = 2 * c_bucket
+            noise = (noise[:, :F2] if noise.shape[1] >= F2 else
+                     torch.nn.functional.pad(noise, (0, 0, 0, F2 - noise.shape[1])))
+            noise = host_to_device(noise, dev)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        ge = host_to_device(ge_b, dev)
+        z = sovits.synthesize_latent(
+            char.sovits_params, vcfg, host_to_device(codes_b, dev), lens_d,
+            host_to_device(text_b, dev), host_to_device(t_lens, dev), ge,
+            host_to_device(gm_b, dev), noise_scale, noise=noise, generator=gen)
+        audio = sovits.vocode_frames_chunked(
+            char.sovits_params, vcfg, z, ge, 2 * lens_d,
+            chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo)[:B]
+        audio = _to_pcm16(audio) if pcm16 else audio.float()
+        metrics.incr("utterances", B)
+        return start_host_copy(audio), lens[:B], vcfg.hop_length
+
+    def vocode_codes_fetch(self, handle):
+        """Host half: wait for the waveform's copy and trim each row to
+        ``2 * codes * hop`` samples. Runs no device work."""
+        copy, lens, hop = handle
+        audio = finish_host_copy(copy)
+        return [audio[i, : 2 * int(lens[i]) * hop] for i in range(len(lens))]
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ Tolerances: fp32 kernels differ from the plain versions only in the order
 of fp32 sums (1e-5 on attention outputs of order 1; 1e-4 through 3
 post-LN layers); bf16 adds one output rounding (2^-8 relative) for the
 attention and, for the fused step, bf16 operand roundings that a sum
-order flips (2e-2 absolute at the LayerNorm scale).
+order flips (2e-2 absolute at the LayerNorm scale). The int8 slot-cache
+attention runs in fp32 in both versions: relative 1e-4 of each partial's
+largest value, and rows that see nothing exactly.
 """
 
 import pytest
@@ -20,8 +22,11 @@ import torch
 from genie_tts_tpu_torch.config import T2SConfig
 from genie_tts_tpu_torch.models import t2s
 from genie_tts_tpu_torch.ops import fused_decode as fu
+from genie_tts_tpu_torch.models import slots
 from genie_tts_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                   flash_decode_attention_plain)
+from genie_tts_tpu_torch.ops.int8_decode import (int8_big_attention,
+                                                 int8_big_attention_plain)
 
 
 @pytest.fixture
@@ -101,3 +106,70 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fu.fused_decode_step(packed, torch.zeros((1, cfg.embed_dim), device="cuda"), kc,
                              kc.clone(), 0, torch.ones(16, device="cuda"),
                              num_heads=cfg.num_heads)
+
+
+def _int8_case(gen, B, H, Dh, sx, sp, ring, kw, head, pad_cols, empty_row=False):
+    """int8 codes + scales as the slot state holds them: rows of the doubled
+    ring (``pad_cols`` wider than the S columns read), sliced to S."""
+    S = sx + sp + ring
+    kq, ks = slots.quantize_kv_columns(
+        torch.randn((B, H, Dh, S + pad_cols), generator=gen, device="cuda"))
+    vq, vs = slots.quantize_kv_columns(
+        torch.randn((B, H, Dh, S + pad_cols), generator=gen, device="cuda"))
+    x_len = torch.randint(1, sx + 1, (B,), generator=gen, device="cuda").int()
+    p_len = torch.randint(1, sp + 1, (B,), generator=gen, device="cuda").int()
+    kws = torch.tensor(kw, dtype=torch.int32, device="cuda")
+    if empty_row:
+        x_len[-1] = p_len[-1] = kws[-1] = 0
+    q = torch.randn((B, H, Dh), generator=gen, device="cuda").bfloat16()
+    return (q, kq[..., :S], ks[..., :S], vq[..., :S], vs[..., :S], x_len, p_len, kws,
+            head), dict(sx=sx, sp=sp, ring=ring)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # B, H, Dh, sx, sp, ring, keys_written, head, pad_cols, empty_row
+    (8, 16, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 0, 1], 300, 512, False),
+    (8, 16, 32, 192, 192, 512, [512, 400, 300, 200, 150, 120, 101, 450], 100, 512, False),
+    (8, 16, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 32, 1], 300, 512, True),
+    (2, 4, 32, 16, 8, 32, [32, 20], 4, 32, False),    # pitch 88: the byte-load route
+    (3, 2, 64, 32, 64, 96, [5, 96, 0], 50, 0, True),  # Dh 64, a contiguous cache
+], ids=["partial_ring", "wrapped_ring", "empty_row", "unaligned_pitch", "dh64"])
+def test_int8_kernel_matches_plain(cuda, case):
+    *shape, pad_cols, empty = case
+    B, H, Dh, sx, sp, ring, kw, head = shape
+    args, geom = _int8_case(cuda, B, H, Dh, sx, sp, ring, kw, head, pad_cols, empty)
+    before = int8_big_attention.launches
+    out = int8_big_attention(*args, **geom)
+    ref = int8_big_attention_plain(*args, **geom)
+    torch.cuda.synchronize()
+    assert int8_big_attention.launches == before + 1
+    seen = ref[1] > -1e30
+    for a, b in zip(out, ref):
+        # fp32 in both, sums in another order: relative 1e-4 of the largest value
+        torch.testing.assert_close(a[seen], b[seen], rtol=1e-4,
+                                   atol=1e-4 * float(b[seen].abs().max()))
+        assert torch.equal(a[~seen], b[~seen])
+    if empty:
+        o, m, l = out
+        assert bool((m[-1] == -1e30).all()) and not l[-1].any() and not o[-1].any()
+
+
+@pytest.mark.cuda
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args, geom = _int8_case(cuda, 2, 4, 32, 16, 8, 32, [3, 4], 4, 0)
+    q, kq, ks, vq, vs, x_len, p_len, kw, head = args
+    with pytest.raises(TypeError):             # a device ring head would need a host read
+        int8_big_attention(q, kq, ks, vq, vs, x_len, p_len, kw,
+                           torch.tensor(head, device="cuda"), **geom)
+    with pytest.raises(TypeError):
+        int8_big_attention(q.half(), kq, ks, vq, vs, x_len, p_len, kw, head, **geom)
+    with pytest.raises(TypeError):
+        int8_big_attention(q, kq.float(), ks, vq, vs, x_len, p_len, kw, head, **geom)
+    with pytest.raises(TypeError):
+        int8_big_attention(q, kq, ks, vq, vs, x_len.long(), p_len, kw, head, **geom)
+    with pytest.raises(ValueError):
+        int8_big_attention(q, kq, ks, vq, vs, x_len, p_len, kw, head, sx=16, sp=8, ring=31)
+    with pytest.raises(ValueError):            # columns not unit-stride
+        int8_big_attention(q, kq.transpose(2, 3).contiguous().transpose(2, 3), ks, vq, vs,
+                           x_len, p_len, kw, head, **geom)
