@@ -36,7 +36,13 @@ Phases, each of which must pass:
 9. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths gave it (max error vs the stated tolerance),
    then its time, the plain version's, the library yardstick's and the
-   least time the card could take (bound).
+   least time the card could take (bound). Kernel times are device time
+   per launch by CUDA-graph replay (the fused step too, falling back to
+   labelled eager events if the card refused to capture its cooperative
+   launch); the fused step also prints its time per layer (and the slope
+   from an L=1 launch) beside the per-layer bound, its L grid barriers
+   timed alone, and each phase's share of a layer from the kernel's
+   clock64 stamps.
 
 The last two lines are the ``kernels`` JSON and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -134,6 +140,39 @@ def graph_ms(torch, calls, replays=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * len(calls))
+
+
+def device_ms(torch, calls, eager_iters):
+    """(ms per call, how): CUDA-graph replay, or CUDA events over eager
+    launches where the card refuses to capture the calls."""
+    try:
+        return graph_ms(torch, calls), "CUDA graph"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"[kernel] capture refused ({e!r}); timing eager launches")
+        return cuda_ms(torch, lambda: [f() for f in calls], eager_iters) / len(calls), "eager"
+
+
+def phase_split(torch, stamps, layer_ms):
+    """Where a layer of the fused step goes, from the kernel's clock64
+    stamps ([grid, L, 13], fused_decode.phase_cycles): each span's mean
+    share of a layer over the blocks that hold an attention item and over
+    layers (the last layer has no next start), scaled to the measured time
+    per layer, and in brackets the same for the slowest block of each
+    layer."""
+    st = stamps.double()[stamps[:, 0, 2] > 0]
+    layer = st[:, 1:, 0] - st[:, :-1, 0]                       # [blocks, L-1]
+    spans = (("A LN2", 0, 1), ("A qkv, q ready", 1, 2), ("A attention", 2, 3),
+             ("A prefetch", 3, 4), ("B partials+combine+out-proj", 4, 5), ("B prefetch", 5, 6),
+             ("C weights", 6, 7), ("C partials+LN1", 7, 8), ("C ffn1", 8, 9),
+             ("C prefetch", 9, 10), ("D ff+weights", 10, 11), ("D ffn2", 11, 12))
+    out = []
+    for name, i, j in spans + (("D barrier", 12, None),):
+        sp = (st[:, 1:, 0] if j is None else st[:, :-1, j]) - st[:, :-1, i]
+        share = sp / layer
+        out.append(f"{name} {float(share.mean()) * layer_ms * 1e3:.2f} "
+                   f"({float(share.max(dim=0).values.mean()) * layer_ms * 1e3:.2f})")
+    return "; ".join(out)
 
 
 def bound(bytes_moved, ops, op_type):
@@ -648,6 +687,8 @@ def phase_kernels(torch, char, S, b4):
                    for k, v in lp.items() if not k.startswith("_")}
     for wname, packed in (("int8", packed8),
                           ("bfloat16", fu.pack_decode_params({"layers": bf16_layers}))):
+        # the weights' bytes, before the first launch adds its tiled copy
+        wbytes = sum(t.numel() * t.element_size() for t in packed.values())
         kc = (torch.randn((L, S, D), generator=g, device=DEV) * 0.5).bfloat16()
         vc = (torch.randn((L, S, D), generator=g, device=DEV) * 0.5).bfloat16()
         ka, va, kb, vb = kc.clone(), vc.clone(), kc.clone(), vc.clone()
@@ -680,18 +721,31 @@ def phase_kernels(torch, char, S, b4):
               f"{d_kernel:.3e}, plain {d_plain:.3e} (tolerance 2 x plain); "
               f"other rows intact: {intact}")
         check(d_kernel <= 2 * d_plain and intact, f"fused_decode_step {wname}")
-        ms = cuda_ms(torch, lambda: fu.fused_decode_step(packed, h, ka, va, pos, fmask,
-                                                         num_heads=H), 100)
+
+        def step(pk=packed, k=ka, v=va):
+            return fu.fused_decode_step(pk, h, k, v, pos, fmask, num_heads=H)
+
+        one = {n: t[:1] for n, t in packed.items()}     # layer 0 alone: L=1
+        ms, how = device_ms(torch, [step] * 8, 100)
+        ms1, _ = device_ms(torch, [lambda: step(one, ka[:1], va[:1])] * 8, 100)
+        bar_ms, _ = device_ms(torch, [lambda: fu.grid_barriers(L, ka.device)] * 8, 100)
         plain_ms = cuda_ms(torch, lambda: fu.fused_decode_step_plain(
             packed, h, kb, vb, pos, fmask, num_heads=H), 10)
-        wbytes = sum(t.numel() * t.element_size() for t in packed.values())
         moved = wbytes + 2 * L * vis * D * 2 + 2 * L * D * 2 + S * 4 + 2 * D * 4
         ops = 2 * sum(packed[f"w{m}"].numel() for m in ("qkv", "out", "1", "2")) \
             + 4 * L * vis * D
         bms, by = bound(moved, ops, wname)
-        print(f"[kernel] fused {wname} L={L} D={D} S={S} pos={pos}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}); "
-              f"{moved / 1e6:.1f} MB moved")
+        print(f"[kernel] fused {wname} L={L} D={D} S={S} pos={pos}: kernel {ms:.4f} ms "
+              f"({how}), plain {plain_ms:.4f} ms (eager), bound {bms:.5f} ms ({by}); "
+              f"{moved / 1e6:.1f} MB moved; per layer {ms / L:.4f} ms (slope from L=1, "
+              f"{ms1:.4f} ms: {(ms - ms1) / (L - 1):.4f} ms) vs a per-layer bound of "
+              f"{bms / L:.5f} ms; its {L} grid barriers alone {bar_ms:.4f} ms "
+              f"({bar_ms / L * 1e3:.2f} us each)")
+        stamps = fu.phase_cycles(packed, h, ka, va, pos, fmask, num_heads=H)
+        print(f"[kernel] fused {wname} per-layer split in us (clock64 stamps in the "
+              f"kernel, mean share of a layer scaled to {ms / L * 1e3:.2f} us; slowest "
+              f"block in brackets): "
+              + phase_split(torch, stamps.cpu(), ms / L))
         results["fused", wname] = dict(max_abs_err=err, ms=ms,
                                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                                        library_ms=None)

@@ -57,18 +57,19 @@ def _kernel():
 def _launch(q, k_cache, v_cache, kv_mask):
     B, H, S, Dh = k_cache.shape
     dt = q.dtype
-    if S > 4096 or Dh > 128:
-        raise ValueError(f"flash_decode_attention kernel takes S <= 4096 and "
-                         f"Dh <= 128 (scores live in shared memory), got "
-                         f"S={S}, Dh={Dh}")
+    if S > 4096 or Dh not in (32, 64, 128) or B * H > 65535:
+        raise ValueError(f"flash_decode_attention kernel takes S <= 4096 (scores "
+                         f"live in shared memory), Dh in (32, 64, 128) and "
+                         f"B*H <= 65535, got S={S}, Dh={Dh}, B*H={B * H}")
     if dt not in _DTYPES:
         raise TypeError(f"flash_decode_attention kernel takes float32 or "
                         f"bfloat16, got {dt}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != dt or t.device != q.device:
             raise TypeError(f"{name} must be {dt} on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned "
+                             f"(the kernel reads rows with 16-byte loads)")
     if tuple(q.shape) != (B, H, Dh) or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous [{B},{H},{Dh}] tensor")
     if (kv_mask.dtype != torch.bool or tuple(kv_mask.shape) != (B, S)

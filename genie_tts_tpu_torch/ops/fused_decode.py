@@ -7,7 +7,9 @@ it on the H100 and what its design does about that. ``models/t2s.py::
 generate`` runs every B=1 decode step through it.
 
 Weights are packed once per ``generate`` call by :func:`pack_decode_params`
-(views of the stacked layer weights; small vectors in fp32). They are
+(views of the stacked layer weights; small vectors in fp32); the first
+launch on a packing adds the kernel's per-block tiled copy of the weights
+to it (:func:`_tiled_weights`). They are
 bf16/fp32, or int8 codes with a per-output-channel fp32 scale (the default
 ``t2s_int8`` decode weights): the kernel reads the int8 bytes and computes
 ``(x . w_int8) * scale + b`` in fp32, the int8 path of ``ops/layers.py::
@@ -96,22 +98,81 @@ def fused_decode_step_plain(stacked, h: torch.Tensor, k_cache: torch.Tensor,
 
 
 _fn = None
+_scratch_size = None
+_tile_index = None
+_scratch_floats: Dict[tuple, int] = {}
+_tile_idx: Dict[tuple, torch.Tensor] = {}
+_TILES = (("wqkv", "tqkv"), ("wout", "tout"), ("w1", "t1"), ("w2", "t2"))
 
 
 def _kernel():
     """The C entry point of csrc/fused_decode.cu (built on first use)."""
-    global _fn
+    global _fn, _scratch_size, _tile_index
     if _fn is None:
-        fn = _build.load_library("fused_decode").fused_decode_step
+        lib = _build.load_library("fused_decode")
+        size = lib.fused_decode_scratch_floats
+        size.restype = ctypes.c_longlong
+        size.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        tiles = lib.fused_decode_tile_index
+        tiles.restype = ctypes.c_longlong
+        tiles.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        _tile_index = tiles
+        fn = lib.fused_decode_step
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                        ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        _fn = fn
+                       ctypes.c_longlong, ctypes.c_void_p]
+        _fn, _scratch_size = fn, size
     return _fn
 
 
-def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads):
+def _scratch_len(dev: torch.device, dims, wbytes: int) -> int:
+    """Floats of scratch the kernel needs on ``dev`` (its split depends on
+    the device's SM count), cached per device, shape and weight width."""
+    key = (dev.index, *dims[1:5], wbytes)
+    if key not in _scratch_floats:
+        _kernel()
+        with torch.cuda.device(dev):
+            n = _scratch_size(ctypes.addressof(dims), wbytes)
+        if n < 0:
+            raise ValueError(f"fused_decode_step kernel does not take dims {list(dims)}")
+        _scratch_floats[key] = n
+    return _scratch_floats[key]
+
+
+def _tiled_weights(stacked, dev: torch.device, dims, wbytes: int):
+    """The weights re-laid per block for the kernel's bulk copies (one
+    contiguous tile per block, phase and layer; csrc/fused_decode.cu::
+    fused_decode_tile_index), [L, SMs, tile bytes] uint8 each. Built on
+    the first launch with a packing and kept in it under ``tqkv``,
+    ``tout``, ``t1``, ``t2``; the gather indices are cached per device,
+    shape and weight width."""
+    L = dims[0]
+    G = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for phase, (wname, tname) in enumerate(_TILES):
+        key = (dev.index, *dims[1:5], wbytes, phase)
+        if key not in _tile_idx:
+            _kernel()
+            with torch.cuda.device(dev):
+                T = _tile_index(ctypes.addressof(dims), wbytes, phase, None)
+                if T < 0:
+                    raise ValueError(f"fused_decode_step kernel does not take dims {list(dims)}")
+                idx = torch.empty(G * T, dtype=torch.int64)
+                _tile_index(ctypes.addressof(dims), wbytes, phase, idx.data_ptr())
+            _tile_idx[key] = idx.to(dev)
+        idx = _tile_idx[key]
+        shape = (L, G, idx.numel() // G * 16)
+        t = stacked.get(tname)
+        if t is None or tuple(t.shape) != shape or t.device != dev:
+            w = stacked[wname]
+            t = w.view(torch.uint8).reshape(L, -1, 16)[:, idx].reshape(shape)
+            stacked[tname] = t
+        out.append(t)
+    return out
+
+
+def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace=None):
     L, S, D = k_cache.shape
     dev = k_cache.device
     F = stacked["w1"].shape[-1]
@@ -120,14 +181,14 @@ def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads):
         raise TypeError(f"fused_decode_step kernel takes float32/bfloat16 "
                         f"caches with int8 weights or weights of the cache "
                         f"dtype, got {wdt} weights and {cdt} caches")
-    # shared-memory sizes and 16-byte vector loads (csrc/fused_decode.cu)
-    tile = 32 // stacked["wqkv"].element_size()
+    # shared-memory sizes, 32-row GEMV groups and 16-byte vector loads
+    # (csrc/fused_decode.cu)
     Dh = D // num_heads
-    if (D > 1024 or F > 4096 or S > 4096 or Dh > 64 or D % num_heads
-            or D % tile or F % tile or (Dh * k_cache.element_size()) % 16):
-        raise ValueError(f"fused_decode_step kernel takes D <= 1024, F <= 4096, "
-                         f"S <= 4096, Dh <= 64, D and F multiples of {tile} and "
-                         f"16-byte head rows; got D={D}, F={F}, S={S}, Dh={Dh}")
+    if (D > 1024 or F > 4096 or S > 4096 or D % num_heads or Dh not in (32, 64)
+            or D % 32 or F % 256):
+        raise ValueError(f"fused_decode_step kernel takes D <= 1024 (a multiple "
+                         f"of 32), F <= 4096 (a multiple of 256), S <= 4096 and "
+                         f"Dh in (32, 64); got D={D}, F={F}, S={S}, Dh={Dh}")
     shapes = {"wqkv": (L, D, 3 * D), "wout": (L, D, D), "w1": (L, D, F),
               "w2": (L, F, D), "bqkv": (L, 1, 3 * D), "bout": (L, 1, D),
               "b1": (L, 1, F), "b2": (L, 1, D), "n1s": (L, 1, D),
@@ -155,24 +216,60 @@ def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads):
         raise ValueError(f"pos {pos} outside the cache of {S} rows")
     h = h.contiguous()
     mask = mask.contiguous()
+    dims = (ctypes.c_int * 6)(L, S, D, num_heads, F, int(pos))
+    n_scratch = _scratch_len(dev, dims, stacked["wqkv"].element_size())
     h_out = torch.empty((1, D), dtype=torch.float32, device=dev)
-    scratch = torch.empty(6 * D + F, dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     s = stacked.get
     ptrs = [stacked["wqkv"], stacked["wout"], stacked["w1"], stacked["w2"],
             s("sqkv"), s("sout"), s("s1"), s("s2"),
             stacked["bqkv"], stacked["bout"], stacked["b1"], stacked["b2"],
             stacked["n1s"], stacked["n1b"], stacked["n2s"], stacked["n2b"],
-            k_cache, v_cache, mask, h, h_out, scratch]
+            k_cache, v_cache, mask, h, h_out, scratch, trace,
+            *_tiled_weights(stacked, dev, dims, stacked["wqkv"].element_size())]
     arr = (ctypes.c_ulonglong * len(ptrs))(
         *[0 if t is None else t.data_ptr() for t in ptrs])
-    dims = (ctypes.c_int * 6)(L, S, D, num_heads, F, int(pos))
     with torch.cuda.device(dev):        # the kernel sizes its grid for it
         err = _kernel()(ctypes.addressof(arr), ctypes.addressof(dims),
                         1.0 / math.sqrt(D // num_heads), 1e-5, _WTYPES[wdt],
-                        _CTYPES[cdt], torch.cuda.current_stream(dev).cuda_stream)
+                        _CTYPES[cdt], n_scratch,
+                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_decode_step")
-    fused_decode_step.launches += 1
+    if trace is None:
+        fused_decode_step.launches += 1
     return h_out, k_cache, v_cache
+
+
+PHASE_STAMPS = ("layer start", "LN2 done", "q ready", "A done", "A copies sent",
+                "B done", "B copies sent", "C weights ready", "LN1 done", "C done",
+                "C copies sent", "D inputs ready", "D done")
+
+
+def phase_cycles(stacked, h, k_cache, v_cache, pos, mask, *, num_heads) -> torch.Tensor:
+    """A probe, not part of the step: one launch of the step kernel that
+    also stamps each block's clock64 at the points :data:`PHASE_STAMPS` of
+    every layer, in program order (a block with no attention item leaves
+    "q ready" at 0). Returns int64 [grid, L, len(PHASE_STAMPS)]. Not
+    counted in ``fused_decode_step.launches``."""
+    dev = k_cache.device
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    trace = torch.zeros((grid, k_cache.shape[0], len(PHASE_STAMPS)), dtype=torch.int64,
+                        device=dev)
+    _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace)
+    return trace
+
+
+def grid_barriers(n: int, device: torch.device) -> None:
+    """A timing probe, not part of the step: one cooperative launch of
+    ``n`` grid barriers and no work, on the step kernel's grid (what its
+    barrier per layer costs alone). Not counted in ``launches``."""
+    lib = _build.load_library("fused_decode")
+    fn = lib.fused_decode_barriers
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(device):
+        err = fn(n, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "fused_decode_barriers")
 
 
 def fused_decode_step(stacked, h: torch.Tensor, k_cache: torch.Tensor,

@@ -46,6 +46,34 @@ def test_all_masked_row_follows_xla():
     np.testing.assert_allclose(out[1].numpy(), v[1].mean(axis=1), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,H,S,Dh", [(2, 4, 100, 32), (3, 2, 77, 64)])
+def test_visible_keys_only_in_the_last_group(B, H, S, Dh):
+    """Only keys in the last 16-row group are visible (S not a multiple
+    of 16 in one case): the groups a kernel skips for having no visible key
+    must not change the result."""
+    q, k, v, _ = _inputs(B, H, S, Dh, seed=2)
+    mask = np.zeros((B, S), bool)
+    last = (S - 1) // 16 * 16
+    mask[:, last:] = np.random.default_rng(3).random((B, S - last)) < 0.5
+    mask[:, -1] = True
+    out = tf.flash_decode_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)))
+    ref = j_xla(*(jnp.asarray(a) for a in (q, k, v, mask)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [17, 100])
+def test_all_masked_row_at_an_unaligned_length(S):
+    """An all-masked row at an S that is not a multiple of 16 gets the mean
+    of all S rows of V (no group may be skipped there), as
+    xla_decode_attention gives."""
+    q, k, v, mask = _inputs(3, 2, S, 32, seed=4)
+    mask[0] = False
+    out = tf.flash_decode_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)))
+    ref = j_xla(*(jnp.asarray(a) for a in (q, k, v, mask)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out[0].numpy(), v[0].mean(axis=1), rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q, k, v, mask = _inputs(1, 2, 8, 32)
     before = tf.flash_decode_attention.launches

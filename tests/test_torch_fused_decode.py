@@ -1,8 +1,9 @@
 """Port fused all-layer decode step vs the JAX package.
 
 The plain version (what CPU tensors run) is held against the Pallas
-kernel in interpret mode at pos 96 and 101 (aligned and unaligned), L=3,
-S=256, as tests/test_fused_decode.py does: h_out, the written row, and
+kernel in interpret mode at pos 96 and 101 (aligned and unaligned, as
+tests/test_fused_decode.py does) and at the cache's first and last rows
+(0 and S-1), L=3, S=256: h_out, the written row, and
 the neighbour rows left intact. Then the int8-weight form against stacked
 JAX ``t2s._layer_decode`` on ``quantize_params`` weights. Biases and
 LayerNorm affine are random per layer. fp32; rtol 1e-4
@@ -70,7 +71,7 @@ def _stacked_ref(jparams, h0, kc, vc, pos):
     return np.asarray(h[0, 0]), rows
 
 
-@pytest.mark.parametrize("pos", [96, 101])
+@pytest.mark.parametrize("pos", [0, 96, 101, S - 1])
 def test_plain_matches_pallas_interpret(setup, pos):
     jparams, h0, kc, vc = setup
     mask = (np.arange(S) <= pos).astype(np.float32)

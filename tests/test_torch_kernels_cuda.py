@@ -40,14 +40,24 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("B,H,S,Dh", [(4, 16, 448, 32), (1, 4, 64, 32), (3, 2, 1000, 64)])
-def test_flash_kernel_matches_plain(cuda, dtype, tol, B, H, S, Dh):
+@pytest.mark.parametrize("B,H,S,Dh", [(4, 16, 448, 32), (1, 4, 64, 32), (3, 2, 1000, 64),
+                                      (1, 1, 1, 32), (2, 16, 17, 32), (8, 16, 1024, 32)])
+@pytest.mark.parametrize("visible", ["ragged", "last_row_only"])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, B, H, S, Dh, visible):
+    """Ragged rows, with the last batch row all masked (mean of V), or one
+    visible key per row, the last cache row: the split of S over the
+    cluster's blocks and the skipping of 16-row groups with no visible key
+    must not change the result."""
     q = torch.randn((B, H, Dh), generator=cuda, device="cuda").to(dtype)
     k, v = (torch.randn((B, H, S, Dh), generator=cuda, device="cuda").to(dtype)
             for _ in range(2))
-    lens = torch.randint(1, S, (B,), generator=cuda, device="cuda")
-    mask = torch.arange(S, device="cuda")[None] < lens[:, None]
-    mask[-1] = False                      # a row with no visible key: mean of V
+    if visible == "ragged":
+        lens = torch.randint(1, S + 1, (B,), generator=cuda, device="cuda")
+        mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+        mask[-1] = False                  # a row with no visible key: mean of V
+    else:
+        mask = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+        mask[:, -1] = True
     before = flash_decode_attention.launches
     out = flash_decode_attention(q, k, v, mask)
     ref = flash_decode_attention_plain(q, k, v, mask)
@@ -56,37 +66,70 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, B, H, S, Dh):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("wname", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("pos", [96, 101])
-def test_fused_kernel_matches_plain(cuda, wname, pos):
-    cfg = T2SConfig(num_layers=3)
-    L, D, H, S = cfg.num_layers, cfg.embed_dim, cfg.num_heads, 256
-    cdt = torch.float32 if wname == "float32" else torch.bfloat16
-    params = t2s.init_params(cuda, cfg, dtype=cdt)
-    if wname == "int8":
+def _fused_case(gen, wname, L, S):
+    cfg = T2SConfig(num_layers=L)
+    cdt = torch.bfloat16 if wname in ("bfloat16", "int8") else torch.float32
+    params = t2s.init_params(gen, cfg, dtype=torch.float32 if wname == "int8_fp32_cache"
+                             else cdt)
+    if wname.startswith("int8"):
         params = t2s.quantize_params(params)
     packed = fu.pack_decode_params(params)
+    D = cfg.embed_dim
+    h = torch.randn((1, D), generator=gen, device="cuda") * 0.3
+    kc = (torch.randn((L, S, D), generator=gen, device="cuda") * 0.2).to(cdt)
+    vc = (torch.randn((L, S, D), generator=gen, device="cuda") * 0.2).to(cdt)
+    return cfg, packed, h, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wname", ["float32", "bfloat16", "int8", "int8_fp32_cache"])
+@pytest.mark.parametrize("pos", [0, 96, 101, -1])
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("S", [256, 4096])
+def test_fused_kernel_matches_plain(cuda, wname, pos, L, S):
+    """pos -1 is the last cache row. Rows up to pos are visible, so at
+    S=4096 most 16-row groups are skipped and at pos 0 only the new row
+    counts."""
+    pos = pos % S
+    cfg, packed, h, kc, vc = _fused_case(cuda, wname, L, S)
+    H = cfg.num_heads
     # init_params draws biases and norms per layer: a kernel that drops
     # them or reads layer 0's for every layer cannot pass
     for name in ("bqkv", "bout", "b1", "b2", "n1s", "n1b", "n2s", "n2b"):
-        assert packed[name].std() > 0.05 and not torch.equal(packed[name][0], packed[name][1])
-    h = torch.randn((1, D), generator=cuda, device="cuda") * 0.3
-    kc = (torch.randn((L, S, D), generator=cuda, device="cuda") * 0.2).to(cdt)
-    vc = (torch.randn((L, S, D), generator=cuda, device="cuda") * 0.2).to(cdt)
+        assert packed[name].std() > 0.05
+        if L > 1:
+            assert not torch.equal(packed[name][0], packed[name][1])
     mask = (torch.arange(S, device="cuda") <= pos).float()
     ka, va, kb, vb = kc.clone(), vc.clone(), kc.clone(), vc.clone()
     out, ka2, _ = fu.fused_decode_step(packed, h, ka, va, pos, mask, num_heads=H)
     ref, _, _ = fu.fused_decode_step_plain(packed, h, kb, vb, pos, mask, num_heads=H)
     torch.cuda.synchronize()
     assert ka2 is ka
-    tol = 1e-4 if wname == "float32" else 2e-2
+    tol = 1e-4 if kc.dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
     torch.testing.assert_close(ka[:, pos].float(), kb[:, pos].float(), rtol=tol, atol=tol)
     torch.testing.assert_close(va[:, pos].float(), vb[:, pos].float(), rtol=tol, atol=tol)
     others = torch.arange(S, device="cuda") != pos
     assert torch.equal(ka[:, others], kc[:, others])
     assert torch.equal(va[:, others], vc[:, others])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wname", ["bfloat16", "int8"])
+def test_fused_kernel_repeats_itself(cuda, wname):
+    """Split-K partials are summed in a fixed order (no float atomics):
+    two launches on the same inputs give the same bits."""
+    cfg, packed, h, kc, vc = _fused_case(cuda, wname, 3, 448)
+    mask = (torch.arange(448, device="cuda") <= 200).float()
+    outs = []
+    for _ in range(2):
+        ka, va = kc.clone(), vc.clone()
+        out, _, _ = fu.fused_decode_step(packed, h, ka, va, 200, mask,
+                                         num_heads=cfg.num_heads)
+        outs.append((out, ka[:, 200], va[:, 200]))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
