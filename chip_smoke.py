@@ -42,7 +42,11 @@ Phases, each of which must pass:
    launch); the fused step also prints its time per layer (and the slope
    from an L=1 launch) beside the per-layer bound, its L grid barriers
    timed alone, and each phase's share of a layer from the kernel's
-   clock64 stamps.
+   clock64 stamps. The int8 attention is timed at three visibility levels
+   (partial ring, wrapped ring, fully visible; each with its visible
+   share, bytes, bound and the SDPA yardstick) and with nothing visible
+   (the floor every launch pays), and split into spans from its clock64
+   stamps (int8_decode.phase_cycles); the partial ring is its kernels row.
 
 The last two lines are the ``kernels`` JSON and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -181,6 +185,28 @@ def bound(bytes_moved, ops, op_type):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[op_type] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_split(torch, stamps, mhz):
+    """Where a launch of the int8 kernel goes, from its clock64 stamps
+    ([B*H, 4, 9], int8_decode.phase_cycles): each span's mean over the
+    blocks that reach both ends, in us at ``mhz``, and in brackets the
+    slowest block's."""
+    from genie_tts_tpu_torch.ops.int8_decode import PHASE_STAMPS
+
+    st = stamps.reshape(-1, len(PHASE_STAMPS)).double()
+    out = []
+    for i in range(len(PHASE_STAMPS) - 1):
+        a, b = st[:, i], st[:, i + 1]
+        ok = (a > 0) & (b > 0)
+        if bool(ok.any()):
+            us = (b - a)[ok] / mhz
+            out.append(f"{PHASE_STAMPS[i]} -> {PHASE_STAMPS[i + 1]} {float(us.mean()):.2f} "
+                       f"({float(us.max()):.2f})")
+    last = torch.where(st[:, -1] > 0, st[:, -1], st[:, -2])
+    total = (last - st[:, 0]) / mhz
+    return "; ".join(out) + (f"; a block start to end {float(total.mean()):.2f} "
+                             f"({float(total.max()):.2f})")
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +827,7 @@ def phase_kernel_int8(torch, live, seg_ms, W):
     cases = {   # name: (x_len, p_len, keys_written, ring_head); mid-decode rows
         "partial ring": (x_len, p_len, [256, 300, 200, 400, 128, 256, 350, 180], 416),
         "wrapped ring": (x_len, p_len, [512, 400, 300, 200, 150, 120, 101, 450], 100),
+        "fully visible": ([sx] * B, [sp] * B, [ring] * B, 416),
         "keys_written=0 row": (x_len, p_len, [64, 0, 200, 300, 17, 256, 32, 1], 300),
         "empty row": (x_len[:3] + [0] + x_len[4:], p_len[:3] + [0] + p_len[4:],
                       [64, 128, 200, 0, 17, 256, 32, 1], 300),
@@ -843,11 +870,54 @@ def phase_kernel_int8(torch, live, seg_ms, W):
         st.v_scale[0][..., :S], st.x_len, st.p_len, st.keys_written, live["head"]))
     worst = max(worst, err)
 
-    # times: the partial-ring case, rotating 24 layers' caches (> the 50 MB L2)
-    xl, pl, kw, head = cases["partial ring"]
-    sc = (i32(xl), i32(pl), i32(kw), head)
-    vis = i8.visibility(S, *sc[:3], head, **geom)
-    n_vis = int(vis.sum())
+    # times at three visibility levels, rotating 24 layers' caches (> the 50
+    # MB L2): device time per launch, one call per layer's caches, captured
+    # and replayed. Labelled yardstick only: SDPA over pre-dequantized bf16
+    # caches with the same mask (twice the code bytes; not the same function)
+    deq = [((kq.float() * ks[:, :, None]).transpose(2, 3).bfloat16().contiguous(),
+            (vq.float() * vs[:, :, None]).transpose(2, 3).bfloat16().contiguous())
+           for kq, ks, vq, vs in caches]
+    timed = {}
+    for name in ("partial ring", "wrapped ring", "fully visible"):
+        xl, pl, kw, head = cases[name]
+        sc = (i32(xl), i32(pl), i32(kw), head)
+        vis = i8.visibility(S, *sc[:3], head, **geom)
+        n_vis = int(vis.sum())
+        ms = graph_ms(torch, [lambda c=c: i8.int8_big_attention(q, *c, *sc, **geom)
+                              for c in caches])
+        amask = vis[:, None, None, :]
+        sdpa_ms = graph_ms(torch, [lambda d=d: F.scaled_dot_product_attention(
+            q[:, :, None], *d, attn_mask=amask) for d in deq])
+        # visible codes and scales read once; q, o, m, l and the scalars
+        moved = (H * n_vis * (2 * Dh + 2 * 4) + B * H * Dh * 2 + B * H * (Dh + 2) * 4
+                 + 3 * B * 4)
+        bms, by = bound(moved, 4 * Dh * H * n_vis, "float32")
+        print(f"[kernel] int8 {name}: {n_vis / (B * S):.1%} of columns visible, "
+              f"{moved / 1e6:.3f} MB, bound {bms:.5f} ms ({by}); kernel {ms:.4f} ms "
+              f"(CUDA graph, {bms / ms:.1%} of the bound's rate); SDPA yardstick "
+              f"{sdpa_ms:.4f} ms")
+        timed[name] = dict(sc=sc, ms=ms, bms=bms, by=by, sdpa_ms=sdpa_ms)
+    # the floor that every launch pays: no column visible, so no copies and
+    # no arithmetic (launch, scalar loads, cluster barriers, the combine)
+    none = (i32([0] * B), i32([0] * B), i32([0] * B), 416)
+    floor_ms = graph_ms(torch, [lambda c=c: i8.int8_big_attention(q, *c, *none, **geom)
+                                for c in caches])
+    print(f"[kernel] int8 nothing visible (the floor of a launch): kernel {floor_ms:.4f} ms "
+          f"(CUDA graph)")
+    # inside a launch: clock64 stamps of each block, in us at the card's
+    # highest SM clock (what it runs at under this load)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()[0])
+    for name in ("partial ring", "fully visible"):
+        stamps = i8.phase_cycles(q, *caches[0], *timed[name]["sc"], **geom)
+        print(f"[kernel] int8 {name} split in us (clock64 stamps of thread 0 of each "
+              f"block at {mhz:.0f} MHz; slowest block in brackets): "
+              + int8_split(torch, stamps.cpu(), mhz))
+
+    # the partial ring is the row of the kernel table
+    t = timed["partial ring"]
+    sc = t["sc"]
     it = [0]
 
     def nxt():
@@ -855,29 +925,16 @@ def phase_kernel_int8(torch, live, seg_ms, W):
         return caches[it[0]]
 
     eager_ms = cuda_ms(torch, lambda: i8.int8_big_attention(q, *nxt(), *sc, **geom), 240)
-    # device times: one call per layer's caches, captured and replayed
-    ms = graph_ms(torch, [lambda c=c: i8.int8_big_attention(q, *c, *sc, **geom)
-                          for c in caches])
     plain_ms = graph_ms(torch, [lambda c=c: i8.int8_big_attention_plain(q, *c, *sc, **geom)
                                 for c in caches])
-    # labelled yardstick only: SDPA over pre-dequantized bf16 caches, same mask
-    deq = [((kq.float() * ks[:, :, None]).transpose(2, 3).bfloat16().contiguous(),
-            (vq.float() * vs[:, :, None]).transpose(2, 3).bfloat16().contiguous())
-           for kq, ks, vq, vs in caches]
-    amask = vis[:, None, None, :]
-    sdpa_ms = graph_ms(torch, [lambda d=d: F.scaled_dot_product_attention(
-        q[:, :, None], *d, attn_mask=amask) for d in deq])
-    moved = H * n_vis * (2 * Dh + 2 * 4) + B * H * Dh * 2 + B * H * (Dh + 2) * 4 + 3 * B * 4
-    bms, by = bound(moved, 4 * Dh * H * n_vis, "float32")
-    share = L * W * ms / seg_ms
-    print(f"[kernel] int8 B={B} H={H} Dh={Dh} S={S} ({n_vis / (B * S):.1%} of columns "
-          f"visible): device time per launch (CUDA graph) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; bound {bms:.5f} ms ({by}); eager back-to-back launches "
-          f"{eager_ms:.4f} ms; library: none (yardstick, not the same function: SDPA over "
-          f"pre-dequantized bf16 caches {sdpa_ms:.4f} ms); {L * W} launches per segment = "
-          f"{share:.2%} of the {seg_ms:.3f} ms segment")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+    share = L * W * t["ms"] / seg_ms
+    print(f"[kernel] int8 B={B} H={H} Dh={Dh} S={S} partial ring: device time per launch "
+          f"(CUDA graph) kernel {t['ms']:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{t['bms']:.5f} ms ({t['by']}); eager back-to-back launches {eager_ms:.4f} ms; "
+          f"library: none (yardstick SDPA {t['sdpa_ms']:.4f} ms); {L * W} launches per "
+          f"segment = {share:.2%} of the {seg_ms:.3f} ms segment")
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=plain_ms, bound_ms=t["bms"],
+                bound_by=t["by"], library_ms=None)
 
 
 # ---------------------------------------------------------------------------

@@ -55,14 +55,64 @@ template <> struct Pack16<float> {
     o[3] = __uint_as_float(u.w);
   }
 };
+// int8 codes go through the bias trick, exact for every code and at full
+// rate (the byte permute places a code, offset to unsigned, in the low bits
+// of 2^23; one subtraction removes both): the I2F conversion runs at a
+// quarter of the rate.
+__device__ __forceinline__ float i8_to_f(unsigned byte) {
+  return __uint_as_float(0x4B000000u | (byte ^ 0x80u)) - 8388736.f;
+}
 template <> struct Pack16<int8_t> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+    const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
+                           u.w ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(c[i]);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[4 * i + k] =
+            __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + k)) - 8388736.f;
   }
 };
+
+// Bulk copies (TMA, one instruction per contiguous range of a multiple of
+// 16 bytes, both ends 16-byte aligned) into shared memory, completing on an
+// mbarrier: the starting thread does not wait. Every wait has a bounded
+// spin that traps, so a copy that never lands ends the launch with an error.
+constexpr long long kSpinLimit = 1ll << 22;   // polls (~seconds) before a wait traps
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// one thread: an mbarrier that completes when one thread arrives and the
+// expected bytes have landed; visible to the block after a __syncthreads
+__device__ __forceinline__ void mbar_init(unsigned long long* mbar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(mbar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(mbar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* mbar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(mbar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* mbar, unsigned parity) {
+  long long spins = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(mbar)), "r"(parity) : "memory");
+    if (done) return;
+    if (++spins > kSpinLimit) __trap();
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -106,7 +106,7 @@ constexpr int kSlices = 4;          // split-K slices of out-proj and ffn2
 constexpr int kMaxNC = 8;           // S-chunks per head
 constexpr int kStamps = 13;         // trace points per layer (phase_cycles)
 constexpr int kMaxDevices = 64;
-constexpr long long kSpinLimit = 1ll << 22;   // polls (~seconds) before a missing producer traps
+using genie::kSpinLimit;   // polls (~seconds) before a missing producer traps
 
 typedef unsigned long long u64;
 
@@ -141,34 +141,6 @@ struct Args {
   float scale, eps;
   Geo g;
 };
-
-// Bulk copies (TMA, one instruction per contiguous range) into shared
-// memory, completing on an mbarrier: the starting thread does not wait.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          u64* mbar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(mbar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(u64* mbar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(mbar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(u64* mbar, unsigned parity) {
-  long long spins = 0;
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(smem_addr(mbar)), "r"(parity) : "memory");
-    if (done) return;
-    if (++spins > kSpinLimit) __trap();
-  }
-}
 
 // The items of block b in phase p (how many; item j's first row and first
 // column, an element index): the kernel's plan and the host's tile layout
@@ -324,8 +296,8 @@ __device__ __noinline__ void load_phase(const Args& a, const Plan& P, int phase,
   unsigned total = 0;
   for (int i = 0; i < n; ++i) total += bytes[i];
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  mbar_expect(mbar, total);
-  for (int i = 0; i < n; ++i) bulk_copy(dst + off[i], src[i], bytes[i], mbar);
+  genie::mbar_expect(mbar, total);
+  for (int i = 0; i < n; ++i) genie::bulk_copy(dst + off[i], src[i], bytes[i], mbar);
 }
 
 // The grid barrier, split: a block arrives when its work is done, starts
@@ -383,26 +355,6 @@ __device__ __forceinline__ void ld_tags(const u64* p, int stride, int n, unsigne
   } while (!ready);
 }
 
-// 16 bytes of weights to fp32. int8 codes go through the bias trick, exact
-// for every code and at full rate (the byte permute places a code, offset
-// to unsigned, in the low bits of 2^23; one subtraction removes both):
-// the I2F conversion runs at a quarter of the rate.
-template <typename W>
-__device__ __forceinline__ void unpack_w(const uint4& u, float* o) {
-  genie::Pack16<W>::unpack(u, o);
-}
-template <>
-__device__ __forceinline__ void unpack_w<int8_t>(const uint4& u, float* o) {
-  const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
-                         u.w ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      o[4 * i + k] =
-          __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + k)) - 8388736.f;
-}
-
 // The warp-wide sums of V values, reduce-scatter: each halving step sends
 // half of a lane's values to its partner (V - 1 shuffles in all, then the
 // remaining butterfly steps); column v's sum ends in lanes whose bits
@@ -450,7 +402,7 @@ __device__ __noinline__ float gemv(const Plan& P, int phase, const uint4* wt, co
   for (int k = 0; k < n; ++k) {
     const int r = rg * 32 + lane;
     float wv[V];
-    unpack_w<W>(wt[j * KR + r], wv);
+    genie::Pack16<W>::unpack(wt[j * KR + r], wv);
     const float x = xs[row0 + r];
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[v] = fmaf(x, wv[v], acc[v]);
@@ -681,7 +633,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const Args ar
   // wait for the copies of phase `phase` of layer l; the block barrier
   // after it also publishes what the block's threads wrote before it
   auto wait_tiles = [&](int phase, int l) {
-    mbar_wait(mbar_of(phase), g.ahead ? l & 1 : phase & 1);
+    genie::mbar_wait(mbar_of(phase), g.ahead ? l & 1 : phase & 1);
     __syncthreads();
   };
   // after phase `phase` of layer l: the next tiles into the freed region
@@ -715,9 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const Args ar
   for (int s = threadIdx.x; s < a.S; s += kThreads) vis |= a.mask[s] == 1.f;
   const bool anyv = __syncthreads_or(vis);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 4; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&mbar[i])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < 4; ++i) genie::mbar_init(&mbar[i]);
     for (int p = 0; p < (g.ahead ? 4 : 1); ++p) load_phase(a, P, p, 0, region(p), mbar_of(p), V);
   }
   // the barrier count and the tagged words start at 0 in every launch

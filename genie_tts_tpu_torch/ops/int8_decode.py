@@ -5,17 +5,26 @@ Pallas TPU kernel ``_kernel``). It returns the flash partials (o, m, l) of
 one decode step's attention over the slot machine's big cache, whose
 columns are int8 codes with per-column fp32 scales; the visibility of each
 column is recomputed from four scalars, never passed as a mask. The kernel
-is ``csrc/int8_decode.cu``; its source note says what bounds it on the
-H100 (the visible columns' bytes) and what its design does about that
-(one block per (slot, head), 16-byte coalesced loads of the kv-major
-codes, 16-column chunks with no visible column skipped). It is the
-big-cache attention of ``models/t2s.py::_layer_decode_buffered`` on the
-int8 slot route (``models/slots.py::decode_segment``).
+is ``csrc/int8_decode.cu``. What bounds it on the H100 is the bytes of the
+visible columns (codes and scales), so its time is latency: trips to
+memory and bytes in flight. Its design: a row's visible set as at most
+three column intervals computed once per block; a cluster of 4 blocks per
+(slot, head) that splits the visible 16-column chunks evenly; all of a
+block's bytes requested in one round at block start by TMA (a tensor-map
+copy per 16-column chunk of codes, a bulk copy per run of scales; K on one
+mbarrier, V on another); warp-local online softmax partials that the
+cluster's leader combines. It is the big-cache attention of
+``models/t2s.py::_layer_decode_buffered`` on the int8 slot route
+(``models/slots.py::decode_segment``).
 
 :func:`int8_big_attention` launches the kernel for CUDA tensors (and
 raises on what the kernel does not take) and runs
 :func:`int8_big_attention_plain` for CPU tensors.
-``int8_big_attention.launches`` counts kernel launches.
+``int8_big_attention.launches`` counts kernel launches; :func:`phase_cycles`
+is a probe launch that records where a launch's time goes.
+:func:`visible_intervals` and :func:`chunk_share` are plain Python twins of
+the kernel's interval and chunk arithmetic for the tests; nothing on the
+main path calls them.
 """
 from __future__ import annotations
 
@@ -28,6 +37,12 @@ from . import _build
 
 _QDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_S = 2048
+_CLUSTER = 4                      # blocks per (slot, head)
+# the kernel's trace points (phase_cycles), in program order; thread 0 of
+# each block stamps them, and "K landed"/"V landed" only where the block
+# holds a visible column, "end" only in the leader block (rank 0)
+PHASE_STAMPS = ("start", "share known", "copies issued", "K landed", "V landed",
+                "groups done", "cluster runs", "partials in", "end")
 
 
 def visibility(S: int, x_len: torch.Tensor, p_len: torch.Tensor,
@@ -41,6 +56,52 @@ def visibility(S: int, x_len: torch.Tensor, p_len: torch.Tensor,
     age = torch.remainder(ring_head - 1 - rpos, ring)
     return ((pos < (x_len + p_len)[:, None])
             | ((rpos >= 0) & (age < keys_written[:, None])))
+
+
+def visible_intervals(S: int, ctx: int, keys_written: int, ring_head: int, *, sx: int,
+                      sp: int, ring: int):
+    """One row of :func:`visibility` as the kernel computes it
+    (``share_of`` in csrc/int8_decode.cu): the context ``[0, min(ctx, S))``
+    and the last ``clamp(keys_written, 0, ring)`` ring writes before the
+    head, ring positions ``[h - kw, h)`` with ``h = ring_head mod ring``
+    (floor modulo), one range or two where it wraps, offset by ``sx + sp``
+    and starting no lower than the context's end. Returns the non-empty
+    intervals ``(start, end)``, disjoint and sorted, at most three."""
+    c = min(max(ctx, 0), S)
+    kw = min(max(keys_written, 0), ring)
+    h = ring_head % ring
+    sxsp = sx + sp
+    if kw == ring:
+        ring_cols = [(sxsp, S)]
+    elif kw == 0:
+        ring_cols = []
+    elif h >= kw:
+        ring_cols = [(sxsp + h - kw, sxsp + h)]
+    else:
+        ring_cols = [(sxsp, sxsp + h), (S + h - kw, S)]
+    cols = [(0, c)] + [(max(a, c), e) for a, e in ring_cols]
+    return [(a, e) for a, e in cols if a < e]
+
+
+def chunk_share(intervals, rank: int, ranks: int = _CLUSTER):
+    """Rank ``rank``'s share of a row in the kernel's cluster of ``ranks``
+    blocks: the 16-column chunks that hold the intervals' columns, in order
+    (a chunk two intervals share counts once), cut into ``ranks`` nearly
+    equal shares. Returns its runs ``(first chunk, chunks)``."""
+    chunks, prev = [], 0
+    for a, e in intervals:
+        lo, hi = max(a >> 4, prev), (e + 15) >> 4
+        chunks.append((lo, max(hi - lo, 0)))
+        prev = max(prev, hi)
+    total = sum(n for _, n in chunks)
+    r0, r1 = total * rank // ranks, total * (rank + 1) // ranks
+    runs, base = [], 0
+    for first, n in chunks:
+        lo, hi = max(base, r0), min(base + n, r1)
+        if hi > lo:
+            runs.append((first + lo - base, hi - lo))
+        base += n
+    return runs
 
 
 def int8_big_attention_plain(q, kq, ks, vq, vs, x_len, p_len, keys_written,
@@ -72,12 +133,14 @@ def _kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         _fn = fn
     return _fn
 
 
-def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ring):
+def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ring,
+            trace=None):
     B, H, Dh, S = kq.shape
     dev = q.device
     if isinstance(ring_head, torch.Tensor):
@@ -118,9 +181,11 @@ def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ri
         x_len.data_ptr(), p_len.data_ptr(), keys_written.data_ptr(),
         o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Dh, S, ld, lds,
         int(ring_head), sx + sp, ring, 1.0 / math.sqrt(Dh), _QDTYPES[q.dtype], vec,
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        None if trace is None else trace.data_ptr())
     _build.check(err, "int8_big_attention")
-    int8_big_attention.launches += 1
+    if trace is None:
+        int8_big_attention.launches += 1
     return o, m, l
 
 
@@ -138,3 +203,16 @@ def int8_big_attention(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head,
 
 
 int8_big_attention.launches = 0
+
+
+def phase_cycles(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, *, sx: int,
+                 sp: int, ring: int) -> torch.Tensor:
+    """One kernel launch (CUDA tensors only) that records, for each block,
+    clock64 stamps at :data:`PHASE_STAMPS`: int64 [B*H, 4, 9], 0 where a
+    block never reached a point. A probe of where a launch's time goes; not
+    counted in ``int8_big_attention.launches``."""
+    B, H = kq.shape[:2]
+    trace = torch.zeros((B * H, _CLUSTER, len(PHASE_STAMPS)), dtype=torch.int64,
+                        device=q.device)
+    _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ring, trace)
+    return trace

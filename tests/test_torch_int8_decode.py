@@ -83,6 +83,41 @@ def test_wrapped_ring_needs_floor_modulo():
     assert int(ring_vis.sum()) == 20 and bool(ring_vis[head:].any())
 
 
+@pytest.mark.parametrize("ctx_kind", ["zero", "inside", "compacted", "into_ring", "past_S"])
+@pytest.mark.parametrize("ring", range(1, 18))
+def test_visible_intervals_and_chunk_shares_match_visibility(ring, ctx_kind):
+    """The kernel's interval arithmetic (its CPU twin) against the mask,
+    column for column, for every head in [-ring, 2 ring) and keys_written
+    in [-1, ring + 2]; and the cluster's chunk shares: every visible column
+    in exactly one rank's chunks, shares within one chunk of each other and
+    within the kernel's buffer of a quarter of S's chunks."""
+    sx, sp = 13, 6                      # the ring starts mid-chunk
+    S = sx + sp + ring
+    ctx = {"zero": 0, "inside": sx + sp - 4, "compacted": sx + sp,
+           "into_ring": sx + sp + ring // 2 + 1, "past_S": S + 3}[ctx_kind]
+    kws = list(range(-1, ring + 3))
+    cap = ((S + 15) // 16 + 3) // 4     # chunks a block's buffers hold
+    for head in range(-ring, 2 * ring):
+        vis = tint8.visibility(S, torch.full((len(kws),), ctx), torch.zeros(len(kws)),
+                               torch.tensor(kws), head, sx=sx, sp=sp, ring=ring)
+        for kw, want in zip(kws, vis.tolist()):
+            iv = tint8.visible_intervals(S, ctx, kw, head, sx=sx, sp=sp, ring=ring)
+            assert len(iv) <= 3 and all(a < e <= a2 for (a, e), (a2, _) in zip(iv, iv[1:]))
+            got = [any(a <= s < e for a, e in iv) for s in range(S)]
+            assert got == want, (head, kw, iv)
+            owner = [0] * S
+            counts = []
+            for rank in range(4):
+                runs = tint8.chunk_share(iv, rank)
+                assert len(runs) <= 3
+                counts.append(sum(n for _, n in runs))
+                for first, n in runs:
+                    for s in range(16 * first, min(16 * (first + n), S)):
+                        owner[s] += got[s]
+            assert owner == [int(v) for v in got], (head, kw, iv)
+            assert max(counts) - min(counts) <= 1 and max(counts) <= cap
+
+
 def _layer_params(rng, D):
     def dense(i, o):
         return {"w": rng.standard_normal((i, o)).astype(np.float32) * 0.05,

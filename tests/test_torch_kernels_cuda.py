@@ -151,9 +151,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                              num_heads=cfg.num_heads)
 
 
-def _int8_case(gen, B, H, Dh, sx, sp, ring, kw, head, pad_cols, empty_row=False):
+def _int8_case(gen, B, H, Dh, sx, sp, ring, kw, head, pad_cols, rows="random"):
     """int8 codes + scales as the slot state holds them: rows of the doubled
-    ring (``pad_cols`` wider than the S columns read), sliced to S."""
+    ring (``pad_cols`` wider than the S columns read), sliced to S. rows:
+    "random" context lengths; "empty_last": the last row sees nothing;
+    "full": every row's context is the whole sx + sp; "one_column": row 0
+    sees only column 0, row 1 only the ring column before the head."""
     S = sx + sp + ring
     kq, ks = slots.quantize_kv_columns(
         torch.randn((B, H, Dh, S + pad_cols), generator=gen, device="cuda"))
@@ -162,8 +165,13 @@ def _int8_case(gen, B, H, Dh, sx, sp, ring, kw, head, pad_cols, empty_row=False)
     x_len = torch.randint(1, sx + 1, (B,), generator=gen, device="cuda").int()
     p_len = torch.randint(1, sp + 1, (B,), generator=gen, device="cuda").int()
     kws = torch.tensor(kw, dtype=torch.int32, device="cuda")
-    if empty_row:
+    if rows == "empty_last":
         x_len[-1] = p_len[-1] = kws[-1] = 0
+    elif rows == "full":
+        x_len[:], p_len[:] = sx, sp
+    elif rows == "one_column":
+        x_len[:], p_len[:] = torch.tensor([1, 0]), 0
+        kws[:] = torch.tensor([0, 1])
     q = torch.randn((B, H, Dh), generator=gen, device="cuda").bfloat16()
     return (q, kq[..., :S], ks[..., :S], vq[..., :S], vs[..., :S], x_len, p_len, kws,
             head), dict(sx=sx, sp=sp, ring=ring)
@@ -171,17 +179,24 @@ def _int8_case(gen, B, H, Dh, sx, sp, ring, kw, head, pad_cols, empty_row=False)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    # B, H, Dh, sx, sp, ring, keys_written, head, pad_cols, empty_row
-    (8, 16, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 0, 1], 300, 512, False),
-    (8, 16, 32, 192, 192, 512, [512, 400, 300, 200, 150, 120, 101, 450], 100, 512, False),
-    (8, 16, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 32, 1], 300, 512, True),
-    (2, 4, 32, 16, 8, 32, [32, 20], 4, 32, False),    # pitch 88: the byte-load route
-    (3, 2, 64, 32, 64, 96, [5, 96, 0], 50, 0, True),  # Dh 64, a contiguous cache
-], ids=["partial_ring", "wrapped_ring", "empty_row", "unaligned_pitch", "dh64"])
+    # B, H, Dh, sx, sp, ring, keys_written, head, pad_cols, rows
+    (8, 16, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 0, 1], 300, 512, "random"),
+    (8, 16, 32, 192, 192, 512, [512, 400, 300, 200, 150, 120, 101, 450], 100, 512, "random"),
+    (8, 16, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 32, 1], 300, 512, "empty_last"),
+    (2, 4, 32, 16, 8, 32, [32, 20], 4, 32, "random"),    # pitch 88: the byte-load route
+    (3, 2, 64, 32, 64, 96, [5, 96, 0], 50, 0, "empty_last"),  # Dh 64, a contiguous cache
+    # ring from column 33; head 37, kw 50 and 80 wrap: [33, 70) and [116 or 86, 129)
+    (4, 8, 32, 20, 13, 96, [80, 96, 50, 37], 37, 31, "random"),
+    (8, 16, 32, 192, 192, 512, [512] * 8, 416, 512, "full"),
+    (2, 16, 32, 192, 192, 512, [0, 1], 300, 512, "one_column"),   # 3 of 4 ranks get nothing
+    (1, 1, 32, 16, 8, 32, [20], 5, 8, "random"),
+    (2, 4, 64, 512, 512, 1024, [1024, 700], 300, 0, "full"),     # a block's largest buffers
+], ids=["partial_ring", "wrapped_ring", "empty_row", "unaligned_pitch", "dh64",
+        "wrapped_mid_chunk", "fully_visible", "one_column", "bh1", "dh64_s2048"])
 def test_int8_kernel_matches_plain(cuda, case):
-    *shape, pad_cols, empty = case
+    *shape, pad_cols, rows = case
     B, H, Dh, sx, sp, ring, kw, head = shape
-    args, geom = _int8_case(cuda, B, H, Dh, sx, sp, ring, kw, head, pad_cols, empty)
+    args, geom = _int8_case(cuda, B, H, Dh, sx, sp, ring, kw, head, pad_cols, rows)
     before = int8_big_attention.launches
     out = int8_big_attention(*args, **geom)
     ref = int8_big_attention_plain(*args, **geom)
@@ -193,7 +208,7 @@ def test_int8_kernel_matches_plain(cuda, case):
         torch.testing.assert_close(a[seen], b[seen], rtol=1e-4,
                                    atol=1e-4 * float(b[seen].abs().max()))
         assert torch.equal(a[~seen], b[~seen])
-    if empty:
+    if rows == "empty_last":
         o, m, l = out
         assert bool((m[-1] == -1e30).all()) and not l[-1].any() and not o[-1].any()
 
