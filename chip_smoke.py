@@ -33,7 +33,23 @@ Phases, each of which must pass:
    launch.
 8. slot slice check: greedy fp32 slot-machine codes with the int8 KV cache
    on the card (through the kernel) vs the CPU (plain version).
-9. kernels: each kernel against its plain PyTorch version on the card at
+9. serve: the port's HTTP server in-process (127.0.0.1, port 0), phase
+   3's character loaded under a new name through POST /load_character and
+   /set_reference_audio, then in turn, with the kernel counts set to 0
+   before each and read after: (1) 4 concurrent default /tts of short
+   sentences take the slot route (int8 launches = 24 x slot decode steps,
+   no flash or fused launch); (2) 2 concurrent default /tts of a sentence
+   of 193-256 packed phonemes take the window batcher (one batch of 2,
+   flash launches = 24 x decode steps); (3) one "stream": true short
+   request on the idle machine takes the segmented stream (no kernel
+   launch); (4) one "stream": true long request takes the fused stream
+   head (fused launches = decode steps); (5) one "stream": true short
+   request sent while 3 default requests occupy the slot machine joins it
+   (the streams stat and the slot_utterances counter count it, int8
+   launches follow). Every response must be 200 with 2 x 2*codes*640
+   bytes of PCM holding more than 1000 distinct values; each route prints
+   its latency, time to the first chunk, audio seconds and launches.
+10. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths gave it (max error vs the stated tolerance),
    then its time, the plain version's, the library yardstick's and the
    least time the card could take (bound). Kernel times are device time
@@ -410,7 +426,7 @@ def phase_slots(torch, root: Path):
     check(char.t2s_cfg.max_decode_steps == 500 and char.t2s_cfg.num_layers == 24
           and char.t2s_params["layers"]["qkv"]["w"].dtype == torch.int8,
           "slot character: default T2SConfig with int8 decode weights")
-    synth = api._make_synth_fn("slots", use_batcher=True)
+    synth, _ = api._make_synth_fn("slots", use_batcher=True)
     sb = api.get_slot_batcher(char)
     geom = (sb.n_slots, sb.W, sb.ring, sb.sx, sb.sp)
     check(sb.cfg.slot_kv_int8 and geom == (8, 32, 512, 192, 192),
@@ -611,6 +627,214 @@ def phase_slot_slice_check(torch, char):
           f"agreement row 0 {agree[0]:.3f} ({len(a[0])} tokens), row 1 (joined a "
           f"segment later) {agree[1]:.3f} ({len(a[1])} tokens) (tolerance >= 0.9)")
     check(min(agree) >= 0.9, f"slot card/CPU agreement {agree}")
+
+
+LONG_SENTENCE = ("きょうはとてもいいてんきなので、ともだちといっしょにこうえんへいって、"
+                 "ながいあいださんぽをしてから、えきのちかくのきっさてんでこーひーをのみました"
+                 "、そのあとでほんやにより、あたらしいしょうせつをにさつかってかえりました")
+
+
+def phase_serve(torch, root: Path, card: str):
+    """The HTTP server through the routes a user reaches: the port's
+    server in-process on 127.0.0.1 (port 0), phase 3's full-width
+    character loaded under a new name by POST /load_character and
+    /set_reference_audio, then five sub-steps in turn, each with the
+    kernel counts set to 0 just before it and read just after."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.utils.metrics import metrics
+
+    kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
+               "fused": fu.fused_decode_step}
+    from genie_tts_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    # the phase's own window batcher waits this long for a second request
+    # (as the JAX package's serving test widens the window), so two
+    # concurrent clients coalesce; the engine's config stays as it is
+    prev_batcher = api._batcher
+    api._batcher = ContinuousBatcher(api.engine, max_batch=api.engine.cfg.batch_max,
+                                     window_ms=2000.0)
+    srv = api.start_server(host="127.0.0.1", port=0, block=False)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(path, payload, timeout=300.0):
+        """(status, body, s to the first chunk, s to the end)."""
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            first = r.read1(1 << 16)
+            t_first = time.perf_counter() - t0
+            body = first + r.read()
+            return r.status, body, t_first, time.perf_counter() - t0
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+        sync(torch)
+
+    def counts():
+        sync(torch)
+        return {n: k.launches for n, k in kernels.items()}
+
+    def run(payloads):
+        """Concurrent requests, one thread each, every one with a timeout."""
+        out, errors = {}, []
+
+        def client(i, p):
+            try:
+                out[i] = post("/tts", p)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(i, p)) for i, p in enumerate(payloads)]
+        for t in threads:
+            t.start()
+        return threads, out, errors
+
+    def join(threads, out, errors, what):
+        for t in threads:
+            t.join(timeout=600)
+        check(not errors and not any(t.is_alive() for t in threads) and len(out) == len(threads),
+              f"serve {what}: {errors or 'a request hung'}")
+        return [out[i] for i in range(len(threads))]
+
+    def check_audio(res, codes, what):
+        for status, body, _, _ in res:
+            pcm = np.frombuffer(body, "<i2")
+            check(status == 200, f"serve {what}: HTTP {status}")
+            check(len(body) == 2 * 2 * codes * 640,
+                  f"serve {what}: {len(body)} bytes, want {2 * 2 * codes * 640}")
+            levels = np.unique(pcm).size
+            check(levels > 1000, f"serve {what}: PCM of {levels} distinct values")
+
+    def report(what, res, launches):
+        lat = [r[3] for r in res]
+        ttfc = [r[2] for r in res]
+        audio = sum(len(r[1]) for r in res) / 2 / 32000
+        print(f"[serve] {what}: {len(res)} request(s), latency "
+              + ", ".join(f"{x:.3f}" for x in lat) + " s; first chunk "
+              + ", ".join(f"{x:.3f}" for x in ttfc) + f" s; {audio:.2f} s of audio; launches "
+              + json.dumps(launches))
+        return {"latency_s": lat, "first_chunk_s": ttfc, "audio_s": audio,
+                "launches": launches}
+
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for path, payload in (
+                ("/load_character", {"character_name": "serve", "model_dir": str(root / "char"),
+                                     "language": "ja"}),
+                ("/set_reference_audio", {"character_name": "serve",
+                                          "audio_path": str(root / "ref.wav"),
+                                          "audio_text": "こんにちは、てすとです",
+                                          "language": "ja"})):
+            status = post(path, payload)[0]
+            check(status == 200, f"serve {path}: HTTP {status}")
+        char = api.model_manager.get("serve")
+        feats = reference_audio_cache.get_features(
+            api.engine, char, str(root / "ref.wav"), "こんにちは、てすとです", "Japanese")
+        sb = api.get_slot_batcher(char)
+        codes = min(char.t2s_cfg.max_decode_steps, sb.ring)   # EOS pinned: every request hits its cap
+        packed = len(feats.phones) + len(get_phones_and_bert("。" + LONG_SENTENCE, "ja")[0])
+        check(192 < packed <= 256 and not sb.fits(feats, get_phones_and_bert(
+            "。" + LONG_SENTENCE, "ja")[0]), f"the long sentence packs {packed} phonemes")
+        print(f"[serve] server on {base}; character 'serve' loaded and its reference set "
+              f"in {time.perf_counter() - t0:.1f} s; slot geometry {sb.n_slots} slots, W={sb.W}, "
+              f"join W={sb.join_W}, ring {sb.ring}; long sentence {packed} packed phonemes")
+
+        def short(i, **kw):
+            return {"character_name": "serve", "text": SENTENCES[i], "split_sentence": False,
+                    **kw}
+
+        # 1. slot route: 4 concurrent default requests
+        reset()
+        s0 = dict(sb.stats)
+        res = join(*run([short(i) for i in range(4)]), "slot route")
+        c = counts()
+        steps = sb.stats["steps"] - s0["steps"]
+        check_audio(res, codes, "slot route")
+        check(c["int8"] == char.t2s_cfg.num_layers * steps > 0 and c["flash"] == 0
+              and c["fused"] == 0, f"serve slot route: launches {c} for {steps} steps")
+        out["slots"] = report(f"slot route ({steps} slot decode steps)", res, c)
+
+        # 2. window batcher: 2 concurrent requests too long for the slot buckets
+        reset()
+        res = join(*run([{"character_name": "serve", "text": LONG_SENTENCE,
+                          "split_sentence": False}] * 2), "window batcher")
+        c = counts()
+        b = api._batcher
+        check_audio(res, codes, "window batcher")
+        check(b is not None and b.stats["last_batch"] == 2 and b.stats["batches"] == 1,
+              f"serve window batcher: stats {b and b.stats}")
+        steps = b.stats["decode_steps"]
+        check(c["flash"] == char.t2s_cfg.num_layers * steps > 0 and c["int8"] == 0
+              and c["fused"] == 0, f"serve window batcher: launches {c} for {steps} steps")
+        out["window"] = report(f"window batcher (a batch of 2, {steps} decode steps)", res, c)
+
+        # 3. segmented stream on an idle machine: the solo exact-KV machine
+        check(not sb._occupied() and sb._q.empty(), "serve: slot machine busy before the stream")
+        reset()
+        s0 = dict(sb.stats)
+        res = join(*run([short(4, stream=True)]), "segmented stream")
+        c = counts()
+        check_audio(res, codes, "segmented stream")
+        check(c == {"int8": 0, "flash": 0, "fused": 0} and sb.stats["steps"] == s0["steps"],
+              f"serve segmented stream: launches {c}")
+        out["segmented"] = report("segmented stream", res, c)
+
+        # 4. fused stream head: a streamed sentence too long for the stream geometry
+        reset()
+        res = join(*run([{"character_name": "serve", "text": LONG_SENTENCE,
+                          "split_sentence": False, "stream": True}]), "fused head")
+        c = counts()
+        steps = api.engine.last_stats.get("decode_steps", 0)
+        check_audio(res, codes, "fused head")
+        check(c["fused"] == steps > 0 and c["flash"] == 0 and c["int8"] == 0,
+              f"serve fused head: launches {c} for {steps} steps")
+        out["fused_head"] = report(f"fused stream head ({steps} decode steps)", res, c)
+
+        # 5. a stream sent while 3 default requests occupy the slot machine
+        reset()
+        s0 = dict(sb.stats)
+        done0 = metrics.snapshot()["counters"].get("slot_utterances", 0)
+        busy = run([short(5 + i) for i in range(3)])
+        t_wait = time.perf_counter()
+        while not sb._occupied() and time.perf_counter() - t_wait < 120:
+            time.sleep(0.002)
+        check(sb._occupied(), "serve: the 3 default requests never joined the slot machine")
+        stream = run([short(8, stream=True)])
+        res = join(*busy, "slot-joined stream (default requests)")
+        sres = join(*stream, "slot-joined stream")
+        c = counts()
+        steps = sb.stats["steps"] - s0["steps"]
+        done = metrics.snapshot()["counters"].get("slot_utterances", 0) - done0
+        check_audio(res + sres, codes, "slot-joined stream")
+        check(sb.stats["streams"] - s0["streams"] == 1 and done == 4,
+              f"serve slot-joined stream: {sb.stats['streams'] - s0['streams']} streams "
+              f"joined, {done} slot utterances")
+        check(c["int8"] == char.t2s_cfg.num_layers * steps > 0 and c["flash"] == 0
+              and c["fused"] == 0, f"serve slot-joined stream: launches {c} for {steps} steps")
+        out["slot_stream"] = report(f"slot-joined stream ({steps} slot decode steps, "
+                                    f"3 default requests beside it)", res + sres, c)
+        out["slot_stream"]["stream_first_chunk_s"] = sres[0][2]
+        print(f"[serve] slot-joined stream: first chunk {sres[0][2]:.3f} s, end "
+              f"{sres[0][3]:.3f} s; {card}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api.unload_character("serve")
+        api._batcher.stop(timeout=60)
+        api._batcher = prev_batcher
+    return out
 
 
 def fp32_params(torch, char):
@@ -975,6 +1199,7 @@ def main() -> int:
         sl = phase_slots(torch, work)
         phase_slots_bf16(torch, sl["char"], sl["feats"], sl["phones"])
         phase_slot_slice_check(torch, sl["char"])
+        phase_serve(torch, work, card)
         res = phase_kernels(torch, char, b4["S"], b4)
         res8 = phase_kernel_int8(torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
     finally:

@@ -6,10 +6,15 @@ JAX package ``genie_tts_tpu``, which stays the reference it is tested
 against. Entry points run on ``cuda`` unless ``device="cpu"`` is passed.
 """
 from .api import (
+    clear_reference_audio_cache,
     load_character,
     set_reference_audio,
+    start_server,
+    stop,
     tts,
+    tts_async,
     unload_character,
+    wait_for_playback_done,
 )
 
 __version__ = "0.1.0"
@@ -19,4 +24,9 @@ __all__ = [
     "unload_character",
     "set_reference_audio",
     "tts",
+    "tts_async",
+    "stop",
+    "wait_for_playback_done",
+    "clear_reference_audio_cache",
+    "start_server",
 ]

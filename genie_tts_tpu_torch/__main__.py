@@ -2,6 +2,8 @@
 
     python -m genie_tts_tpu_torch tts --model DIR --lang ja --ref ref.wav \
         --ref-text "こんにちは" --text "こんにちは。" --out out.wav [--device cpu]
+    python -m genie_tts_tpu_torch convert --ckpt model.ckpt --pth model.pth --out DIR
+    python -m genie_tts_tpu_torch serve --host 127.0.0.1 --port 8000 [--device cpu]
 
 ``--device`` defaults to cuda; without a GPU the run stops unless
 ``--device cpu`` is given.
@@ -31,6 +33,27 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default=None,
                    help="compute dtype: bfloat16 (default) or float32")
 
+    p = sub.add_parser("convert", help="convert torch checkpoints")
+    p.add_argument("--ckpt", required=True, help="T2S .ckpt path")
+    p.add_argument("--pth", required=True, help="SoVITS .pth path")
+    p.add_argument("--out", required=True, help="output character dir")
+    p.add_argument("--lang", default="ja")
+
+    p = sub.add_parser("serve", help="start the HTTP server")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--device", default=None,
+                   help="torch device for loaded characters (default cuda; "
+                        "'cpu' to serve on the CPU)")
+    p.add_argument("--warmup", metavar="MODEL_DIR", default=None,
+                   help="character dir to run one small request and one "
+                        "small stream through before accepting requests")
+    p.add_argument("--warmup-lang", default="ja")
+    p.add_argument("--warmup-ref", default=None,
+                   help="reference wav for the warmup (needs HuBERT; "
+                        "default: random reference features)")
+    p.add_argument("--warmup-ref-text", default="こんにちは")
+
     args = parser.parse_args(argv)
 
     import genie_tts_tpu_torch as genie
@@ -42,7 +65,43 @@ def main(argv=None) -> int:
         genie.tts("cli", args.text, split_sentence=not args.no_split,
                   save_path=args.out)
         print(f"wrote {args.out}")
+    elif args.cmd == "convert":
+        from genie_tts_tpu_torch.convert.torch_convert import convert_character
+
+        convert_character(args.ckpt, args.pth, args.out, language=args.lang)
+        print(f"converted -> {args.out}")
+    elif args.cmd == "serve":
+        from genie_tts_tpu_torch.config import resolve_device
+
+        resolve_device(args.device)      # no GPU and no device named: stop here
+        if args.warmup:
+            _warmup(args)
+        genie.start_server(host=args.host, port=args.port, device=args.device)
     return 0
+
+
+def _warmup(args) -> None:
+    """One small real request and one small stream through the slot
+    machine of the ``--warmup`` character (builds the kernels)."""
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.runtime.engine import make_random_reference
+
+    api.load_character("warmup", args.warmup, args.warmup_lang, device=args.device)
+    char = api.model_manager.get("warmup")
+    if args.warmup_ref:
+        api.set_reference_audio("warmup", args.warmup_ref, args.warmup_ref_text,
+                                args.warmup_lang)
+        ref = api.reference_audio_cache.get_features(
+            api.engine, char, args.warmup_ref, args.warmup_ref_text,
+            api._reference_audios["warmup"]["language"],
+            hubert_fn=api._hubert_fn(char.device))
+    else:
+        ref = make_random_reference(char, api.engine)
+    phones, _ = get_phones_and_bert("。こんにちは。", char.language)
+    n = api.get_slot_batcher(char).warmup(ref, phones, streaming=True)
+    api.unload_character("warmup")
+    print(f"warmup: {n} requests")
 
 
 if __name__ == "__main__":

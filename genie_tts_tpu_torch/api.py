@@ -1,19 +1,24 @@
-"""Public Python API of the port: load_character, set_reference_audio, tts.
+"""Public Python API of the port: load_character, unload_character,
+set_reference_audio, tts, tts_async, stop, wait_for_playback_done,
+clear_reference_audio_cache, start_server.
 
-The solo, synchronous subset of ``genie_tts_tpu/api.py``, and its
-in-flight slot serving route (``_make_synth_fn(use_batcher=True)``, one
-``runtime/slot_batcher.py`` scheduler per character). Entry points run on
+The port of ``genie_tts_tpu/api.py`` for V2 characters. ``tts`` and
+``tts_async`` run through sessions (``runtime/session.py``); the serving
+route (``_make_synth_fn(use_batcher=True)``) sends a sentence that fits
+the slot buckets to the character's in-flight slot machine and any other
+to the window batcher; streams go to the busy slot machine, else to the
+solo segmented stream or the fused stream head. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
-device named they raise. Streaming sessions, playback, the window batcher
-and the server are later slices (ROADMAP.md).
+device named they raise.
 """
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
 import threading
 from os import PathLike
-from typing import Dict, Optional, Union
+from typing import AsyncIterator, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -21,17 +26,16 @@ import torch
 from .config import RuntimeConfig, resolve_device
 from .frontend.dispatcher import get_phones_and_bert
 from .frontend.language import MONOLINGUAL, normalize_language, require_supported
-from .frontend.splitter import split_text
 from .ops.sampling import SamplingConfig
 from .runtime.engine import TTSEngine
 from .runtime.model_manager import model_manager
 from .runtime.reference_audio import reference_audio_cache
-from .utils.wavio import write_wav
+from .runtime.session import session_registry, tts_session
+from .utils.wavio import as_float
 
 logger = logging.getLogger(__name__)
 
 SUPPORTED_AUDIO_EXTS = {".wav", ".flac", ".ogg", ".aiff", ".aif"}
-SAMPLE_RATE = 32000
 
 engine = TTSEngine(RuntimeConfig())
 
@@ -115,9 +119,31 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
     return True
 
 
+def clear_reference_audio_cache() -> None:
+    reference_audio_cache.clear()
+
+
 # ---------------------------------------------------------------------------
 # Synthesis
 # ---------------------------------------------------------------------------
+
+_batcher = None
+_batcher_lock = threading.Lock()
+
+
+def get_batcher():
+    """Lazy global window batcher (``runtime/batcher.py``) bound to the
+    engine: the serving route of sentences that do not fit the slot
+    machine."""
+    global _batcher
+    with _batcher_lock:
+        if _batcher is None:
+            from .runtime.batcher import ContinuousBatcher
+
+            _batcher = ContinuousBatcher(engine, max_batch=engine.cfg.batch_max,
+                                         window_ms=engine.cfg.batch_window_ms)
+        return _batcher
+
 
 _slot_batchers: dict = {}
 _slot_batchers_lock = threading.Lock()
@@ -141,15 +167,20 @@ def get_slot_batcher(char):
 
 def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = None,
                    use_batcher: bool = False):
-    """The synthesis function of one character: sentence -> waveform.
+    """(synth, synth_stream) for one character: sentence -> waveform, and
+    sentence -> iterator of waveform pieces.
 
     ``use_batcher`` (the serving route): a sentence that fits the slot
     machine's buckets joins the character's slot batcher and comes back
     as int16 PCM, decoding in flight beside concurrent requests (with
-    ``RuntimeConfig.serve_slots``). Until the window batcher is ported
-    (ROADMAP.md, Queue 1 item 8), a sentence that does not fit is
-    synthesized solo, as float32. Without ``use_batcher`` every sentence
-    is synthesized solo."""
+    ``RuntimeConfig.serve_slots``); any other goes to the window batcher,
+    which runs concurrent arrivals as one batch. Without ``use_batcher``
+    every sentence is synthesized solo (float32).
+
+    ``synth_stream``: when the slot machine is busy (or every slot row
+    pumps windows) a sentence that fits it joins as a streaming row;
+    otherwise the solo segmented stream, or the fused stream head for a
+    sentence too long for the stream geometry."""
     char = model_manager.get(character_name)
     if char is None:
         raise ValueError(f"Character '{character_name}' is not loaded")
@@ -163,39 +194,123 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
         phones, bert = get_phones_and_bert("。" + sentence, char.language)
         if len(phones) == 0:
             return None
-        if use_batcher and engine.cfg.serve_slots:
-            # per-request sampling joins too: it is per-row slot state
-            sb = get_slot_batcher(char)
-            if sb.fits(feats, phones):
-                return sb.synthesize(feats, phones, bert, sampling=sampling)
+        if use_batcher:
+            if engine.cfg.serve_slots:
+                # per-request sampling joins too: it is per-row slot state
+                sb = get_slot_batcher(char)
+                if sb.fits(feats, phones):
+                    return sb.synthesize(feats, phones, bert, sampling=sampling)
+            return get_batcher().synthesize(char, feats, phones, bert,
+                                            sampling=sampling)
         return engine.synthesize_utterance(char, feats, phones, bert,
                                            sampling=sampling)
 
-    return synth
+    def synth_stream(sentence: str):
+        phones, bert = get_phones_and_bert("。" + sentence, char.language)
+        if len(phones) == 0:
+            return
+        if engine.cfg.serve_slots:
+            sb = get_slot_batcher(char)
+            if sb.fits(feats, phones) and (engine.cfg.slot_stream_finisher
+                                           or sb._occupied() or not sb._q.empty()):
+                yield from sb.synthesize_stream(feats, phones, bert, sampling=sampling)
+                return
+        yield from engine.synthesize_utterance_stream(char, feats, phones, bert,
+                                                      sampling=sampling)
+
+    return synth, synth_stream
+
+
+def _prepare_save_path(save_path) -> Optional[str]:
+    if not save_path:
+        return None
+    save_path = os.fspath(save_path)
+    parent = os.path.dirname(save_path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    return save_path
+
+
+# one tts() call at a time owns the default session: a second caller's
+# start_session would swap the synth function under the first's sentences
+_tts_lock = threading.Lock()
 
 
 def tts(character_name: str, text: str, play: bool = False,
         split_sentence: bool = True, save_path: Union[str, PathLike, None] = None,
         sampling: Optional[SamplingConfig] = None) -> Optional[np.ndarray]:
-    """Synthesize ``text`` sentence by sentence on the character's device.
+    """Blocking synthesis of ``text`` sentence by sentence on the
+    character's device, through the default session: optionally played
+    (``play``, where sounddevice is installed) and saved as one wav.
+    Concurrent calls take turns; a sentence that fails raises its error.
 
-    Returns the 32 kHz float32 waveform of all sentences, and writes it as
-    one wav when ``save_path`` is given."""
-    if play:
-        raise NotImplementedError(
-            "playback is not ported yet (ROADMAP.md, Queue 1 item 7: Streaming)")
+    Returns the 32 kHz float32 waveform of all sentences."""
     if character_name not in _reference_audios:
         logger.error("Call set_reference_audio first to set the reference audio.")
         return None
-    synth = _make_synth_fn(character_name, sampling)
-    pieces = [a for s in (split_text(text) if split_sentence else [text])
-              if (a := synth(s)) is not None]
-    audio = np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
-    if save_path:
-        save_path = os.fspath(save_path)
-        parent = os.path.dirname(save_path)
-        if parent:
-            os.makedirs(parent, exist_ok=True)
-        write_wav(save_path, audio, SAMPLE_RATE)
-        logger.info("saved %s", save_path)
-    return audio
+    synth, _ = _make_synth_fn(character_name, sampling)
+    pieces = []
+
+    def collect(sentence):
+        audio = synth(sentence)
+        if audio is not None:
+            pieces.append(as_float(audio))
+        return audio
+
+    with _tts_lock:
+        tts_session.start_session(collect, play=play, split=split_sentence,
+                                  save_path=_prepare_save_path(save_path))
+        tts_session.feed(text)
+        tts_session.end_session()
+        tts_session.wait_for_tts_completion()
+        if tts_session.first_error is not None:
+            raise tts_session.first_error
+    return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+
+
+async def tts_async(character_name: str, text: str, play: bool = False,
+                    split_sentence: bool = False,
+                    save_path: Union[str, PathLike, None] = None,
+                    sampling: Optional[SamplingConfig] = None) -> AsyncIterator[bytes]:
+    """Async generator of PCM16 chunks (pieces of each sentence as the
+    stream route emits them), on a session of its own."""
+    if character_name not in _reference_audios:
+        raise ValueError("Call set_reference_audio first to set the reference audio.")
+    stream_q: asyncio.Queue = asyncio.Queue()
+    loop = asyncio.get_running_loop()
+
+    def chunk_cb(chunk: Optional[bytes]) -> None:
+        loop.call_soon_threadsafe(stream_q.put_nowait, chunk)
+
+    synth, synth_stream = _make_synth_fn(character_name, sampling)
+    session = session_registry.create()  # concurrent calls do not interleave
+    session.start_session(synth, play=play, split=split_sentence,
+                          save_path=_prepare_save_path(save_path),
+                          chunk_callback=chunk_cb, synth_stream_fn=synth_stream)
+    session.feed(text)
+    session.end_session()
+    while True:
+        chunk = await stream_q.get()
+        if chunk is None:
+            break
+        yield chunk
+
+
+def stop() -> None:
+    tts_session.stop()
+    session_registry.stop_all()
+
+
+def wait_for_playback_done() -> None:
+    tts_session.wait_for_playback_done()
+    session_registry.wait_all()
+
+
+def start_server(host: str = "127.0.0.1", port: int = 8000, workers: int = 1,
+                 block: bool = True, device=None):
+    """Serve the HTTP API (``server/http.py``); characters and reference
+    clips it loads go to ``device`` (cuda unless named). Returns the
+    server (with ``block=False`` it serves on a thread of its own)."""
+    from .server.http import start_server as _start
+
+    return _start(host=host, port=port, workers=workers, block=block, device=device)

@@ -94,8 +94,10 @@ def _env_flag(name: str, default: str) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """The runtime knobs of the solo synthesis path and of in-flight slot
-    serving (``runtime/slot_batcher.py``)."""
+    """The runtime knobs of the solo synthesis path, of in-flight slot
+    serving (``runtime/slot_batcher.py``), of streaming (``runtime/
+    stream.py``, the fused stream head, slot-joined streams) and of the
+    window batcher (``runtime/batcher.py``)."""
     compute_dtype: str = "bfloat16"
     phoneme_buckets: Tuple[int, ...] = (32, 64, 128, 256)
     prompt_buckets: Tuple[int, ...] = (128, 256, 512)
@@ -146,6 +148,40 @@ class RuntimeConfig:
     # emitted length and vocode a frame bucket of it (the "staged" branch)
     solo_fused_max_codes: int = dataclasses.field(
         default_factory=lambda: _env_int("GENIE_SOLO_FUSED", 256))
+    # streaming: the fused stream head's FIRST chunk is smaller so first
+    # audio lands sooner (its vocode window is first + halo frames)
+    stream_first_chunk: int = 48
+    # slot streaming: a streaming row's first piece is this many latent
+    # frames, vocoded speculatively behind the row's first segment when
+    # the claimed tokens (first_piece/2 + lookahead) fit in it; 0 waits
+    # for a full vocode_chunk
+    slot_first_piece: int = 16
+    # segment width while a streaming row owes its first piece (must
+    # divide the ring; 0 keeps slot_steps always)
+    slot_join_steps: int = 16
+    # segmented streaming (runtime/stream.py): decode in stream_seg_steps
+    # segments on a solo slot machine, audio windows from the prefix of
+    # decoded codes; GENIE_STREAM_SEGMENTED=0 keeps the exact fused head
+    stream_segmented: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("GENIE_STREAM_SEGMENTED", "1"))
+    stream_seg_steps: int = 16
+    # emitted frames trail the decode frontier by this many codes
+    stream_lookahead: int = 8
+    stream_chunk: int = 64            # follow-up window stride
+    # every slot row pumps windows during decode (GENIE_SLOT_WINDOWS=1);
+    # off by default: only streaming rows pump
+    slot_stream_finisher: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "GENIE_SLOT_WINDOWS", "0").lower() in ("1", "true", "on"))
+    # serving (HTTP /tts): sentences go through the slot machine or the
+    # window batcher; GENIE_SERVE_BATCHING=0 synthesizes each solo
+    serve_batching: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("GENIE_SERVE_BATCHING", "1"))
+    batch_max: int = dataclasses.field(
+        default_factory=lambda: _env_int("GENIE_BATCH_MAX", 8))
+    batch_window_ms: float = dataclasses.field(
+        default_factory=lambda: float(
+            os.environ.get("GENIE_BATCH_WINDOW_MS", 8.0)))
     max_cached_characters: int = dataclasses.field(
         default_factory=lambda: _env_int("Max_Cached_Character_Models", 3))
     max_cached_reference_audio: int = dataclasses.field(

@@ -326,10 +326,43 @@ def synthesize_latent(params: Params, cfg: SoVITSConfig, codes: torch.Tensor,
     return z * y_mask_t
 
 
+def synthesize_latent_rows(params: Params, cfg: SoVITSConfig, noise: torch.Tensor,
+                           codes: torch.Tensor, codes_len: torch.Tensor,
+                           text_ids: torch.Tensor, text_len: torch.Tensor,
+                           ge: torch.Tensor, ge_mrte: torch.Tensor,
+                           noise_scale: float = 0.5) -> torch.Tensor:
+    """:func:`synthesize_latent` with a noise table PER ROW.
+
+    Incremental window vocoding recomputes a request's prefix latent as
+    its decode grows, in batches whose make-up changes. ``noise`` [B, N,
+    192] fp32 (N >= 2 * Ts) holds each row's table, drawn once per request
+    at the largest size it can reach; frame t of a row always reads row
+    position t, so the noise is a function of (request, position) alone.
+    (The JAX package gets the same from counter-based threefry keys, whose
+    bigger draws begin with the smaller ones; a torch generator's draws
+    do not, hence tables.)"""
+    return synthesize_latent(params, cfg, codes, codes_len, text_ids, text_len, ge,
+                             ge_mrte, noise_scale, noise=noise[:, :2 * codes.shape[1]])
+
+
 def vocode_frames(params: Params, cfg: SoVITSConfig, z: torch.Tensor,
                   ge: torch.Tensor, frames_valid: torch.Tensor) -> torch.Tensor:
     """HiFi-GAN over a latent window. z [B, Tc, 192] -> [B, Tc*hop]."""
     return hifigan(params["dec"], z, ge, cfg, frames_len=frames_valid)
+
+
+def vocode_window_rows(params: Params, cfg: SoVITSConfig, z: torch.Tensor,
+                       ge: torch.Tensor, starts: torch.Tensor,
+                       frames_valid: torch.Tensor, win: int) -> torch.Tensor:
+    """HiFi-GAN over a PER-ROW window of the latent.
+
+    z [B, F, 192]; starts [B] (each row's window start, already clamped to
+    F - win); frames_valid [B] (valid frames per row). Returns [B,
+    win*hop]: rows at different emit positions vocode as one batch."""
+    idx = starts.long()[:, None] + torch.arange(win, device=z.device)[None, :]
+    zw = torch.gather(z, 1, idx[..., None].expand(-1, -1, z.shape[-1]))
+    valid = torch.clamp(frames_valid - starts, 0, win)
+    return hifigan(params["dec"], zw, ge, cfg, frames_len=valid)
 
 
 def vocode_frames_chunked(params: Params, cfg: SoVITSConfig, z: torch.Tensor,

@@ -109,6 +109,16 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; request threads launch kernels
+    concurrently, and a bare ``+=`` can lose counts."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -82,7 +82,7 @@ def _launch(q, k_cache, v_cache, kv_mask):
              1.0 / math.sqrt(Dh), _DTYPES[dt],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_attention")
-    flash_decode_attention.launches += 1
+    _build.count_launch(flash_decode_attention)
     return out
 
 

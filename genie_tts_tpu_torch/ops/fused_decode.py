@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict
 
 import torch
@@ -103,6 +104,9 @@ _tile_index = None
 _scratch_floats: Dict[tuple, int] = {}
 _tile_idx: Dict[tuple, torch.Tensor] = {}
 _TILES = (("wqkv", "tqkv"), ("wout", "tout"), ("w1", "t1"), ("w2", "t2"))
+# request threads launch on one shared packing: one of them builds its
+# tiled copy, the others wait for it
+_tile_lock = threading.Lock()
 
 
 def _kernel():
@@ -146,30 +150,34 @@ def _tiled_weights(stacked, dev: torch.device, dims, wbytes: int):
     fused_decode_tile_index), [L, SMs, tile bytes] uint8 each. Built on
     the first launch with a packing and kept in it under ``tqkv``,
     ``tout``, ``t1``, ``t2``; the gather indices are cached per device,
-    shape and weight width."""
+    shape and weight width. Locked: concurrent first launches on one
+    packing build one copy."""
     L = dims[0]
     G = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = []
-    for phase, (wname, tname) in enumerate(_TILES):
-        key = (dev.index, *dims[1:5], wbytes, phase)
-        if key not in _tile_idx:
-            _kernel()
-            with torch.cuda.device(dev):
-                T = _tile_index(ctypes.addressof(dims), wbytes, phase, None)
-                if T < 0:
-                    raise ValueError(f"fused_decode_step kernel does not take dims {list(dims)}")
-                idx = torch.empty(G * T, dtype=torch.int64)
-                _tile_index(ctypes.addressof(dims), wbytes, phase, idx.data_ptr())
-            _tile_idx[key] = idx.to(dev)
-        idx = _tile_idx[key]
-        shape = (L, G, idx.numel() // G * 16)
-        t = stacked.get(tname)
-        if t is None or tuple(t.shape) != shape or t.device != dev:
-            w = stacked[wname]
-            t = w.view(torch.uint8).reshape(L, -1, 16)[:, idx].reshape(shape)
-            stacked[tname] = t
-        out.append(t)
-    return out
+    with _tile_lock:
+        return [_tiled_one(stacked, dev, dims, wbytes, L, G, phase, wname, tname)
+                for phase, (wname, tname) in enumerate(_TILES)]
+
+
+def _tiled_one(stacked, dev, dims, wbytes, L, G, phase, wname, tname):
+    key = (dev.index, *dims[1:5], wbytes, phase)
+    if key not in _tile_idx:
+        _kernel()
+        with torch.cuda.device(dev):
+            T = _tile_index(ctypes.addressof(dims), wbytes, phase, None)
+            if T < 0:
+                raise ValueError(f"fused_decode_step kernel does not take dims {list(dims)}")
+            idx = torch.empty(G * T, dtype=torch.int64)
+            _tile_index(ctypes.addressof(dims), wbytes, phase, idx.data_ptr())
+        _tile_idx[key] = idx.to(dev)
+    idx = _tile_idx[key]
+    shape = (L, G, idx.numel() // G * 16)
+    t = stacked.get(tname)
+    if t is None or tuple(t.shape) != shape or t.device != dev:
+        w = stacked[wname]
+        t = w.view(torch.uint8).reshape(L, -1, 16)[:, idx].reshape(shape)
+        stacked[tname] = t
+    return t
 
 
 def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace=None):
@@ -236,7 +244,7 @@ def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace=None):
                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_decode_step")
     if trace is None:
-        fused_decode_step.launches += 1
+        _build.count_launch(fused_decode_step)
     return h_out, k_cache, v_cache
 
 

@@ -185,7 +185,7 @@ def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ri
         None if trace is None else trace.data_ptr())
     _build.check(err, "int8_big_attention")
     if trace is None:
-        int8_big_attention.launches += 1
+        _build.count_launch(int8_big_attention)
     return o, m, l
 
 

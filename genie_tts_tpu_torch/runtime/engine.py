@@ -1,12 +1,18 @@
-"""TTS inference engine: one sentence -> 32 kHz waveform.
+"""TTS inference engine: sentences -> 32 kHz waveforms.
 
-The solo path of ``genie_tts_tpu/runtime/engine.py``:
+The port of ``genie_tts_tpu/runtime/engine.py``. The solo path:
 
   phones (host G2P) -> [bucket] -> T2S prefill + AR decode -> semantic
-  codes -> SoVITS latent -> chunked HiFi-GAN -> waveform,
+  codes -> SoVITS latent -> chunked HiFi-GAN -> waveform;
 
-and the batched codes -> waveform tail (``vocode_codes_*``) that the slot
-scheduler (``runtime/slot_batcher.py``) runs on the codes it decoded.
+its streaming form (``synthesize_utterance_stream``: the segmented stream
+of ``runtime/stream.py``, or the fused head that vocodes the first small
+window right after decode); ``synthesize_batch`` (the window batcher's:
+B >= 2 rows decode through the flash kernel) and ``synthesize_pipelined``;
+and the tails the slot scheduler (``runtime/slot_batcher.py``) runs on the
+codes it decoded: the batched codes -> waveform finisher
+(``vocode_codes_*``) and the per-row window vocode of its window pump
+(``vocode_windows_*``).
 
 Lengths are padded to the same bucket ladders as the JAX package, so both
 packages see the same shapes (and the same masks) for a given input.
@@ -153,6 +159,29 @@ def _t2s_and_vocode(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
     return audio, codes_len
 
 
+def _t2s_latent_first(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
+                      phones, bert, x_len, prompts, p_len, text, t_len, ge,
+                      ge_mrte, noise_scale, max_steps, cache_len, min_steps,
+                      codes_bucket, first_window, first_frames, pcm16=False,
+                      max_steps_dyn=None, stats=None):
+    """Streaming head: decode + latent + the FIRST vocode window, with no
+    host read between them. Returns (z [B, 2*codes_bucket, C], which stays
+    on the device for the remaining chunks, codes_len [B], the first
+    audio [B, first_frames*hop])."""
+    codes, codes_len = t2s.generate_e2e(
+        t2s_params, tcfg, scfg, generator, phones, bert, x_len, prompts, p_len,
+        max_steps=max_steps, cache_len=cache_len, min_steps=min_steps,
+        max_steps_dyn=max_steps_dyn, stats=stats)
+    codes = _fit_codes(codes, codes_bucket)
+    z = sovits.synthesize_latent(sovits_params, vcfg, codes, codes_len, text, t_len,
+                                 ge, ge_mrte, noise_scale, generator=generator)
+    zc = z[:, :min(first_window, z.shape[1])]
+    valid = torch.clamp(2 * codes_len, 0, zc.shape[1])
+    a = sovits.vocode_frames(sovits_params, vcfg, zc, ge, valid)
+    first = a[:, :min(first_frames * vcfg.hop_length, a.shape[1])]
+    return z, codes_len, _to_pcm16(first) if pcm16 else first
+
+
 class TTSEngine:
     """Solo synthesis on a character's device.
 
@@ -199,6 +228,38 @@ class TTSEngine:
 
     # -- synthesis --------------------------------------------------------
 
+    def _solo_inputs(self, char: CharacterModel, ref: ReferenceFeatures,
+                     text_phones: np.ndarray, text_bert: np.ndarray):
+        """One sentence's device inputs at the solo bucket ladders: (T2S
+        args, vocoder args, x_bucket + p_bucket). The packed [ref_text |
+        text] and the prompts are truncated past their largest bucket and
+        their lengths clamped, so unwritten cache positions stay out of
+        the attention masks."""
+        dev = char.device
+
+        def ids(a, n):
+            return torch.as_tensor(pad_to(np.asarray(a, np.int64), n), device=dev)[None]
+
+        phones = np.concatenate([ref.phones, text_phones]).astype(np.int64)
+        x_bucket = pick_bucket(len(phones), self.cfg.phoneme_buckets)
+        p_bucket = pick_bucket(len(ref.prompt_tokens), self.cfg.prompt_buckets)
+        if np.any(ref.bert) or np.any(text_bert):
+            bert = np.concatenate([ref.bert, text_bert]).astype(np.float32)
+            bert_dev = torch.as_tensor(pad_to(bert, x_bucket, axis=0), device=dev)[None]
+        else:
+            bert_dev = None  # all-zero BERT (the JA path)
+        t_bucket = pick_bucket(len(text_phones), self.cfg.phoneme_buckets)
+        args = dict(phones=ids(phones, x_bucket), bert=bert_dev,
+                    x_len=torch.tensor([min(len(phones), x_bucket)], device=dev),
+                    prompts=ids(ref.prompt_tokens, p_bucket),
+                    p_len=torch.tensor([min(len(ref.prompt_tokens), p_bucket)],
+                                       device=dev))
+        tail = dict(text=ids(text_phones, t_bucket),
+                    t_len=torch.tensor([min(len(text_phones), t_bucket)], device=dev),
+                    ge=torch.as_tensor(ref.ge, device=dev)[None].float(),
+                    ge_mrte=torch.as_tensor(ref.ge_mrte, device=dev)[None].float())
+        return args, tail, x_bucket + p_bucket
+
     @torch.inference_mode()
     def synthesize_utterance(self, char: CharacterModel, ref: ReferenceFeatures,
                              text_phones: np.ndarray, text_bert: np.ndarray,
@@ -225,56 +286,28 @@ class TTSEngine:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         stages = _Stages(self.timing, dev)
         stats: Dict = {}
-
-        def ids(a, n):
-            return torch.as_tensor(pad_to(np.asarray(a, np.int64), n),
-                                   device=dev)[None]
-
-        # ---- T2S: pack [ref_text | text]
-        phones = np.concatenate([ref.phones, text_phones]).astype(np.int64)
-        x_bucket = pick_bucket(len(phones), self.cfg.phoneme_buckets)
-        p_bucket = pick_bucket(len(ref.prompt_tokens), self.cfg.prompt_buckets)
-        # beyond the largest bucket the data is truncated; clamped lengths
-        # keep unwritten cache positions out of the attention masks
-        x_len = min(len(phones), x_bucket)
-        p_len = min(len(ref.prompt_tokens), p_bucket)
         max_steps = fixed_steps or max_steps or tcfg.max_decode_steps
-        if np.any(ref.bert) or np.any(text_bert):
-            bert = np.concatenate([ref.bert, text_bert]).astype(np.float32)
-            bert_dev = torch.as_tensor(pad_to(bert, x_bucket, axis=0),
-                                       device=dev)[None]
-        else:
-            bert_dev = None  # all-zero BERT (the JA path)
-        t_bucket = pick_bucket(len(text_phones), self.cfg.phoneme_buckets)
-        text = ids(text_phones, t_bucket)
-        t_len = torch.tensor([min(len(text_phones), t_bucket)], device=dev)
-        ge = torch.as_tensor(ref.ge, device=dev)[None].float()
-        ge_mrte = torch.as_tensor(ref.ge_mrte, device=dev)[None].float()
+        args, tail, cache_pre = self._solo_inputs(char, ref, text_phones, text_bert)
         cap = (fixed_steps if fixed_steps is not None
                else pick_bucket(max_steps, self.cfg.step_caps))
-        args = dict(phones=ids(phones, x_bucket), bert=bert_dev,
-                    x_len=torch.tensor([x_len], device=dev),
-                    prompts=ids(ref.prompt_tokens, p_bucket),
-                    p_len=torch.tensor([p_len], device=dev))
         min_steps = fixed_steps if fixed_steps is not None else min_steps
         stages.mark("host")
 
         if fixed_steps is not None or cap <= self.cfg.solo_fused_max_codes:
             audio, codes_len = _t2s_and_vocode(
                 char.t2s_params, char.sovits_params, tcfg, vcfg, scfg, gen,
-                text=text, t_len=t_len, ge=ge, ge_mrte=ge_mrte,
                 noise_scale=noise_scale, max_steps=cap,
-                cache_len=x_bucket + p_bucket + cap, min_steps=min_steps,
+                cache_len=cache_pre + cap, min_steps=min_steps,
                 max_steps_dyn=max_steps, codes_bucket=cap,
                 vocode_chunk=self.cfg.vocode_chunk,
                 vocode_halo=self.cfg.vocode_halo, pcm16=pcm16,
-                stages=stages, stats=stats, **args)
+                stages=stages, stats=stats, **args, **tail)
             n_codes = int(codes_len[0])
             out = audio[0, :2 * n_codes * vcfg.hop_length].cpu().numpy()
         else:
             codes, codes_len = t2s.generate_e2e(
                 char.t2s_params, tcfg, scfg, gen, max_steps=cap,
-                cache_len=x_bucket + p_bucket + cap, min_steps=min_steps,
+                cache_len=cache_pre + cap, min_steps=min_steps,
                 max_steps_dyn=max_steps, stats=stats, **args)
             stages.mark("decode")
             n_codes = int(codes_len[0])
@@ -282,12 +315,11 @@ class TTSEngine:
                 logger.warning("T2S produced no semantic tokens; returning silence")
                 return np.zeros(0, np.int16 if pcm16 else np.float32)
             codes = _fit_codes(codes, pick_bucket(n_codes, self.cfg.frame_buckets))
-            z = sovits.synthesize_latent(char.sovits_params, vcfg, codes,
-                                         codes_len, text, t_len, ge, ge_mrte,
-                                         noise_scale, generator=gen)
+            z = sovits.synthesize_latent(char.sovits_params, vcfg, codes, codes_len,
+                                         *tail.values(), noise_scale, generator=gen)
             stages.mark("latent")
             audio = sovits.vocode_frames_chunked(
-                char.sovits_params, vcfg, z, ge, 2 * codes_len,
+                char.sovits_params, vcfg, z, tail["ge"], 2 * codes_len,
                 chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo)
             stages.mark("vocode")
             audio = audio[0, :2 * n_codes * vcfg.hop_length]
@@ -378,6 +410,270 @@ class TTSEngine:
         audio = finish_host_copy(copy)
         return [audio[i, : 2 * int(lens[i]) * hop] for i in range(len(lens))]
 
+    # -- per-row window vocode (the slot batcher's window pump) -----------
+
+    @torch.inference_mode()
+    def vocode_windows_dispatch(self, char: CharacterModel, rows, win: int,
+                                pcm16: bool = False, noise_scale: float = 0.5,
+                                t_buckets=None, codes_dev=None):
+        """Device half of a per-row WINDOW vocode.
+
+        ``rows``: ``(ref, text_phones, codes_np, count, noise, start_frame,
+        out_frames)``: vocode ``out_frames`` frames of the row's audio from
+        latent frame ``start_frame`` on, out of the prefix latent over
+        ``codes_np[:count]``. ``noise`` is the request's flow-noise table
+        [N, 192] on the device (N >= 2 * the frame bucket), so a frame sees
+        the same noise in every pump. Rows at different emit positions
+        batch into one latent and one window vocode; the waveform's copy to
+        host memory is enqueued behind them and the handle goes to
+        :meth:`vocode_windows_fetch`. ``codes_dev``: [B_pad, fb] device
+        codes that replace the rows' ``codes_np`` (the speculative first
+        piece, read from a segment the host has not fetched)."""
+        vcfg = char.sovits_cfg
+        dev = char.device
+        halo = self.cfg.vocode_halo
+        B = len(rows)
+        B_pad = max(pick_bucket(B, self.cfg.batch_buckets), B)
+        rows = list(rows) + [rows[0]] * (B_pad - B)
+        lens = np.array([r[3] for r in rows], np.int64)
+        # fb >= win/2 so the window always fits the latent grid
+        fb = pick_bucket(max(int(lens.max()), -(-win // 2)), self.cfg.frame_buckets)
+        if int(lens.max()) > fb:
+            raise ValueError(
+                f"window vocode row has {int(lens.max())} latent frames > largest "
+                f"frame bucket {fb}; raise frame_buckets or lower slot_ring/max_steps")
+        if codes_dev is not None:
+            if tuple(codes_dev.shape) != (B_pad, fb):
+                raise ValueError(f"codes_dev shape {tuple(codes_dev.shape)} != "
+                                 f"({B_pad}, {fb}): pad device codes to this "
+                                 f"method's batch and frame buckets")
+            codes_b = codes_dev.long()
+        else:
+            codes_b = host_to_device(np.stack([
+                pad_to(np.clip(np.asarray(r[2][:fb], np.int64), 0, vcfg.vq_codes - 1), fb)
+                for r in rows]), dev)
+        t_lens = np.array([len(r[1]) for r in rows], np.int64)
+        t_bucket = pick_bucket(int(t_lens.max()), t_buckets or self.cfg.phoneme_buckets)
+        t_lens = np.minimum(t_lens, t_bucket)
+        text_b = np.stack([pad_to(np.asarray(r[1], np.int64), t_bucket) for r in rows])
+        ge = host_to_device(np.stack([r[0].ge for r in rows]).astype(np.float32), dev)
+        gm = host_to_device(np.stack([r[0].ge_mrte for r in rows]).astype(np.float32), dev)
+        noise = torch.stack([r[4] for r in rows])
+        z = sovits.synthesize_latent_rows(
+            char.sovits_params, vcfg, noise, codes_b, host_to_device(lens, dev),
+            host_to_device(text_b, dev), host_to_device(t_lens, dev), ge, gm,
+            noise_scale)
+        F = 2 * fb
+        win = min(win, F)          # tiny ladders: the window covers the grid
+        starts = np.array([r[5] for r in rows], np.int64)
+        s0 = np.clip(starts - halo, 0, F - win)
+        audio = sovits.vocode_window_rows(char.sovits_params, vcfg, z, ge,
+                                          host_to_device(s0, dev),
+                                          host_to_device(2 * lens, dev), win)
+        audio = _to_pcm16(audio) if pcm16 else audio.float()
+        hop = vcfg.hop_length
+        widths = np.array([r[6] for r in rows], np.int64) * hop
+        return start_host_copy(audio), (starts - s0) * hop, widths, B
+
+    @staticmethod
+    def vocode_windows_fetch(handle):
+        """Host half of the window vocode: wait for the copy and cut each
+        row's piece out of its window. Runs no device work."""
+        copy, offs, widths, B = handle
+        a = finish_host_copy(copy)
+        return [a[i, offs[i]: offs[i] + widths[i]] for i in range(B)]
+
+    # -- streaming ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def synthesize_utterance_stream(self, char: CharacterModel,
+                                    ref: ReferenceFeatures,
+                                    text_phones: np.ndarray, text_bert: np.ndarray,
+                                    sampling: Optional[SamplingConfig] = None,
+                                    seed: Optional[int] = None,
+                                    noise_scale: float = 0.5, min_steps: int = 0,
+                                    max_steps: Optional[int] = None,
+                                    pcm16: bool = False):
+        """Generator of waveform chunks for one sentence.
+
+        With ``stream_segmented`` (the default), a sentence that fits the
+        stream geometry takes the segmented route (``runtime/stream.py``:
+        the first chunk after one decode segment, whatever the length).
+        Otherwise the fused head: decode (one fused kernel launch per step)
+        + latent + the FIRST small vocode window, then one host read; the
+        remaining ``vocode_chunk`` windows are all dispatched before the
+        first of them is read."""
+        if self.cfg.stream_segmented:
+            from .stream import fits_stream, synthesize_stream_segments
+
+            if fits_stream(self.cfg, ref, text_phones):
+                yield from synthesize_stream_segments(
+                    self, char, ref, text_phones, text_bert, sampling=sampling,
+                    seed=seed, noise_scale=noise_scale, min_steps=min_steps,
+                    max_steps=max_steps, pcm16=pcm16)
+                return
+        t_start = time.perf_counter()
+        scfg = sampling or SamplingConfig()
+        tcfg, vcfg = char.t2s_cfg, char.sovits_cfg
+        if seed is None:
+            seed = self._next_seed()
+        gen = torch.Generator(device=char.device).manual_seed(int(seed))
+        max_steps = max_steps or tcfg.max_decode_steps
+        args, tail, cache_pre = self._solo_inputs(char, ref, text_phones, text_bert)
+        hop = vcfg.hop_length
+        chunk, halo = self.cfg.vocode_chunk, self.cfg.vocode_halo
+        first = min(self.cfg.stream_first_chunk, chunk)
+        cap = pick_bucket(max_steps, self.cfg.step_caps)
+        F = 2 * cap
+        stats: Dict = {}
+        z, codes_len, first_audio = _t2s_latent_first(
+            char.t2s_params, char.sovits_params, tcfg, vcfg, scfg, gen,
+            noise_scale=noise_scale, max_steps=cap, cache_len=cache_pre + cap,
+            min_steps=min_steps, max_steps_dyn=max_steps, codes_bucket=cap,
+            first_window=min(first + halo, F), first_frames=first, pcm16=pcm16,
+            stats=stats, **args, **tail)
+        n_codes = int(codes_len[0])
+        self.last_stats = {"codes_len": n_codes, **stats}
+        if n_codes == 0:
+            return
+        total_valid = 2 * n_codes
+        emitted = min(first, total_valid)
+        first_np = first_audio[0, :emitted * hop].cpu().numpy()
+        metrics.observe("ttfa", time.perf_counter() - t_start)
+        yield first_np
+
+        # the remaining chunks over the valid frames: all dispatched (and
+        # their host copies enqueued) before the first is read
+        jobs = []
+        for start in range(first, total_valid, chunk):
+            s0 = max(start - halo, 0)
+            s1 = min(start + chunk + halo, F)
+            valid = torch.tensor([min(max(total_valid - s0, 0), s1 - s0)],
+                                 device=char.device)
+            a = sovits.vocode_frames(char.sovits_params, vcfg, z[:, s0:s1], tail["ge"],
+                                     valid)
+            n_frames = min(chunk, total_valid - start)
+            a = a[0, (start - s0) * hop:(start - s0 + n_frames) * hop]
+            jobs.append((start_host_copy(_to_pcm16(a) if pcm16 else a), n_frames))
+        for copy, n_frames in jobs:
+            emitted += n_frames
+            yield finish_host_copy(copy)
+        metrics.incr("utterances")
+        metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
+        metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
+
+    # -- several utterances --------------------------------------------------
+
+    @torch.inference_mode()
+    def synthesize_pipelined(self, char: CharacterModel, ref: ReferenceFeatures,
+                             items, sampling: Optional[SamplingConfig] = None,
+                             seed: int = 0, noise_scale: float = 0.5,
+                             fixed_steps: Optional[int] = None, window: int = 4):
+        """Sequential utterances ``items`` = [(text_phones, text_bert)],
+        each through the fused branch with seed ``seed + i``; each
+        waveform's host copy is enqueued behind it and read with up to
+        ``window`` utterances in flight. Returns float32 waveforms."""
+        scfg = sampling or SamplingConfig()
+        tcfg, vcfg = char.t2s_cfg, char.sovits_cfg
+        max_steps = fixed_steps or tcfg.max_decode_steps
+        cap = (fixed_steps if fixed_steps is not None
+               else pick_bucket(max_steps, self.cfg.step_caps))
+        in_flight, out = [], []
+
+        def fetch_one():
+            copy, n = in_flight.pop(0)
+            a = finish_host_copy(copy)
+            out.append(a[0, : 2 * int(finish_host_copy(n)[0]) * vcfg.hop_length]
+                       .astype(np.float32))
+
+        for i, (text_phones, text_bert) in enumerate(items):
+            args, tail, cache_pre = self._solo_inputs(char, ref, text_phones, text_bert)
+            gen = torch.Generator(device=char.device).manual_seed(int(seed) + i)
+            audio, codes_len = _t2s_and_vocode(
+                char.t2s_params, char.sovits_params, tcfg, vcfg, scfg, gen,
+                noise_scale=noise_scale, max_steps=cap, cache_len=cache_pre + cap,
+                min_steps=fixed_steps or 0, max_steps_dyn=max_steps,
+                codes_bucket=cap, vocode_chunk=self.cfg.vocode_chunk,
+                vocode_halo=self.cfg.vocode_halo, **args, **tail)
+            in_flight.append((start_host_copy(audio), start_host_copy(codes_len)))
+            if len(in_flight) >= window:
+                fetch_one()
+        while in_flight:
+            fetch_one()
+        return out
+
+    @torch.inference_mode()
+    def synthesize_batch(self, char: CharacterModel, items,
+                         sampling: Optional[SamplingConfig] = None,
+                         seed: Optional[int] = None, noise_scale: float = 0.5,
+                         fixed_steps: Optional[int] = None, min_steps: int = 0,
+                         max_steps: Optional[int] = None,
+                         stats: Optional[Dict] = None):
+        """Batched synthesis for the window batcher.
+
+        ``items``: [(ref, text_phones, text_bert)]; rows of other lengths
+        batch together through per-row masks. The batch is padded to a
+        ``batch_buckets`` size with copies of the first row, so a batch of
+        B >= 2 decodes through ``generate``'s B > 1 route (the flash kernel
+        in every layer of every step). One ``generate_e2e``, one read of the
+        emitted lengths, one latent over a frame bucket of the longest row
+        and a chunked HiFi-GAN. ``stats`` receives ``decode_steps`` and
+        ``cache_len``. Returns float32 waveforms."""
+        scfg = sampling or SamplingConfig()
+        tcfg, vcfg = char.t2s_cfg, char.sovits_cfg
+        dev = char.device
+        if seed is None:
+            seed = self._next_seed()
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        B = len(items)
+        B_pad = max(pick_bucket(B, self.cfg.batch_buckets), B)
+        items = list(items) + [items[0]] * (B_pad - B)
+        phones_rows = [np.concatenate([r.phones, tp]).astype(np.int64)
+                       for r, tp, _ in items]
+        any_bert = any(bool(np.any(r.bert)) or bool(np.any(tb)) for r, _, tb in items)
+        x_lens = np.array([len(p) for p in phones_rows], np.int64)
+        p_lens = np.array([len(r.prompt_tokens) for r, _, _ in items], np.int64)
+        t_lens = np.array([len(tp) for _, tp, _ in items], np.int64)
+        x_bucket = pick_bucket(int(x_lens.max()), self.cfg.phoneme_buckets)
+        p_bucket = pick_bucket(int(p_lens.max()), self.cfg.prompt_buckets)
+        t_bucket = pick_bucket(int(t_lens.max()), self.cfg.phoneme_buckets)
+        # rows past the largest bucket are truncated: clamp their lengths
+        x_lens = np.minimum(x_lens, x_bucket)
+        p_lens = np.minimum(p_lens, p_bucket)
+        t_lens = np.minimum(t_lens, t_bucket)
+        max_steps = fixed_steps or max_steps or tcfg.max_decode_steps
+        cap = (fixed_steps if fixed_steps is not None
+               else pick_bucket(max_steps, self.cfg.step_caps))
+        bert = (host_to_device(np.stack([
+            pad_to(np.concatenate([r.bert, tb]).astype(np.float32), x_bucket, axis=0)
+            for r, _, tb in items]), dev) if any_bert else None)
+        codes, codes_len = t2s.generate_e2e(
+            char.t2s_params, tcfg, scfg, gen,
+            host_to_device(np.stack([pad_to(p, x_bucket) for p in phones_rows]), dev),
+            bert, host_to_device(x_lens, dev),
+            host_to_device(np.stack([pad_to(np.asarray(r.prompt_tokens, np.int64),
+                                            p_bucket) for r, _, _ in items]), dev),
+            host_to_device(p_lens, dev), max_steps=cap,
+            cache_len=x_bucket + p_bucket + cap, min_steps=fixed_steps or min_steps,
+            max_steps_dyn=max_steps, stats=stats)
+        lens = codes_len.cpu().numpy()
+        c_bucket = pick_bucket(int(max(lens.max(), 1)), self.cfg.frame_buckets)
+        ge = host_to_device(np.stack([r.ge for r, _, _ in items]).astype(np.float32), dev)
+        z = sovits.synthesize_latent(
+            char.sovits_params, vcfg, _fit_codes(codes, c_bucket), codes_len,
+            host_to_device(np.stack([pad_to(np.asarray(tp, np.int64), t_bucket)
+                                     for _, tp, _ in items]), dev),
+            host_to_device(t_lens, dev), ge,
+            host_to_device(np.stack([r.ge_mrte for r, _, _ in items])
+                           .astype(np.float32), dev),
+            noise_scale, generator=gen)
+        audio = sovits.vocode_frames_chunked(
+            char.sovits_params, vcfg, z, ge, 2 * codes_len,
+            chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo).cpu().numpy()
+        metrics.incr("utterances", B)
+        return [audio[i, : 2 * int(lens[i]) * vcfg.hop_length].astype(np.float32)
+                for i in range(B)]
+
 
 # ---------------------------------------------------------------------------
 # Random character factory (tests and the chip smoke run)
@@ -406,3 +702,21 @@ def make_random_character(name: str = "random", language: str = "Japanese",
         name=name, language=language, version=vcfg.version,
         t2s_params=t2s_params, sovits_params=sovits.init_params(gen, vcfg, dtype=dtype),
         t2s_cfg=tcfg, sovits_cfg=vcfg, device=dev)
+
+
+def make_random_reference(char: CharacterModel, engine: TTSEngine,
+                          ref_seconds: float = 5.0, seed: int = 0) -> ReferenceFeatures:
+    """Reference features from white-noise audio, stand-in HuBERT features
+    at 50 Hz and a random 12-phoneme transcript (warmups and tests)."""
+    rng = np.random.default_rng(seed)
+    sr = char.sovits_cfg.sample_rate
+    audio_32k = (rng.standard_normal(int(ref_seconds * sr)) * 0.05).astype(np.float32)
+    ssl = rng.standard_normal((int(ref_seconds * 50), char.t2s_cfg.ssl_dim)).astype(
+        np.float32)
+    ge = engine.compute_v2_speaker_embedding(char, audio_32k)
+    n_ref_phones = 12
+    return ReferenceFeatures(
+        phones=rng.integers(1, char.t2s_cfg.phoneme_vocab, n_ref_phones).astype(np.int32),
+        bert=np.zeros((n_ref_phones, char.t2s_cfg.bert_dim), np.float32),
+        prompt_tokens=engine.compute_prompt_tokens(char, ssl), ge=ge,
+        ge_mrte=ge[: char.sovits_cfg.mrte_channels])

@@ -105,5 +105,10 @@ class ReferenceAudioCache:
             self._features.put(key, feats)
             return feats
 
+    def clear(self) -> None:
+        with self._lock:
+            self._clips.clear()
+            self._features.clear()
+
 
 reference_audio_cache = ReferenceAudioCache()

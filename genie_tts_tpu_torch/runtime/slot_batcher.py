@@ -1,21 +1,34 @@
-"""In-flight continuous batching scheduler (slot engine).
+"""In-flight continuous batching scheduler (slot engine), with streaming.
 
-The non-streaming scheduler of ``genie_tts_tpu/runtime/slot_batcher.py``.
-A persistent B-slot decode machine (``models/slots.py``) lives on the
-character's device: every dispatch advances all occupied slots
-``slot_steps`` tokens, and new requests claim free slots between
-dispatches, so a request joins within a segment; per-request
-``min_steps``/``max_steps`` and sampling parameters are per-row values.
-Finished rows pool for one batched vocode (``engine.vocode_codes_*``).
+The port of ``genie_tts_tpu/runtime/slot_batcher.py``. A persistent B-slot
+decode machine (``models/slots.py``) lives on the character's device:
+every dispatch advances all occupied slots a segment of ``slot_steps``
+tokens, and new requests claim free slots between dispatches, so a
+request joins within a segment; per-request ``min_steps``/``max_steps``
+and sampling parameters are per-row values. Rows without a streaming
+consumer pool when they finish for one batched vocode
+(``engine.vocode_codes_*``).
+
+Streaming (:meth:`SlotBatcher.synthesize_stream`): a streaming row pumps
+WINDOWS during decode. While it owes its first piece the machine runs
+shorter segments (``slot_join_steps``), and the first piece (``slot_first_
+piece`` frames) is vocoded speculatively right behind the row's first
+segment, from codes put together on the device out of that segment's
+tokens; after it, one ``vocode_chunk`` window per half-chunk of decoded
+steps, batched over the pumped rows; at completion only the remainder.
+Pieces reach the consumer as their host copies land. Each pumped row
+draws one flow-noise table at insert, so every window of it sees the same
+noise. ``slot_stream_finisher`` makes every row pump.
 
 One scheduler thread dispatches all device work. The loop is pipelined
-one segment deep: segment k's tokens and flags reach the host (one
-non-blocking copy to pinned memory, and an event) while segment k+1
-runs. Finisher workers only wait for their copies and trim.
+one segment deep: segment k's tokens and flags go to pinned host memory
+(one non-blocking copy and an event) before segment k+1 is dispatched.
+Workers only wait for copies and trim: two for the pooled finisher, one
+(in submission order) for window pieces and window completions.
 
 One scheduler serves one character; ``api.get_slot_batcher`` keeps one
-per loaded character. Not ported yet (ROADMAP.md): the window pump and
-streaming (``synthesize_stream``), windowed KV reads, AOT warmup units.
+per loaded character. Not ported (ROADMAP.md): windowed KV reads, AOT
+warmup units.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import functools
 import logging
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -37,8 +51,20 @@ from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
 from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, finish_host_copy,
                      host_to_device, start_host_copy)
+from .stream import noise_table
 
 logger = logging.getLogger(__name__)
+
+
+def seg_widths(cfg, ring: int) -> "tuple[int, ...]":
+    """The segment widths the scheduler dispatches: slot_steps always, and
+    the shorter slot_join_steps while a streaming row owes its first
+    piece. Both divide the ring."""
+    widths = [cfg.slot_steps]
+    j = cfg.slot_join_steps
+    if j and j != cfg.slot_steps and ring % j == 0:
+        widths.append(j)
+    return tuple(widths)
 
 
 def slot_geometry(cfg, tcfg) -> "tuple[int, int, int, int, int]":
@@ -52,6 +78,24 @@ def slot_geometry(cfg, tcfg) -> "tuple[int, int, int, int, int]":
 def _slot_finisher_t_bucket(cfg) -> int:
     """The ONE text bucket the slot finisher pads to."""
     return pick_bucket(cfg.slot_phoneme_bucket, cfg.phoneme_buckets)
+
+
+def spec_codes(tok0s, seg_tok: torch.Tensor, slots: torch.Tensor, *, fb: int,
+               count: int, vq_codes: int) -> torch.Tensor:
+    """[R, fb] codes for speculative first pieces, on the device: row r is
+    ``tok0s[r]`` ([1] tensors) then the first ``count - 1`` tokens of row
+    ``slots[r]`` of the segment ``seg_tok`` [B, W], which the host has not
+    read; clipped to the codebook."""
+    codes = torch.zeros((len(tok0s), fb), dtype=torch.int64, device=seg_tok.device)
+    codes[:, 0] = torch.cat([t.reshape(1) for t in tok0s]).long()
+    codes[:, 1:count] = seg_tok[slots, :count - 1].long()
+    return torch.clamp(codes, 0, vq_codes - 1)
+
+
+def _stream_close(req: "_Request", err: Optional[BaseException] = None) -> None:
+    """End a streaming consumer: an exception propagates, None ends."""
+    if req.stream_q is not None:
+        req.stream_q.put(err)
 
 
 @dataclass
@@ -70,16 +114,30 @@ class _Request:
     seg_tokens: List[np.ndarray] = field(default_factory=list)
     harvested: bool = False
     cancelled: bool = False       # waiter gave up (timeout): drop, don't decode
+    # window-pump state
+    noise: object = None          # [N, C] flow-noise table, drawn at insert
+    count_seen: int = 0           # tokens confirmed by the last fetched segment
+    emitted: int = 0              # latent frames already dispatched to vocode
+    pieces: dict = field(default_factory=dict)   # start frame -> piece
+    final_codes: Optional[np.ndarray] = None
+    # streaming consumer: pieces are pushed here as their copies land;
+    # None ends the stream, an exception propagates
+    stream_q: Optional[queue.Queue] = None
+    # time-to-first-audio stamps (perf_counter), observed as ttfa_* timers
+    t_submit: float = 0.0
+    t_join: float = 0.0
+    t_first_dispatch: float = 0.0
 
 
 class SlotBatcher:
     """Persistent B-slot decode loop with between-segment joins.
 
-    ``pcm16``: results are int16 PCM made on the device (half the host
-    copy of float32); the serving path enables it.
+    ``pcm16``: results and stream pieces are int16 PCM made on the device
+    (half the host copy of float32); the serving path enables it.
 
     ``stats`` counts what the loop dispatched: ``segments``, ``steps``
-    (decode steps) and ``peak_occupancy``."""
+    (decode steps), ``peak_occupancy`` and ``streams`` (streaming
+    requests that joined)."""
 
     def __init__(self, engine: TTSEngine, char: CharacterModel, pcm16: bool = False):
         self.engine = engine
@@ -89,21 +147,45 @@ class SlotBatcher:
         tcfg = char.t2s_cfg
         (self.n_slots, self.W, self.ring, self.sx, self.sp) = slot_geometry(self.cfg, tcfg)
         self._t_buckets = (_slot_finisher_t_bucket(self.cfg),)
-        # _decode_seg is an attribute so tests can inject faults through it.
         # int8 KV caches read through the int8_big_attention kernel (on CPU
         # tensors its wrapper runs the plain version)
-        self._decode_seg = functools.partial(
-            slots_mod.decode_segment, cfg=tcfg, seg_steps=self.W, sx=self.sx,
-            sp=self.sp, ring_len=self.ring, kv_kernel=self.cfg.slot_kv_int8)
-        self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0}
+        self._decode_segs = {
+            w: functools.partial(slots_mod.decode_segment, cfg=tcfg, seg_steps=w,
+                                 sx=self.sx, sp=self.sp, ring_len=self.ring,
+                                 kv_kernel=self.cfg.slot_kv_int8)
+            for w in seg_widths(self.cfg, self.ring)}
+        # the default width's segment is an attribute so tests can inject
+        # faults through it
+        self._decode_seg = self._decode_segs[self.W]
+        self.join_W = min(self._decode_segs)       # == W when join steps are off
+        # the window pump: every row with slot_stream_finisher, else only
+        # rows with a streaming consumer
+        self.windows = self.cfg.slot_stream_finisher
+        self.chunk = self.cfg.vocode_chunk
+        self.halo = self.cfg.vocode_halo
+        self.win = self.chunk + 2 * self.halo
+        self.win_small = self.chunk // 2 + 2 * self.halo
+        self.lookahead = self.cfg.stream_lookahead
+        # the first piece must fit the large window
+        self.first_piece = min(self.cfg.slot_first_piece, self.chunk)
+        # a small window of its own for first pieces and short remainders
+        self.win_first = self.first_piece + 2 * self.halo if self.first_piece else 0
+        if not self.win_first or self.win_first >= self.win_small:
+            self.win_first = self.win_small
+        self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0}
         self._reset_state()
         self._slots: List[Optional[_Request]] = [None] * self.n_slots
         self._q: "queue.Queue[_Request]" = queue.Queue()
+        self._defer_pump = False
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
         self._vocoder = ThreadPoolExecutor(max_workers=2,
                                            thread_name_prefix="slot-vocode")
+        # window pieces and window completions on ONE worker, in submission
+        # order: a completion never reads a piece still in flight
+        self._winworker = ThreadPoolExecutor(max_workers=1,
+                                             thread_name_prefix="slot-windows")
         # finished rows awaiting the pooled finisher: [req, count, age_in_segments]
         self._finish_pending: List[list] = []
 
@@ -133,14 +215,21 @@ class SlotBatcher:
                 and len(ref.prompt_tokens) <= self.sp)
 
     def warmup(self, ref: ReferenceFeatures, text_phones: np.ndarray,
-               max_steps: Optional[int] = None) -> int:
+               max_steps: Optional[int] = None, streaming: bool = False) -> int:
         """One small real request through prefill, insert, a segment and
-        the finisher (builds the kernels on first use). Returns 1."""
+        the finisher (builds the kernels on first use), and with
+        ``streaming`` one small stream (the join segments, the speculative
+        first piece, the window completion). Returns the requests run."""
         max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
+        steps = min(2 * self.W, max_steps)
         bert = np.zeros((len(text_phones), self.char.t2s_cfg.bert_dim), np.float32)
-        self.synthesize(ref, text_phones, bert, timeout=600,
-                        max_steps=min(2 * self.W, max_steps))
-        return 1
+        self.synthesize(ref, text_phones, bert, timeout=600, max_steps=steps)
+        if not streaming:
+            return 1
+        for _ in self.synthesize_stream(ref, text_phones, bert, timeout=600,
+                                        min_steps=steps, max_steps=steps):
+            pass
+        return 2
 
     def synthesize(self, ref: ReferenceFeatures, phones: np.ndarray, bert: np.ndarray,
                    timeout: Optional[float] = None, min_steps: int = 0,
@@ -163,10 +252,52 @@ class SlotBatcher:
             raise req.error
         return req.result
 
+    def synthesize_stream(self, ref: ReferenceFeatures, phones: np.ndarray,
+                          bert: np.ndarray, timeout: Optional[float] = None,
+                          min_steps: int = 0, max_steps: Optional[int] = None,
+                          sampling: Optional[SamplingConfig] = None):
+        """Streaming submit: yields PCM pieces as the window pump emits
+        them, while the request decodes in flight beside others (the
+        counterpart under load of the solo segmented stream). ``timeout``
+        bounds the whole stream."""
+        self.start()
+        max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
+        if self.first_piece:
+            # the speculative first piece claims this many tokens of the
+            # row's first segment, which is sound only if EOS cannot land
+            # in them (16 codes = 0.32 s of audio, below any real
+            # utterance)
+            min_steps = max(min_steps, min(self.first_piece // 2 + self.lookahead,
+                                           max_steps))
+        req = _Request(ref, np.asarray(phones, np.int32), bert,
+                       min_steps=min(min_steps, max_steps), max_steps=max_steps,
+                       sampling=sampling, stream_q=queue.Queue(),
+                       t_submit=time.perf_counter())
+        self._q.put(req)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            budget = (None if deadline is None
+                      else max(deadline - time.monotonic(), 0.001))
+            try:
+                item = req.stream_q.get(timeout=budget)
+            except queue.Empty:
+                req.cancelled = True
+                raise TimeoutError("slot-batched stream timed out") from None
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
     # -- scheduler --------------------------------------------------------
 
     def _occupied(self) -> bool:
         return any(r is not None for r in self._slots)
+
+    def _stream_waiter_queued(self) -> bool:
+        """A streaming request is waiting to join."""
+        with self._q.mutex:
+            return any(r.stream_q is not None and not r.cancelled for r in self._q.queue)
 
     def _drop_cancelled(self) -> None:
         """Free slots whose waiters timed out."""
@@ -192,6 +323,7 @@ class SlotBatcher:
                 self._insert_request(b, req)
             except BaseException as e:  # noqa: BLE001 — bad request only
                 req.error = e
+                _stream_close(req, e)
                 req.done.set()
                 free.insert(0, b)
 
@@ -220,6 +352,9 @@ class SlotBatcher:
                 samp=SamplingRows(*(host_to_device(a, dev) for a in samp)),
                 generator=self._gen, any_top_p=bool(samp.top_p[0] < 1.0))
         req.tok0_dev = tok0   # reaches the host with the next segment's fetch
+        if self.windows or req.stream_q is not None:
+            # one flow-noise table for every window of this request
+            req.noise = noise_table(self.cfg, self.char.sovits_cfg, self._gen)
         # ring invariant: a row never decodes more tokens than the ring holds
         mx = min(req.max_steps, self.ring)
         self._state = slots_mod.insert_slot(
@@ -227,17 +362,22 @@ class SlotBatcher:
             len(ref.prompt_tokens), min(req.min_steps, mx), mx,
             SamplingRows(*(a[0] for a in samp)))
         self._slots[b] = req
+        if req.stream_q is not None:
+            self.stats["streams"] += 1
+            req.t_join = time.perf_counter()
+            metrics.observe("ttfa_queue_wait", req.t_join - req.t_submit)
 
     def _harvest(self, seg_tok: np.ndarray, done: np.ndarray, counts: np.ndarray,
                  occupants: List[Optional[_Request]]) -> None:
         """Collect one fetched segment. ``occupants`` is the slot list AT
         DISPATCH TIME: with the depth-1 pipeline a finished row can still
         appear (done) in the next segment, so completion is guarded by the
-        request's harvested flag. Finished rows pool for the finisher."""
+        request's harvested flag. Finished rows go to ``_finish_pending``."""
         for b, req in enumerate(occupants):
             if req is None or req.harvested:
                 continue
             req.seg_tokens.append(seg_tok[b])
+            req.count_seen = int(counts[b])
             if done[b]:
                 req.harvested = True
                 if self._slots[b] is req:
@@ -245,18 +385,215 @@ class SlotBatcher:
                 self._state = slots_mod.release_slot(self._state, b)
                 self._finish_pending.append([req, int(counts[b]), 0])
 
+    # -- window pump -------------------------------------------------------
+
+    def _codes_so_far(self, req: _Request, count: int) -> np.ndarray:
+        return np.concatenate([[req.tok0_np]] + req.seg_tokens)[:count]
+
+    def _fetch_tok0(self, reqs) -> None:
+        """First tokens that no segment fetch has brought yet (one read)."""
+        missing = [r for r in reqs if r.tok0_np is None]
+        if missing:
+            vals = torch.cat([r.tok0_dev.reshape(-1) for r in missing]).cpu().tolist()
+            for r, v in zip(missing, vals):
+                r.tok0_np = int(v)
+
+    def _win_for(self, jobs) -> int:
+        """Smallest window covering every job's width + the halos."""
+        need = max(width for *_x, width in jobs) + 2 * self.halo
+        for w in (self.win_first, self.win_small, self.win):
+            if need <= w:
+                return w
+        raise ValueError(
+            f"no vocode window covers width+halo={need} frames (windows: "
+            f"{self.win_first}, {self.win_small}, {self.win}); job widths must be "
+            f"clamped to vocode_chunk={self.chunk}")
+
+    def _dispatch_windows(self, jobs, codes_dev=None) -> None:
+        """One batched latent + window vocode for ``jobs`` = [(req, codes,
+        count, start, width_frames)], dispatched here on the scheduler
+        thread; the piece fetch runs on the window worker. ``codes_dev``:
+        device codes that replace the jobs' codes (the speculative first
+        piece)."""
+        rows = [(req.ref, req.phones, codes, count, req.noise, start, width)
+                for req, codes, count, start, width in jobs]
+        with metrics.timer("slot_window_vocode"):
+            handle = self.engine.vocode_windows_dispatch(
+                self.char, rows, win=self._win_for(jobs), pcm16=self.pcm16,
+                t_buckets=self._t_buckets, codes_dev=codes_dev)
+        metrics.gauge("slot_window_rows", len(jobs))
+        now = time.perf_counter()
+        for req, _, _, start, width in jobs:
+            req.emitted = start + width
+            if start == 0 and req.stream_q is not None and req.t_join:
+                req.t_first_dispatch = now
+                metrics.observe("ttfa_join_to_dispatch", now - req.t_join)
+        meta = [(req, start) for req, _, _, start, _ in jobs]
+
+        @torch.inference_mode()
+        def fetch(meta=meta, handle=handle):
+            try:
+                for (req, start), piece in zip(meta,
+                                               TTSEngine.vocode_windows_fetch(handle)):
+                    req.pieces[start] = piece
+                    if req.stream_q is not None and not req.cancelled:
+                        if start == 0 and req.t_first_dispatch:
+                            t = time.perf_counter()
+                            metrics.observe("ttfa_dispatch_to_piece",
+                                            t - req.t_first_dispatch)
+                            metrics.observe("ttfa_total", t - req.t_submit)
+                        req.stream_q.put(piece)
+            except BaseException as e:  # noqa: BLE001 — surface to the waiters
+                logger.exception("window fetch failed")
+                for req, _ in meta:
+                    req.error = e
+                    _stream_close(req, e)
+                    req.done.set()
+
+        self._winworker.submit(fetch)
+
+    def _spec_first_pieces(self, seg_tok: torch.Tensor, seg_w: int) -> None:
+        """Speculative first pieces for streaming rows whose FIRST segment
+        is the one just dispatched: the vocode is enqueued right behind that
+        segment, with codes put together on the device from its tokens
+        (:func:`spec_codes`), so the join -> first audio chain crosses one
+        device round trip. Sound because such rows have min_steps >= the
+        claimed count, so every claimed token is a real pre-EOS token."""
+        if not self.first_piece:
+            return
+        count = self.first_piece // 2 + self.lookahead
+        if count - 1 > seg_w:
+            return                      # one segment cannot cover it
+        jobs, slots = [], []
+        for b, req in enumerate(self._slots):
+            if (req is not None and req.stream_q is not None and not req.harvested
+                    and not req.cancelled and req.emitted == 0 and req.count_seen == 0
+                    and req.tok0_dev is not None and req.min_steps >= count):
+                jobs.append((req, None, count, 0, self.first_piece))
+                slots.append(b)
+        if not jobs:
+            return
+        fb = pick_bucket(max(count, -(-self._win_for(jobs) // 2)), self.cfg.frame_buckets)
+        R = len(jobs)
+        R_pad = max(pick_bucket(R, self.cfg.batch_buckets), R)
+        tok0s = [req.tok0_dev for req, *_ in jobs] + [jobs[0][0].tok0_dev] * (R_pad - R)
+        rows = host_to_device(np.asarray(slots + [slots[0]] * (R_pad - R), np.int64),
+                              seg_tok.device)
+        codes_dev = spec_codes(tok0s, seg_tok, rows, fb=fb, count=count,
+                               vq_codes=self.char.sovits_cfg.vq_codes)
+        self._dispatch_windows(jobs, codes_dev=codes_dev)
+
+    def _run_pump_flush(self) -> None:
+        """One round of vocode dispatches: the pump on the chunk cadence (a
+        half-chunk of decoded steps since the last pump), or every segment
+        while a streaming row still owes its first piece (then only those
+        rows); then the finisher flush (forced when the machine idles)."""
+        on_cadence = self._steps_since_pump >= self.chunk // 2
+        if on_cadence:
+            self._steps_since_pump = 0
+        if on_cadence or (self.first_piece and any(
+                r.emitted == 0 and r.stream_q is not None for r in self._pump_rows())):
+            self._pump_windows(first_only=not on_cadence)
+        with metrics.timer("slot_flush_host"):
+            self._flush_finishers_maybe(force=not self._occupied())
+
+    def _pump_rows(self) -> list:
+        """Rows the pump serves: every in-flight row with
+        ``slot_stream_finisher``, else the rows with a streaming consumer."""
+        return [r for r in self._slots
+                if r is not None and not r.harvested and not r.cancelled
+                and (self.windows or r.stream_q is not None)]
+
+    def _pump_windows(self, first_only: bool = False) -> None:
+        """Vocode one chunk for every pumped row whose decoded frontier
+        (lookahead-guarded) is a full chunk past what it has emitted; a
+        streaming row's FIRST piece is the small ``first_piece`` window
+        instead. ``first_only`` serves only rows awaiting that piece."""
+        jobs = []
+        for req in self._pump_rows():
+            frontier = 2 * max(req.count_seen - self.lookahead, 0)
+            if self.first_piece and req.emitted == 0 and req.stream_q is not None:
+                if frontier >= self.first_piece:
+                    jobs.append((req, self.first_piece))
+            elif not first_only and frontier - req.emitted >= self.chunk:
+                jobs.append((req, self.chunk))
+        if not jobs:
+            return
+        self._fetch_tok0([req for req, _ in jobs])
+        self._dispatch_windows([
+            (req, self._codes_so_far(req, req.count_seen), req.count_seen,
+             req.emitted, width) for req, width in jobs])
+
+    def _flush_finishers_windows(self, pend) -> None:
+        """Completion of pumped rows: vocode only the REMAINDER of each
+        (the pump already emitted up to its frontier), then assemble the
+        pieces in order on the window worker."""
+        reqs = [r for r, _, _ in pend]
+        try:
+            self._fetch_tok0(reqs)
+            for req, count, _ in pend:
+                req.final_codes = finalize_semantic_tokens(
+                    self._codes_so_far(req, count)[None], np.array([count]),
+                    self.char.t2s_cfg.eos_id)[0]
+            while True:
+                jobs = []
+                for req in reqs:
+                    total = 2 * len(req.final_codes)
+                    if req.emitted < total:
+                        jobs.append((req, req.final_codes, len(req.final_codes),
+                                     req.emitted, min(self.chunk, total - req.emitted)))
+                if not jobs:
+                    break
+                self._dispatch_windows(jobs)
+        except BaseException as e:  # noqa: BLE001 — surface to the waiters
+            logger.exception("window completion dispatch failed")
+            for req in reqs:
+                req.error = e
+                _stream_close(req, e)
+                req.done.set()
+            return
+
+        def assemble(reqs=reqs):
+            for req in reqs:
+                if req.done.is_set():
+                    continue
+                try:
+                    total = 2 * len(req.final_codes) * self.char.sovits_cfg.hop_length
+                    parts = [req.pieces[k] for k in sorted(req.pieces)]
+                    dtype = np.int16 if self.pcm16 else np.float32
+                    audio = np.concatenate(parts) if parts else np.zeros(0, dtype)
+                    req.result = audio[:total]
+                    metrics.incr("slot_utterances")
+                    _stream_close(req)
+                except BaseException as e:  # noqa: BLE001
+                    logger.exception("window assembly failed")
+                    req.error = e
+                    _stream_close(req, e)
+                finally:
+                    req.done.set()
+
+        self._winworker.submit(assemble)
+
     def _flush_finishers_maybe(self, force: bool = False) -> None:
-        """Dispatch the pooled finisher vocode when the batch is worth it:
-        on ``force`` (idle or shutdown), at ``slot_finisher_batch`` rows,
-        when the oldest row has waited ``slot_finisher_wait_segs``
-        segments, or when the machine starves (free slots and an empty
-        queue: the pooled rows' clients are the ones who would refill
-        it)."""
+        """Complete finished rows. Pumped rows (streaming consumers, or
+        every row with ``slot_stream_finisher``) complete at once through
+        the window path. The rest pool for one batched vocode, flushed on
+        ``force`` (idle or shutdown), at ``slot_finisher_batch`` rows, when
+        the oldest row has waited ``slot_finisher_wait_segs`` segments, or
+        when the machine starves (free slots and an empty queue: the pooled
+        rows' clients are the ones who would refill it)."""
         pend = [e for e in self._finish_pending if not e[0].cancelled]
         for e in self._finish_pending:
             if e[0].cancelled and not e[0].done.is_set():
                 e[0].done.set()
+        win_pend = [e for e in pend
+                    if self.windows or e[0].stream_q is not None or e[0].emitted > 0]
+        win_ids = {id(e) for e in win_pend}      # identity: == compares arrays
+        pend = [e for e in pend if id(e) not in win_ids]
         self._finish_pending = pend
+        if win_pend:
+            metrics.gauge("slot_finisher_rows", len(win_pend))
+            self._flush_finishers_windows(win_pend)
         if not pend:
             return
         oldest = max(e[2] for e in pend)
@@ -268,12 +605,12 @@ class SlotBatcher:
         metrics.gauge("slot_finisher_rows", len(pend))
         reqs = [r for r, _, _ in pend]
         try:
-            # tok0 reached the host with the first segment fetched after the
-            # row joined, which is no later than the one that harvested it
+            # tok0 usually reached the host with a segment fetch
+            self._fetch_tok0(reqs)
             items = []
             for req, count, _ in pend:
-                toks = np.concatenate([[req.tok0_np]] + req.seg_tokens)[:count]
-                codes = finalize_semantic_tokens(toks[None], np.array([count]),
+                codes = finalize_semantic_tokens(self._codes_so_far(req, count)[None],
+                                                 np.array([count]),
                                                  self.char.t2s_cfg.eos_id)[0]
                 items.append((req.ref, req.phones, codes))
             handle = self.engine.vocode_codes_dispatch(
@@ -301,28 +638,31 @@ class SlotBatcher:
             for req in reqs:
                 req.done.set()
 
-    def _dispatch_segment(self):
-        """Dispatch one segment and enqueue its outputs' copy to the host:
-        the tokens, done flags and counts, and the first tokens of rows
-        whose tok0 has not reached the host, in one tensor."""
+    def _dispatch_segment(self, w: int):
+        """Dispatch one segment of ``w`` steps and enqueue its outputs'
+        copy to the host: the tokens, done flags and counts, and the first
+        tokens of rows whose tok0 has not reached the host, in one tensor.
+        Returns (the pending fetch, the segment's device tokens)."""
         occ = sum(r is not None for r in self._slots)
         metrics.gauge("slot_occupancy", occ)
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
+        seg_fn = self._decode_seg if w == self.W else self._decode_segs[w]
         with metrics.timer("slot_segment"):
-            self._state, seg_tok = self._decode_seg(self.char.t2s_params, self._state,
-                                                    generator=self._gen)
+            self._state, seg_tok = seg_fn(self.char.t2s_params, self._state,
+                                          generator=self._gen)
         self.stats["segments"] += 1
-        self.stats["steps"] += self.W
+        self.stats["steps"] += w
+        self._steps_since_pump += w
         occupants = list(self._slots)
         tok0_rows = [r for r in occupants if r is not None and r.tok0_np is None]
         st = self._state
         packed = torch.cat([seg_tok.reshape(-1), st.done.int(), st.counts]
                            + [r.tok0_dev.reshape(-1) for r in tok0_rows])
-        return start_host_copy(packed), occupants, tok0_rows
+        return (start_host_copy(packed), occupants, tok0_rows, w), seg_tok
 
     def _fetch_segment(self, pending) -> None:
-        copy, occupants, tok0_rows = pending
-        B, W = self.n_slots, self.W
+        copy, occupants, tok0_rows, W = pending
+        B = self.n_slots
         with metrics.timer("slot_fetch"):
             flat = finish_host_copy(copy)
         seg_tok = flat[:B * W].reshape(B, W)
@@ -343,6 +683,20 @@ class SlotBatcher:
             # drain on shutdown: no waiter may hang on a dead scheduler
             self._fail_all(RuntimeError("slot batcher stopped"))
 
+    def _segment_width(self) -> int:
+        """Short segments while a streaming row owes its first piece (fewer
+        segment boundaries before first audio), and wherever a full one
+        would run past the end of the ring (mixed widths leave the head
+        off the W grid)."""
+        w = self.W
+        if self.join_W != self.W and any(
+                r is not None and r.stream_q is not None and r.emitted == 0
+                and not r.harvested and not r.cancelled for r in self._slots):
+            w = self.join_W
+        if self._state.ring_head + w > self.ring:
+            w = self.join_W
+        return w
+
     def _loop_body(self) -> None:
         # depth-1 pipeline: dispatch segment k+1 BEFORE waiting for segment
         # k's outputs, so the host work overlaps the device's. Joins land
@@ -353,12 +707,27 @@ class SlotBatcher:
             try:
                 self._fill_slots(block=not self._occupied() and pending is None
                                  and not self._finish_pending)
-                dispatched = self._dispatch_segment() if self._occupied() else None
+                dispatched = None
+                if self._occupied():
+                    w = self._segment_width()
+                    dispatched, seg_tok = self._dispatch_segment(w)
+                    self._spec_first_pieces(seg_tok, w)
+                if self._defer_pump:
+                    # vocode work held back from the previous iteration, so
+                    # a joining stream's prefill, segment and first piece
+                    # were queued on the device ahead of it
+                    self._defer_pump = False
+                    self._run_pump_flush()
                 if pending is not None:
                     self._fetch_segment(pending)
                 pending = dispatched
-                with metrics.timer("slot_flush_host"):
-                    self._flush_finishers_maybe(force=not self._occupied())
+                # hold this iteration's vocode work back one segment when a
+                # stream is waiting and can join: its first piece must not
+                # queue behind chunk pumps and finisher flushes
+                if self._stream_waiter_queued() and any(r is None for r in self._slots):
+                    self._defer_pump = True
+                else:
+                    self._run_pump_flush()
             except BaseException as e:  # noqa: BLE001 — device or CUDA faults
                 # the device state is suspect: fail every waiter loudly and
                 # rebuild the slot state for later traffic
@@ -371,12 +740,14 @@ class SlotBatcher:
         for req, _, _ in self._finish_pending:
             if not req.done.is_set():
                 req.error = e
+                _stream_close(req, e)
                 req.done.set()
         self._finish_pending = []
         for b, req in enumerate(self._slots):
             if req is not None and not req.harvested:
                 req.harvested = True
                 req.error = e
+                _stream_close(req, e)
                 req.done.set()
             self._slots[b] = None
         while True:
@@ -385,13 +756,16 @@ class SlotBatcher:
             except queue.Empty:
                 break
             req.error = e
+            _stream_close(req, e)
             req.done.set()
 
     def _reset_state(self) -> None:
         dev = self.char.device
+        self._steps_since_pump = 0
         self._state = slots_mod.init_slots(
             self.char.t2s_cfg, self.n_slots, self.sx, self.sp, self.ring,
             dtype=self.char.t2s_params["audio_embed"].dtype,
             kv_int8=self.cfg.slot_kv_int8, device=dev)
         # one generator on the scheduler thread draws every Gumbel table
+        # and every pumped row's noise table
         self._gen = torch.Generator(device=dev).manual_seed(0)

@@ -169,3 +169,20 @@ def float_to_pcm16_bytes(audio: np.ndarray) -> bytes:
     ``Core/TTSPlayer.py:51-53``)."""
     return (np.clip(np.asarray(audio, np.float32), -1.0, 1.0)
             * 32767.0).astype("<i2").tobytes()
+
+
+def pcm16_bytes(audio: np.ndarray) -> bytes:
+    """Little-endian PCM16 bytes of a waveform: int16 samples as they
+    are, float samples through :func:`float_to_pcm16_bytes`. (The JAX
+    package's session sends int16 pieces through the float conversion
+    too, which turns them into a square wave of {-32767, 0, 32767}.)"""
+    if audio.dtype == np.int16:
+        return audio.astype("<i2").tobytes()
+    return float_to_pcm16_bytes(audio)
+
+
+def as_float(audio: np.ndarray) -> np.ndarray:
+    """A waveform as float32 in [-1, 1] (int16 PCM scaled by 1/32767)."""
+    if audio.dtype == np.int16:
+        return audio.astype(np.float32) / 32767.0
+    return np.asarray(audio, np.float32)

@@ -262,7 +262,8 @@ def test_port_imports_nothing_of_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "for m in ('models.slots', 'runtime.slot_batcher', 'ops.int8_decode',\n"
-            "          'utils.metrics'):\n"
+            "          'utils.metrics', 'server.http', 'runtime.session',\n"
+            "          'runtime.stream', 'runtime.batcher', 'convert.torch_convert'):\n"
             "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'genie_tts_tpu' or m.startswith('genie_tts_tpu.')]\n"

@@ -133,6 +133,49 @@ def test_fused_kernel_repeats_itself(cuda, wname):
 
 
 @pytest.mark.cuda
+def test_fused_first_launches_from_threads(cuda):
+    """8 request threads launch the fused step on one fresh packing at
+    once: the launch count is exact and ONE tiled copy of the weights is
+    built (the first launch adds it to the packing under a lock)."""
+    import threading
+
+    class Packing(dict):
+        sets = 0
+
+        def __setitem__(self, k, v):
+            if k == "tqkv":
+                Packing.sets += 1
+            super().__setitem__(k, v)
+
+    cfg, packed, h, kc, vc = _fused_case(cuda, "int8", 3, 256)
+    packed = Packing(packed)
+    mask = (torch.arange(256, device="cuda") <= 100).float()
+    torch.cuda.synchronize()
+    before = fu.fused_decode_step.launches
+    barrier = threading.Barrier(8)
+    errors = []
+
+    def launch():
+        try:
+            ka, va = kc.clone(), vc.clone()
+            barrier.wait(timeout=60)
+            for _ in range(4):
+                fu.fused_decode_step(packed, h, ka, va, 100, mask, num_heads=cfg.num_heads)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert fu.fused_decode_step.launches - before == 32
+    assert Packing.sets == 1
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.randn((2, 4, 32), device="cuda", dtype=torch.float16)
     k = torch.randn((2, 4, 16, 32), device="cuda", dtype=torch.float16)

@@ -196,7 +196,7 @@ def test_make_synth_fn_takes_the_slot_route_on_cpu(tmp_path, monkeypatch):
     try:
         assert api.set_reference_audio("slots", tmp_path / "ref.wav",
                                        "こんにちは、てすとです", "ja")
-        synth = api._make_synth_fn("slots", use_batcher=True)
+        synth, _ = api._make_synth_fn("slots", use_batcher=True)
         audio = synth("きょうはいいてんきですね。")
         sb = api._slot_batchers["slots"]
         assert sb.cfg.slot_kv_int8 and sb._state.k_cache.dtype == torch.int8
@@ -205,7 +205,7 @@ def test_make_synth_fn_takes_the_slot_route_on_cpu(tmp_path, monkeypatch):
         assert len(audio) % (2 * 640) == 0
         # the solo route without the batcher: float32, no new segments
         segs = sb.stats["segments"]
-        solo = api._make_synth_fn("slots")("きょうはいいてんきですね。")
+        solo = api._make_synth_fn("slots")[0]("きょうはいいてんきですね。")
         assert solo.dtype == np.float32 and sb.stats["segments"] == segs
     finally:
         api.unload_character("slots")
