@@ -30,7 +30,11 @@ Phases, each of which must pass:
    events around ``decode_segment`` on the live state.
 7. slot serving in the bf16 KV mode (the JAX package's default): 2
    requests through ``SlotBatcher.synthesize``; the int8 kernel must not
-   launch.
+   launch, and segments must read windowed KV (``windowed_segments``).
+   Then greedy fp32 slot codes on the card with the windows the
+   scheduler picks vs the full read (identical), and a 32-step segment at
+   occupancy 8, bf16 KV, with windows (256, 256) vs the full 896-column
+   read (CUDA events, and the device's busy time under torch.profiler).
 8. slot slice check: greedy fp32 slot-machine codes with the int8 KV cache
    on the card (through the kernel) vs the CPU (plain version).
 9. serve: the port's HTTP server in-process (127.0.0.1, port 0), phase
@@ -49,7 +53,18 @@ Phases, each of which must pass:
    launches follow). Every response must be 200 with 2 x 2*codes*640
    bytes of PCM holding more than 1000 distinct values; each route prints
    its latency, time to the first chunk, audio seconds and launches.
-10. kernels: each kernel against its plain PyTorch version on the card at
+10. V2ProPlus (full width): a random V2ProPlus character (gin 1024, the
+   full prompt encoder, int8 decode weights, bf16, a 128-step cap, EOS
+   pinned) and a random full ERes2NetV2 as ``GENIE_SV_MODEL``, through
+   ``load_character`` -> ``set_reference_audio`` (timed: HuBERT, Kaldi
+   fbank, ERes2NetV2, prompt encoder) -> ``tts`` twice (fused launches =
+   decode steps, ge [1024, 1], ge_mrte [512, 1]), the SV forward timed
+   alone, then 2 concurrent requests on the int8 slot route (int8
+   launches = 24 x slot steps).
+11. V2ProPlus slice check, card vs CPU on fp32 weights: the SV embedding
+   (relative L2 <= 1e-3), ge / ge_mrte (within 1e-3), greedy fp32 codes
+   (agreement >= 0.9).
+12. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths gave it (max error vs the stated tolerance),
    then its time, the plain version's, the library yardstick's and the
    least time the card could take (bound). Kernel times are device time
@@ -482,28 +497,18 @@ def phase_slots(torch, root: Path):
     sb.stop()
     sb._thread.join(timeout=120)
     from genie_tts_tpu_torch.models import slots
-    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, SamplingRows, rows_from_config
     from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
 
     feats = reference_audio_cache.get_features(
         api.engine, char, str(root / "ref.wav"), "こんにちは、てすとです", "Japanese")
     phones = np.concatenate([feats.phones, api.get_phones_and_bert("。" + SENTENCES[0],
                                                                    "ja")[0]])
-    samp = rows_from_config(SamplingConfig(), 1)
+    ctx, samp = _slot_rows(torch, char, feats, phones, sb.sx, sb.sp)
     state = sb._state
     with torch.inference_mode():
-        ctx = slots.prefill_join(
-            char.t2s_params, char.t2s_cfg,
-            torch.tensor(np.pad(phones, (0, sb.sx - len(phones)))[None], device=DEV).long(),
-            None, torch.tensor([len(phones)], device=DEV),
-            torch.tensor(np.pad(feats.prompt_tokens, (0, sb.sp - len(feats.prompt_tokens)))[None],
-                         device=DEV).long(),
-            torch.tensor([len(feats.prompt_tokens)], device=DEV),
-            SamplingRows(*(torch.tensor(a, device=DEV) for a in samp)),
-            generator=sb._gen, any_top_p=False)
         for b in range(sb.n_slots):
             state = slots.insert_slot(state, b, *ctx, len(phones), len(feats.prompt_tokens),
-                                      sb.ring, sb.ring, SamplingRows(*(a[0] for a in samp)))
+                                      sb.ring, sb.ring, samp)
         seg_ms = []
         for _ in range(4):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -574,8 +579,156 @@ def phase_slots_bf16(torch, char, feats, phones):
     for a in out.values():
         check(a.dtype == np.int16 and len(a) == 2 * 64 * 640, f"bf16 slot audio {len(a)}")
     check(i8.int8_big_attention.launches == 0, "the bf16 slot mode launched the int8 kernel")
+    check(sb.windowed_kv and sb.stats["windowed_segments"] > 0,
+          f"the bf16 slot mode read no windows: {sb.stats}")
     print(f"[slots bf16] 2 requests of 64 steps in {wall:.3f} s, {sb.stats['segments']} "
-          f"segments, no int8 launches")
+          f"segments ({sb.stats['windowed_segments']} with windowed KV reads), no int8 "
+          f"launches")
+    windowed_slice_check(torch, char)
+    return window_timing(torch, char, feats, phones)
+
+
+def _slot_rows(torch, char, feats, phones, sx, sp):
+    """The prefilled context of one request at the slot geometry."""
+    import numpy as np
+
+    from genie_tts_tpu_torch.models import slots
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, SamplingRows, rows_from_config
+
+    samp = rows_from_config(SamplingConfig(), 1)
+    with torch.inference_mode():
+        ctx = slots.prefill_join(
+            char.t2s_params, char.t2s_cfg,
+            torch.tensor(np.pad(phones, (0, sx - len(phones)))[None], device=DEV).long(),
+            None, torch.tensor([len(phones)], device=DEV),
+            torch.tensor(np.pad(feats.prompt_tokens, (0, sp - len(feats.prompt_tokens)))[None],
+                         device=DEV).long(),
+            torch.tensor([len(feats.prompt_tokens)], device=DEV),
+            SamplingRows(*(torch.tensor(a, device=DEV) for a in samp)), any_top_p=False,
+            generator=torch.Generator(device=DEV).manual_seed(7))
+    return ctx, SamplingRows(*(a[0] for a in samp))
+
+
+def windowed_slice_check(torch, char):
+    """Greedy fp32 slot codes on the card, exact KV: windows picked by the
+    scheduler's ``_pick_windows`` from the same bookkeeping (context ladder
+    48/80, ring ladder 16/32, so the last segments fall back to the full
+    read) against the full read on every segment. They must be identical."""
+    import types
+
+    from genie_tts_tpu_torch.models import slots
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, rows_from_config
+    from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher
+
+    cfg = char.t2s_cfg
+    Sx, Sp, ring, W, V, steps = 32, 64, 64, 8, cfg.semantic_vocab, 40
+    g = torch.Generator().manual_seed(6)
+    phones = torch.randint(1, cfg.phoneme_vocab, (2, Sx), generator=g)
+    prompts = torch.randint(0, 1024, (2, Sp), generator=g)
+    x_len, p_len = [27, 12], [50, 33]
+    samp = rows_from_config(SamplingConfig(top_k=1), 1)
+    p = to_device(torch, fp32_params(torch, char), DEV)
+    toks, picked = {}, []
+    for windowed in (True, False):
+        book = types.SimpleNamespace(windowed_kv=windowed, _slots=[None, None], _merged=[0, 0],
+                                     _ctx_ladder=(48, 80), _ring_ladder=(16, 32))
+        streams = [[], []]
+        with torch.inference_mode():
+            st = slots.init_slots(cfg, 2, Sx, Sp, ring, torch.float32, device=DEV)
+            zeros = torch.zeros((W, 2, V), device=DEV)
+            for seg in range(6):
+                if seg < 2:                      # row 0 joins, then row 1 a segment later
+                    b = seg
+                    k, v, tok0, hist = slots.prefill_join(
+                        p, cfg, phones[b:b + 1].to(DEV), None,
+                        torch.tensor([x_len[b]], device=DEV), prompts[b:b + 1].to(DEV),
+                        torch.tensor([p_len[b]], device=DEV), samp,
+                        noise=torch.zeros((1, V), device=DEV))
+                    st = slots.insert_slot(st, b, k, v, tok0, hist, x_len[b], p_len[b], steps,
+                                           steps, type(samp)(*(a[0] for a in samp)))
+                    streams[b].append(int(tok0[0]))
+                    book._slots[b] = types.SimpleNamespace(ctx_cols=x_len[b] + p_len[b])
+                cw, rw = SlotBatcher._pick_windows(book)
+                if windowed:
+                    picked.append((cw, rw))
+                st, seg_tok = slots.decode_segment(p, st, cfg, W, Sx, Sp, ring, noise=zeros,
+                                                   ctx_win=cw, ring_win=rw)
+                for b in range(2):
+                    if book._slots[b] is not None:
+                        book._merged[b] = min(book._merged[b] + W, steps)
+                for r in range(min(seg + 1, 2)):
+                    streams[r].extend(seg_tok[r].tolist())
+        toks[windowed] = streams
+    print(f"[windowed slice] greedy fp32 slot codes on the card, exact KV: windows "
+          f"{picked} vs the full read: {'identical' if toks[True] == toks[False] else 'DIFFER'} "
+          f"({len(toks[True][0])} + {len(toks[True][1])} tokens)")
+    check(toks[True] == toks[False], "windowed and full-read slot codes differ on the card")
+    check((None, None) in picked and any(w != (None, None) for w in picked),
+          f"windowed slice check picked {picked}")
+
+
+def window_timing(torch, char, feats, phones):
+    """A 32-step segment with 8 rows occupied, bf16 KV at the default slot
+    geometry (Sx=Sp=192, ring 512: 896 columns a row): windows (256, 256)
+    against the full read, alternated, by CUDA events; then one 8-step
+    segment of each under torch.profiler for the device's busy time (a
+    32-step one takes the profiler about a minute to digest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from genie_tts_tpu_torch.models import slots
+
+    cfg = char.t2s_cfg
+    B, W, sx, sp, ring = 8, 32, 192, 192, 512
+    ctx_cols = len(phones) + len(feats.prompt_tokens)
+    check(ctx_cols <= 256, f"timing rows have {ctx_cols} context columns")
+    (k, v, tok0, hist), samp = _slot_rows(torch, char, feats, phones, sx, sp)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    variants = (("windows (256, 256)", 256, 256), ("full read", None, None))
+    times = {name: [] for name, _, _ in variants}
+    busy = {}
+    with torch.inference_mode():
+        state = slots.init_slots(cfg, B, sx, sp, ring, torch.bfloat16, device=DEV)
+        for b in range(B):
+            state = slots.insert_slot(state, b, k, v, tok0, hist, len(phones),
+                                      len(feats.prompt_tokens), ring, ring, samp)
+
+        def segment(cw, rw, w=W):
+            nonlocal state
+            state, _ = slots.decode_segment(char.t2s_params, state, cfg, w, sx, sp, ring,
+                                            generator=gen, ctx_win=cw, ring_win=rw)
+
+        for _ in range(3):
+            for name, cw, rw in variants:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                segment(cw, rw)
+                e1.record()
+                sync(torch)
+                times[name].append(e0.elapsed_time(e1))
+        for name, cw, rw in variants:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                segment(cw, rw, 8)
+                sync(torch)
+            busy[name] = sum(getattr(a, "self_device_time_total", None)
+                             or getattr(a, "self_cuda_time_total", 0.0)
+                             for a in prof.key_averages()
+                             if a.device_type == DeviceType.CUDA) / 1e3
+    check(bool(state.active.all()) and not bool(state.done.any())
+          and int(state.keys_written.max()) <= 256 - 8, "occupancy 8 and covered rows in the timing")
+    L, H, Dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    col_bytes = 2 * L * B * H * Dh * 2                  # K and V, bf16, all layers and rows
+    out = {}
+    for name, cw, rw in variants:
+        cols = (cw or sx + sp) + (rw or ring)
+        out[name] = {"ms": times[name], "device_busy_ms_per_step": busy[name] / 8,
+                     "mb_per_step": cols * col_bytes / 1e6}
+        print(f"[window timing] {name}: {cols} columns a row ({cols * col_bytes / 1e6:.1f} MB "
+              f"of KV read per step), 32-step segment at occupancy 8: "
+              + ", ".join(f"{m:.3f}" for m in times[name])
+              + f" ms (CUDA events); device busy {busy[name]:.3f} ms in one profiled 8-step "
+              f"segment ({busy[name] / 8:.3f} ms a step)")
+    return out
 
 
 def phase_slot_slice_check(torch, char):
@@ -627,6 +780,209 @@ def phase_slot_slice_check(torch, char):
           f"agreement row 0 {agree[0]:.3f} ({len(a[0])} tokens), row 1 (joined a "
           f"segment later) {agree[1]:.3f} ({len(a[1])} tokens) (tolerance >= 0.9)")
     check(min(agree) >= 0.9, f"slot card/CPU agreement {agree}")
+
+
+def phase_v2pp(torch, root: Path, card: str):
+    """V2ProPlus voice cloning through the entry points a user calls, at
+    full width: a random V2ProPlus character from the port's own
+    ``init_params`` (24-layer T2S with int8 decode weights, the full
+    SoVITS with gin 1024, the full prompt encoder 20480 -> 1024 -> 512,
+    bf16, a 128-step cap, EOS pinned) and a full random ERes2NetV2 written
+    as ``speaker_encoder.safetensors`` (``GENIE_SV_MODEL``), then
+    ``load_character`` -> ``set_reference_audio`` (HuBERT, Kaldi fbank ->
+    ERes2NetV2 -> prompt encoder) -> ``tts(..., save_path=...)`` twice, then
+    2 concurrent requests on the int8 slot route."""
+    import threading
+
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.config import SoVITSConfig, T2SConfig
+    from genie_tts_tpu_torch.convert.io import load_params, save_character_config, save_params
+    from genie_tts_tpu_torch.models import eres2net
+    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.ops.audio import kaldi_fbank
+    from genie_tts_tpu_torch.runtime.engine import make_random_character
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.utils.wavio import read_audio
+
+    t0 = time.perf_counter()
+    rc = make_random_character(t2s_cfg=T2SConfig(max_decode_steps=128),
+                               sovits_cfg=SoVITSConfig(version="v2ProPlus", gin_channels=1024),
+                               seed=11, eos_boost=0.0, device=DEV)
+    char_dir = root / "char_pp"
+    char_dir.mkdir()
+    save_params(rc.t2s_params, char_dir / "t2s.safetensors")
+    save_params(rc.sovits_params, char_dir / "vits.safetensors")
+    save_params(rc.prompt_encoder_params, char_dir / "prompt_encoder.safetensors")
+    save_character_config(char_dir / "config.json", version="v2ProPlus", language="ja",
+                          extra={"t2s": {"max_decode_steps": 128}})
+    sv_path = root / "speaker_encoder.safetensors"
+    save_params(eres2net.init_params(torch.Generator(device=DEV).manual_seed(12)), sv_path)
+    os.environ["GENIE_SV_MODEL"] = str(sv_path)
+    del rc
+    print(f"[v2pp] random full-width V2ProPlus character and ERes2NetV2 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    ref, text = str(root / "ref.wav"), "こんにちは、てすとです"
+    api.engine.timing = True
+    out = {}
+    api.load_character("pp", char_dir, "ja", device=DEV)
+    char = api.model_manager.get("pp")
+    check(char.version == "v2ProPlus" and char.sovits_cfg.gin_channels == 1024
+          and char.prompt_encoder_params["sv_emb"]["w"].shape == (20480, 1024)
+          and "ref_enc" not in char.sovits_params
+          and char.t2s_params["layers"]["qkv"]["w"].dtype == torch.int8,
+          "V2ProPlus character: gin 1024, prompt encoder, int8 decode weights")
+    sync(torch)
+    t0 = time.perf_counter()
+    api.set_reference_audio("pp", ref, text, "ja")
+    sync(torch)
+    out["reference_s"] = time.perf_counter() - t0
+    feats = reference_audio_cache.get_features(api.engine, char, ref, text, "Japanese")
+    check(feats.ge.shape == (1024, 1) and feats.ge_mrte.shape == (512, 1)
+          and np.isfinite(feats.ge).all() and np.isfinite(feats.ge_mrte).all(),
+          f"V2ProPlus features ge {feats.ge.shape}, ge_mrte {feats.ge_mrte.shape}")
+
+    # the SV forward alone: Kaldi fbank + ERes2NetV2 on the card (CUDA events)
+    clip = reference_audio_cache.get_clip(ref, text, "Japanese")
+    sv_params = load_params(sv_path, torch.bfloat16, DEV)
+    audio16 = torch.as_tensor(clip.audio_16k, device=DEV)[None]
+    with torch.inference_mode():
+        fb = kaldi_fbank(audio16)
+        out["fbank_ms"] = cuda_ms(torch, lambda: kaldi_fbank(audio16), 10)
+        out["sv_ms"] = cuda_ms(torch, lambda: eres2net.apply(sv_params, fb), 5)
+    print(f"[v2pp] reference features (first set_reference_audio: HuBERT, Kaldi fbank, "
+          f"ERes2NetV2, prompt encoder, prompt tokens) {out['reference_s'] * 1e3:.1f} ms wall; "
+          f"SV forward alone on {fb.shape[1]} frames: fbank {out['fbank_ms']:.3f} ms + "
+          f"ERes2NetV2 {out['sv_ms']:.3f} ms (CUDA events); {card}")
+
+    for call in (1, 2):
+        fu.fused_decode_step.launches = 0
+        fl.flash_decode_attention.launches = 0
+        wav = root / f"pp{call}.wav"
+        sync(torch)
+        t0 = time.perf_counter()
+        api.tts("pp", "きょうはいいてんきですね。", save_path=wav)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        fused_launches = fu.fused_decode_step.launches
+        st = api.engine.last_stats
+        audio, sr = read_audio(wav)
+        n = st["codes_len"]
+        check(sr == 32000 and np.isfinite(audio).all() and len(audio) == 2 * n * 640 > 0,
+              f"V2ProPlus wav of {len(audio)} samples for {n} codes")
+        check(fused_launches == st["decode_steps"] > 0
+              and fl.flash_decode_attention.launches == 0,
+              f"V2ProPlus: fused kernel launched {fused_launches} times for "
+              f"{st['decode_steps']} decode steps")
+        stages = st["stages"]
+        print(f"[v2pp] tts call {call}: {wall * 1e3:.1f} ms wall, {n} codes, "
+              f"{st['decode_steps']} decode steps, "
+              f"{stages['decode'] * 1e3 / st['decode_steps']:.3f} ms/step, {fused_launches} "
+              f"fused launches, stages ms "
+              + json.dumps({k: round(v * 1e3, 3) for k, v in stages.items()}) + f"; {card}")
+        out[f"tts{call}"] = {"wall_s": wall, "launches": fused_launches, **st}
+
+    # the int8 slot route: 2 concurrent requests
+    synth, _ = api._make_synth_fn("pp", use_batcher=True)
+    sb = api.get_slot_batcher(char)
+    check(sb.cfg.slot_kv_int8 and not sb.windowed_kv, "V2ProPlus slot route: int8 KV kernel")
+    res, errors = {}, []
+
+    def client(i):
+        try:
+            res[i] = synth(SENTENCES[i])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"client {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    i8.int8_big_attention.launches = 0
+    fu.fused_decode_step.launches = 0
+    sb.stats.update(segments=0, steps=0)
+    sync(torch)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches, steps = i8.int8_big_attention.launches, sb.stats["steps"]
+    check(not errors and len(res) == 2, f"V2ProPlus slot clients failed: {errors}")
+    codes = min(char.t2s_cfg.max_decode_steps, sb.ring)
+    for a in res.values():
+        check(a.dtype == np.int16 and len(a) == 2 * codes * 640,
+              f"V2ProPlus slot audio {a.dtype} {len(a)}")
+    check(launches == char.t2s_cfg.num_layers * steps > 0
+          and fu.fused_decode_step.launches == 0,
+          f"V2ProPlus slot route: int8 kernel launched {launches} times for {steps} steps")
+    print(f"[v2pp] slot route, 2 concurrent requests of {codes} codes: {wall:.3f} s wall, "
+          f"{sb.stats['segments']} segments, {steps} decode steps, {launches} int8 launches; "
+          f"{card}")
+    out["slots"] = {"wall_s": wall, "steps": steps, "launches": launches}
+    return out, clip, sv_path
+
+
+def phase_v2pp_slice_check(torch, clip, sv_path):
+    """The V2ProPlus modules on the card against the CPU, fp32 weights on
+    both: the SV embedding of the clip (relative L2 <= 1e-3), the prompt
+    encoder's ge / ge_mrte from the same SV embedding (within 1e-3), and
+    greedy fp32 codes of the character's T2S (agreement >= 0.9)."""
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.convert.io import load_params
+    from genie_tts_tpu_torch.models import eres2net, prompt_encoder, t2s
+    from genie_tts_tpu_torch.ops.audio import kaldi_fbank, linear_spectrogram
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig
+
+    char = api.model_manager.get("pp")
+    cfg = char.sovits_cfg
+    emb, ges = {}, {}
+    pe32 = to_device(torch, char.prompt_encoder_params, "cpu")
+    rng = np.random.default_rng(13)
+    sv_emb = rng.standard_normal((1, cfg.sv_dim)).astype(np.float32)
+    for dev in (DEV, "cpu"):
+        params = load_params(sv_path, torch.float32, dev)
+        pe = to_device(torch, pe32, dev)
+        with torch.inference_mode():
+            audio = torch.as_tensor(clip.audio_16k, device=dev)[None]
+            emb[dev] = eres2net.apply(params, kaldi_fbank(audio))[0].cpu().numpy()
+            a32 = torch.as_tensor(clip.audio_32k, device=dev)[None]
+            spec = linear_spectrogram(a32, n_fft=cfg.n_fft, hop=cfg.hop_length,
+                                      win_length=cfg.win_length)
+            ge, gm = prompt_encoder.apply(pe, spec, torch.tensor([spec.shape[1]], device=dev),
+                                          torch.as_tensor(sv_emb, device=dev))
+            ges[dev] = (ge.cpu().numpy(), gm.cpu().numpy())
+    rel = float(np.linalg.norm(emb[DEV] - emb["cpu"]) / np.linalg.norm(emb["cpu"]))
+    d_ge = max(float(np.abs(a - b).max()) for a, b in zip(ges[DEV], ges["cpu"]))
+    print(f"[v2pp slice] SV embedding card vs CPU (fp32 weights, TF32 off): relative L2 "
+          f"{rel:.2e} (tolerance 1e-3); prompt encoder ge / ge_mrte max |card - CPU| "
+          f"{d_ge:.2e} (tolerance 1e-3)")
+    check(rel <= 1e-3 and d_ge <= 1e-3, f"V2ProPlus slice: SV {rel}, ge {d_ge}")
+
+    tcfg = char.t2s_cfg
+    g = torch.Generator().manual_seed(14)
+    B, Sx, Sp, cap = 1, 32, 64, 16
+    phones = torch.randint(1, tcfg.phoneme_vocab, (B, Sx), generator=g)
+    prompts = torch.randint(0, 1024, (B, Sp), generator=g)
+    params = fp32_params(torch, char)
+    codes = {}
+    for dev in (DEV, "cpu"):
+        p = to_device(torch, params, dev)
+        with torch.inference_mode():
+            c, n = t2s.generate_e2e(p, tcfg, SamplingConfig(top_k=1), None, phones.to(dev),
+                                    None, torch.tensor([29], device=dev), prompts.to(dev),
+                                    torch.tensor([57], device=dev), max_steps=cap,
+                                    cache_len=Sx + Sp + cap)
+        codes[dev] = c.cpu()
+    agree = float((codes[DEV] == codes["cpu"]).float().mean())
+    print(f"[v2pp slice] greedy fp32 codes of the V2ProPlus T2S, card vs CPU: agreement "
+          f"{agree:.3f} (tolerance >= 0.9)")
+    check(agree >= 0.9, f"V2ProPlus card/CPU greedy agreement {agree}")
+    api.unload_character("pp")
 
 
 LONG_SENTENCE = ("きょうはとてもいいてんきなので、ともだちといっしょにこうえんへいって、"
@@ -852,6 +1208,8 @@ def to_device(torch, tree, dev):
     """A param tree on ``dev``, floating leaves in fp32."""
     if isinstance(tree, dict):
         return {k: to_device(torch, v, dev) for k, v in tree.items() if not k.startswith("_")}
+    if isinstance(tree, list):
+        return [to_device(torch, v, dev) for v in tree]
     return tree.to(dev, torch.float32 if tree.is_floating_point() else tree.dtype)
 
 
@@ -1190,18 +1548,28 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t_start = time.perf_counter()
+
+    def timed(fn, *args):
+        """Run a phase and print its wall time."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        phase_build()
-        char, tts = phase_tts(torch, work)
-        b4 = phase_generate_b4(torch, char)
-        phase_slice_check(torch, char)
+        timed(phase_build)
+        char, tts = timed(phase_tts, torch, work)
+        b4 = timed(phase_generate_b4, torch, char)
+        timed(phase_slice_check, torch, char)
         check(tts[2]["cache_len"] == b4["S"], "main-path cache lengths differ")
-        sl = phase_slots(torch, work)
-        phase_slots_bf16(torch, sl["char"], sl["feats"], sl["phones"])
-        phase_slot_slice_check(torch, sl["char"])
-        phase_serve(torch, work, card)
-        res = phase_kernels(torch, char, b4["S"], b4)
-        res8 = phase_kernel_int8(torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
+        sl = timed(phase_slots, torch, work)
+        timed(phase_slots_bf16, torch, sl["char"], sl["feats"], sl["phones"])
+        timed(phase_slot_slice_check, torch, sl["char"])
+        timed(phase_serve, torch, work, card)
+        _, clip, sv_path = timed(phase_v2pp, torch, work, card)
+        timed(phase_v2pp_slice_check, torch, clip, sv_path)
+        res = timed(phase_kernels, torch, char, b4["S"], b4)
+        res8 = timed(phase_kernel_int8, torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

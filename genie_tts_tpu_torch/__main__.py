@@ -6,7 +6,9 @@
     python -m genie_tts_tpu_torch serve --host 127.0.0.1 --port 8000 [--device cpu]
 
 ``--device`` defaults to cuda; without a GPU the run stops unless
-``--device cpu`` is given.
+``--device cpu`` is given. A V2ProPlus character reads its speaker
+encoder from ``GENIE_SV_MODEL`` (default
+``GENIE_DATA_DIR/speaker_encoder.safetensors``).
 """
 from __future__ import annotations
 
@@ -68,8 +70,8 @@ def main(argv=None) -> int:
     elif args.cmd == "convert":
         from genie_tts_tpu_torch.convert.torch_convert import convert_character
 
-        convert_character(args.ckpt, args.pth, args.out, language=args.lang)
-        print(f"converted -> {args.out}")
+        version = convert_character(args.ckpt, args.pth, args.out, language=args.lang)
+        print(f"converted {version} -> {args.out}")
     elif args.cmd == "serve":
         from genie_tts_tpu_torch.config import resolve_device
 
@@ -92,10 +94,7 @@ def _warmup(args) -> None:
     if args.warmup_ref:
         api.set_reference_audio("warmup", args.warmup_ref, args.warmup_ref_text,
                                 args.warmup_lang)
-        ref = api.reference_audio_cache.get_features(
-            api.engine, char, args.warmup_ref, args.warmup_ref_text,
-            api._reference_audios["warmup"]["language"],
-            hubert_fn=api._hubert_fn(char.device))
+        ref = api._reference_features(char, api._reference_audios["warmup"])
     else:
         ref = make_random_reference(char, api.engine)
     phones, _ = get_phones_and_bert("。こんにちは。", char.language)

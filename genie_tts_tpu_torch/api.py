@@ -2,7 +2,9 @@
 set_reference_audio, tts, tts_async, stop, wait_for_playback_done,
 clear_reference_audio_cache, start_server.
 
-The port of ``genie_tts_tpu/api.py`` for V2 characters. ``tts`` and
+The port of ``genie_tts_tpu/api.py`` for V2 and V2ProPlus characters
+(a V2ProPlus character clones through the speaker-verification model of
+``models/sv.py``). ``tts`` and
 ``tts_async`` run through sessions (``runtime/session.py``); the serving
 route (``_make_synth_fn(use_batcher=True)``) sends a sentence that fits
 the slot buckets to the character's in-flight slot machine and any other
@@ -65,6 +67,18 @@ def _hubert_fn(device):
     return fn
 
 
+def _reference_features(char, ref_cfg: dict):
+    """The character's cached features of its reference clip (computed on
+    first use: HuBERT prompt tokens, and the V2 style embedding or, for
+    V2ProPlus, Kaldi fbank -> ERes2NetV2 -> the prompt encoder)."""
+    from .models.sv import get_sv_fn
+
+    return reference_audio_cache.get_features(
+        engine, char, ref_cfg["audio_path"], ref_cfg["audio_text"],
+        ref_cfg["language"], hubert_fn=_hubert_fn(char.device),
+        sv_fn=get_sv_fn(char.device) if char.version == "v2ProPlus" else None)
+
+
 # ---------------------------------------------------------------------------
 # Character management
 # ---------------------------------------------------------------------------
@@ -92,7 +106,9 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
                         audio_text: str, language: Optional[str] = None,
                         device=None) -> bool:
     """Register the voice-cloning reference clip for a character and run
-    its HuBERT features on the character's device (or ``device``).
+    its HuBERT features on the character's device (or ``device``); for a
+    loaded character whose HuBERT is available, its speaker features too
+    (``_reference_features``).
 
     Returns False (after logging) for unsupported formats."""
     audio_path = os.fspath(audio_path)
@@ -111,11 +127,12 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
         raise ValueError(f"Unknown language: {language}")
     if device is None and model is not None:
         device = model.device
-    _reference_audios[character_name] = {
-        "audio_path": audio_path, "audio_text": audio_text, "language": language,
-    }
-    reference_audio_cache.get_clip(audio_path, audio_text, language,
-                                   hubert_fn=_hubert_fn(device))
+    ref_cfg = {"audio_path": audio_path, "audio_text": audio_text, "language": language}
+    _reference_audios[character_name] = ref_cfg
+    hubert_fn = _hubert_fn(device)
+    reference_audio_cache.get_clip(audio_path, audio_text, language, hubert_fn=hubert_fn)
+    if model is not None and hubert_fn is not None:
+        _reference_features(model, ref_cfg)
     return True
 
 
@@ -184,10 +201,7 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
     char = model_manager.get(character_name)
     if char is None:
         raise ValueError(f"Character '{character_name}' is not loaded")
-    ref_cfg = _reference_audios[character_name]
-    feats = reference_audio_cache.get_features(
-        engine, char, ref_cfg["audio_path"], ref_cfg["audio_text"],
-        ref_cfg["language"], hubert_fn=_hubert_fn(char.device))
+    feats = _reference_features(char, _reference_audios[character_name])
 
     def synth(sentence: str) -> Optional[np.ndarray]:
         # a leading 。 guards against the model swallowing the first phrase

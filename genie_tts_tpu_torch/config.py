@@ -122,6 +122,15 @@ class RuntimeConfig:
     # at once when the machine idles or starves
     slot_finisher_batch: int = 4
     slot_finisher_wait_segs: int = 2
+    # windowed KV reads on the exact-KV route: each segment's attention
+    # reads only the first ctx window >= every row's x_len+p_len context
+    # columns and the last ring window >= every row's ring writes (the
+    # smallest ladder entries that cover the occupied rows), else the
+    # whole cache. GENIE_SLOT_WINDOWED_KV=0 keeps the full read.
+    slot_ctx_windows: Tuple[int, ...] = (256,)
+    slot_ring_windows: Tuple[int, ...] = (256, 384)
+    slot_windowed_kv: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("GENIE_SLOT_WINDOWED_KV", "1"))
     # int8 KV cache for the slot machine (models/slots.py kv_int8): the big
     # caches hold int8 codes + per-column fp32 scales, and the big-cache
     # attention runs through ops/int8_decode.py. GENIE_SLOT_KV_INT8=1 opts
@@ -193,16 +202,26 @@ class RuntimeConfig:
 # ---------------------------------------------------------------------------
 
 HUBERT_DIR_ENV = "GENIE_HUBERT_DIR"
+SV_MODEL_ENV = "GENIE_SV_MODEL"
 
 
 def genie_data_dir() -> Path:
     return Path(os.environ.get("GENIE_DATA_DIR", "./GenieData"))
 
 
+def asset_path(name: str, env_override: Optional[str] = None) -> Path:
+    if env_override and env_override in os.environ:
+        return Path(os.environ[env_override])
+    return genie_data_dir() / name
+
+
 def hubert_dir() -> Path:
-    if HUBERT_DIR_ENV in os.environ:
-        return Path(os.environ[HUBERT_DIR_ENV])
-    return genie_data_dir() / "chinese-hubert-base"
+    return asset_path("chinese-hubert-base", HUBERT_DIR_ENV)
+
+
+def sv_model_path() -> Path:
+    """The ERes2NetV2 speaker-verification checkpoint (V2ProPlus)."""
+    return asset_path("speaker_encoder.safetensors", SV_MODEL_ENV)
 
 
 # ---------------------------------------------------------------------------

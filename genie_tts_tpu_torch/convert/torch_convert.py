@@ -3,8 +3,9 @@
 A copy of ``genie_tts_tpu/convert/torch_convert.py`` for the port: read
 the ``.ckpt`` (T2S GPT) / ``.pth`` (SoVITS) state dicts and write the same
 safetensors checkpoints (with the port's ``convert/io.py``), which both
-packages load. V2 only: the port has no prompt encoder yet, so a
-V2ProPlus conversion raises (ROADMAP.md, Queue 1).
+packages load. A V2ProPlus ``.pth`` (detected by its ``sv_emb``/
+``ge_to512`` keys) also yields ``prompt_encoder.safetensors`` from the
+same state dict, and its synthesizer binds no style encoder.
 
 Layout transforms (torch -> ours):
   * Linear  [out, in]            -> w [in, out]           (transpose)
@@ -351,14 +352,25 @@ def convert_character(
         if version is None:
             version = (detect_version_from_keys(pth_sd)
                        or detect_version(pth_path))
-        if version != "v2":
-            raise NotImplementedError(
-                f"converting {version!r} checkpoints is not ported yet (the "
-                f"port has no prompt encoder); the port converts V2")
         tcfg = t2s_cfg or T2SConfig()
         vcfg = sovits_cfg or SoVITSConfig()
+        if sovits_cfg is None and version == "v2ProPlus":
+            vcfg = dataclasses.replace(vcfg, version=version, gin_channels=1024)
         save_params(convert_t2s(ckpt_sd, pth_sd, tcfg), out / "t2s.safetensors")
         save_params(convert_sovits(pth_sd, vcfg), out / "vits.safetensors")
+        vd = {k.removeprefix("vq_model.").removeprefix("prompt_encoder."): v
+              for k, v in pth_sd.items()}
+        if version == "v2ProPlus" and any(
+                k.startswith(("sv_emb.", "ge_to512.")) for k in vd):
+            # V2ProPlus checkpoints carry the prompt encoder's tensors
+            # (ref_enc, sv_emb, ge_to512, prelu) in the same state dict
+            from ..models.prompt_encoder import convert_from_torch
+
+            try:
+                save_params(convert_from_torch(vd), out / "prompt_encoder.safetensors")
+            except KeyError as e:
+                logger.warning("prompt-encoder weights incomplete (%s); "
+                               "convert them separately", e)
         extra = {}
         if t2s_cfg is not None:
             extra["t2s"] = dataclasses.asdict(t2s_cfg)

@@ -233,7 +233,8 @@ def release_slot(state: SlotState, slot: int) -> SlotState:
 def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
                    seg_steps: int, sx: int, sp: int, ring_len: int,
                    kv_kernel: bool = False, noise: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   ctx_win: Optional[int] = None, ring_win: Optional[int] = None
                    ) -> Tuple[SlotState, torch.Tensor]:
     """Advance every occupied slot ``seg_steps`` decode steps.
 
@@ -249,9 +250,14 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     Two read routes for the big cache: ``kv_kernel`` with int8 caches
     reads the first ring copy ``[0, Sx+Sp+ring)`` through the
     ``int8_big_attention`` kernel, which recomputes visibility from the
-    segment-frozen ``x_len``/``p_len``/``keys_written``/``ring_head``;
-    otherwise the full read: the context ``[0, Sx+Sp)`` and the ring window
-    ``[Sx+Sp+head, Sx+Sp+head+ring)`` of the doubled ring, with masks.
+    segment-frozen ``x_len``/``p_len``/``keys_written``/``ring_head``, and
+    ignores the windows; otherwise the windowed read: the first ``ctx_win``
+    context columns and the last ``ring_win`` ring writes, a window that
+    ends at ``Sx+Sp+head+ring`` in the doubled ring (window column j holds
+    the write of age ``ring_win-1-j``), with masks. The caller guarantees
+    that every active row fits (``x_len+p_len <= ctx_win``,
+    ``keys_written <= ring_win``); None (the default) reads the whole
+    context or ring.
     """
     assert ring_len % seg_steps == 0, "segment must not wrap the ring"
     W = seg_steps
@@ -261,6 +267,8 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     buf_dtype = params["audio_embed"].dtype if int8_kv else state.k_cache.dtype
     V, eos = cfg.semantic_vocab, cfg.eos_id
     Sx, Sp = sx, sp
+    ctx_win = min(ctx_win or Sx + Sp, Sx + Sp)
+    ring_win = min(ring_win or ring_len, ring_len)
     use_kernel = int8_kv and kv_kernel
     pe_full = sine_position_table(Sx + Sp + ring_len, cfg.embed_dim, device=dev)
     if noise is None:
@@ -277,8 +285,8 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
         kv_mask = None
         ctx = (state.x_len, state.p_len, state.keys_written, head0, Sx, Sp, ring_len)
     else:
-        w0 = Sx + Sp + head0          # the last ring_len writes end at head+ring
-        cut = (slice(0, Sx + Sp), slice(w0, w0 + ring_len))
+        w1 = Sx + Sp + ring_len + head0    # the ring writes end at head+ring
+        cut = (slice(0, ctx_win), slice(w1 - ring_win, w1))
 
         def scales(t):
             return (None, None) if t is None else tuple(t[..., c] for c in cut)
@@ -287,8 +295,8 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
                              tuple(state.v_cache[..., c] for c in cut),
                              scales(state.k_scale), scales(state.v_scale))))
         ctx_len = state.x_len + state.p_len
-        win_age = ring_len - 1 - torch.arange(ring_len, device=dev)[None, :]
-        kv_mask = (torch.arange(Sx + Sp, device=dev)[None, :] < ctx_len[:, None],
+        win_age = ring_win - 1 - torch.arange(ring_win, device=dev)[None, :]
+        kv_mask = (torch.arange(ctx_win, device=dev)[None, :] < ctx_len[:, None],
                    win_age < state.keys_written[:, None])
         ctx = None
     # per-layer views of each region: (k, v, k_scale, v_scale) per layer

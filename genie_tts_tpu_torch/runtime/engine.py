@@ -16,7 +16,8 @@ codes it decoded: the batched codes -> waveform finisher
 
 Lengths are padded to the same bucket ladders as the JAX package, so both
 packages see the same shapes (and the same masks) for a given input.
-Reference-audio features (HuBERT -> VQ prompt tokens, V2 style
+Reference-audio features (HuBERT -> VQ prompt tokens; the V2 style
+embedding, or V2ProPlus's prompt encoder over the clip and its SV
 embedding) are computed once per reference clip and cached by
 ``runtime/reference_audio.py``.
 """
@@ -26,7 +27,7 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,15 +44,17 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class CharacterModel:
-    """Loaded weights for one character (t2s + sovits) on one device."""
+    """Loaded weights for one character (t2s + sovits, and the prompt
+    encoder of a V2ProPlus one) on one device."""
     name: str
     language: str
-    version: str                    # "v2"
+    version: str                    # "v2" | "v2ProPlus"
     t2s_params: Dict
     sovits_params: Dict
     t2s_cfg: T2SConfig
     sovits_cfg: SoVITSConfig
     device: torch.device = torch.device("cpu")
+    prompt_encoder_params: Optional[Dict] = None
 
 
 @dataclasses.dataclass
@@ -225,6 +228,25 @@ class TTSEngine:
             char.sovits_params, cfg, spec,
             torch.tensor([spec.shape[1]], device=char.device))
         return ge[0].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def compute_v2pp_speaker_embedding(self, char: CharacterModel, audio_32k: np.ndarray,
+                                       sv_emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """V2ProPlus path: the prompt encoder over the clip's linear
+        spectrogram and its SV embedding -> (ge [gin,1], ge_mrte [512,1])."""
+        from ..models import prompt_encoder
+
+        cfg = char.sovits_cfg
+        if char.prompt_encoder_params is None:
+            raise RuntimeError(f"character '{char.name}' has no prompt encoder")
+        dev = char.device
+        audio = torch.as_tensor(np.asarray(audio_32k, np.float32), device=dev)[None]
+        spec = linear_spectrogram(audio, n_fft=cfg.n_fft, hop=cfg.hop_length,
+                                  win_length=cfg.win_length)
+        ge, ge_mrte = prompt_encoder.apply(
+            char.prompt_encoder_params, spec, torch.tensor([spec.shape[1]], device=dev),
+            torch.as_tensor(np.asarray(sv_emb, np.float32), device=dev)[None])
+        return ge[0].float().cpu().numpy(), ge_mrte[0].float().cpu().numpy()
 
     # -- synthesis --------------------------------------------------------
 
@@ -684,13 +706,18 @@ def make_random_character(name: str = "random", language: str = "Japanese",
                           sovits_cfg: Optional[SoVITSConfig] = None,
                           dtype=torch.bfloat16, eos_boost: float = 1.0,
                           device=None) -> CharacterModel:
-    """Random-weight character.
+    """Random-weight character. A V2ProPlus ``sovits_cfg`` (its
+    ``gin_channels`` is the caller's: 1024 at full width) gets a random
+    prompt encoder, and its synthesizer no style encoder, as a converted
+    V2ProPlus checkpoint has.
 
     ``eos_boost``: scale on the EOS column of the predict layer; random
     weights give EOS no edge, and 0 pins its logit at 0, well inside a
     random logit row, so no top-k draw reaches it and every decode runs to
     its cap.
     """
+    from ..models import prompt_encoder
+
     dev = resolve_device(device)
     tcfg = t2s_cfg or T2SConfig()
     vcfg = sovits_cfg or SoVITSConfig()
@@ -698,25 +725,38 @@ def make_random_character(name: str = "random", language: str = "Japanese",
     t2s_params = t2s.init_params(gen, tcfg, dtype=dtype)
     if eos_boost != 1.0:
         t2s_params["predict"]["w"][:, tcfg.eos_id] *= eos_boost
+    sovits_params = sovits.init_params(gen, vcfg, dtype=dtype)
+    pe_params = None
+    if vcfg.version == "v2ProPlus":
+        del sovits_params["ref_enc"]
+        pe_params = prompt_encoder.init_params(gen, vcfg, dtype=dtype,
+                                               gin=vcfg.gin_channels,
+                                               mrte_dim=vcfg.mrte_channels)
     return CharacterModel(
         name=name, language=language, version=vcfg.version,
-        t2s_params=t2s_params, sovits_params=sovits.init_params(gen, vcfg, dtype=dtype),
-        t2s_cfg=tcfg, sovits_cfg=vcfg, device=dev)
+        t2s_params=t2s_params, sovits_params=sovits_params, t2s_cfg=tcfg,
+        sovits_cfg=vcfg, device=dev, prompt_encoder_params=pe_params)
 
 
 def make_random_reference(char: CharacterModel, engine: TTSEngine,
                           ref_seconds: float = 5.0, seed: int = 0) -> ReferenceFeatures:
     """Reference features from white-noise audio, stand-in HuBERT features
-    at 50 Hz and a random 12-phoneme transcript (warmups and tests)."""
+    at 50 Hz and a random 12-phoneme transcript (warmups and tests); a
+    V2ProPlus character's speaker embedding comes from its prompt encoder
+    over the audio and a random SV embedding."""
     rng = np.random.default_rng(seed)
     sr = char.sovits_cfg.sample_rate
     audio_32k = (rng.standard_normal(int(ref_seconds * sr)) * 0.05).astype(np.float32)
     ssl = rng.standard_normal((int(ref_seconds * 50), char.t2s_cfg.ssl_dim)).astype(
         np.float32)
-    ge = engine.compute_v2_speaker_embedding(char, audio_32k)
+    if char.version == "v2ProPlus":
+        sv_emb = rng.standard_normal(char.sovits_cfg.sv_dim).astype(np.float32)
+        ge, ge_mrte = engine.compute_v2pp_speaker_embedding(char, audio_32k, sv_emb)
+    else:
+        ge = engine.compute_v2_speaker_embedding(char, audio_32k)
+        ge_mrte = ge[: char.sovits_cfg.mrte_channels]
     n_ref_phones = 12
     return ReferenceFeatures(
         phones=rng.integers(1, char.t2s_cfg.phoneme_vocab, n_ref_phones).astype(np.int32),
         bert=np.zeros((n_ref_phones, char.t2s_cfg.bert_dim), np.float32),
-        prompt_tokens=engine.compute_prompt_tokens(char, ssl), ge=ge,
-        ge_mrte=ge[: char.sovits_cfg.mrte_channels])
+        prompt_tokens=engine.compute_prompt_tokens(char, ssl), ge=ge, ge_mrte=ge_mrte)

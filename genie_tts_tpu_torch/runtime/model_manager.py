@@ -1,9 +1,11 @@
 """Character/model manager: LRU-cached weights + the shared HuBERT model.
 
-The port of ``genie_tts_tpu/runtime/model_manager.py`` for V2 characters:
-model-dir validation, ``config.json`` hyperparameter overrides, int8
-decode weights at load (``RuntimeConfig.t2s_int8``), an LRU of loaded
-characters with reload after eviction, and a lazy global HuBERT.
+The port of ``genie_tts_tpu/runtime/model_manager.py``: model-dir
+validation (a V2ProPlus character also needs its prompt encoder),
+``config.json`` hyperparameter overrides (a V2ProPlus character's
+synthesizer defaults to ``gin_channels=1024``), int8 decode weights at
+load (``RuntimeConfig.t2s_int8``), an LRU of loaded characters with reload
+after eviction, and a lazy global HuBERT.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from .engine import CharacterModel
 logger = logging.getLogger(__name__)
 
 REQUIRED_FILES = ("t2s.safetensors", "vits.safetensors", "config.json")
+V2PP_FILES = ("prompt_encoder.safetensors",)
 
 
 def check_model_dir(model_dir) -> Dict:
@@ -40,12 +43,14 @@ def check_model_dir(model_dir) -> Dict:
             f"A valid character checkpoint contains:\n"
             f"  - t2s.safetensors   (text-to-semantic GPT weights)\n"
             f"  - vits.safetensors  (SoVITS synthesizer weights)\n"
-            f"  - config.json       (version/language metadata)")
+            f"  - config.json       (version/language metadata)\n"
+            f"  - prompt_encoder.safetensors  (V2ProPlus only)")
     cfg = load_character_config(path / "config.json")
-    if cfg.get("version", "v2") != "v2":
-        raise NotImplementedError(
-            f"version {cfg.get('version')!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 10: V2ProPlus); the port loads V2 characters")
+    if cfg.get("version") == "v2ProPlus":
+        missing = [f for f in V2PP_FILES if not (path / f).is_file()]
+        if missing:
+            raise FileNotFoundError(
+                f"V2ProPlus model at '{path}' missing: {', '.join(missing)}")
     return cfg
 
 
@@ -84,6 +89,8 @@ class ModelManager:
         dev = resolve_device(device)
         dtype = resolve_dtype(compute_dtype, self.cfg)
         cfg = check_model_dir(model_dir)
+        version = cfg.get("version", "v2")
+        v2pp = version == "v2ProPlus"
         path = Path(model_dir)
         t2s_params = load_params(path / "t2s.safetensors", dtype, dev)
         if self.cfg.t2s_int8:
@@ -92,16 +99,20 @@ class ModelManager:
             t2s_params = quantize_params(t2s_params)
         with self._lock:
             model = CharacterModel(
-                name=name, language=language, version="v2",
+                name=name, language=language, version=version,
                 t2s_params=t2s_params,
                 sovits_params=load_params(path / "vits.safetensors", dtype, dev),
                 t2s_cfg=_cfg(T2SConfig, cfg.get("t2s")),
-                sovits_cfg=_cfg(SoVITSConfig, cfg.get("sovits"), version="v2",
-                                gin_channels=512),
-                device=dev)
+                sovits_cfg=_cfg(SoVITSConfig, cfg.get("sovits"), version=version,
+                                gin_channels=1024 if v2pp else 512),
+                device=dev,
+                prompt_encoder_params=(
+                    load_params(path / "prompt_encoder.safetensors", dtype, dev)
+                    if v2pp else None))
             self._cache.put(name, model)
             self._registry[name] = (str(model_dir), language, dev, dtype)
-            logger.info("loaded character '%s' (v2, %s) on %s", name, language, dev)
+            logger.info("loaded character '%s' (%s, %s) on %s", name, version,
+                        language, dev)
             return model
 
     def get(self, name: str) -> Optional[CharacterModel]:

@@ -1,10 +1,11 @@
-"""Reference-audio feature cache for voice cloning (V2 characters).
+"""Reference-audio feature cache for voice cloning.
 
 The port of ``genie_tts_tpu/runtime/reference_audio.py``: load a clip at
 32 kHz (mono mix, +0.3 s silence appended, 3-10 s duration warning),
 resample to 16 kHz, run HuBERT for ``ssl_content`` and phonemize the
 transcript, cached per (path, text). Character-dependent features (VQ
-prompt tokens from the character's codebook, the V2 style embedding) are
+prompt tokens from the character's codebook; the V2 style embedding, or
+V2ProPlus's prompt-encoder embeddings from the clip's SV embedding) are
 cached per (path, character).
 """
 from __future__ import annotations
@@ -81,7 +82,9 @@ class ReferenceAudioCache:
 
     def get_features(self, engine: TTSEngine, char: CharacterModel,
                      audio_path: str, text: str, language: str,
-                     hubert_fn=None) -> ReferenceFeatures:
+                     hubert_fn=None, sv_fn=None) -> ReferenceFeatures:
+        """``sv_fn(audio_16k) -> [20480]`` gives a V2ProPlus character's
+        speaker-verification embedding (``models/sv.py::get_sv_fn``)."""
         with self._lock:
             key = (audio_path, char.name)
             feats = self._features.get(key)
@@ -94,13 +97,23 @@ class ReferenceAudioCache:
                     "SSL features. Put hubert.safetensors under "
                     "GENIE_DATA_DIR/chinese-hubert-base (or GENIE_HUBERT_DIR).")
             prompt_tokens = engine.compute_prompt_tokens(char, clip.ssl_content)
-            ge = engine.compute_v2_speaker_embedding(char, clip.audio_32k)
+            if char.version == "v2ProPlus":
+                if sv_fn is None:
+                    raise RuntimeError(
+                        "V2ProPlus cloning needs a speaker-verification "
+                        "embedding; install the SV model into GenieData.")
+                sv_emb = np.asarray(sv_fn(clip.audio_16k), np.float32)
+                ge, ge_mrte = engine.compute_v2pp_speaker_embedding(
+                    char, clip.audio_32k, sv_emb)
+            else:
+                ge = engine.compute_v2_speaker_embedding(char, clip.audio_32k)
+                ge_mrte = ge[: char.sovits_cfg.mrte_channels]
             feats = ReferenceFeatures(
                 phones=np.asarray(clip.phones, np.int32),
                 bert=np.asarray(clip.bert, np.float32),
                 prompt_tokens=prompt_tokens,
                 ge=ge,
-                ge_mrte=ge[: char.sovits_cfg.mrte_channels],
+                ge_mrte=ge_mrte,
             )
             self._features.put(key, feats)
             return feats

@@ -26,9 +26,15 @@ one segment deep: segment k's tokens and flags go to pinned host memory
 Workers only wait for copies and trim: two for the pooled finisher, one
 (in submission order) for window pieces and window completions.
 
+Windowed KV reads (``slot_windowed_kv``, the exact-KV route only): before
+each dispatch the scheduler picks the smallest (ctx, ring) read windows
+of the config's ladders that cover every occupied row, from host
+bookkeeping (each request's context columns, and per slot the ring keys
+merged so far, bumped at dispatch so that the in-flight segment is
+covered), or the full read when a row is past either ladder.
+
 One scheduler serves one character; ``api.get_slot_batcher`` keeps one
-per loaded character. Not ported (ROADMAP.md): windowed KV reads, AOT
-warmup units.
+per loaded character. Not ported (ROADMAP.md): AOT warmup units.
 """
 from __future__ import annotations
 
@@ -54,6 +60,18 @@ from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, finish_host_c
 from .stream import noise_table
 
 logger = logging.getLogger(__name__)
+
+
+def seg_window_combos(cfg, sx: int, sp: int, ring: int) -> list:
+    """Every (ctx_win, ring_win) pair the scheduler can dispatch: the
+    ladder product plus the full read (None, None). The int8 kernel route
+    (``slot_kv_int8``) reads the first ring copy and takes no windows."""
+    combos = [(None, None)]
+    if cfg.slot_windowed_kv and not cfg.slot_kv_int8:
+        ctx_l = [w for w in cfg.slot_ctx_windows if w < sx + sp]
+        ring_l = [w for w in cfg.slot_ring_windows if w < ring]
+        combos += [(c, r) for c in ctx_l for r in ring_l]
+    return combos
 
 
 def seg_widths(cfg, ring: int) -> "tuple[int, ...]":
@@ -106,6 +124,7 @@ class _Request:
     min_steps: int
     max_steps: int
     sampling: Optional[SamplingConfig] = None
+    ctx_cols: int = 0             # x_len + p_len (compacted context columns)
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
@@ -136,8 +155,8 @@ class SlotBatcher:
     (half the host copy of float32); the serving path enables it.
 
     ``stats`` counts what the loop dispatched: ``segments``, ``steps``
-    (decode steps), ``peak_occupancy`` and ``streams`` (streaming
-    requests that joined)."""
+    (decode steps), ``peak_occupancy``, ``streams`` (streaming requests
+    that joined) and ``windowed_segments`` (segments that read windows)."""
 
     def __init__(self, engine: TTSEngine, char: CharacterModel, pcm16: bool = False):
         self.engine = engine
@@ -158,6 +177,11 @@ class SlotBatcher:
         # faults through it
         self._decode_seg = self._decode_segs[self.W]
         self.join_W = min(self._decode_segs)       # == W when join steps are off
+        # windowed KV reads: the ladders of (ctx, ring) read windows
+        combos = seg_window_combos(self.cfg, self.sx, self.sp, self.ring)
+        self.windowed_kv = len(combos) > 1
+        self._ctx_ladder = tuple(sorted({c for c, _ in combos if c is not None}))
+        self._ring_ladder = tuple(sorted({r for _, r in combos if r is not None}))
         # the window pump: every row with slot_stream_finisher, else only
         # rows with a streaming consumer
         self.windows = self.cfg.slot_stream_finisher
@@ -172,7 +196,8 @@ class SlotBatcher:
         self.win_first = self.first_piece + 2 * self.halo if self.first_piece else 0
         if not self.win_first or self.win_first >= self.win_small:
             self.win_first = self.win_small
-        self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0}
+        self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0,
+                      "windowed_segments": 0}
         self._reset_state()
         self._slots: List[Optional[_Request]] = [None] * self.n_slots
         self._q: "queue.Queue[_Request]" = queue.Queue()
@@ -305,7 +330,28 @@ class SlotBatcher:
             if req is not None and req.cancelled and not req.harvested:
                 req.harvested = True
                 self._slots[b] = None
+                self._merged[b] = 0
                 self._state = slots_mod.release_slot(self._state, b)
+
+    def _pick_windows(self) -> "tuple[Optional[int], Optional[int]]":
+        """The smallest (ctx_win, ring_win) ladder entries covering every
+        occupied slot: ctx >= the largest row x_len+p_len, ring >= the most
+        ring keys merged into a slot (``_merged``, bumped at dispatch, so
+        the segment in flight is covered). The full read (None, None) when
+        either need is past its ladder."""
+        if not self.windowed_kv:
+            return None, None
+        ctx_need = ring_need = 0
+        for b, req in enumerate(self._slots):
+            if req is None:
+                continue
+            ctx_need = max(ctx_need, req.ctx_cols)
+            ring_need = max(ring_need, self._merged[b])
+        ctx_win = next((w for w in self._ctx_ladder if w >= ctx_need), None)
+        ring_win = next((w for w in self._ring_ladder if w >= ring_need), None)
+        if ctx_win is None or ring_win is None:
+            return None, None
+        return ctx_win, ring_win
 
     def _fill_slots(self, block: bool) -> None:
         self._drop_cancelled()
@@ -361,6 +407,8 @@ class SlotBatcher:
             self._state, b, ctx_k, ctx_v, tok0, hist, len(packed),
             len(ref.prompt_tokens), min(req.min_steps, mx), mx,
             SamplingRows(*(a[0] for a in samp)))
+        req.ctx_cols = len(packed) + len(ref.prompt_tokens)
+        self._merged[b] = 0
         self._slots[b] = req
         if req.stream_q is not None:
             self.stats["streams"] += 1
@@ -382,6 +430,7 @@ class SlotBatcher:
                 req.harvested = True
                 if self._slots[b] is req:
                     self._slots[b] = None
+                    self._merged[b] = 0
                 self._state = slots_mod.release_slot(self._state, b)
                 self._finish_pending.append([req, int(counts[b]), 0])
 
@@ -647,12 +696,18 @@ class SlotBatcher:
         metrics.gauge("slot_occupancy", occ)
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
         seg_fn = self._decode_seg if w == self.W else self._decode_segs[w]
+        ctx_win, ring_win = self._pick_windows()
         with metrics.timer("slot_segment"):
             self._state, seg_tok = seg_fn(self.char.t2s_params, self._state,
-                                          generator=self._gen)
+                                          generator=self._gen, ctx_win=ctx_win,
+                                          ring_win=ring_win)
         self.stats["segments"] += 1
         self.stats["steps"] += w
+        self.stats["windowed_segments"] += ctx_win is not None
         self._steps_since_pump += w
+        for b, r in enumerate(self._slots):
+            if r is not None:              # a row merges at most w keys
+                self._merged[b] = min(self._merged[b] + w, r.max_steps)
         occupants = list(self._slots)
         tok0_rows = [r for r in occupants if r is not None and r.tok0_np is None]
         st = self._state
@@ -750,6 +805,7 @@ class SlotBatcher:
                 _stream_close(req, e)
                 req.done.set()
             self._slots[b] = None
+            self._merged[b] = 0
         while True:
             try:
                 req = self._q.get_nowait()
@@ -762,6 +818,7 @@ class SlotBatcher:
     def _reset_state(self) -> None:
         dev = self.char.device
         self._steps_since_pump = 0
+        self._merged = [0] * self.n_slots      # ring keys merged per slot
         self._state = slots_mod.init_slots(
             self.char.t2s_cfg, self.n_slots, self.sx, self.sp, self.ring,
             dtype=self.char.t2s_params["audio_embed"].dtype,

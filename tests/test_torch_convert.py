@@ -4,8 +4,10 @@ The same small torch ``.ckpt``/``.pth`` files (the SoVITS state dict of
 tests/test_convert.py, a 2-layer T2S) go through both packages'
 ``convert_character``; the files they write must hold the same tensors,
 bit for bit, and the same config.json, and the port's model manager loads
-the result. The port converts V2 only: a V2ProPlus request raises and
-leaves no output. The ``convert`` CLI writes the same files.
+the result. V2ProPlus forced on a checkpoint without prompt-encoder
+tensors writes what the JAX package writes (no prompt encoder), and the
+port's model manager refuses the directory. The ``convert`` CLI writes
+the same files.
 """
 import json
 
@@ -109,11 +111,20 @@ def test_flow_stack_matches_tree_map(ckpts):
 
 
 def test_v2proplus_is_refused(ckpts, tmp_path):
-    out = tmp_path / "pp"
-    with pytest.raises(NotImplementedError, match="V2"):
-        tconv.convert_character(ckpts / "model_e8.ckpt", ckpts / "model_e8.pth", out,
-                                version="v2ProPlus")
-    assert not out.exists()
+    vcfg = jtests.TestSoVITSConversion.CFG
+    jout, tout = tmp_path / "jax", tmp_path / "pp"
+    jconv.convert_character(ckpts / "model_e8.ckpt", ckpts / "model_e8.pth", jout,
+                            language="ja", version="v2ProPlus",
+                            t2s_cfg=JT2SConfig(**T2S_KW), sovits_cfg=vcfg)
+    tcfg = SoVITSConfig(**{k: getattr(vcfg, k) for k in vcfg.__dataclass_fields__})
+    assert tconv.convert_character(ckpts / "model_e8.ckpt", ckpts / "model_e8.pth", tout,
+                                   language="ja", version="v2ProPlus",
+                                   t2s_cfg=T2SConfig(**T2S_KW),
+                                   sovits_cfg=tcfg) == "v2ProPlus"
+    _same_files(jout, tout)
+    assert not (tout / "prompt_encoder.safetensors").exists()
+    with pytest.raises(FileNotFoundError, match="prompt_encoder"):
+        ModelManager().load_character("pp", str(tout), "ja", device="cpu")
 
 
 def test_cli_convert(ckpts, tmp_path, monkeypatch):

@@ -274,3 +274,78 @@ def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):            # columns not unit-stride
         int8_big_attention(q, kq.transpose(2, 3).contiguous().transpose(2, 3), ks, vq, vs,
                            x_len, p_len, kw, head, **geom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", [1.0, 5.3])
+def test_sv_forward_on_the_card_matches_cpu(cuda, seconds):
+    """V2ProPlus: Kaldi fbank -> the full ERes2NetV2 (random, fp32 weights)
+    on the card against the CPU: relative L2 of the 20480-d embedding
+    within 1e-3 (fp32 convolutions summed in other orders, TF32 off)."""
+    import numpy as np
+
+    from genie_tts_tpu_torch.models import eres2net
+    from genie_tts_tpu_torch.ops.audio import kaldi_fbank
+
+    params = eres2net.init_params(torch.Generator().manual_seed(1), torch.float32)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    wav = torch.from_numpy((0.3 * np.sin(2 * np.pi * 180 * t) + 0.02 * np.random.default_rng(
+        2).standard_normal(t.size)).astype(np.float32))[None]
+    with torch.inference_mode():
+        ref = eres2net.apply(params, kaldi_fbank(wav))
+        out = eres2net.apply(_tree_to(params, "cuda"), kaldi_fbank(wav.cuda())).cpu()
+    assert out.shape == (1, eres2net.EMB_DIM) and bool(torch.isfinite(out).all())
+    assert float((out - ref).norm() / ref.norm()) <= 1e-3
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items() if not k.startswith("_")}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_windowed_slot_reads_match_full_read_on_the_card(cuda):
+    """The exact-KV slot machine on the card, fp32, 2 layers: segments
+    with windows covering every row give the full read's tokens and state
+    (floats within 1e-5, integers exactly)."""
+    cfg = T2SConfig(num_layers=2)
+    params = _tree_to(t2s.init_params(torch.Generator().manual_seed(3), cfg,
+                                      dtype=torch.float32), "cuda")
+    params["audio_embed"] *= 10.0
+    Sx, Sp, ring, W, V = 32, 64, 64, 8, cfg.semantic_vocab
+    g = torch.Generator().manual_seed(4)
+    phones = torch.randint(1, cfg.phoneme_vocab, (2, Sx), generator=g).cuda()
+    prompts = torch.randint(0, 1024, (2, Sp), generator=g).cuda()
+    x_len, p_len = [27, 12], [50, 33]
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, rows_from_config
+
+    samp = rows_from_config(SamplingConfig(top_k=1), 1)
+    states = {}
+    for windows in ((None, None), (80, 48)):
+        with torch.inference_mode():
+            st = slots.init_slots(cfg, 2, Sx, Sp, ring, torch.float32, device="cuda")
+            for b in range(2):
+                k, v, tok0, hist = slots.prefill_join(
+                    params, cfg, phones[b:b + 1], None, torch.tensor([x_len[b]], device="cuda"),
+                    prompts[b:b + 1], torch.tensor([p_len[b]], device="cuda"), samp,
+                    noise=torch.zeros((1, V), device="cuda"))
+                st = slots.insert_slot(st, b, k, v, tok0, hist, x_len[b], p_len[b], 40, 40,
+                                       type(samp)(*(a[0] for a in samp)))
+            toks = []
+            for _ in range(5):
+                st, tok = slots.decode_segment(params, st, cfg, W, Sx, Sp, ring,
+                                               noise=torch.zeros((W, 2, V), device="cuda"),
+                                               ctx_win=windows[0], ring_win=windows[1])
+                toks.append(tok.cpu())
+        states[windows] = (st, torch.cat(toks, 1))
+    (a, ta), (b, tb) = states[(None, None)], states[(80, 48)]
+    assert torch.equal(ta, tb)
+    for name in ("k_cache", "v_cache", "hist", "keys_written", "counts", "done", "cur_tok"):
+        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(x, y), name
