@@ -64,7 +64,24 @@ Phases, each of which must pass:
 11. V2ProPlus slice check, card vs CPU on fp32 weights: the SV embedding
    (relative L2 <= 1e-3), ge / ge_mrte (within 1e-3), greedy fp32 codes
    (agreement >= 0.9).
-12. kernels: each kernel against its plain PyTorch version on the card at
+12. zh (full size): a random ``RobertaConfig()`` RoBERTa (24 L x d1024,
+   vocabulary 21128, bf16) from the port's ``init_params``, written with
+   the port's writer under ``GENIE_ROBERTA_DIR`` beside a BERT-layout
+   ``tokenizer.json`` covering the phase's text; phase 3's character
+   loaded as ``zh`` (``load_character`` loads RoBERTa once on the card,
+   timed) with a Chinese reference transcript (non-zero reference BERT
+   rows); the RoBERTa forward of the sentence (CUDA events, beside its
+   bound) and host G2P times; ``tts`` twice on a Chinese sentence, then
+   four more with ``done`` read every step and every 16 steps in turns
+   (decode ms/step); 2 concurrent Chinese requests on the int8 slot route
+   (int8 launches = 24 x slot steps); card vs CPU: greedy fp32 codes of
+   the Chinese sentence with its BERT rows (identical) and RoBERTa's
+   ``phone_features`` in fp32 (relative L2 <= 1e-4); then the character
+   as ``en`` (zero BERT rows, reference too) and as
+   ``Hybrid-Chinese-English``, ``tts`` once each. Every ``tts`` wav is
+   finite, 2*codes*640 samples of more than 1000 distinct values, with
+   fused launches = decode steps.
+13. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths gave it (max error vs the stated tolerance),
    then its time, the plain version's, the library yardstick's and the
    least time the card could take (bound). Kernel times are device time
@@ -985,6 +1002,284 @@ def phase_v2pp_slice_check(torch, clip, sv_path):
     api.unload_character("pp")
 
 
+ZH_REF_TEXT = "你好，我是小明。"
+ZH_SENTENCE = "今天天气很好，我们一起去北京。"
+ZH_SLOT_SENTENCES = ("他说今天很热。", "我们一起去北京。")
+EN_REF_TEXT = "Hello, this is a test."
+EN_SENTENCE = "Hello world, this is a test of the new port."
+HYBRID_SENTENCE = "我们用Python说中文。"
+
+
+def write_roberta(torch, root: Path):
+    """A random full-size RoBERTa (``RobertaConfig()``: 24 layers, d1024,
+    vocabulary 21128, bf16) from the port's ``init_params``, written with
+    the port's writer, and a BERT-layout ``tokenizer.json`` whose
+    vocabulary covers the phase's Chinese text (each character a token,
+    ids spread over the table)."""
+    from genie_tts_tpu_torch.config import RobertaConfig
+    from genie_tts_tpu_torch.convert.io import save_params
+    from genie_tts_tpu_torch.frontend.g2p_zh import chinese_to_phones
+    from genie_tts_tpu_torch.frontend.wordpiece import bert_layout
+    from genie_tts_tpu_torch.models import roberta
+
+    cfg = RobertaConfig()
+    out = root / "RoBERTa"
+    out.mkdir()
+    params = roberta.init_params(torch.Generator(device=DEV).manual_seed(21), cfg,
+                                 torch.bfloat16)
+    save_params(params, out / "roberta.safetensors")
+    del params
+    vocab = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
+    chars = sorted({c for s in (ZH_REF_TEXT, ZH_SENTENCE, HYBRID_SENTENCE) + ZH_SLOT_SENTENCES
+                    for c in chinese_to_phones("。" + s)[0] + chinese_to_phones(s)[0]})
+    for i, c in enumerate(chars):
+        vocab[c] = 670 + i * (cfg.vocab_size - 700) // len(chars)
+    (out / "tokenizer.json").write_text(json.dumps(bert_layout(vocab)), encoding="utf-8")
+    return out
+
+
+def phase_zh(torch, root: Path, card: str):
+    """Chinese, English and hybrid text through the entry points a user
+    calls, with RoBERTa BERT features at full size: a random RoBERTa under
+    ``GENIE_ROBERTA_DIR``, the tts phase's V2 character loaded as ``zh``
+    (``load_character`` loads RoBERTa on the card and installs the BERT
+    hook) with a Chinese reference text, ``tts()`` twice on a Chinese
+    sentence, 2 concurrent Chinese requests on the int8 slot route, then
+    the same character as ``en`` and as ``Hybrid-Chinese-English``,
+    ``tts()`` once each. Then the card against the port's own CPU run:
+    RoBERTa's ``phone_features`` in fp32 (relative L2 <= 1e-4) and greedy
+    fp32 codes of the Chinese sentence with its BERT rows (identical)."""
+    import threading
+
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.convert.io import load_params
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.frontend.g2p_zh import chinese_to_phones
+    from genie_tts_tpu_torch.models import roberta, t2s
+    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig
+    from genie_tts_tpu_torch.runtime.buckets import pick_bucket
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.utils.wavio import read_audio
+
+    t0 = time.perf_counter()
+    rdir = write_roberta(torch, root)
+    os.environ["GENIE_ROBERTA_DIR"] = str(rdir)
+    size = (rdir / "roberta.safetensors").stat().st_size
+    print(f"[zh] random full-size RoBERTa ({size / 1e6:.0f} MB on disk) and "
+          f"tokenizer.json written in {time.perf_counter() - t0:.1f} s")
+    out = {}
+
+    sync(torch)
+    t0 = time.perf_counter()
+    loaded = api.model_manager.load_roberta(DEV)
+    sync(torch)
+    out["load_roberta_s"] = time.perf_counter() - t0
+    check(loaded is not None, "RoBERTa did not load")
+    rparams, rcfg, tok = loaded
+    check(rcfg.num_layers == 24 and rcfg.vocab_size == 21128
+          and rparams["word_embed"].dtype == torch.bfloat16
+          and rparams["word_embed"].device.type == "cuda",
+          "RoBERTa: full size, bf16, on the card")
+
+    char_dir, ref = root / "char", str(root / "ref.wav")
+    api.engine.timing = True
+    api.load_character("zh", char_dir, "zh", device=DEV)
+    check(api.model_manager.load_roberta(DEV) is loaded,
+          "a second character on the card must not load RoBERTa again")
+    char = api.model_manager.get("zh")
+    api.set_reference_audio("zh", ref, ZH_REF_TEXT, "zh")
+    feats = reference_audio_cache.get_features(api.engine, char, ref, ZH_REF_TEXT, "Chinese")
+    check(len(feats.phones) > 0 and np.all(np.abs(feats.bert).sum(axis=1) > 0),
+          "the Chinese reference text must give non-zero BERT rows")
+
+    # host G2P times and the RoBERTa forward of the sentence
+    norm, _, _, word2ph = chinese_to_phones(ZH_SENTENCE)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        chinese_to_phones(ZH_SENTENCE)
+    out["zh_g2p_ms"] = (time.perf_counter() - t0) * 100
+    t0 = time.perf_counter()
+    for _ in range(10):
+        get_phones_and_bert(EN_SENTENCE, "en")
+    out["en_g2p_ms"] = (time.perf_counter() - t0) * 100
+    zh_ids, zh_bert = get_phones_and_bert(ZH_SENTENCE, "zh")
+    en_ids, en_bert = get_phones_and_bert(EN_SENTENCE, "en")
+    check(len(zh_ids) == sum(word2ph) and np.all(np.abs(zh_bert).sum(axis=1) > 0),
+          "Chinese BERT rows must be non-zero, one per phoneme")
+    check(len(en_ids) > 0 and not np.any(en_bert), "English BERT rows must be zero")
+    enc = tok.encode(norm)
+    check(len(enc.ids) - 2 == len(word2ph) and 100 not in enc.ids,
+          f"tokens {len(enc.ids)} for {len(word2ph)} characters")
+    ids = torch.tensor(enc.ids, device=DEV)[None]
+    mask = torch.tensor(enc.attention_mask, device=DEV)[None]
+    reps = torch.tensor(word2ph, device=DEV)
+    with torch.inference_mode():
+        out["roberta_ms"] = cuda_ms(
+            torch, lambda: roberta.phone_features(rparams, ids, mask, reps, rcfg), 10)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        get_phones_and_bert(ZH_SENTENCE, "zh")
+    out["zh_g2p_bert_ms"] = (time.perf_counter() - t0) * 100
+    n_layers = rcfg.feature_layer % (rcfg.num_layers + 1)
+    w_bytes = 2 * n_layers * (4 * rcfg.embed_dim ** 2 + 2 * rcfg.embed_dim * rcfg.ffn_dim)
+    flops = 2 * len(enc.ids) * n_layers * (4 * rcfg.embed_dim ** 2
+                                           + 2 * rcfg.embed_dim * rcfg.ffn_dim)
+    out["roberta_bound_ms"], _ = bound(w_bytes, flops, "bfloat16")
+    print(f"[zh] first load_roberta {out['load_roberta_s'] * 1e3:.1f} ms wall; RoBERTa "
+          f"forward of the sentence ({len(enc.ids)} tokens, {n_layers} layers, bf16) "
+          f"{out['roberta_ms']:.3f} ms (CUDA events; bound {out['roberta_bound_ms']:.4f} ms "
+          f"for {w_bytes / 1e6:.0f} MB of weights); host G2P: zh {out['zh_g2p_ms']:.3f} ms, "
+          f"en {out['en_g2p_ms']:.3f} ms, zh with the BERT hook {out['zh_g2p_bert_ms']:.3f} "
+          f"ms; {card}")
+
+    def run_tts(name, text, tag):
+        fu.fused_decode_step.launches = 0
+        fl.flash_decode_attention.launches = 0
+        wav = root / f"{tag}.wav"
+        sync(torch)
+        t0 = time.perf_counter()
+        api.tts(name, text, save_path=wav)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = fu.fused_decode_step.launches
+        st = api.engine.last_stats
+        audio, sr = read_audio(wav)
+        n = st["codes_len"]
+        check(sr == 32000 and np.isfinite(audio).all() and len(audio) == 2 * n * 640 > 0,
+              f"{tag}: wav of {len(audio)} samples for {n} codes")
+        check(len(np.unique(audio)) > 1000, f"{tag}: {len(np.unique(audio))} distinct values")
+        check(launches == st["decode_steps"] > 0 and fl.flash_decode_attention.launches == 0,
+              f"{tag}: fused kernel launched {launches} times for "
+              f"{st['decode_steps']} decode steps")
+        stages = st["stages"]
+        print(f"[zh] {tag}: {wall * 1e3:.1f} ms wall, {n} codes, {st['decode_steps']} decode "
+              f"steps, {stages['decode'] * 1e3 / st['decode_steps']:.3f} ms/step, {launches} "
+              f"fused launches, stages ms "
+              + json.dumps({k: round(v * 1e3, 3) for k, v in stages.items()}) + f"; {card}")
+        return {"wall_s": wall, "launches": launches, **st}
+
+    for call in (1, 2):
+        out[f"zh{call}"] = run_tts("zh", ZH_SENTENCE, f"zh tts call {call}")
+    # the host's read of `done` every step against every 16, in turns
+    ms_step = {1: [], t2s.DONE_READ_EVERY: []}
+    for k in (1, t2s.DONE_READ_EVERY, t2s.DONE_READ_EVERY, 1):
+        default, t2s.DONE_READ_EVERY = t2s.DONE_READ_EVERY, k
+        try:
+            st = run_tts("zh", ZH_SENTENCE, f"zh tts, done read every {k} steps")
+        finally:
+            t2s.DONE_READ_EVERY = default
+        ms_step[k].append(round(st["stages"]["decode"] * 1e3 / st["decode_steps"], 3))
+    print(f"[zh] decode ms/step, done read every step: {ms_step[1]}; every "
+          f"{t2s.DONE_READ_EVERY} steps: {ms_step[t2s.DONE_READ_EVERY]}; {card}")
+
+    # the /tts route: 2 concurrent Chinese requests on the int8 slot machine
+    synth, _ = api._make_synth_fn("zh", use_batcher=True)
+    sb = api.get_slot_batcher(char)
+    check(sb.cfg.slot_kv_int8 and not sb.windowed_kv, "zh slot route: int8 KV kernel")
+    res, errors = {}, []
+
+    def client(i):
+        try:
+            res[i] = synth(ZH_SLOT_SENTENCES[i])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"client {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    i8.int8_big_attention.launches = 0
+    fu.fused_decode_step.launches = 0
+    sb.stats.update(segments=0, steps=0)
+    sync(torch)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches, steps = i8.int8_big_attention.launches, sb.stats["steps"]
+    check(not errors and len(res) == 2, f"zh slot clients failed: {errors}")
+    codes = min(char.t2s_cfg.max_decode_steps, sb.ring)
+    for a in res.values():
+        check(a.dtype == np.int16 and len(a) == 2 * codes * 640
+              and len(np.unique(a)) > 1000,
+              f"zh slot audio {a.dtype} {len(a)}, {len(np.unique(a))} distinct values")
+    check(launches == char.t2s_cfg.num_layers * steps > 0
+          and fu.fused_decode_step.launches == 0,
+          f"zh slot route: int8 kernel launched {launches} times for {steps} steps")
+    print(f"[zh] slot route, 2 concurrent Chinese requests of {codes} codes: {wall:.3f} s "
+          f"wall, {sb.stats['segments']} segments, {steps} decode steps, {launches} int8 "
+          f"launches; {card}")
+    out["slots"] = {"wall_s": wall, "steps": steps, "launches": launches}
+
+    # greedy fp32 codes of the Chinese sentence, BERT rows included,
+    # card vs CPU
+    tcfg = char.t2s_cfg
+    phones = np.concatenate([feats.phones, zh_ids]).astype(np.int64)
+    bert = np.concatenate([feats.bert, zh_bert]).astype(np.float32)
+    Sx = pick_bucket(len(phones), api.engine.cfg.phoneme_buckets)
+    Sp = pick_bucket(len(feats.prompt_tokens), api.engine.cfg.prompt_buckets)
+    cap = 16
+    check(len(phones) <= Sx and len(feats.prompt_tokens) <= Sp,
+          f"{len(phones)} phonemes, {len(feats.prompt_tokens)} prompts")
+    ph = torch.zeros((1, Sx), dtype=torch.long)
+    ph[0, :len(phones)] = torch.from_numpy(phones)
+    bt = torch.zeros((1, Sx, bert.shape[1]))
+    bt[0, :len(phones)] = torch.from_numpy(bert)
+    pr = torch.zeros((1, Sp), dtype=torch.long)
+    pr[0, :len(feats.prompt_tokens)] = torch.from_numpy(feats.prompt_tokens.astype(np.int64))
+    params = fp32_params(torch, char)
+    api.unload_character("zh")
+    got = {}
+    for dev in (DEV, "cpu"):
+        p = to_device(torch, params, dev)
+        with torch.inference_mode():
+            c, n = t2s.generate_e2e(p, tcfg, SamplingConfig(top_k=1), None, ph.to(dev),
+                                    bt.to(dev), torch.tensor([len(phones)], device=dev),
+                                    pr.to(dev), torch.tensor([len(feats.prompt_tokens)],
+                                                             device=dev),
+                                    max_steps=cap, cache_len=Sx + Sp + cap)
+        got[dev] = (c.cpu(), n.cpu())
+    check(torch.equal(got[DEV][0], got["cpu"][0]) and torch.equal(got[DEV][1], got["cpu"][1]),
+          "greedy fp32 Chinese codes differ between the card and the CPU")
+
+    # RoBERTa phone_features in fp32, card vs CPU
+    feats32 = {}
+    for dev in (DEV, "cpu"):
+        p = load_params(rdir / "roberta.safetensors", torch.float32, dev)
+        with torch.inference_mode():
+            feats32[dev] = roberta.phone_features(p, ids.to(dev), mask.to(dev), reps.to(dev),
+                                                  rcfg).cpu()
+        del p
+    a, b = feats32[DEV], feats32["cpu"]
+    rel = float((a - b).norm() / b.norm())
+    print(f"[zh slice] RoBERTa phone_features fp32 card vs CPU (TF32 off): relative L2 "
+          f"{rel:.2e} (tolerance 1e-4), max |card - CPU| {float((a - b).abs().max()):.2e}; "
+          f"greedy fp32 codes of the Chinese sentence with its BERT rows: identical "
+          f"({int(got['cpu'][1][0])} codes)")
+    check(rel <= 1e-4, f"RoBERTa card/CPU relative L2 {rel}")
+
+    # English and hybrid text through tts() on the same weights
+    api.load_character("en", char_dir, "en", device=DEV)
+    api.set_reference_audio("en", ref, EN_REF_TEXT, "en")
+    en_feats = reference_audio_cache.get_features(
+        api.engine, api.model_manager.get("en"), ref, EN_REF_TEXT, "English")
+    check(not np.any(en_feats.bert), "English reference BERT rows must be zero")
+    out["en"] = run_tts("en", EN_SENTENCE, "en tts")
+    api.unload_character("en")
+    api.load_character("hy", char_dir, "Hybrid-Chinese-English", device=DEV)
+    api.set_reference_audio("hy", ref, ZH_REF_TEXT, "zh")
+    hy_ids, hy_bert = get_phones_and_bert(HYBRID_SENTENCE, "Hybrid-Chinese-English")
+    rows = np.abs(hy_bert).sum(axis=1) > 0
+    check(rows.any() and not rows.all(), "hybrid BERT: non-zero Chinese rows, zero English rows")
+    out["hybrid"] = run_tts("hy", HYBRID_SENTENCE, "hybrid tts")
+    api.unload_character("hy")
+    return out
+
+
 LONG_SENTENCE = ("きょうはとてもいいてんきなので、ともだちといっしょにこうえんへいって、"
                  "ながいあいださんぽをしてから、えきのちかくのきっさてんでこーひーをのみました"
                  "、そのあとでほんやにより、あたらしいしょうせつをにさつかってかえりました")
@@ -1568,6 +1863,7 @@ def main() -> int:
         timed(phase_serve, torch, work, card)
         _, clip, sv_path = timed(phase_v2pp, torch, work, card)
         timed(phase_v2pp_slice_check, torch, clip, sv_path)
+        timed(phase_zh, torch, work, card)
         res = timed(phase_kernels, torch, char, b4["S"], b4)
         res8 = timed(phase_kernel_int8, torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
     finally:

@@ -4,7 +4,9 @@ clear_reference_audio_cache, start_server.
 
 The port of ``genie_tts_tpu/api.py`` for V2 and V2ProPlus characters
 (a V2ProPlus character clones through the speaker-verification model of
-``models/sv.py``). ``tts`` and
+``models/sv.py``) speaking Japanese, English, Chinese or hybrid
+Chinese-English text (Chinese text takes RoBERTa BERT features, loaded
+with the character). ``tts`` and
 ``tts_async`` run through sessions (``runtime/session.py``); the serving
 route (``_make_synth_fn(use_batcher=True)``) sends a sentence that fits
 the slot buckets to the character's in-flight slot machine and any other
@@ -88,6 +90,8 @@ def load_character(character_name: str, model_dir: Union[str, PathLike],
     """Load a character checkpoint directory (t2s/vits safetensors) onto
     ``device`` (cuda unless named) in ``dtype`` (default bf16)."""
     language = require_supported(language)
+    if "Chinese" in language:  # Chinese/Hybrid: warm the BERT feature model
+        model_manager.load_roberta(device)
     model_manager.load_character(character_name, os.fspath(model_dir), language,
                                  compute_dtype=dtype, device=device)
 

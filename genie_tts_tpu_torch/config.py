@@ -88,6 +88,19 @@ class HubertConfig:
     sample_rate: int = 16000
 
 
+@dataclasses.dataclass(frozen=True)
+class RobertaConfig:
+    """chinese-roberta-wwm-ext-large for per-phoneme BERT features."""
+    vocab_size: int = 21128
+    embed_dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_dim: int = 4096
+    max_position: int = 512
+    type_vocab: int = 2
+    feature_layer: int = -3           # third-to-last hidden state
+
+
 def _env_flag(name: str, default: str) -> bool:
     return os.environ.get(name, default).lower() not in ("0", "false", "off")
 
@@ -202,7 +215,10 @@ class RuntimeConfig:
 # ---------------------------------------------------------------------------
 
 HUBERT_DIR_ENV = "GENIE_HUBERT_DIR"
+ROBERTA_DIR_ENV = "GENIE_ROBERTA_DIR"
 SV_MODEL_ENV = "GENIE_SV_MODEL"
+CHINESE_G2P_ENV = "GENIE_CHINESE_G2P_DIR"
+ENGLISH_G2P_ENV = "GENIE_ENGLISH_G2P_DIR"
 
 
 def genie_data_dir() -> Path:
@@ -217,6 +233,19 @@ def asset_path(name: str, env_override: Optional[str] = None) -> Path:
 
 def hubert_dir() -> Path:
     return asset_path("chinese-hubert-base", HUBERT_DIR_ENV)
+
+
+def roberta_dir() -> Path:
+    """``roberta.safetensors`` and its ``tokenizer.json``."""
+    return asset_path("RoBERTa", ROBERTA_DIR_ENV)
+
+
+def chinese_g2p_dir() -> Path:
+    return asset_path("G2P/Chinese", CHINESE_G2P_ENV)
+
+
+def english_g2p_dir() -> Path:
+    return asset_path("G2P/English", ENGLISH_G2P_ENV)
 
 
 def sv_model_path() -> Path:

@@ -39,6 +39,10 @@ from ..ops.sampling import SamplingConfig, gumbel_noise, sample_token
 
 Params = Dict
 
+# decode steps between the host's reads of the finished flags in
+# ``generate`` (each read synchronizes the host with the device)
+DONE_READ_EVERY = 16
+
 
 # ---------------------------------------------------------------------------
 # Initialization (random weights for tests and the chip smoke run; real
@@ -383,7 +387,11 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     counts = torch.ones((B,), dtype=torch.int64, device=dev)
     step = 1
-    while step < ms_dyn and not bool(done.all()):
+    while step < ms_dyn:
+        # the host reads `done` every DONE_READ_EVERY steps; the steps run
+        # after every row finished leave tokens and counts as they are
+        if (step - 1) % DONE_READ_EVERY == 0 and bool(done.all()):
+            break
         cur_tok = tokens[:, step - 1]
         emb = audio_embed[cur_tok]                              # [B, D]
         pos_emb = pe_full[p_len + step - 1]                     # [B, D]

@@ -5,7 +5,10 @@ validation (a V2ProPlus character also needs its prompt encoder),
 ``config.json`` hyperparameter overrides (a V2ProPlus character's
 synthesizer defaults to ``gin_channels=1024``), int8 decode weights at
 load (``RuntimeConfig.t2s_int8``), an LRU of loaded characters with reload
-after eviction, and a lazy global HuBERT.
+after eviction, and the lazy shared models: HuBERT, and RoBERTa with the
+Chinese BERT-feature hook it installs into the G2P dispatcher. Both are
+kept per device, so a second character on the same card loads neither
+again.
 """
 from __future__ import annotations
 
@@ -15,10 +18,12 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..config import (HubertConfig, RuntimeConfig, SoVITSConfig, T2SConfig,
-                      hubert_dir, resolve_device, resolve_dtype)
+from ..config import (HubertConfig, RobertaConfig, RuntimeConfig, SoVITSConfig,
+                      T2SConfig, hubert_dir, resolve_device, resolve_dtype,
+                      roberta_dir)
 from ..convert.io import load_character_config, load_params
 from ..utils.lru import LRUCache
 from .engine import CharacterModel
@@ -79,6 +84,8 @@ class ModelManager:
         # name -> (model_dir, language, device, dtype) for reload after evict
         self._registry: Dict[str, Tuple] = {}
         self._hubert: Dict[torch.device, Tuple[Dict, HubertConfig]] = {}
+        # device -> (params, cfg, tokenizer)
+        self._roberta: Dict[torch.device, Tuple[Dict, RobertaConfig, object]] = {}
 
     # -- characters -------------------------------------------------------
 
@@ -151,6 +158,70 @@ class ModelManager:
             self._hubert[dev] = (load_params(path, resolve_dtype(None, self.cfg), dev),
                                  _cfg(HubertConfig, overrides))
             return self._hubert[dev]
+
+    def load_roberta(self, device) -> Optional[Tuple[Dict, RobertaConfig, object]]:
+        """Lazy global RoBERTa + tokenizer on ``device`` for Chinese BERT
+        features. Loading it installs the per-phoneme feature hook into
+        the G2P dispatcher. Returns (params, cfg, tokenizer), or None when
+        ``roberta.safetensors`` or ``tokenizer.json`` is missing: Chinese
+        BERT features are then zero. A ``config.json`` beside them may
+        override RobertaConfig fields, as HuBERT's does."""
+        dev = resolve_device(device)
+        with self._lock:
+            if dev in self._roberta:
+                return self._roberta[dev]
+            root = roberta_dir()
+            ckpt = root / "roberta.safetensors"
+            tok_path = root / "tokenizer.json"
+            if not (ckpt.is_file() and tok_path.is_file()):
+                logger.warning(
+                    "RoBERTa assets not found at %s; Chinese BERT features "
+                    "will be zero (pronunciation unaffected, prosody degrades)",
+                    root)
+                return None
+            from ..frontend.wordpiece import WordPieceTokenizer
+
+            cfg_path = root / "config.json"
+            overrides = load_character_config(cfg_path) if cfg_path.is_file() else None
+            self._roberta[dev] = (
+                load_params(ckpt, resolve_dtype(None, self.cfg), dev),
+                _cfg(RobertaConfig, overrides), WordPieceTokenizer.from_file(tok_path))
+            self._install_bert_hook(dev)
+            return self._roberta[dev]
+
+    def set_roberta(self, params: Dict, cfg: RobertaConfig, tokenizer) -> None:
+        """Inject RoBERTa weights (on their device) + a tokenizer with
+        ``encode(text) -> .ids, .attention_mask`` (tests / preloaded)."""
+        dev = params["word_embed"].device
+        with self._lock:
+            self._roberta[dev] = (params, cfg, tokenizer)
+            self._install_bert_hook(dev)
+
+    def _install_bert_hook(self, dev: torch.device) -> None:
+        """Point the dispatcher's BERT hook at the RoBERTa on ``dev``. The
+        hook reads only the weights and its arguments, so server threads
+        may call it at once."""
+        from ..frontend.dispatcher import set_bert_feature_fn
+        from ..models import roberta as roberta_model
+        from ..ops.layers import unstack
+
+        params, cfg, tokenizer = self._roberta[dev]
+        unstack(params["layers"])      # per-layer views made here, not in a call
+
+        @torch.inference_mode()
+        def bert_fn(norm_text: str, word2ph) -> np.ndarray:
+            enc = tokenizer.encode(norm_text)
+            reps = np.asarray(word2ph, np.int64)
+            if len(enc.ids) - 2 != len(reps):
+                # tokenizer/char mismatch (rare unicode): zero features
+                return np.zeros((int(reps.sum()), cfg.embed_dim), np.float32)
+            out = roberta_model.phone_features(
+                params, torch.as_tensor(enc.ids, device=dev)[None],
+                torch.as_tensor(enc.attention_mask, device=dev)[None],
+                torch.as_tensor(reps, device=dev), cfg)
+            return out.cpu().numpy()
+
+        set_bert_feature_fn(bert_fn)
 
 
 model_manager = ModelManager()

@@ -161,3 +161,32 @@ def test_greedy_codes_identical_24_layers():
                                        jcfg, tcfg)
         np.testing.assert_array_equal(tn, jn)
         np.testing.assert_array_equal(tc, jc)
+
+
+@pytest.mark.parametrize("B", [1, 4], ids=["fused_B1", "flash_B4"])
+def test_done_read_every_k_steps_keeps_tokens(params, monkeypatch, B):
+    """``generate`` reads the finished flags every DONE_READ_EVERY steps.
+    The steps it runs after every row has finished leave the tokens and
+    the counts as they are: k=16 must give what k=1 (a read every step)
+    gives, token for token, at B=1 (the fused route on its plain version)
+    and B=4 (rows that end at different steps), with top-k sampling
+    from one seeded noise table."""
+    tp = params_from_numpy(params, torch.float32)
+    phones, bert, x_len, prompts, p_len = _inputs(B)
+    x = tt2s.embed_text(tp, _t(phones), _t(bert))
+    cap = 64
+    out = {}
+    for k in (1, 16):
+        monkeypatch.setattr(tt2s, "DONE_READ_EVERY", k)
+        out[k] = tt2s.generate(tp, TCFG, SamplingConfig(), torch.Generator().manual_seed(4),
+                               x, _t(x_len), _t(prompts), _t(p_len), max_steps=cap,
+                               cache_len=SX + SP + cap)
+    every, sparse = out[1], out[16]
+    counts = every.counts.numpy()
+    assert counts.max() < cap, "a row ran to the cap; reseed the fixture"
+    if B == 4:
+        assert len(set(counts.tolist())) > 1, "rows ended together; reseed the fixture"
+    np.testing.assert_array_equal(sparse.counts.numpy(), counts)
+    np.testing.assert_array_equal(sparse.tokens.numpy(), every.tokens.numpy())
+    assert every.steps == counts.max()
+    assert every.steps < sparse.steps < every.steps + 16
