@@ -81,7 +81,27 @@ Phases, each of which must pass:
    ``Hybrid-Chinese-English``, ``tts`` once each. Every ``tts`` wav is
    finite, 2*codes*640 samples of more than 1000 distinct values, with
    fused launches = decode steps.
-13. kernels: each kernel against its plain PyTorch version on the card at
+13. train (full width): ``T2SConfig()`` fp32 params from the port's
+   ``init_params``, ``make_mesh(1, 1)`` on cuda, ``make_train_step`` at lr
+   1e-4, 10 steps on ``make_batch(cfg, 8, 128, 384)`` with rows 4-7 cut to
+   x_len 96 and sem_len 256: finite losses, the last below the first; the
+   step's ms (CUDA events, median of steps 3-10), positions and target
+   tokens a second, peak memory and the step's operation bound; one step
+   under torch.profiler (device busy, GEMM time). Card vs CPU on the
+   initial params (B=2, Sx=64, Sy=128): loss relative difference <= 1e-5,
+   every gradient relative L2 <= 1e-4 (row 1 alone at B=1 and the trained
+   params printed beside it, with the CPU's own floor). The trained
+   tree, written as a copy of phase 3's character, loads through
+   ``api.load_character`` (int8 decode weights) and ``tts()`` speaks: a
+   finite wav of 2*codes*640 samples, fused launches = decode steps. One
+   card: no collective runs here.
+14. shared convert (full size): a random chinese-hubert-base in the HF
+   key layout as ``pytorch_model.bin``, through ``convert_shared_models``
+   into a work-dir ``GENIE_DATA_DIR`` (timed); a new model manager's
+   ``load_hubert`` serves it; in fp32 (``set_hubert``) it serves
+   ``set_reference_audio`` on the card, its features of the clip within
+   relative L2 1e-5 of the CPU's from the same file.
+15. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths gave it (max error vs the stated tolerance),
    then its time, the plain version's, the library yardstick's and the
    least time the card could take (bound). Kernel times are device time
@@ -1488,6 +1508,370 @@ def phase_serve(torch, root: Path, card: str):
     return out
 
 
+# fine-tuning geometry: B=8 clips of 128 phonemes and 384 semantic tokens
+# (15 s at 25 Hz), rows 4-7 cut to 96 phonemes and 256 tokens
+TRAIN_B, TRAIN_SX, TRAIN_SY, TRAIN_STEPS = 8, 128, 384, 10
+
+
+def train_step_flops(cfg, B, Sx, Sy):
+    """Operations of one train step by its shapes: forward + backward = 3x
+    the forward's products (the layers' matmuls over every position, the
+    attention scores and sums, BERT projection, the predict head over the
+    audio block)."""
+    S, D, L = Sx + Sy, cfg.embed_dim, cfg.num_layers
+    layer = 2 * B * S * (4 * D * D + 2 * D * cfg.ffn_dim) + 4 * B * S * S * D
+    fwd = (L * layer + 2 * B * Sx * cfg.bert_dim * D
+           + 2 * B * Sy * D * cfg.semantic_vocab)
+    return 3 * fwd
+
+
+def rel_l2(torch, a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def phase_train(torch, root: Path, card: str):
+    """T2S fine-tuning at full width through the entry points a user
+    calls: ``T2SConfig()`` (24 L x d512 x 16 heads, FFN 2048) fp32 params
+    from the port's ``init_params`` on a seeded cuda generator,
+    ``make_mesh(1, 1)`` (cuda), ``make_train_step(cfg, mesh)`` at the
+    default lr 1e-4, 10 steps on ``make_batch(cfg, 8, 128, 384)`` with
+    rows 4-7 cut to x_len 96 and sem_len 256. The losses must be finite and
+    the last below the first; the step's time (CUDA events, median of steps
+    3-10), positions and target tokens a second, peak memory, beside the
+    step's operation bound, and one profiled step. Then the card against
+    the CPU at B=2, Sx=64, Sy=128 on the initial params: the loss (relative
+    difference <= 1e-5) and every leaf's gradient (relative L2 <= 1e-4);
+    printed beside it, row 1 alone (B=1), and the trained params with the
+    CPU's own floor there (its rows one at a time against its batch: a few
+    steps leave some leaves' gradients tiny residues of cancellation,
+    which fp32 sums in another order do not reproduce). Then train then
+    serve: the trained tree, written with ``save_params`` as the
+    ``t2s.safetensors`` of a copy of the tts phase's character, loaded
+    through ``api.load_character`` (int8 decode weights), cloned from the
+    reference clip and spoken by ``tts()``: a finite wav of 2*codes*640
+    samples, one fused launch per decode step."""
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.config import T2SConfig
+    from genie_tts_tpu_torch.convert.io import flatten_tree, save_params, unflatten_tree
+    from genie_tts_tpu_torch.models import t2s
+    from genie_tts_tpu_torch.ops import fused_decode as fu
+    from genie_tts_tpu_torch.parallel.mesh import make_mesh
+    from genie_tts_tpu_torch.parallel.train import make_batch, make_train_step
+    from genie_tts_tpu_torch.utils.wavio import read_audio
+
+    cfg = T2SConfig()
+    mesh = make_mesh(1, 1)
+    check(mesh.device.type == DEV, f"make_mesh(1, 1) on {mesh.device}")
+    params = t2s.init_params(torch.Generator(device=DEV).manual_seed(8), cfg,
+                             dtype=torch.float32)
+    n_params = sum(x.numel() for x in flatten_tree(params).values())
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = make_train_step(cfg, mesh)
+    p_init = params                     # init_fn trains a copy
+    params, opt = init_fn(params)
+    batch = make_batch(cfg, TRAIN_B, sx=TRAIN_SX, sy=TRAIN_SY)
+    batch["x_len"][4:] = 96
+    batch["sem_len"][4:] = 256
+    events, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, loss = step_fn(params, opt, batch)
+        end.record()
+        events.append((start, end))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(x.device == mesh.device for x in flatten_tree(params).values()),
+          "trained params left the card")
+    step_ms = float(np.median(ms[2:]))
+    # one more step under torch.profiler: the device's busy time by kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, _ = step_fn(params, opt, batch)
+        e1.record()
+        sync(torch)
+    kernels = [(getattr(a, "self_device_time_total", None)
+                or getattr(a, "self_cuda_time_total", 0.0), a.count, a.key)
+               for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    prof_ms = e0.elapsed_time(e1)
+    gemm_ms = sum(k[0] for k in kernels if "gemm" in k[2].lower()) / 1e3
+    positions = TRAIN_B * (TRAIN_SX + TRAIN_SY)
+    targets = int(batch["sem_len"].sum())
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_SX, TRAIN_SY)
+    p_bytes = 4 * n_params * 6          # params and both moments, read and written
+    bound_ms, bound_by = bound(p_bytes, flops, "float32")
+    print(f"[train] T2SConfig() {cfg.num_layers} L x d{cfg.embed_dim} x {cfg.num_heads} heads, "
+          f"FFN {cfg.ffn_dim}, {n_params} fp32 params, AdamW lr 1e-4; "
+          f"B={TRAIN_B} Sx={TRAIN_SX} Sy={TRAIN_SY} (rows 4-7: x_len 96, sem_len 256); "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"[train] step {step_ms:.3f} ms (CUDA events, median of steps 3-{TRAIN_STEPS}; "
+          f"all: {', '.join(f'{x:.2f}' for x in ms)}); {positions / step_ms * 1e3:.0f} "
+          f"positions/s, {targets / step_ms * 1e3:.0f} target tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); bound {bound_ms:.3f} ms "
+          f"({bound_by}: {flops:.4e} FLOP at {PEAK_OPS['float32'] / 1e12:.0f} TFLOP/s "
+          f"fp32, TF32 off; {p_bytes / 1e9:.2f} GB at 3.35 TB/s), "
+          f"{step_ms / bound_ms:.2f}x the bound, {flops / step_ms / 1e9:.2f} TFLOP/s; {card}")
+    if busy_ms > 0:
+        top = "; ".join(f"{key[:60]} x{n} {us / 1e3:.2f} ms"
+                        for us, n, key in sorted(kernels, reverse=True)[:5])
+        print(f"[train] profiled step: {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+              f"({busy_ms / prof_ms:.1%}), GEMM kernels {gemm_ms:.3f} ms "
+              f"({flops / gemm_ms / 1e9 if gemm_ms else 0:.1f} TFLOP/s if all the step's "
+              f"FLOP were theirs), {sum(k[1] for k in kernels)} kernel launches; top: {top}")
+    else:
+        print("[train] profiled step: the profiler shows no device time (not measured)")
+
+    # the card against the CPU: the loss and every leaf's gradient at B=2
+    # on the initial params (held to the tolerances); the same on the
+    # trained params beside the CPU's own floor there (its rows one at a
+    # time against the batch), and each row alone at B=1 (printed)
+    small = make_batch(cfg, 2, sx=64, sy=128, seed=1)
+    small["x_len"][1] = 41
+    small["sem_len"][1] = 90
+    count = float(np.clip(small["sem_len"], 0, small["semantic"].shape[1]).sum())
+
+    def grads_of(src, dev, rows):
+        """(the rows' NLL sum / the batch's valid count, {leaf: gradient})."""
+        leaves = {p: x.detach().to(dev).requires_grad_(True)
+                  for p, x in flatten_tree(src).items()}
+        b = {k: torch.as_tensor(v[rows], device=dev) for k, v in small.items()}
+        logits = t2s.forward_train(unflatten_tree(leaves), cfg, b["phones"], b["bert"],
+                                   b["x_len"], b["semantic"], b["sem_len"])
+        total, _ = t2s.masked_nll(logits, b["semantic"], b["sem_len"], cfg.eos_id)
+        loss = total / count
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return float(loss), {p: g.detach().cpu() for p, g in zip(leaves, grads)
+                             if g is not None}
+
+    def compare(a, b):
+        check(set(a) == set(b), "the two runs differ in the leaves with a gradient")
+        rels = {p: rel_l2(torch, a[p], b[p]) for p in b}
+        worst = max(rels, key=rels.get)
+        return rels[worst], worst, float(np.median(list(rels.values())))
+
+    both = slice(0, 2)
+    lc, gc = grads_of(p_init, DEV, both)
+    lh, gh = grads_of(p_init, "cpu", both)
+    loss_rel = abs(lc - lh) / abs(lh)
+    worst, leaf, med = compare(gc, gh)
+    print(f"[train] card vs CPU (B=2, Sx=64, Sy=128, initial params): loss {lc:.7f} vs "
+          f"{lh:.7f}, relative {loss_rel:.3e} (tolerance 1e-5); gradients of {len(gh)} "
+          f"leaves, worst relative L2 {worst:.3e} ({leaf}; tolerance 1e-4), median {med:.3e}")
+    check(loss_rel <= 1e-5, f"card/CPU loss relative difference {loss_rel}")
+    check(worst <= 1e-4, f"card/CPU gradient of {leaf}: {worst}")
+    row_c = grads_of(p_init, DEV, slice(1, 2))[1]
+    row_h = grads_of(p_init, "cpu", slice(1, 2))[1]
+    worst, leaf, med = compare(row_c, row_h)
+    print(f"[train] card vs CPU, row 1 alone (B=1), initial params: worst relative L2 "
+          f"{worst:.3e} ({leaf}), median {med:.3e} (printed, not held)")
+    lc, gc = grads_of(params, DEV, both)
+    lh, gh = grads_of(params, "cpu", both)
+    worst, leaf, med = compare(gc, gh)
+    rows_h = [grads_of(params, "cpu", slice(r, r + 1))[1] for r in (0, 1)]
+    split = {p: rows_h[0][p] + rows_h[1][p] for p in gh}
+    fworst, fleaf, fmed = compare(split, gh)
+    print(f"[train] card vs CPU (B=2), trained params: loss relative "
+          f"{abs(lc - lh) / abs(lh):.3e}; gradients worst relative L2 {worst:.3e} ({leaf}), "
+          f"median {med:.3e}; the CPU's rows one at a time against its batch: worst "
+          f"{fworst:.3e} ({fleaf}), median {fmed:.3e} (printed, not held)")
+    del gc, gh, row_c, row_h, rows_h, split, p_init
+
+    # train then serve
+    trained = root / "char_trained"
+    shutil.copytree(root / "char", trained)
+    save_params(params, trained / "t2s.safetensors")
+    del params, opt
+    torch.cuda.empty_cache()
+    api.load_character("trained", trained, "ja", device=DEV)
+    try:
+        api.set_reference_audio("trained", root / "ref.wav", "こんにちは、てすとです", "ja")
+        fu.fused_decode_step.launches = 0
+        wav = root / "trained.wav"
+        t0 = time.perf_counter()
+        api.tts("trained", "きょうはいいてんきですね。", save_path=wav)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = fu.fused_decode_step.launches
+        st = api.engine.last_stats
+        audio, sr = read_audio(wav)
+        n = st["codes_len"]
+        check(sr == 32000 and np.isfinite(audio).all() and len(audio) == 2 * n * 640 > 0,
+              f"trained character: wav of {len(audio)} samples at {sr} Hz for {n} codes")
+        check(launches == st["decode_steps"] > 0,
+              f"trained character: {launches} fused launches for "
+              f"{st['decode_steps']} decode steps")
+        check(api.model_manager.get("trained").t2s_params["layers"]["qkv"]["w"].dtype
+              == torch.int8, "the trained character did not load int8 decode weights")
+    finally:
+        api.unload_character("trained")
+    print(f"[train] trained tree served: tts() {wall * 1e3:.1f} ms wall, {n} codes, "
+          f"{st['decode_steps']} decode steps, {launches} fused launches")
+    return {"step_ms": step_ms, "peak": peak, "bound_ms": bound_ms}
+
+
+def hf_hubert_state_dict(cfg, seed: int, legacy: bool = True):
+    """A random chinese-hubert-base checkpoint in the key layout of
+    transformers' ``HubertModel`` (numpy fp32 from ``seed``): the conv
+    frontend (no conv biases) with the first layer's GroupNorm, the
+    feature projection, the weight-normed positional conv as
+    ``weight_g``/``weight_v`` or, with ``legacy=False``, as
+    ``parametrizations.weight.original0``/``original1``, the encoder
+    layers and ``masked_spec_embed``. Weights scale with fan-in, so the
+    features stay finite through every layer."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, std=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    sd = {}
+
+    def ln(key, n):
+        sd[f"{key}.weight"] = 1.0 + randn(n, std=0.1)
+        sd[f"{key}.bias"] = randn(n, std=0.1)
+
+    def lin(key, i, o):
+        sd[f"{key}.weight"] = randn(o, i, std=i ** -0.5)
+        sd[f"{key}.bias"] = randn(o, std=0.02)
+
+    in_c = 1
+    for i, (c, k) in enumerate(zip(cfg.conv_dims, cfg.conv_kernels)):
+        sd[f"feature_extractor.conv_layers.{i}.conv.weight"] = randn(
+            c, in_c, k, std=(in_c * k) ** -0.5)
+        in_c = c
+    ln("feature_extractor.conv_layers.0.layer_norm", cfg.conv_dims[0])
+    D, G, K = cfg.embed_dim, cfg.conv_pos_groups, cfg.conv_pos_kernel
+    ln("feature_projection.layer_norm", cfg.conv_dims[-1])
+    lin("feature_projection.projection", cfg.conv_dims[-1], D)
+    # w = g * v / |v| (norm over the first two axes): g = sqrt(D / K) gives
+    # w the fan-in scale (D/G * K) ** -0.5
+    pre = "encoder.pos_conv_embed.conv."
+    g = (D / K) ** 0.5 * (1.0 + randn(1, 1, K, std=0.1))
+    v = randn(D, D // G, K)
+    if legacy:
+        sd[pre + "weight_g"], sd[pre + "weight_v"] = g, v
+    else:
+        sd[pre + "parametrizations.weight.original0"] = g
+        sd[pre + "parametrizations.weight.original1"] = v
+    sd[pre + "bias"] = randn(D, std=0.02)
+    ln("encoder.layer_norm", D)
+    for i in range(cfg.num_layers):
+        p = f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(f"{p}.attention.{name}", D, D)
+        ln(f"{p}.layer_norm", D)
+        lin(f"{p}.feed_forward.intermediate_dense", D, cfg.ffn_dim)
+        lin(f"{p}.feed_forward.output_dense", cfg.ffn_dim, D)
+        ln(f"{p}.final_layer_norm", D)
+    sd["masked_spec_embed"] = rng.uniform(size=D).astype(np.float32)
+    return sd
+
+
+def phase_shared_convert(torch, root: Path, card: str):
+    """Shared-model conversion at full size: a random chinese-hubert-base
+    (``HubertConfig()``: 7 conv layers of 512, 12 L x d768, positional conv
+    128 in 16 groups) in the HF key layout, ``torch.save``d as
+    ``pytorch_model.bin``, through ``convert_shared_models(hubert_dir_in=
+    ...)`` into a work-dir ``GENIE_DATA_DIR`` (timed). A new model
+    manager's ``load_hubert`` serves the file; the converted HuBERT in fp32
+    (``set_hubert``) serves ``set_reference_audio`` on the card, and its
+    features of the clip match the CPU's from the same file (relative L2
+    <= 1e-5)."""
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.config import HubertConfig, hubert_dir
+    from genie_tts_tpu_torch.convert.io import flatten_tree, load_params
+    from genie_tts_tpu_torch.convert.shared_models import convert_shared_models
+    from genie_tts_tpu_torch.models import hubert
+    from genie_tts_tpu_torch.runtime.model_manager import ModelManager
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+
+    hcfg = HubertConfig()
+    src = root / "hf-chinese-hubert-base"
+    src.mkdir()
+    t0 = time.perf_counter()
+    sd = hf_hubert_state_dict(hcfg, seed=31)
+    n_params = sum(v.size for v in sd.values())
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, src / "pytorch_model.bin")
+    del sd
+    t_write = time.perf_counter() - t0
+    env = {k: os.environ.get(k) for k in ("GENIE_HUBERT_DIR", "GENIE_DATA_DIR")}
+    os.environ.pop("GENIE_HUBERT_DIR", None)
+    os.environ["GENIE_DATA_DIR"] = str(root / "GenieData")
+    try:
+        t0 = time.perf_counter()
+        convert_shared_models(hubert_dir_in=src)
+        t_conv = time.perf_counter() - t0
+        out = hubert_dir() / "hubert.safetensors"
+        check(out == root / "GenieData" / "chinese-hubert-base" / "hubert.safetensors"
+              and out.is_file(), f"converted HuBERT not at {out}")
+        served = ModelManager().load_hubert(DEV)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    D = hcfg.embed_dim
+    check(served is not None
+          and served[0]["layers"]["q"]["w"].shape == (hcfg.num_layers, D, D)
+          and served[0]["pos_conv"]["w"].shape == (hcfg.conv_pos_kernel,
+                                                   D // hcfg.conv_pos_groups, D),
+          "load_hubert did not serve the converted file")
+    print(f"[convert] chinese-hubert-base HF state dict ({n_params} params, "
+          f"{(src / 'pytorch_model.bin').stat().st_size / 1e6:.1f} MB) written in "
+          f"{t_write:.2f} s; convert_shared_models {t_conv:.2f} s -> {out.name} "
+          f"({out.stat().st_size / 1e6:.1f} MB); load_hubert serves it ({len(flatten_tree(served[0]))} leaves, "
+          f"{served[0]['fp_proj']['w'].dtype})")
+    del served
+
+    prev = api.model_manager.load_hubert(DEV)
+    api.model_manager.set_hubert(load_params(out, torch.float32, DEV), hcfg)
+    clip = root / "ref_convert.wav"
+    shutil.copy(root / "ref.wav", clip)
+    text = "こんにちは、てすとです"
+    try:
+        t0 = time.perf_counter()
+        check(api.set_reference_audio("hubert_check", clip, text, "ja", device=DEV),
+              "set_reference_audio refused the clip")
+        sync(torch)
+        wall = time.perf_counter() - t0
+        ref = reference_audio_cache.get_clip(str(clip), text, "ja")
+        card_feats = torch.as_tensor(ref.ssl_content)
+    finally:
+        api.model_manager.set_hubert(*prev)
+    with torch.inference_mode():
+        cpu_feats = hubert.apply(load_params(out, torch.float32, "cpu"),
+                                 torch.as_tensor(ref.audio_16k, dtype=torch.float32)[None],
+                                 hcfg)[0]
+    rel = rel_l2(torch, card_feats, cpu_feats)
+    check(card_feats.shape == cpu_feats.shape and card_feats.shape[1] == hcfg.embed_dim
+          and bool(torch.isfinite(card_feats).all()),
+          f"HuBERT features {tuple(card_feats.shape)} vs {tuple(cpu_feats.shape)}")
+    print(f"[convert] set_reference_audio through the converted HuBERT (fp32): "
+          f"{wall * 1e3:.1f} ms wall; features {tuple(card_feats.shape)}, card vs CPU "
+          f"relative L2 {rel:.3e} (tolerance 1e-5); {card}")
+    check(rel <= 1e-5, f"converted HuBERT card/CPU features relative L2 {rel}")
+    api._reference_audios.pop("hubert_check", None)
+    return {"convert_s": t_conv}
+
+
 def fp32_params(torch, char):
     """The character's T2S params with the int8 weights dequantized."""
     params = {k: v for k, v in char.t2s_params.items()}
@@ -1864,6 +2248,8 @@ def main() -> int:
         _, clip, sv_path = timed(phase_v2pp, torch, work, card)
         timed(phase_v2pp_slice_check, torch, clip, sv_path)
         timed(phase_zh, torch, work, card)
+        timed(phase_train, torch, work, card)
+        timed(phase_shared_convert, torch, work, card)
         res = timed(phase_kernels, torch, char, b4["S"], b4)
         res8 = timed(phase_kernel_int8, torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
     finally:

@@ -7,6 +7,8 @@ against. Entry points run on ``cuda`` unless ``device="cpu"`` is passed.
 """
 from .api import (
     clear_reference_audio_cache,
+    convert_model,
+    convert_to_onnx,
     load_character,
     set_reference_audio,
     start_server,
@@ -29,4 +31,6 @@ __all__ = [
     "wait_for_playback_done",
     "clear_reference_audio_cache",
     "start_server",
+    "convert_model",
+    "convert_to_onnx",
 ]

@@ -2,7 +2,8 @@
 
     python -m genie_tts_tpu_torch tts --model DIR --lang ja --ref ref.wav \
         --ref-text "こんにちは" --text "こんにちは。" --out out.wav [--device cpu]
-    python -m genie_tts_tpu_torch convert --ckpt model.ckpt --pth model.pth --out DIR
+    python -m genie_tts_tpu_torch convert --ckpt model.ckpt --pth model.pth --out DIR \
+        [--version v2|v2ProPlus]
     python -m genie_tts_tpu_torch serve --host 127.0.0.1 --port 8000 [--device cpu]
 
 ``--device`` defaults to cuda; without a GPU the run stops unless
@@ -40,6 +41,8 @@ def main(argv=None) -> int:
     p.add_argument("--pth", required=True, help="SoVITS .pth path")
     p.add_argument("--out", required=True, help="output character dir")
     p.add_argument("--lang", default="ja")
+    p.add_argument("--version", choices=["v2", "v2ProPlus"], default=None,
+                   help="model version (default: auto-detect from keys)")
 
     p = sub.add_parser("serve", help="start the HTTP server")
     p.add_argument("--host", default="127.0.0.1")
@@ -70,7 +73,8 @@ def main(argv=None) -> int:
     elif args.cmd == "convert":
         from genie_tts_tpu_torch.convert.torch_convert import convert_character
 
-        version = convert_character(args.ckpt, args.pth, args.out, language=args.lang)
+        version = convert_character(args.ckpt, args.pth, args.out, language=args.lang,
+                                    version=args.version)
         print(f"converted {version} -> {args.out}")
     elif args.cmd == "serve":
         from genie_tts_tpu_torch.config import resolve_device

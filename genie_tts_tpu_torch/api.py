@@ -1,6 +1,7 @@
 """Public Python API of the port: load_character, unload_character,
 set_reference_audio, tts, tts_async, stop, wait_for_playback_done,
-clear_reference_audio_cache, start_server.
+clear_reference_audio_cache, start_server, convert_model (and its alias
+convert_to_onnx).
 
 The port of ``genie_tts_tpu/api.py`` for V2 and V2ProPlus characters
 (a V2ProPlus character clones through the speaker-verification model of
@@ -45,27 +46,29 @@ engine = TTSEngine(RuntimeConfig())
 
 # character -> reference-audio config
 _reference_audios: Dict[str, dict] = {}
-_hubert_fns: Dict[torch.device, object] = {}
+# device -> (the HuBERT params it closes over, forward)
+_hubert_fns: Dict[torch.device, tuple] = {}
 
 
 def _hubert_fn(device):
-    """HuBERT forward on ``device``, or None when weights are unavailable."""
+    """HuBERT forward on ``device``, or None when weights are unavailable
+    (made anew when ``model_manager.set_hubert`` replaced the weights)."""
     dev = resolve_device(device)
-    if dev in _hubert_fns:
-        return _hubert_fns[dev]
     loaded = model_manager.load_hubert(dev)
     if loaded is None:
         return None
-    from .models import hubert as hubert_model
-
     params, hcfg = loaded
+    cached = _hubert_fns.get(dev)
+    if cached is not None and cached[0] is params:
+        return cached[1]
+    from .models import hubert as hubert_model
 
     @torch.inference_mode()
     def fn(audio_16k: np.ndarray) -> np.ndarray:
         audio = torch.as_tensor(np.asarray(audio_16k, np.float32), device=dev)[None]
         return hubert_model.apply(params, audio, hcfg)[0].float().cpu().numpy()
 
-    _hubert_fns[dev] = fn
+    _hubert_fns[dev] = (params, fn)
     return fn
 
 
@@ -332,3 +335,26 @@ def start_server(host: str = "127.0.0.1", port: int = 8000, workers: int = 1,
     from .server.http import start_server as _start
 
     return _start(host=host, port=port, workers=workers, block=block, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Conversion
+# ---------------------------------------------------------------------------
+
+def convert_model(torch_ckpt_path: Union[str, PathLike],
+                  torch_pth_path: Union[str, PathLike],
+                  output_dir: Union[str, PathLike],
+                  language: str = "Japanese") -> None:
+    """Convert GPT-SoVITS torch checkpoints to a character checkpoint dir
+    (``convert/torch_convert.py::convert_character``; the version is
+    detected from the ``.pth``)."""
+    from .convert.torch_convert import convert_character
+
+    convert_character(os.fspath(torch_ckpt_path), os.fspath(torch_pth_path),
+                      os.fspath(output_dir), language=language)
+
+
+def convert_to_onnx(torch_ckpt_path, torch_pth_path, output_dir) -> None:
+    """Reference-API-compatible alias of :func:`convert_model` (it writes
+    safetensors checkpoints, not ONNX graphs)."""
+    convert_model(torch_ckpt_path, torch_pth_path, output_dir)

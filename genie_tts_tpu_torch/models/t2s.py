@@ -467,6 +467,65 @@ def generate_e2e(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     return finalize_tokens_device(res.tokens, res.counts, cfg.eos_id)
 
 
+# ---------------------------------------------------------------------------
+# Training (teacher-forced): fine-tuning, and the dp x tp sharded train
+# step of parallel/train.py
+# ---------------------------------------------------------------------------
+
+def forward_train(params: Params, cfg: T2SConfig, phones: torch.Tensor,
+                  bert: torch.Tensor, x_len: torch.Tensor,
+                  semantic: torch.Tensor, sem_len: torch.Tensor,
+                  layer=_layer_prefill) -> torch.Tensor:
+    """Teacher-forced logits over the audio block: [B, Sy, V] fp32.
+
+    Position t predicts semantic[t + 1]; the GPT-SoVITS T2S training
+    objective (next-token CE over audio positions, EOS appended).
+    ``layer``: the decoder layer, ``(lp, h, mask, num_heads) -> (h, kv)``;
+    the tensor-parallel step passes its own over local shards
+    (``parallel/tp.py``). The per-layer views are made anew on each call,
+    so autograd reaches the stacked ``[L, ...]`` leaves."""
+    x = embed_text(params, phones, bert)
+    B, Sx, D = x.shape
+    Sy = semantic.shape[1]
+    y_emb = params["audio_embed"][semantic]
+    pe = sine_position_table(Sy, D, device=x.device)
+    y = y_emb + (params["audio_pos_alpha"] * pe).to(y_emb.dtype)[None]
+    h = torch.cat([x, y], dim=1)
+    mask = _prefill_mask(Sx, Sy, x_len, sem_len)[:, None]
+    layers = {k: v for k, v in params["layers"].items() if not k.startswith("_")}
+    for lp in unstack(layers):
+        h, _ = layer(lp, h, mask, cfg.num_heads)
+    return h[:, Sx:].float() @ params["predict"]["w"].float()
+
+
+def masked_nll(logits: torch.Tensor, semantic: torch.Tensor,
+               sem_len: torch.Tensor, eos_id: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the next-token NLL over valid positions, the count of valid
+    positions): targets are ``semantic`` shifted left, EOS at
+    ``sem_len - 1``; positions from ``sem_len`` on are padding."""
+    B, Sy, _ = logits.shape
+    targets = torch.cat([semantic[:, 1:], torch.zeros_like(semantic[:, :1])], dim=1)
+    pos = torch.arange(Sy, device=logits.device)[None, :]
+    targets = torch.where(pos == sem_len[:, None] - 1,
+                          torch.full_like(targets, eos_id), targets)
+    valid = (pos < sem_len[:, None]).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return (nll * valid).sum(), valid.sum()
+
+
+def train_loss(params: Params, cfg: T2SConfig, batch) -> torch.Tensor:
+    """Masked next-token cross-entropy, a 0-d fp32 tensor. batch keys:
+    phones, bert, x_len, semantic, sem_len. The mean is over the valid
+    positions of the whole batch."""
+    logits = forward_train(params, cfg, batch["phones"], batch["bert"],
+                           batch["x_len"], batch["semantic"], batch["sem_len"])
+    total, count = masked_nll(logits, batch["semantic"], batch["sem_len"],
+                              cfg.eos_id)
+    return total / count.clamp(min=1.0)
+
+
 def finalize_semantic_tokens(tokens, counts, eos_id: int = 1024):
     """Host-side post-processing matching the reference quirks: the final
     emitted token becomes semantic code 0, then anything >= ``eos_id``

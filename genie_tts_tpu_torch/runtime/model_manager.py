@@ -74,6 +74,14 @@ def _cfg(cls, overrides, **defaults):
     return cls(**kw)
 
 
+def _device_key(dev: torch.device) -> torch.device:
+    """The shared models' cache key of a device: ``cuda`` and the tensors
+    on it (``cuda:0``) name one card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class ModelManager:
     def __init__(self, runtime_cfg: Optional[RuntimeConfig] = None):
         self.cfg = runtime_cfg or RuntimeConfig()
@@ -122,6 +130,11 @@ class ModelManager:
                         language, dev)
             return model
 
+    def register(self, model: CharacterModel) -> None:
+        """Insert an already-built model (tests, random characters)."""
+        with self._lock:
+            self._cache.put(model.name, model)
+
     def get(self, name: str) -> Optional[CharacterModel]:
         with self._lock:
             model = self._cache.get(name)
@@ -144,7 +157,7 @@ class ModelManager:
         """Lazy global HuBERT on ``device`` (None when the checkpoint is
         missing). A ``config.json`` beside ``hubert.safetensors`` may
         override HubertConfig fields, as a character's does."""
-        dev = resolve_device(device)
+        dev = _device_key(resolve_device(device))
         with self._lock:
             if dev in self._hubert:
                 return self._hubert[dev]
@@ -159,6 +172,13 @@ class ModelManager:
                                  _cfg(HubertConfig, overrides))
             return self._hubert[dev]
 
+    def set_hubert(self, params: Dict, cfg: HubertConfig) -> None:
+        """Inject HuBERT weights (tests / preloaded); they serve the
+        device their leaves are on."""
+        dev = _device_key(params["fp_proj"]["w"].device)
+        with self._lock:
+            self._hubert[dev] = (params, cfg)
+
     def load_roberta(self, device) -> Optional[Tuple[Dict, RobertaConfig, object]]:
         """Lazy global RoBERTa + tokenizer on ``device`` for Chinese BERT
         features. Loading it installs the per-phoneme feature hook into
@@ -166,7 +186,7 @@ class ModelManager:
         ``roberta.safetensors`` or ``tokenizer.json`` is missing: Chinese
         BERT features are then zero. A ``config.json`` beside them may
         override RobertaConfig fields, as HuBERT's does."""
-        dev = resolve_device(device)
+        dev = _device_key(resolve_device(device))
         with self._lock:
             if dev in self._roberta:
                 return self._roberta[dev]
@@ -192,7 +212,7 @@ class ModelManager:
     def set_roberta(self, params: Dict, cfg: RobertaConfig, tokenizer) -> None:
         """Inject RoBERTa weights (on their device) + a tokenizer with
         ``encode(text) -> .ids, .attention_mask`` (tests / preloaded)."""
-        dev = params["word_embed"].device
+        dev = _device_key(params["word_embed"].device)
         with self._lock:
             self._roberta[dev] = (params, cfg, tokenizer)
             self._install_bert_hook(dev)

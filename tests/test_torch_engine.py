@@ -265,7 +265,9 @@ def test_port_imports_nothing_of_jax():
             "          'utils.metrics', 'server.http', 'runtime.session',\n"
             "          'runtime.stream', 'runtime.batcher', 'convert.torch_convert',\n"
             "          'models.roberta', 'frontend.wordpiece', 'frontend.g2p_zh',\n"
-            "          'frontend.g2p_en', 'frontend.g2p_en_nn', 'frontend.tone_sandhi'):\n"
+            "          'frontend.g2p_en', 'frontend.g2p_en_nn', 'frontend.tone_sandhi',\n"
+            "          'parallel.mesh', 'parallel.tp', 'parallel.train',\n"
+            "          'convert.shared_models'):\n"
             "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'genie_tts_tpu', 'tokenizers')]\n"
