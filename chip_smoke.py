@@ -53,6 +53,24 @@ Phases, each of which must pass:
    launches follow). Every response must be 200 with 2 x 2*codes*640
    bytes of PCM holding more than 1000 distinct values; each route prints
    its latency, time to the first chunk, audio seconds and launches.
+9b. mesh (dp x tp serving, full width): ``make_serving_mesh(2, 2)`` over
+   ``cuda:0`` four times (one card: every line of the dp and tp code runs,
+   no transfer between cards). ``api.engine`` is swapped for a mesh
+   engine, phase 3's character loads tp-sharded (2 replicas of 2 shards),
+   and in turn, with the kernel counts set to 0 before each and read
+   after: (a) solo ``tts()`` takes the per-layer route, 0 fused and
+   24 x tp x steps flash launches; (b) ``synthesize_batch`` of 4 rows (2
+   per replica), 24 x dp x tp x steps flash launches; (c) 4 concurrent
+   default ``/tts`` through the port's server on the int8 slot route,
+   24 x tp int8 launches per slot step, PCM of more than 1000 distinct
+   values; (d) solo ``tts()`` on a dp-only 2x1 mesh, one fused launch per
+   step. Each prints its wall time and launches beside 1x1's. (e) fp32
+   greedy parity of (a) and (b) at a 64-step cap, 2x2 against 1x1 on the
+   same card: identical codes (else the first step that differs and 1x1's
+   top-2 logit gap there, which must be under 1e-3 of the logits' RMS), and
+   waveforms within relative L2 1e-3 where the codes agree; then the
+   flash kernel at B=1, H=8 and the int8 kernel at H=8 (a shard's heads)
+   against their plain versions, timed beside their bounds.
 10. V2ProPlus (full width): a random V2ProPlus character (gin 1024, the
    full prompt encoder, int8 decode weights, bf16, a 128-step cap, EOS
    pinned) and a random full ERes2NetV2 as ``GENIE_SV_MODEL``, through
@@ -1872,6 +1890,379 @@ def phase_shared_convert(torch, root: Path, card: str):
     return {"convert_s": t_conv}
 
 
+MESH_SENTENCES = SENTENCES[:4]
+
+
+def phase_mesh(torch, root: Path, card: str, tts1, serve1):
+    """dp x tp serving over ``make_serving_mesh(2, 2, ["cuda:0"] * 4)``: one
+    card repeated, so every line of the dp and tp code runs on the card with
+    no transfer between cards. ``api.engine`` is swapped for a mesh engine
+    (as a test would), phase 3's character loads on it tp-sharded, and each
+    route runs with the kernel counts set to 0 just before it and read just
+    after: (a) solo ``tts()``; (b) ``synthesize_batch`` of 4 rows (the window
+    batcher's route, 2 rows per replica); (c) 4 concurrent default ``/tts``
+    on the int8 slot route through the port's server; (d) solo ``tts()`` on a
+    dp-only 2x1 mesh; (e) fp32 greedy parity of (a) and (b) (a 64-step
+    cap) against 1x1 on the same card, and the kernels at a shard's heads
+    against their plain versions. ``tts1``/``serve1``: the 1x1 results of the tts and serve
+    phases, printed beside the mesh's."""
+    import copy
+    import dataclasses
+    import inspect
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.config import RuntimeConfig
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.models import slots, t2s
+    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig
+    from genie_tts_tpu_torch.parallel.mesh import make_serving_mesh
+    from genie_tts_tpu_torch.runtime.engine import TTSEngine
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.utils.wavio import read_audio
+
+    kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
+               "fused": fu.fused_decode_step}
+
+    def reset():
+        sync(torch)
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        sync(torch)
+        return {n: k.launches for n, k in kernels.items()}
+
+    dp, tp = 2, 2
+    ref_text = "こんにちは、てすとです"
+    prev = (api.engine, api._batcher)
+    base = api.model_manager.get("smoke")          # phase 3's 1x1 character
+    cfg = base.t2s_cfg
+    L = cfg.num_layers
+    out = {}
+
+    def load(name, mesh):
+        api.engine = TTSEngine(RuntimeConfig(), timing=True, mesh=mesh)
+        api._batcher = None
+        t0 = time.perf_counter()
+        api.load_character(name, root / "char", "ja")
+        api.set_reference_audio(name, root / "ref.wav", ref_text, "ja")
+        c = api.model_manager.get(name)
+        print(f"[mesh] {mesh.dp}x{mesh.tp}: '{name}' loaded, placed and its reference set "
+              f"in {time.perf_counter() - t0:.1f} s; {len(c.replicas)} replicas, "
+              f"{len(c.t2s_params.get('layer_shards', [0]))} tp shard(s) each")
+        return c
+
+    def solo_tts(name, wav):
+        reset()
+        t0 = time.perf_counter()
+        api.tts(name, "きょうはいいてんきですね。", save_path=wav)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        c = counts()
+        st = api.engine.last_stats
+        audio, _ = read_audio(wav)
+        n = st["codes_len"]
+        check(np.isfinite(audio).all() and len(audio) == 2 * n * 640 > 0,
+              f"mesh tts: a wav of {len(audio)} samples for {n} codes")
+        return wall, c, st
+
+    try:
+        mesh = make_serving_mesh(dp, tp, devices=[DEV] * 4)
+        char = load("mesh", mesh)
+        check(len(char.replicas) == dp and all(
+            len(r.t2s_params["layer_shards"]) == tp for r in char.replicas),
+            "mesh: the character is not placed as 2 replicas of 2 tp shards")
+
+        # (a) solo tts(): the per-layer route over tp shards, no fused launch
+        wall, c, st = solo_tts("mesh", root / "mesh_a.wav")
+        steps = st["decode_steps"]
+        check(c["fused"] == 0 and c["int8"] == 0 and c["flash"] == L * tp * steps > 0,
+              f"mesh (a) solo tts: launches {c} for {steps} decode steps")
+        one = tts1[2]
+        print(f"[mesh] (a) solo tts() 2x2: {wall * 1e3:.1f} ms wall, {steps} decode steps, "
+              f"launches {json.dumps(c)} (24 x tp x steps = {L * tp * steps}); "
+              f"{st['stages']['decode'] * 1e3 / steps:.3f} ms/step; 1x1 (tts phase, call 2): "
+              f"{one['wall_s'] * 1e3:.1f} ms wall, {one['decode_steps']} steps, fused "
+              f"launches {one['launches']}, "
+              f"{one['stages']['decode'] * 1e3 / one['decode_steps']:.3f} ms/step")
+        out["a"] = dict(wall_s=wall, steps=steps, launches=c)
+
+        # (b) synthesize_batch, B = 4: two rows per replica, flash over the shards
+        feats = reference_audio_cache.get_features(api.engine, char, str(root / "ref.wav"),
+                                                   ref_text, "Japanese")
+        rows = [get_phones_and_bert("。" + s, "ja") for s in MESH_SENTENCES]
+        items = [(feats, ph, bert) for ph, bert in rows]
+        res = {}
+        for label, eng, ch in (("2x2", api.engine, char), ("1x1", prev[0], base)):
+            st = {}
+            reset()
+            t0 = time.perf_counter()
+            wavs = eng.synthesize_batch(ch, items, seed=5, stats=st)
+            sync(torch)
+            res[label] = (time.perf_counter() - t0, counts(), st["decode_steps"], wavs)
+        wall, c, steps, wavs = res["2x2"]
+        check(c["flash"] == L * dp * tp * steps > 0 and c["fused"] == 0 and c["int8"] == 0,
+              f"mesh (b) synthesize_batch: launches {c} for {steps} steps")
+        check(all(np.isfinite(w).all() and len(w) > 0 for w in wavs), "mesh (b): waveforms")
+        w1, c1, s1, _ = res["1x1"]
+        print(f"[mesh] (b) synthesize_batch B=4 2x2: {wall * 1e3:.1f} ms wall, {steps} decode "
+              f"steps per replica, launches {json.dumps(c)} (24 x dp x tp x steps = "
+              f"{L * dp * tp * steps}); 1x1: {w1 * 1e3:.1f} ms wall, {s1} steps, launches "
+              f"{json.dumps(c1)}")
+        out["b"] = dict(wall_s=wall, steps=steps, launches=c)
+
+        # (c) 4 concurrent default /tts on the int8 slot route, through the server
+        srv = api.start_server(host="127.0.0.1", port=0, block=False)
+        url = f"http://127.0.0.1:{srv.server_address[1]}/tts"
+        try:
+            sb = api.get_slot_batcher(char)
+            check(len(sb._state.tp_caches) == tp - 1 and sb._state.k_scale is not None,
+                  "mesh (c): the slot state is not int8 per tp shard")
+            results, errors = {}, []
+
+            def client(i):
+                body = json.dumps({"character_name": "mesh", "text": MESH_SENTENCES[i],
+                                   "split_sentence": False}).encode()
+                req = urllib.request.Request(url, data=body,
+                                             headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        results[i] = (r.status, r.read(), time.perf_counter() - t0)
+                except BaseException as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+            reset()
+            s0 = sb.stats["steps"]
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            c = counts()
+            steps = sb.stats["steps"] - s0
+            check(not errors and len(results) == 4, f"mesh (c): {errors or 'a request hung'}")
+            codes = min(cfg.max_decode_steps, sb.ring)
+            for status, body, _ in results.values():
+                levels = np.unique(np.frombuffer(body, "<i2")).size
+                check(status == 200 and len(body) == 2 * 2 * codes * 640 and levels > 1000,
+                      f"mesh (c): HTTP {status}, {len(body)} bytes, {levels} PCM levels")
+            check(c["int8"] == L * tp * steps > 0 and c["flash"] == 0 and c["fused"] == 0,
+                  f"mesh (c) slot route: launches {c} for {steps} slot steps")
+            lat = [r[2] for r in results.values()]
+            one = serve1["slots"]
+            print(f"[mesh] (c) 4 x /tts, int8 slot route 2x2: latency "
+                  + ", ".join(f"{x:.3f}" for x in lat) + f" s, {steps} slot steps, launches "
+                  f"{json.dumps(c)} (24 x tp x steps = {L * tp * steps}); 1x1 (serve phase): "
+                  f"latency " + ", ".join(f"{x:.3f}" for x in one["latency_s"])
+                  + f" s, launches {json.dumps(one['launches'])}")
+            st = sb._state
+            live = dict(shape=(sb.n_slots, sb.sx, sb.sp, sb.ring), state=st,
+                        head=int(st.ring_head))
+            out["c"] = dict(latency_s=lat, steps=steps, launches=c)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            api.unload_character("mesh")
+
+        # (d) a dp-only 2x1 mesh: solo on replica 0 takes the fused kernel
+        load("mesh21", make_serving_mesh(2, 1, devices=[DEV] * 2))
+        try:
+            wall, c, st = solo_tts("mesh21", root / "mesh_d.wav")
+        finally:
+            api.unload_character("mesh21")
+        steps = st["decode_steps"]
+        check(c["fused"] == steps > 0 and c["flash"] == 0 and c["int8"] == 0,
+              f"mesh (d) 2x1 solo tts: launches {c} for {steps} steps")
+        print(f"[mesh] (d) solo tts() 2x1: {wall * 1e3:.1f} ms wall, {steps} decode steps, "
+              f"launches {json.dumps(c)}")
+        out["d"] = dict(wall_s=wall, steps=steps, launches=c)
+    finally:
+        api.engine, api._batcher = prev
+
+    # (e) fp32 greedy parity, 2x2 against 1x1 on the same card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(base, t2s_params=to_device(torch, fp32_params(torch, base), DEV),
+                              sovits_params=to_device(torch, base.sovits_params, DEV),
+                              replicas=None, placement=None)
+    e11 = TTSEngine(RuntimeConfig())
+    e22 = TTSEngine(RuntimeConfig(), mesh=mesh)
+    f22 = e22.shard_character(copy.copy(f32))
+    greedy = SamplingConfig(top_k=1, repetition_penalty=1.0)
+    sig = inspect.signature(t2s.generate_e2e)
+    real = t2s.generate_e2e
+    seen, lock = [], threading.Lock()
+
+    def spy(*a, **k):
+        codes, n = real(*a, **k)
+        b = sig.bind(*a, **k).arguments
+        with lock:
+            seen.append({key: b[key].cpu() for key in ("phones", "x_len", "prompts", "p_len")}
+                        | {"codes": codes.cpu(), "n": n.cpu(), "sharded": "layer_shards"
+                           in b["params"]})
+        return codes, n
+
+    def by_row(recs):
+        """{phones row bytes: (codes row, n, inputs)} over the recorded calls."""
+        rows = {}
+        for r in recs:
+            for i in range(r["phones"].shape[0]):
+                rows[r["phones"][i].numpy().tobytes()] = (r["codes"][i], int(r["n"][i]), r, i)
+        return rows
+
+    def near_tie(row, t):
+        """(top-2 gap, RMS) of 1x1's logits at step ``t``, where ``row``'s
+        codes first differ: teacher-forced over the shared prefix
+        (forward_train)."""
+        codes, n, r, i = row
+        pl = int(r["p_len"][i])
+        sem = torch.cat([r["prompts"][i, :pl], codes[:t]]).to(DEV)[None]
+        with torch.inference_mode():
+            lg = t2s.forward_train(
+                f32.t2s_params, cfg, r["phones"][i:i + 1].to(DEV),
+                torch.zeros((1, r["phones"].shape[1], cfg.bert_dim), device=DEV),
+                r["x_len"][i:i + 1].to(DEV), sem, torch.tensor([sem.shape[1]], device=DEV)
+            )[0, -1].double()
+            lg[cfg.eos_id] = -float("inf")
+            top = lg.topk(2).values
+            return float(top[0] - top[1]), float(lg[torch.isfinite(lg)].pow(2).mean().sqrt())
+
+    def parity(what, wav11, wav22):
+        recs11 = by_row([r for r in seen if not r["sharded"]])
+        recs22 = by_row([r for r in seen if r["sharded"]])
+        check(recs11.keys() == recs22.keys() and recs11, f"mesh (e) {what}: rows differ")
+        worst = 0.0
+        for j, key in enumerate(recs11):
+            (c1, n1, *_), (c2, n2, *_) = recs11[key], recs22[key]
+            diff = torch.nonzero(c1[:max(n1, n2)] != c2[:max(n1, n2)])
+            if len(diff) or n1 != n2:
+                t = int(diff[0]) if len(diff) else min(n1, n2)
+                gap, rms = near_tie(recs11[key], t)
+                print(f"[mesh] (e) {what} row {j}: codes differ first at step {t}; 1x1 "
+                      f"top-2 logit gap there {gap:.3e}, logits RMS {rms:.3e} (a near-tie "
+                      f"is a gap < 1e-3 x RMS)")
+                check(gap < 1e-3 * rms, f"mesh (e) {what}: codes differ at step {t} "
+                      f"with a top-2 gap of {gap:.3e} (RMS {rms:.3e})")
+                continue
+            err = rel_l2(torch, torch.as_tensor(wav22[j]), torch.as_tensor(wav11[j]))
+            worst = max(worst, err)
+            check(err <= 1e-3, f"mesh (e) {what} row {j}: waveform relative L2 {err:.3e}")
+        print(f"[mesh] (e) {what}: fp32 greedy codes 2x2 vs 1x1 on one card: "
+              f"{sum(bool(torch.equal(recs11[k][0], recs22[k][0])) for k in recs11)}/"
+              f"{len(recs11)} rows identical; waveforms relative L2 {worst:.3e} "
+              f"(tolerance 1e-3)")
+        seen.clear()
+
+    t2s.generate_e2e = spy
+    try:
+        # a 64-step cap keeps the parity runs short
+        ph, bert = rows[0]
+        kw = dict(sampling=greedy, seed=9, max_steps=64)
+        a11 = e11.synthesize_utterance(f32, feats, ph, bert, **kw)
+        a22 = e22.synthesize_utterance(f22, feats, ph, bert, **kw)
+        parity("solo", [a11], [a22])
+        b11 = e11.synthesize_batch(f32, items, **kw)
+        b22 = e22.synthesize_batch(f22, items, **kw)
+        parity("batch of 4", b11, b22)
+    finally:
+        t2s.generate_e2e = real
+
+    # the kernels at a tp shard's heads (16 / tp = 8) against their plain versions
+    H, Dh = cfg.num_heads // tp, cfg.head_dim
+    S = tts1[2]["cache_len"]
+    g = torch.Generator(device=DEV).manual_seed(7)
+    kvp = torch.arange(S, device=DEV)[None]
+    mask = ((kvp < 40) | ((kvp >= 64) & (kvp < 64 + 132))
+            | ((kvp >= 320) & (kvp < 320 + 38))).contiguous()
+    visible = int(mask.sum())
+    rows_out = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        es = torch.finfo(dt).bits // 8
+        q = torch.randn((1, H, Dh), generator=g, device=DEV).to(dt)
+        ks = [torch.randn((1, H, S, Dh), generator=g, device=DEV).to(dt) for _ in range(L)]
+        vs = [torch.randn((1, H, S, Dh), generator=g, device=DEV).to(dt) for _ in range(L)]
+        err = float((fl.flash_decode_attention(q, ks[0], vs[0], mask).float()
+                     - fl.flash_decode_attention_plain(q, ks[0], vs[0], mask).float())
+                    .abs().max())
+        check(err <= tol, f"mesh flash B=1 H={H} {dt}: error {err}")
+        ms = graph_ms(torch, [lambda l=l: fl.flash_decode_attention(q, ks[l], vs[l], mask)
+                              for l in range(L)])
+        plain_ms = graph_ms(torch, [lambda l=l: fl.flash_decode_attention_plain(
+            q, ks[l], vs[l], mask) for l in range(L)])
+        lib_ms = graph_ms(torch, [lambda l=l: F.scaled_dot_product_attention(
+            q[:, :, None], ks[l], vs[l], attn_mask=mask[:, None, None, :]) for l in range(L)])
+        moved = 2 * H * Dh * es * visible + S + 2 * H * Dh * es
+        bms, by = bound(moved, 4 * H * Dh * visible, "float32" if dt == torch.float32
+                        else "bfloat16")
+        print(f"[mesh] kernel flash {dt} B=1 H={H} S={S}: max |kernel - plain| {err:.3e} "
+              f"(tolerance {tol:g}); device time per launch (CUDA graph) kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {bms:.5f} ms ({by}); "
+              f"launches on the mesh paths: (a) {out['a']['launches']['flash']}, "
+              f"(b) {out['b']['launches']['flash']}")
+        rows_out["flash", dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by, library_ms=lib_ms)
+        del ks, vs
+
+    # int8_big_attention at the mesh slot route's shapes (8 of 16 heads): the
+    # live shard-0 state of (c), then timed over 24 layers' random caches
+    st = live["state"]
+    B, sx, sp, ring = live["shape"]
+    S8 = sx + sp + ring
+    geom = dict(sx=sx, sp=sp, ring=ring)
+    check(st.k_cache.shape[2] == H, f"mesh: slot shard of {st.k_cache.shape[2]} heads")
+    q8 = torch.randn((B, H, Dh), generator=g, device=DEV).bfloat16()
+    args = (q8, st.k_cache[0][..., :S8], st.k_scale[0][..., :S8], st.v_cache[0][..., :S8],
+            st.v_scale[0][..., :S8], st.x_len, st.p_len, st.keys_written, live["head"])
+    o, r = i8.int8_big_attention(*args, **geom), i8.int8_big_attention_plain(*args, **geom)
+    sync(torch)
+    seen8 = r[1] > -1e30
+    err8 = max(float((a - b).abs().max()) for a, b in zip(o, r))
+    rel8 = max(float((a - b)[seen8].abs().max()) / max(float(b[seen8].abs().max()), 1e-30)
+               for a, b in zip(o, r)) if bool(seen8.any()) else 0.0
+    check(rel8 <= 1e-4 and all(torch.equal(a[~seen8], b[~seen8]) for a, b in zip(o, r)),
+          f"mesh int8_big_attention H={H}: relative error {rel8}")
+    kw8 = torch.tensor([ring // 2 + 7 * b for b in range(B)], dtype=torch.int32, device=DEV)
+    xl = torch.tensor([40 + 17 * b for b in range(B)], dtype=torch.int32, device=DEV)
+    pl = torch.tensor([130 - 9 * b for b in range(B)], dtype=torch.int32, device=DEV)
+    head = ring // 4
+    caches = []
+    for _ in range(L):
+        kq, ks_ = slots.quantize_kv_columns(torch.randn((B, H, Dh, S8 + ring), generator=g,
+                                                        device=DEV))
+        vq, vs_ = slots.quantize_kv_columns(torch.randn((B, H, Dh, S8 + ring), generator=g,
+                                                        device=DEV))
+        caches.append([t[..., :S8] for t in (kq, ks_, vq, vs_)])
+    vis = i8.visibility(S8, xl, pl, kw8, head, **geom)
+    n_vis = int(vis.sum())
+    ms8 = graph_ms(torch, [lambda c=c: i8.int8_big_attention(q8, *c, xl, pl, kw8, head, **geom)
+                           for c in caches])
+    plain8 = graph_ms(torch, [lambda c=c: i8.int8_big_attention_plain(
+        q8, *c, xl, pl, kw8, head, **geom) for c in caches])
+    deq = [((kq.float() * ks_[:, :, None]).transpose(2, 3).bfloat16().contiguous(),
+            (vq.float() * vs_[:, :, None]).transpose(2, 3).bfloat16().contiguous())
+           for kq, ks_, vq, vs_ in caches]
+    sdpa8 = graph_ms(torch, [lambda d=d: F.scaled_dot_product_attention(
+        q8[:, :, None], *d, attn_mask=vis[:, None, None, :]) for d in deq])
+    moved = H * n_vis * (2 * Dh + 2 * 4) + B * H * Dh * 2 + B * H * (Dh + 2) * 4 + 3 * B * 4
+    bms8, by8 = bound(moved, 4 * Dh * H * n_vis, "float32")
+    print(f"[mesh] kernel int8 B={B} H={H} Dh={Dh} S={S8}: live shard-0 state max |kernel - "
+          f"plain| {err8:.3e}, relative {rel8:.2e} (tolerance 1e-4); {n_vis / (B * S8):.1%} of "
+          f"columns visible: kernel {ms8:.4f} ms (CUDA graph), plain {plain8:.4f} ms, bound "
+          f"{bms8:.5f} ms ({by8}); library: none (yardstick SDPA {sdpa8:.4f} ms); launches "
+          f"on the mesh slot route (c) {out['c']['launches']['int8']}; {card}")
+    rows_out["int8"] = dict(max_abs_err=err8, ms=ms8, plain_ms=plain8, bound_ms=bms8,
+                            bound_by=by8, library_ms=None)
+    out["kernels"] = rows_out
+    return out
+
+
 def fp32_params(torch, char):
     """The character's T2S params with the int8 weights dequantized."""
     params = {k: v for k, v in char.t2s_params.items()}
@@ -2244,7 +2635,8 @@ def main() -> int:
         sl = timed(phase_slots, torch, work)
         timed(phase_slots_bf16, torch, sl["char"], sl["feats"], sl["phones"])
         timed(phase_slot_slice_check, torch, sl["char"])
-        timed(phase_serve, torch, work, card)
+        serve = timed(phase_serve, torch, work, card)
+        timed(phase_mesh, torch, work, card, tts, serve)
         _, clip, sv_path = timed(phase_v2pp, torch, work, card)
         timed(phase_v2pp_slice_check, torch, clip, sv_path)
         timed(phase_zh, torch, work, card)

@@ -15,6 +15,12 @@ to the window batcher; streams go to the busy slot machine, else to the
 solo segmented stream or the fused stream head. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
 device named they raise.
+
+``GENIE_MESH="DPxTP"`` (read at import) serves over ``dp * tp`` cards from
+this one process: the module's engine is built on that serving mesh and
+``load_character`` places each character on it (``TTSEngine.
+shard_character``: a replica per dp row, the T2S decoder tp-sharded over
+the row's cards). With fewer cards than ``dp * tp`` the import raises.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from typing import AsyncIterator, Dict, Optional, Union
 import numpy as np
 import torch
 
-from .config import RuntimeConfig, resolve_device
+from .config import RuntimeConfig, indexed_device, resolve_device
 from .frontend.dispatcher import get_phones_and_bert
 from .frontend.language import MONOLINGUAL, normalize_language, require_supported
 from .ops.sampling import SamplingConfig
@@ -42,7 +48,27 @@ logger = logging.getLogger(__name__)
 
 SUPPORTED_AUDIO_EXTS = {".wav", ".flac", ".ogg", ".aiff", ".aif"}
 
-engine = TTSEngine(RuntimeConfig())
+
+def _serving_mesh():
+    """The serving mesh of ``GENIE_MESH="DPxTP"`` (e.g. "2x2": the batch
+    splits over 2 dp rows, each decoding tp-sharded over 2 cards), or None
+    when it is unset or 1x1. A bad spec raises ValueError, and so does a
+    mesh larger than the cards present (``make_serving_mesh``)."""
+    spec = os.environ.get("GENIE_MESH", "")
+    if not spec:
+        return None
+    try:
+        dp, tp = (int(x) for x in spec.lower().split("x"))
+    except ValueError as e:
+        raise ValueError(f"GENIE_MESH must be 'DPxTP', got {spec!r}") from e
+    if dp * tp <= 1:
+        return None
+    from .parallel.mesh import make_serving_mesh
+
+    return make_serving_mesh(dp, tp)
+
+
+engine = TTSEngine(RuntimeConfig(), mesh=_serving_mesh())
 
 # character -> reference-audio config
 _reference_audios: Dict[str, dict] = {}
@@ -91,12 +117,23 @@ def _reference_features(char, ref_cfg: dict):
 def load_character(character_name: str, model_dir: Union[str, PathLike],
                    language: str, device=None, dtype=None) -> None:
     """Load a character checkpoint directory (t2s/vits safetensors) onto
-    ``device`` (cuda unless named) in ``dtype`` (default bf16)."""
+    ``device`` (cuda unless named) in ``dtype`` (default bf16). With a
+    serving mesh the character loads on the mesh's first device and is
+    placed on the mesh (``engine.shard_character``); a ``device`` that
+    names another device raises."""
     language = require_supported(language)
+    mesh = engine.mesh
+    if mesh is not None:
+        if device is not None and indexed_device(resolve_device(device)) != mesh.lead:
+            raise ValueError(f"device {device} is not the serving mesh's first "
+                             f"device {mesh.lead}")
+        device = mesh.lead
     if "Chinese" in language:  # Chinese/Hybrid: warm the BERT feature model
         model_manager.load_roberta(device)
-    model_manager.load_character(character_name, os.fspath(model_dir), language,
-                                 compute_dtype=dtype, device=device)
+    char = model_manager.load_character(character_name, os.fspath(model_dir), language,
+                                        compute_dtype=dtype, device=device)
+    if mesh is not None:
+        engine.shard_character(char)
 
 
 def unload_character(character_name: str) -> None:

@@ -270,6 +270,15 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return torch.device(device)
 
 
+def indexed_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` with its card's index: a bare ``cuda`` and the tensors on
+    it (``cuda:0``) name one card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def resolve_dtype(dtype: Union[str, torch.dtype, None],
                   cfg: Optional[RuntimeConfig] = None) -> torch.dtype:
     """Compute dtype: an explicit torch dtype or name, else the runtime

@@ -25,6 +25,12 @@ tensor read from one segment's state (``done``, ``counts``) keeps that
 segment's values while later segments run. ``ring_head`` is a Python int
 (it is row-uniform and advances by W per segment), so no segment reads a
 device value on the host.
+
+Under tp (a parameter set from ``parallel/mesh.py::shard_serving_params``)
+the big caches are per shard, ``H/tp`` heads each on its shard's device;
+the small state stays on the first shard's device, and the prefill, the
+windowed read or the ``int8_big_attention`` kernel, the quantization and
+the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``).
 """
 from __future__ import annotations
 
@@ -77,6 +83,16 @@ class SlotState:
     ring_head: int                    # next write column in [0, ring_len)
     # host copy of samp_top_p: whether the top-p branch must run
     top_p_host: np.ndarray
+    # tp > 1: (k_cache, v_cache, k_scale, v_scale) of shards 1..tp-1, each
+    # of H/tp heads on its device; the four fields above are shard 0's
+    tp_caches: tuple = ()
+
+    @property
+    def cache_shards(self) -> list:
+        """(k_cache, v_cache, k_scale, v_scale) of every tp shard, in rank
+        order (one for a state that is not sharded)."""
+        return [(self.k_cache, self.v_cache, self.k_scale, self.v_scale),
+                *self.tp_caches]
 
     @property
     def sampling_rows(self) -> SamplingRows:
@@ -98,24 +114,32 @@ def quantize_kv_columns(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def init_slots(cfg: T2SConfig, n_slots: int, sx: int, sp: int, ring_len: int,
                dtype=torch.bfloat16, kv_int8: bool = False,
-               device="cpu") -> SlotState:
+               device="cpu", tp_devices=None) -> SlotState:
+    """An empty B-slot state on ``device``. ``tp_devices``: the devices of
+    a tp-sharded parameter set's shards (``t2s.shard_devices``); with more
+    than one, each gets big caches of ``H/tp`` heads and the small state
+    stays on ``device``, which must be the first."""
     L, H, Dh, V = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.semantic_vocab
     S = sx + sp + 2 * ring_len        # doubled ring: see SlotState
     B = n_slots
     i32 = torch.int32
+    tp_devices = list(tp_devices or [device])
+    Hs = H // len(tp_devices)
 
-    def z(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def z(shape, dt, dev=device):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     def full(value, dt):
         return torch.full((B,), value, dtype=dt, device=device)
 
     cache_dtype = torch.int8 if kv_int8 else dtype
+    caches = [(z((L, B, Hs, Dh, S), cache_dtype, d), z((L, B, Hs, Dh, S), cache_dtype, d),
+               z((L, B, Hs, S), torch.float32, d) if kv_int8 else None,
+               z((L, B, Hs, S), torch.float32, d) if kv_int8 else None)
+              for d in tp_devices]
     return SlotState(
-        k_cache=z((L, B, H, Dh, S), cache_dtype),
-        v_cache=z((L, B, H, Dh, S), cache_dtype),
-        k_scale=z((L, B, H, S), torch.float32) if kv_int8 else None,
-        v_scale=z((L, B, H, S), torch.float32) if kv_int8 else None,
+        k_cache=caches[0][0], v_cache=caches[0][1],
+        k_scale=caches[0][2], v_scale=caches[0][3], tp_caches=tuple(caches[1:]),
         cur_tok=z((B,), i32), keys_written=z((B,), i32), counts=z((B,), i32),
         done=full(True, torch.bool), active=z((B,), torch.bool),
         hist=z((B, V), i32), x_len=z((B,), i32), p_len=z((B,), i32),
@@ -138,7 +162,8 @@ def prefill_join(params: t2s.Params, cfg: T2SConfig,
     """One request's prefill at the slot geometry.
 
     Returns (ctx_k [L,1,H,Dh,Sx+Sp], ctx_v, tok0 [1] int32, hist [1,V]
-    int32) for :func:`insert_slot`. The first token forbids EOS, as
+    int32) for :func:`insert_slot` (for a tp-sharded ``params``, ctx_k and
+    ctx_v are tuples with each shard's ``H/tp`` heads on its device). The first token forbids EOS, as
     ``t2s.generate``'s does; its Gumbel noise is ``noise`` [1,V], or drawn
     from ``generator``. ``any_top_p``: whether ``samp.top_p < 1`` (read
     from ``samp`` when not given). The context columns come back COMPACTED: the valid
@@ -159,8 +184,14 @@ def prefill_join(params: t2s.Params, cfg: T2SConfig,
     pos = torch.arange(Sx + Sp, device=dev)
     src = torch.where(pos < x_len[0], pos,
                       torch.clamp(Sx + pos - x_len[0], max=Sx + Sp - 1))
-    k_ctx = k_ctx.transpose(-1, -2).index_select(-1, src)
-    v_ctx = v_ctx.transpose(-1, -2).index_select(-1, src)
+
+    def compact(c):
+        return c.transpose(-1, -2).index_select(-1, src.to(c.device))
+
+    if isinstance(k_ctx, tuple):
+        k_ctx, v_ctx = tuple(map(compact, k_ctx)), tuple(map(compact, v_ctx))
+    else:
+        k_ctx, v_ctx = compact(k_ctx), compact(v_ctx)
     hist = torch.zeros((1, V), dtype=torch.int32, device=dev)
     prompt_valid = torch.arange(Sp, device=dev)[None, :] < p_len[:, None]
     hist.scatter_add_(1, prompts.long(), prompt_valid.int())
@@ -190,18 +221,23 @@ def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
                 x_len, p_len, min_steps, max_steps,
                 samp: SamplingRows) -> SlotState:
     """Claim slot ``slot`` for a prefilled request. The context columns go
-    into the big caches in place (quantized per column in int8 mode);
-    every other leaf is replaced. Scalars may be Python numbers, numpy
-    values or device tensors of shape [] or [1]."""
+    into the big caches in place (quantized per column in int8 mode), per
+    tp shard when ``ctx_k``/``ctx_v`` are tuples of shards; every other
+    leaf is replaced. Scalars may be Python numbers, numpy values or
+    device tensors of shape [] or [1]."""
     b = int(slot)
-    C = ctx_k.shape[-1]
-    if state.k_scale is not None:
-        ctx_k, ks = quantize_kv_columns(ctx_k)
-        ctx_v, vs = quantize_kv_columns(ctx_v)
-        state.k_scale[:, b:b + 1, :, :C] = ks
-        state.v_scale[:, b:b + 1, :, :C] = vs
-    state.k_cache[:, b:b + 1, ..., :C] = ctx_k.to(state.k_cache.dtype)
-    state.v_cache[:, b:b + 1, ..., :C] = ctx_v.to(state.v_cache.dtype)
+    if not isinstance(ctx_k, tuple):
+        ctx_k, ctx_v = (ctx_k,), (ctx_v,)
+    for ck, cv, (kc, vc, ks_c, vs_c) in zip(ctx_k, ctx_v, state.cache_shards,
+                                           strict=True):
+        C = ck.shape[-1]
+        if ks_c is not None:
+            ck, ks = quantize_kv_columns(ck)
+            cv, vs = quantize_kv_columns(cv)
+            ks_c[:, b:b + 1, :, :C] = ks
+            vs_c[:, b:b + 1, :, :C] = vs
+        kc[:, b:b + 1, ..., :C] = ck.to(kc.dtype)
+        vc[:, b:b + 1, ..., :C] = cv.to(vc.dtype)
     hist_all = state.hist.clone()
     hist_all[b:b + 1] = hist
     top_p = samp.top_p
@@ -258,11 +294,19 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     that every active row fits (``x_len+p_len <= ctx_win``,
     ``keys_written <= ring_win``); None (the default) reads the whole
     context or ring.
+
+    A tp-sharded ``params`` (with a state from ``init_slots(...,
+    tp_devices=t2s.shard_devices(params))``) runs each layer over its
+    shards: each reads and merges its own caches of ``H/tp`` heads, on the
+    kernel route with one ``int8_big_attention`` launch per shard.
     """
     assert ring_len % seg_steps == 0, "segment must not wrap the ring"
     W = seg_steps
-    L, B, H, Dh, S = state.k_cache.shape
-    dev = state.k_cache.device
+    caches = state.cache_shards
+    devs = [c[0].device for c in caches]
+    L, B, _, Dh, S = state.k_cache.shape
+    H = cfg.num_heads
+    dev = devs[0]
     int8_kv = state.k_scale is not None
     buf_dtype = params["audio_embed"].dtype if int8_kv else state.k_cache.dtype
     V, eos = cfg.semantic_vocab, cfg.eos_id
@@ -280,33 +324,57 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
 
     if use_kernel:
         S1 = Sx + Sp + ring_len
-        regions = [(state.k_cache[..., :S1], state.v_cache[..., :S1],
-                    state.k_scale[..., :S1], state.v_scale[..., :S1])]
+        cut = (slice(0, S1),)
         kv_mask = None
-        ctx = (state.x_len, state.p_len, state.keys_written, head0, Sx, Sp, ring_len)
     else:
         w1 = Sx + Sp + ring_len + head0    # the ring writes end at head+ring
         cut = (slice(0, ctx_win), slice(w1 - ring_win, w1))
-
-        def scales(t):
-            return (None, None) if t is None else tuple(t[..., c] for c in cut)
-
-        regions = list(zip(*(tuple(state.k_cache[..., c] for c in cut),
-                             tuple(state.v_cache[..., c] for c in cut),
-                             scales(state.k_scale), scales(state.v_scale))))
         ctx_len = state.x_len + state.p_len
         win_age = ring_win - 1 - torch.arange(ring_win, device=dev)[None, :]
         kv_mask = (torch.arange(ctx_win, device=dev)[None, :] < ctx_len[:, None],
                    win_age < state.keys_written[:, None])
-        ctx = None
-    # per-layer views of each region: (k, v, k_scale, v_scale) per layer
-    per_layer = [[tuple(None if t is None else t[l] for t in reg) for reg in regions]
-                 for l in range(L)]
-    layers = unstack(params["layers"])
-
-    k_buf = torch.zeros((L, B, H, Dh, W), dtype=buf_dtype, device=dev)
-    v_buf = torch.zeros_like(k_buf)
     buf_masks = torch.arange(W, device=dev)[None, :] < torch.arange(W, device=dev)[:, None]
+
+    # per shard, the keyword arguments of t2s.buffered_attention for each
+    # layer (buffer column and its mask filled in per step): the big-cache
+    # regions (one region on the kernel route, which recomputes visibility
+    # from the segment-frozen lengths; the context and ring windows with
+    # masks otherwise) and the segment's write buffer [L,B,H/tp,Dh,W]
+    def regions(t):
+        return None if t is None else tuple(t[..., c] for c in cut)
+
+    reads, bufs, step_masks = [], [], []
+    for (kc, vc, ksc, vsc), d in zip(caches, devs):
+        k_buf = torch.zeros(kc.shape[:3] + (Dh, W), dtype=buf_dtype, device=d)
+        bufs.append((k_buf, torch.zeros_like(k_buf)))
+        step_masks.append(buf_masks.to(d))
+        if use_kernel:
+            ctx = tuple(t.to(d) for t in (state.x_len, state.p_len, state.keys_written)) + (
+                head0, Sx, Sp, ring_len)
+            mask_d = None
+        else:
+            ctx = None
+            mask_d = tuple(m.to(d) for m in kv_mask)
+        rk, rv, rks, rvs = (regions(t) for t in (kc, vc, ksc, vsc))
+        per_layer = []
+        for l in range(L):
+            kb, vb = tuple(r[l] for r in rk), tuple(r[l] for r in rv)
+            ks = vs = None
+            if int8_kv:
+                ks, vs = tuple(r[l] for r in rks), tuple(r[l] for r in rvs)
+            if use_kernel:
+                kb, vb, ks, vs = kb[0], vb[0], ks[0], vs[0]
+            per_layer.append(dict(k_big=kb, v_big=vb, kv_mask=mask_d, k_scale=ks,
+                                  v_scale=vs, kv_kernel_ctx=ctx))
+        reads.append(per_layer)
+    shards = t2s.layer_shards(params)
+    if shards is None:
+        layers = unstack(params["layers"])
+    else:
+        from ..parallel.tp import layer_decode_buffered_shards
+
+        layers = list(zip(*(unstack(sh) for sh in shards)))
+
     seg_tokens = torch.full((B, W), eos, dtype=torch.int32, device=dev)
     rows = state.sampling_rows
     any_top_p = bool((state.top_p_host < 1.0).any())
@@ -320,17 +388,16 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
         pos_emb = pe_full[(state.p_len + keys_written).long()]
         h = (emb + (alpha * pos_emb).to(emb.dtype))[:, None]
         for l, lp in enumerate(layers):
-            if use_kernel:
-                (kb, vb, ks, vs), = per_layer[l]
+            step = [dict(reads[j][l], k_buf=kb[l], v_buf=vb[l], buf_mask=bm[i])
+                    for j, ((kb, vb), bm) in enumerate(zip(bufs, step_masks))]
+            if shards is None:
+                h, k_new, v_new = t2s._layer_decode_buffered(lp, h, num_heads=H, **step[0])
+                new = [(k_new, v_new)]
             else:
-                kb, vb, ks, vs = (tuple(r[j] for r in per_layer[l]) for j in range(4))
-                if not int8_kv:
-                    ks = vs = None
-            h, k_new, v_new = t2s._layer_decode_buffered(
-                lp, h, kb, vb, k_buf[l], v_buf[l], buf_masks[i], kv_mask, H,
-                k_scale=ks, v_scale=vs, kv_kernel_ctx=ctx)
-            k_buf[l, ..., i] = k_new
-            v_buf[l, ..., i] = v_new
+                h, new = layer_decode_buffered_shards(lp, h, step, H)
+            for (kb, vb), (k_new, v_new) in zip(bufs, new):
+                kb[l, ..., i] = k_new
+                vb[l, ..., i] = v_new
         logits = h[:, 0].float() @ predict_w
         # per-row EOS gate: below min_steps EOS is masked out of sampling
         row_step = keys_written + 1
@@ -350,17 +417,18 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
         done = done | now_done | (row_step + 1 >= state.max_steps)
         cur_tok = nxt
 
-    # merge the segment's W columns at the ring head, twice
+    # merge the segment's W columns at the ring head, twice, per shard
     base = Sx + Sp + head0
-    if int8_kv:
-        k_buf, ks = quantize_kv_columns(k_buf)
-        v_buf, vs = quantize_kv_columns(v_buf)
+    for (kc, vc, ksc, vsc), (k_buf, v_buf) in zip(caches, bufs):
+        if int8_kv:
+            k_buf, ks = quantize_kv_columns(k_buf)
+            v_buf, vs = quantize_kv_columns(v_buf)
+            for at in (base, base + ring_len):
+                ksc[..., at:at + W] = ks
+                vsc[..., at:at + W] = vs
         for at in (base, base + ring_len):
-            state.k_scale[..., at:at + W] = ks
-            state.v_scale[..., at:at + W] = vs
-    for at in (base, base + ring_len):
-        state.k_cache[..., at:at + W] = k_buf.to(state.k_cache.dtype)
-        state.v_cache[..., at:at + W] = v_buf.to(state.v_cache.dtype)
+            kc[..., at:at + W] = k_buf.to(kc.dtype)
+            vc[..., at:at + W] = v_buf.to(vc.dtype)
     state = dataclasses.replace(
         state, cur_tok=cur_tok, keys_written=keys_written, counts=counts,
         done=done, hist=hist, ring_head=(head0 + W) % ring_len)

@@ -20,6 +20,12 @@ place (the JAX package's write-buffered ``generate`` exists only for the
 TPU's tiling; it computes the same tokens). The slot machine
 (``models/slots.py``) decodes through :func:`_layer_decode_buffered`,
 whose read-only big cache may hold int8 codes (``ops/int8_decode.py``).
+
+A tp-sharded parameter set (``parallel/mesh.py::shard_serving_params``:
+the layers split over a replica's devices, under ``layer_shards``) takes
+the per-layer route at every B, each shard over its ``H/tp`` heads with
+a cache of its own (``parallel/tp.py``); the fused kernel holds all the
+layers whole, so it serves whole parameters only.
 """
 from __future__ import annotations
 
@@ -213,6 +219,23 @@ def _layer_decode_buffered(lp: Params, h: torch.Tensor, k_big, v_big,
     q = _split_heads(q, num_heads)                           # [B,H,1,Dh]
     k_new = _split_heads(k_new, num_heads)[:, :, 0]          # [B,H,Dh]
     v_new = _split_heads(v_new, num_heads)[:, :, 0]
+    att = buffered_attention(q, k_new, v_new, k_big, v_big, k_buf, v_buf, buf_mask,
+                             kv_mask, k_scale=k_scale, v_scale=v_scale,
+                             kv_kernel_ctx=kv_kernel_ctx)
+    h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att)))
+    ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
+    h = layer_norm(lp["norm2"], h + ff)
+    return h, k_new, v_new
+
+
+def buffered_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                       k_big, v_big, k_buf: torch.Tensor, v_buf: torch.Tensor,
+                       buf_mask: torch.Tensor, kv_mask, k_scale=None, v_scale=None,
+                       kv_kernel_ctx=None) -> torch.Tensor:
+    """The attention of :func:`_layer_decode_buffered`: q [B,H,1,Dh], the
+    step's own k_new/v_new [B,H,Dh], the rest as there. Returns [B,H,1,Dh]
+    in q's dtype. Heads are independent, so a tp shard calls it on its own
+    heads (``parallel/tp.py::layer_decode_buffered_shards``)."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf = q[:, :, 0].float()                                  # [B,H,Dh]
@@ -272,10 +295,7 @@ def _layer_decode_buffered(lp: Params, h: torch.Tensor, k_big, v_big,
                + torch.einsum("bhw,bhdw->bhd", probs[..., off:off + W],
                               v_buf.float()).to(dt)
                + (probs[..., off + W:] * v_new.float()).to(dt))[:, :, None]
-    h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att)))
-    ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
-    h = layer_norm(lp["norm2"], h + ff)
-    return h, k_new, v_new
+    return att
 
 
 # ---------------------------------------------------------------------------
@@ -305,13 +325,30 @@ def _prefill_mask(Sx: int, Sp: int, x_len: torch.Tensor,
     return torch.where(q_is_text, k_is_text, k_is_text | (k_is_prompt & causal))
 
 
+def layer_shards(params: Params):
+    """The per-device layer trees of a tp-sharded parameter set
+    (``parallel/mesh.py::shard_serving_params``), or None for a whole one."""
+    return params.get("layer_shards")
+
+
+def shard_devices(params: Params) -> list:
+    """The devices of a parameter set's tp shards, in rank order (one
+    device for a whole set)."""
+    shards = layer_shards(params)
+    if shards is None:
+        return [params["audio_embed"].device]
+    return [s["qkv"]["w"].device for s in shards]
+
+
 def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor,
             prompts: torch.Tensor, p_len: torch.Tensor, cache_len: int
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run the packed sequence through all layers and build the KV cache.
 
     Returns (logits_first [B, V] fp32, (k_cache, v_cache) each
-    [L, B, H, cache_len, Dh], zero past the prefill)."""
+    [L, B, H, cache_len, Dh], zero past the prefill). For a tp-sharded
+    parameter set (:func:`layer_shards`) the caches are tuples with one
+    ``[L, B, H/tp, cache_len, Dh]`` cache per shard, on its device."""
     B, Sx, D = x.shape
     Sp = prompts.shape[1]
     H, L, Dh = cfg.num_heads, cfg.num_layers, cfg.head_dim
@@ -320,12 +357,27 @@ def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor
     y = y_emb + (params["audio_pos_alpha"] * pe).to(y_emb.dtype)[None]
     h = torch.cat([x, y], dim=1)                              # [B, S_pre, D]
     mask = _prefill_mask(Sx, Sp, x_len, p_len)[:, None]       # [B,1,S,S]
-    k_cache = torch.zeros((L, B, H, cache_len, Dh), dtype=h.dtype, device=h.device)
-    v_cache = torch.zeros_like(k_cache)
-    for l, lp in enumerate(unstack(params["layers"])):
-        h, (k, v) = _layer_prefill(lp, h, mask, H)
-        k_cache[l, :, :, :Sx + Sp] = k
-        v_cache[l, :, :, :Sx + Sp] = v
+    shards = layer_shards(params)
+    if shards is None:
+        k_cache = torch.zeros((L, B, H, cache_len, Dh), dtype=h.dtype, device=h.device)
+        v_cache = torch.zeros_like(k_cache)
+        for l, lp in enumerate(unstack(params["layers"])):
+            h, (k, v) = _layer_prefill(lp, h, mask, H)
+            k_cache[l, :, :, :Sx + Sp] = k
+            v_cache[l, :, :, :Sx + Sp] = v
+    else:
+        from ..parallel.tp import layer_prefill_shards
+
+        devs = shard_devices(params)
+        k_cache = tuple(torch.zeros((L, B, H // len(devs), cache_len, Dh),
+                                    dtype=h.dtype, device=d) for d in devs)
+        v_cache = tuple(torch.zeros_like(k) for k in k_cache)
+        masks = [mask.to(d) for d in devs]
+        for l, lps in enumerate(zip(*(unstack(s) for s in shards))):
+            h, kv = layer_prefill_shards(lps, h, masks, H)
+            for i, (k, v) in enumerate(kv):
+                k_cache[i][l, :, :, :Sx + Sp] = k
+                v_cache[i][l, :, :, :Sx + Sp] = v
     last_idx = Sx + p_len - 1                                 # [B]
     h_last = h[torch.arange(B, device=h.device), last_idx]   # [B, D]
     logits = h_last.float() @ params["predict"]["w"].float()
@@ -336,13 +388,20 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
              generator: Optional[torch.Generator], x: torch.Tensor,
              x_len: torch.Tensor, prompts: torch.Tensor, p_len: torch.Tensor,
              max_steps: int, cache_len: int, min_steps: int = 0,
-             max_steps_dyn: Optional[int] = None) -> GenerateResult:
+             max_steps_dyn: Optional[int] = None,
+             noise: Optional[torch.Tensor] = None) -> GenerateResult:
     """Prefill + sample + full AR decode.
 
     ``min_steps``: EOS may not fire before this many tokens. ``max_steps``:
-    the static cap that sizes the token buffer and the Gumbel table (drawn
-    from ``generator`` up front); ``max_steps_dyn``: an optional per-call
-    cap <= max_steps.
+    the static cap that sizes the token buffer and the Gumbel table
+    ``noise`` [max_steps, B, V] (drawn from ``generator`` up front when not
+    given); ``max_steps_dyn``: an optional per-call cap <= max_steps.
+
+    Routes: B = 1 on whole parameters runs the fused all-layer kernel; a
+    tp-sharded parameter set (every B) and B > 1 run the per-layer route
+    with the flash kernel, a sharded set over its shards' ``H/tp`` heads
+    (``parallel/tp.py::layer_decode_shards``). Logits, sampling and the
+    token history stay on the device of ``x``.
     """
     ms_dyn = max_steps if max_steps_dyn is None else min(int(max_steps_dyn), max_steps)
     B, Sx, D = x.shape
@@ -358,7 +417,8 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     prompt_valid = torch.arange(Sp, device=dev)[None, :] < p_len[:, None]
     hist.scatter_add_(1, prompts.long(), prompt_valid.long())
 
-    noise = gumbel_noise((max_steps, B, V), generator, dev)
+    if noise is None:
+        noise = gumbel_noise((max_steps, B, V), generator, dev)
 
     # first token: EOS forbidden (GPT-SoVITS masks EOS on the first draw)
     forbid_eos = torch.zeros((V,), dtype=torch.bool, device=dev)
@@ -375,14 +435,21 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     static_mask = ((kv_positions < x_len[:, None])
                    | ((kv_positions >= Sx) & (kv_positions < Sx + p_len[:, None])))
 
-    if B == 1:
+    shards = layer_shards(params)
+    fused = B == 1 and shards is None
+    if fused:
         # fused route: one kernel launch per step over [L, S, D] caches
         packed = pack_decode_params(params)
         kf = k_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D).contiguous()
         vf = v_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D).contiguous()
         del k_cache, v_cache
-    else:
+    elif shards is None:
         layers = unstack(params["layers"])
+    else:
+        from ..parallel.tp import layer_decode_shards
+
+        shard_layers = list(zip(*(unstack(s) for s in shards)))
+        devs = shard_devices(params)
 
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     counts = torch.ones((B,), dtype=torch.int64, device=dev)
@@ -400,13 +467,20 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
         kv_mask = static_mask | ((kv_positions >= Sx + Sp)
                                  & (kv_positions <= Sx + Sp + step - 1))
         pos = Sx + Sp + step - 1       # row-uniform write position
-        if B == 1:
+        if fused:
             h_last, _, _ = fused_decode_step(
                 packed, h.float(), kf, vf, pos, kv_mask[0].float(), num_heads=H)
-        else:
+        elif shards is None:
             hb = h[:, None]
             for l, lp in enumerate(layers):
                 hb = _layer_decode(lp, hb, k_cache[l], v_cache[l], pos, kv_mask, H)
+            h_last = hb[:, 0]
+        else:
+            hb = h[:, None]
+            masks = [kv_mask.to(d) for d in devs]
+            for l, lps in enumerate(shard_layers):
+                hb = layer_decode_shards(lps, hb, [k[l] for k in k_cache],
+                                         [v[l] for v in v_cache], pos, masks, H)
             h_last = hb[:, 0]
         logits = h_last.float() @ predict_w                     # [B, V]
 
@@ -449,18 +523,19 @@ def generate_e2e(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
                  prompts: torch.Tensor, p_len: torch.Tensor, max_steps: int,
                  cache_len: int, min_steps: int = 0,
                  max_steps_dyn: Optional[int] = None,
-                 stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 stats: Optional[dict] = None,
+                 noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed + prefill + AR decode + EOS finalize.
 
     Returns (codes [B, max_steps], codes_len [B]). ``stats``: optional
     dict that receives ``decode_steps`` (loop iterations run) and
-    ``cache_len``."""
+    ``cache_len``. ``noise``: the Gumbel table of :func:`generate`."""
     if bert is None:
         bert = torch.zeros(phones.shape + (cfg.bert_dim,), device=phones.device)
     x = embed_text(params, phones, bert)
     res = generate(params, cfg, scfg, generator, x, x_len, prompts, p_len,
                    max_steps=max_steps, cache_len=cache_len,
-                   min_steps=min_steps, max_steps_dyn=max_steps_dyn)
+                   min_steps=min_steps, max_steps_dyn=max_steps_dyn, noise=noise)
     if stats is not None:
         stats["decode_steps"] = res.steps - 1
         stats["cache_len"] = cache_len

@@ -1,25 +1,35 @@
-"""Device mesh and the T2S sharding rules (dp x tp).
+"""Device meshes and the T2S sharding rules (dp x tp).
 
 The port of ``genie_tts_tpu/parallel/mesh.py``. The JAX package lays a
 ``jax.sharding.Mesh`` over (dp, tp) and lets the compiler insert the
-collectives; here each rank is a process that holds its own shards and
-calls the collectives itself (``parallel/tp.py``, ``parallel/train.py``).
+collectives. The port has two meshes:
 
-A mesh of ``dp * tp > 1`` ranks needs an initialised process group of
-that world size (``torchrun``, or ``torch.multiprocessing`` in the
-tests): backend ``nccl`` on cuda, ``gloo`` on the CPU. Rank
-``r = dp_rank * tp + tp_rank``, as the JAX package reshapes its device
-list. A 1 x 1 mesh needs no process group.
+* :class:`Mesh` (training, ``make_mesh``): each rank is a process that
+  holds its own shards and calls the collectives itself
+  (``parallel/tp.py``, ``parallel/train.py``). A mesh of ``dp * tp > 1``
+  ranks needs an initialised process group of that world size
+  (``torchrun``, or ``torch.multiprocessing`` in the tests): backend
+  ``nccl`` on cuda, ``gloo`` on the CPU. Rank ``r = dp_rank * tp +
+  tp_rank``, as the JAX package reshapes its device list. A 1 x 1 mesh
+  needs no process group.
+* :class:`ServingMesh` (serving, ``make_serving_mesh``): one process
+  drives a ``[dp][tp]`` grid of devices, as the JAX package's one
+  controller drives its mesh. A character holds one replica per dp row
+  (``runtime/engine.py::TTSEngine.shard_character``), whose T2S layers
+  are split over the row's tp devices (:func:`shard_serving_params`); the
+  tp reductions are device copies and adds in rank order onto the row's
+  first device (``parallel/tp.py``). The server, its batchers and its
+  streams stay one host program.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..config import resolve_device
+from ..config import indexed_device, resolve_device
 from ..convert.io import flatten_tree, unflatten_tree
 
 DP_AXIS = "dp"
@@ -76,6 +86,76 @@ def make_mesh(dp: int = 1, tp: int = 1, devices=None) -> Mesh:
     grid = init_device_mesh(device.type, (dp, tp), mesh_dim_names=(DP_AXIS, TP_AXIS))
     return Mesh(dp, tp, device, rank // tp, rank % tp,
                 grid.get_group(DP_AXIS), grid.get_group(TP_AXIS))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """A ``[dp][tp]`` grid of devices that one process serves on: dp row
+    ``r`` holds a replica of each character, its T2S layers split over the
+    row's ``tp`` devices. A device may repeat (several grid cells on one
+    card, or ``"cpu"`` in the tests): every line of the dp and tp code
+    runs, with no transfer between cards."""
+    dp: int
+    tp: int
+    devices: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def lead(self) -> torch.device:
+        """The first device of the first row: replica 0's."""
+        return self.devices[0][0]
+
+
+def make_serving_mesh(dp: int = 1, tp: int = 1, devices=None) -> ServingMesh:
+    """The serving mesh over ``devices`` (default ``cuda:0 .. cuda:n-1``),
+    row-major: row ``r`` takes ``devices[r*tp:(r+1)*tp]``. Raises when
+    there are fewer than ``dp * tp`` devices; never serves on fewer."""
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh {dp}x{tp}: dp and tp must be >= 1")
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if dp * tp > len(devices):
+        raise ValueError(f"mesh {dp}x{tp} needs {dp*tp} devices, have {len(devices)}")
+    devs = [indexed_device(d) for d in devices[:dp * tp]]
+    return ServingMesh(dp, tp, tuple(tuple(devs[r * tp:(r + 1) * tp])
+                                     for r in range(dp)))
+
+
+def place_tree(tree, device):
+    """``tree`` (or a tensor) with every leaf on ``device``: the tree itself
+    when it is there already (its derived caches kept), else a copy."""
+    dev = indexed_device(device)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    flat = tree_paths(tree)
+    if all(x.device == dev for x in flat.values()):
+        return tree
+    return unflatten_tree({p: x.to(dev) for p, x in flat.items()})
+
+
+def shard_serving_params(params, devices):
+    """One replica's T2S parameters over its tp ``devices``.
+
+    ``tp == 1``: the tree on ``devices[0]``. ``tp > 1``: the leaves outside
+    ``layers`` on ``devices[0]``, and under ``layer_shards`` one stacked
+    layers tree per device, rank ``i`` holding its split of each leaf
+    (:func:`_t2s_param_spec`: the Q, K and V columns of its
+    ``num_heads / tp`` heads, its ``ffn_dim / tp`` columns of ffn1 and
+    rows of out and ffn2, the rest whole). There is no ``layers`` key, so
+    code that knows no tp fails on such a tree rather than computing
+    something else."""
+    devices = [indexed_device(d) for d in devices]
+    if len(devices) == 1:
+        return place_tree(params, devices[0])
+    tp = len(devices)
+    out = {k: place_tree(v, devices[0])
+           for k, v in params.items() if k != "layers" and not k.startswith("_")}
+    layers = tree_paths(params["layers"])
+    out["layer_shards"] = [
+        unflatten_tree({p: shard_leaf(x, _t2s_param_spec(f"layers/{p}"), tp, i).to(d)
+                        for p, x in layers.items()})
+        for i, d in enumerate(devices)]
+    return out
 
 
 def _t2s_param_spec(path: str) -> Optional[Split]:

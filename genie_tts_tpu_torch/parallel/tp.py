@@ -14,13 +14,25 @@ gradient needs:
 With both in place the gradients of the replicated leaves (embeddings,
 norms, ``bert_proj``, ``predict``, the alphas, the row-parallel biases)
 are the unsharded gradients, equal on every tp rank.
+
+Serving runs the same layer math in one process over a list of shards
+(``parallel/mesh.py::shard_serving_params``), one per device of a replica's
+tp column: :func:`layer_prefill_shards`, :func:`layer_decode_shards` and
+:func:`layer_decode_buffered_shards`. The activation is copied to each
+shard's device, each shard computes its heads and ffn columns, and the
+row-parallel partial sums are copied to the first shard's device and
+added there in rank order, so results do not depend on timing.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
 
+from ..models import t2s
 from ..models.t2s import _merge_heads, _split_heads
+from ..ops.flash_decode import flash_decode_attention
 from ..ops.layers import attention, layer_norm, linear, matmul
 
 
@@ -74,3 +86,99 @@ def layer_prefill(lp, h: torch.Tensor, mask: torch.Tensor, num_heads: int,
     ff = reduce_from_tp(matmul(f, lp["ffn2"]["w"], h.dtype), group)
     h = layer_norm(lp["norm2"], h + (ff + lp["ffn2"]["b"]))
     return h, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# One process over a list of shards (serving)
+# ---------------------------------------------------------------------------
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current card while a shard's work is queued (a
+    kernel launches on the current card's stream); nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _row_partial(p, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel shard's partial product, without the bias (added once
+    after the sum). Int8 weights carry a per-output-channel scale that every
+    shard holds whole, so the scaled partials sum to the unsharded product."""
+    return linear({k: v for k, v in p.items() if k != "b"}, x)
+
+
+def _reduce(parts, lead: torch.device) -> torch.Tensor:
+    """The sum of the shards' partials on ``lead``, added in rank order."""
+    out = parts[0].to(lead)
+    for x in parts[1:]:
+        out = out + x.to(lead)
+    return out
+
+
+def _megatron_layer(lps, h: torch.Tensor, num_heads: int, attend):
+    """One post-LN decoder layer over tp shards ``lps`` (a layer's tree per
+    shard). ``attend(i, q, k, v)`` -> (attention output [B, H/tp, T, Dh],
+    what the caller keeps of shard ``i``'s k/v), on shard ``i``'s device.
+    Returns (hidden on h's device, [kept per shard])."""
+    lead = h.device
+    heads = num_heads // len(lps)
+    parts, kept = [], []
+    for i, lp in enumerate(lps):
+        dev = lp["qkv"]["w"].device
+        with on_device(dev):
+            q, k, v = linear(lp["qkv"], h.to(dev)).chunk(3, dim=-1)
+            att, kv = attend(i, *(_split_heads(t, heads) for t in (q, k, v)))
+            parts.append(_row_partial(lp["out"], _merge_heads(att)))
+            kept.append(kv)
+    lp0 = lps[0]
+    h = layer_norm(lp0["norm1"], h + (_reduce(parts, lead) + lp0["out"]["b"]))
+    parts = []
+    for lp in lps:
+        dev = lp["qkv"]["w"].device
+        with on_device(dev):
+            parts.append(_row_partial(lp["ffn2"],
+                                      torch.relu(linear(lp["ffn1"], h.to(dev)))))
+    h = layer_norm(lp0["norm2"], h + (_reduce(parts, lead) + lp0["ffn2"]["b"]))
+    return h, kept
+
+
+def layer_prefill_shards(lps, h: torch.Tensor, masks, num_heads: int):
+    """``models/t2s.py::_layer_prefill`` over tp shards: ``masks`` holds the
+    prefill mask on each shard's device. Returns (hidden, [(k, v)] per
+    shard, each [B, H/tp, T, Dh] on its device)."""
+    def attend(i, q, k, v):
+        return attention(q, k, v, masks[i]), (k, v)
+
+    return _megatron_layer(lps, h, num_heads, attend)
+
+
+def layer_decode_shards(lps, h: torch.Tensor, k_caches, v_caches, pos: int,
+                        kv_masks, num_heads: int) -> torch.Tensor:
+    """``models/t2s.py::_layer_decode`` over tp shards: shard ``i`` writes
+    its heads' K/V row at ``pos`` into ``k_caches[i]`` / ``v_caches[i]``
+    ([B, H/tp, S, Dh] on its device) in place and attends through the
+    flash-decode kernel over its ``H/tp`` heads, with ``kv_masks[i]``."""
+    def attend(i, q, k, v):
+        k_caches[i][:, :, pos] = k[:, :, 0]
+        v_caches[i][:, :, pos] = v[:, :, 0]
+        att = flash_decode_attention(q[:, :, 0].contiguous(), k_caches[i],
+                                     v_caches[i], kv_masks[i])
+        return att[:, :, None], None
+
+    return _megatron_layer(lps, h, num_heads, attend)[0]
+
+
+def layer_decode_buffered_shards(lps, h: torch.Tensor, reads, num_heads: int):
+    """``models/t2s.py::_layer_decode_buffered`` over tp shards: ``reads[i]``
+    holds shard ``i``'s keyword arguments of
+    ``t2s.buffered_attention`` (its big-cache regions and scales of
+    ``H/tp`` heads, its write buffer, the masks and the int8 kernel's
+    segment context on its device), so the windowed read and the
+    ``int8_big_attention`` kernel run per shard. Returns (hidden, [(k_new,
+    v_new)] per shard, each [B, H/tp, Dh])."""
+    def attend(i, q, k, v):
+        k_new, v_new = k[:, :, 0], v[:, :, 0]
+        att = t2s.buffered_attention(q, k_new, v_new, **reads[i])
+        return att, (k_new, v_new)
+
+    return _megatron_layer(lps, h, num_heads, attend)

@@ -14,6 +14,14 @@ codes it decoded: the batched codes -> waveform finisher
 (``vocode_codes_*``) and the per-row window vocode of its window pump
 (``vocode_windows_*``).
 
+Serving over a device mesh (``TTSEngine(mesh=make_serving_mesh(dp, tp))``,
+``parallel/mesh.py``): ``replicate_character`` / ``shard_character`` give a
+character one replica per dp row, its T2S layers split over the row's tp
+devices by ``shard_character``. ``synthesize_batch`` runs each dp row's
+block of the batch on its replica, from a pool of dp threads; every other
+path runs on replica 0, whose trees are the character's own fields, so a
+path that knows no mesh is unchanged (and tp-sharded where tp > 1).
+
 Lengths are padded to the same bucket ladders as the JAX package, so both
 packages see the same shapes (and the same masks) for a given input.
 Reference-audio features (HuBERT -> VQ prompt tokens; the V2 style
@@ -27,7 +35,8 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +44,9 @@ import torch
 from ..config import RuntimeConfig, SoVITSConfig, T2SConfig, resolve_device
 from ..models import sovits, t2s
 from ..ops.audio import linear_spectrogram
-from ..ops.sampling import SamplingConfig
+from ..ops.sampling import SamplingConfig, gumbel_noise
+from ..parallel.mesh import place_tree, shard_serving_params
+from ..parallel.tp import on_device
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
 
@@ -45,7 +56,12 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass
 class CharacterModel:
     """Loaded weights for one character (t2s + sovits, and the prompt
-    encoder of a V2ProPlus one) on one device."""
+    encoder of a V2ProPlus one) on one device.
+
+    On a serving mesh (``TTSEngine.replicate_character`` /
+    ``shard_character``) ``replicas`` holds one CharacterModel per dp row,
+    on that row's devices, and the fields above are replica 0's;
+    ``placement`` is (the mesh, whether the T2S layers are tp-sharded)."""
     name: str
     language: str
     version: str                    # "v2" | "v2ProPlus"
@@ -55,6 +71,8 @@ class CharacterModel:
     sovits_cfg: SoVITSConfig
     device: torch.device = torch.device("cpu")
     prompt_encoder_params: Optional[Dict] = None
+    replicas: Optional[List["CharacterModel"]] = None
+    placement: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -186,23 +204,109 @@ def _t2s_latent_first(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
 
 
 class TTSEngine:
-    """Solo synthesis on a character's device.
+    """Synthesis on a character's device, or over a serving mesh.
 
     ``timing``: record each utterance's stage times (decode, latent,
     vocode, host), synchronizing the device at every stage boundary, in
-    ``last_stats``; off by default, since the waits cost time."""
+    ``last_stats``; off by default, since the waits cost time.
+
+    ``mesh``: a ``parallel/mesh.py::ServingMesh``. Characters are placed on
+    it by :meth:`replicate_character` or :meth:`shard_character`;
+    ``synthesize_batch`` then splits the batch over the dp rows."""
 
     def __init__(self, runtime_cfg: Optional[RuntimeConfig] = None,
-                 timing: bool = False):
+                 timing: bool = False, mesh=None):
         self.cfg = runtime_cfg or RuntimeConfig()
         self.timing = timing
+        self.mesh = mesh
         self.last_stats: Dict = {}
         self._lock = threading.Lock()
         self._rng = np.random.default_rng(0)
+        self._pool: Optional[ThreadPoolExecutor] = None
 
     def _next_seed(self) -> int:
         with self._lock:
             return int(self._rng.integers(0, 2 ** 31 - 1))
+
+    # -- serving over a mesh ----------------------------------------------
+
+    @property
+    def _dp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
+
+    def replicate_character(self, char: CharacterModel) -> CharacterModel:
+        """Place a character's weights on the mesh, whole: one replica per
+        dp row, on the row's first device (dp serving)."""
+        return self._place(char, shard=False)
+
+    def shard_character(self, char: CharacterModel) -> CharacterModel:
+        """Tensor-parallel placement over the mesh's tp axis: in each dp
+        row's replica the T2S decoder's per-layer matmuls are split
+        Megatron-style over the row's tp devices (qkv and ffn1
+        column-parallel over whole heads and ffn columns, out and ffn2
+        row-parallel: ``parallel/mesh.py::shard_serving_params``); SoVITS,
+        the prompt encoder and the rest of the T2S are whole on the row's
+        first device. Every serving path (solo, batched, slots, streams)
+        then decodes tp-sharded (``parallel/tp.py``). With tp == 1 this is
+        :meth:`replicate_character`. Raises when ``num_heads`` or
+        ``ffn_dim`` does not split over tp."""
+        return self._place(char, shard=self.mesh is not None and self.mesh.tp > 1)
+
+    def _place(self, char: CharacterModel, shard: bool) -> CharacterModel:
+        mesh = self.mesh
+        if mesh is None:
+            return char
+        if char.placement is not None:
+            if char.placement == (mesh, shard):
+                return char
+            raise ValueError(f"character '{char.name}' is already placed on "
+                             f"another mesh or layout; load it anew")
+        tcfg = char.t2s_cfg
+        if shard and (tcfg.num_heads % mesh.tp or tcfg.ffn_dim % mesh.tp):
+            raise ValueError(f"tp={mesh.tp} does not split the T2S decoder's "
+                             f"{tcfg.num_heads} heads and ffn_dim {tcfg.ffn_dim}")
+        reps = []
+        for row in mesh.devices:
+            lead = row[0]
+            reps.append(dataclasses.replace(
+                char, device=lead, replicas=None, placement=(mesh, shard),
+                t2s_params=shard_serving_params(char.t2s_params,
+                                                row if shard else row[:1]),
+                sovits_params=place_tree(char.sovits_params, lead),
+                prompt_encoder_params=(
+                    None if char.prompt_encoder_params is None
+                    else place_tree(char.prompt_encoder_params, lead))))
+        r0 = reps[0]
+        char.t2s_params, char.sovits_params = r0.t2s_params, r0.sovits_params
+        char.prompt_encoder_params, char.device = r0.prompt_encoder_params, r0.device
+        char.replicas, char.placement = reps, (mesh, shard)
+        return char
+
+    def _replicas(self, char: CharacterModel) -> List[CharacterModel]:
+        """The character's replica per dp row ([char] with no mesh)."""
+        if self.mesh is None:
+            return [char]
+        if char.placement is None or char.placement[0] != self.mesh:
+            raise ValueError(f"character '{char.name}' is not placed on this "
+                             f"engine's mesh: call shard_character (or "
+                             f"replicate_character) first")
+        return char.replicas
+
+    def _rows_map(self, fn, reps: List[CharacterModel]) -> list:
+        """``fn(r)`` for each dp row ``r``, each with its replica's device
+        current and in inference mode: inline for one row, else on a pool
+        of dp threads (so that each row's host work can overlap the
+        others' device work). Results in row order; an error in any row raises."""
+        def run(r):
+            with torch.inference_mode(), on_device(reps[r].device):
+                return fn(r)
+
+        if len(reps) == 1:
+            return [run(0)]
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(len(reps), thread_name_prefix="genie-dp")
+        return list(self._pool.map(run, range(len(reps))))
 
     # -- reference feature extraction ------------------------------------
 
@@ -635,20 +739,27 @@ class TTSEngine:
 
         ``items``: [(ref, text_phones, text_bert)]; rows of other lengths
         batch together through per-row masks. The batch is padded to a
-        ``batch_buckets`` size with copies of the first row, so a batch of
-        B >= 2 decodes through ``generate``'s B > 1 route (the flash kernel
-        in every layer of every step). One ``generate_e2e``, one read of the
-        emitted lengths, one latent over a frame bucket of the longest row
-        and a chunked HiFi-GAN. ``stats`` receives ``decode_steps`` and
+        ``batch_buckets`` size with copies of the first row (and on a mesh
+        to a multiple of dp), so a batch of B >= 2 decodes through
+        ``generate``'s B > 1 route (the flash kernel in every layer of every
+        step). One ``generate_e2e``, one read of the emitted lengths, one
+        latent over a frame bucket of the longest row and a chunked
+        HiFi-GAN, for each dp row's block of the batch on its replica. The
+        Gumbel table and the flow noise are drawn once for the whole padded
+        batch and split by rows, so a row's result does not depend on dp.
+        ``stats`` receives ``decode_steps`` (the most of any dp row) and
         ``cache_len``. Returns float32 waveforms."""
         scfg = sampling or SamplingConfig()
         tcfg, vcfg = char.t2s_cfg, char.sovits_cfg
+        reps = self._replicas(char)
+        dp = self._dp_size
         dev = char.device
         if seed is None:
             seed = self._next_seed()
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         B = len(items)
         B_pad = max(pick_bucket(B, self.cfg.batch_buckets), B)
+        B_pad = -(-B_pad // dp) * dp
         items = list(items) + [items[0]] * (B_pad - B)
         phones_rows = [np.concatenate([r.phones, tp]).astype(np.int64)
                        for r, tp, _ in items]
@@ -666,32 +777,54 @@ class TTSEngine:
         max_steps = fixed_steps or max_steps or tcfg.max_decode_steps
         cap = (fixed_steps if fixed_steps is not None
                else pick_bucket(max_steps, self.cfg.step_caps))
-        bert = (host_to_device(np.stack([
-            pad_to(np.concatenate([r.bert, tb]).astype(np.float32), x_bucket, axis=0)
-            for r, _, tb in items]), dev) if any_bert else None)
-        codes, codes_len = t2s.generate_e2e(
-            char.t2s_params, tcfg, scfg, gen,
-            host_to_device(np.stack([pad_to(p, x_bucket) for p in phones_rows]), dev),
-            bert, host_to_device(x_lens, dev),
-            host_to_device(np.stack([pad_to(np.asarray(r.prompt_tokens, np.int64),
-                                            p_bucket) for r, _, _ in items]), dev),
-            host_to_device(p_lens, dev), max_steps=cap,
-            cache_len=x_bucket + p_bucket + cap, min_steps=fixed_steps or min_steps,
-            max_steps_dyn=max_steps, stats=stats)
-        lens = codes_len.cpu().numpy()
+        phones_b = np.stack([pad_to(p, x_bucket) for p in phones_rows])
+        bert_b = (np.stack([pad_to(np.concatenate([r.bert, tb]).astype(np.float32),
+                                   x_bucket, axis=0) for r, _, tb in items])
+                  if any_bert else None)
+        prompts_b = np.stack([pad_to(np.asarray(r.prompt_tokens, np.int64), p_bucket)
+                              for r, _, _ in items])
+        text_b = np.stack([pad_to(np.asarray(tp, np.int64), t_bucket) for _, tp, _ in items])
+        ge_b = np.stack([r.ge for r, _, _ in items]).astype(np.float32)
+        gm_b = np.stack([r.ge_mrte for r, _, _ in items]).astype(np.float32)
+        n = B_pad // dp
+        blocks = [slice(r * n, (r + 1) * n) for r in range(dp)]
+        gumbel = gumbel_noise((cap, B_pad, tcfg.semantic_vocab), gen, dev)
+        row_stats = [{} for _ in reps]
+
+        def decode(r):
+            rep, rows = reps[r], blocks[r]
+            d = rep.device
+            return t2s.generate_e2e(
+                rep.t2s_params, tcfg, scfg, None, host_to_device(phones_b[rows], d),
+                None if bert_b is None else host_to_device(bert_b[rows], d),
+                host_to_device(x_lens[rows], d), host_to_device(prompts_b[rows], d),
+                host_to_device(p_lens[rows], d), max_steps=cap,
+                cache_len=x_bucket + p_bucket + cap, min_steps=fixed_steps or min_steps,
+                max_steps_dyn=max_steps, stats=row_stats[r], noise=gumbel[:, rows].to(d))
+
+        decoded = self._rows_map(decode, reps)
+        lens = np.concatenate([codes_len.cpu().numpy() for _, codes_len in decoded])
         c_bucket = pick_bucket(int(max(lens.max(), 1)), self.cfg.frame_buckets)
-        ge = host_to_device(np.stack([r.ge for r, _, _ in items]).astype(np.float32), dev)
-        z = sovits.synthesize_latent(
-            char.sovits_params, vcfg, _fit_codes(codes, c_bucket), codes_len,
-            host_to_device(np.stack([pad_to(np.asarray(tp, np.int64), t_bucket)
-                                     for _, tp, _ in items]), dev),
-            host_to_device(t_lens, dev), ge,
-            host_to_device(np.stack([r.ge_mrte for r, _, _ in items])
-                           .astype(np.float32), dev),
-            noise_scale, generator=gen)
-        audio = sovits.vocode_frames_chunked(
-            char.sovits_params, vcfg, z, ge, 2 * codes_len,
-            chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo).cpu().numpy()
+        flow_noise = torch.randn((B_pad, 2 * c_bucket, vcfg.inter_channels),
+                                 generator=gen, device=dev, dtype=torch.float32)
+
+        def finish(r):
+            rep, rows = reps[r], blocks[r]
+            d = rep.device
+            codes, codes_len = decoded[r]
+            ge = host_to_device(ge_b[rows], d)
+            z = sovits.synthesize_latent(
+                rep.sovits_params, vcfg, _fit_codes(codes, c_bucket), codes_len,
+                host_to_device(text_b[rows], d), host_to_device(t_lens[rows], d), ge,
+                host_to_device(gm_b[rows], d), noise_scale, noise=flow_noise[rows].to(d))
+            return sovits.vocode_frames_chunked(
+                rep.sovits_params, vcfg, z, ge, 2 * codes_len,
+                chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo).cpu().numpy()
+
+        audio = np.concatenate(self._rows_map(finish, reps))
+        if stats is not None:
+            stats.update(row_stats[0])
+            stats["decode_steps"] = max(st["decode_steps"] for st in row_stats)
         metrics.incr("utterances", B)
         return [audio[i, : 2 * int(lens[i]) * vcfg.hop_length].astype(np.float32)
                 for i in range(B)]

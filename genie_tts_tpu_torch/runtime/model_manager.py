@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from ..config import (HubertConfig, RobertaConfig, RuntimeConfig, SoVITSConfig,
-                      T2SConfig, hubert_dir, resolve_device, resolve_dtype,
-                      roberta_dir)
+                      T2SConfig, hubert_dir, indexed_device, resolve_device,
+                      resolve_dtype, roberta_dir)
 from ..convert.io import load_character_config, load_params
 from ..utils.lru import LRUCache
 from .engine import CharacterModel
@@ -72,14 +72,6 @@ def _cfg(cls, overrides, **defaults):
         if k in fields:
             kw[k] = _deep_tuple(v)
     return cls(**kw)
-
-
-def _device_key(dev: torch.device) -> torch.device:
-    """The shared models' cache key of a device: ``cuda`` and the tensors
-    on it (``cuda:0``) name one card."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class ModelManager:
@@ -157,7 +149,7 @@ class ModelManager:
         """Lazy global HuBERT on ``device`` (None when the checkpoint is
         missing). A ``config.json`` beside ``hubert.safetensors`` may
         override HubertConfig fields, as a character's does."""
-        dev = _device_key(resolve_device(device))
+        dev = indexed_device(resolve_device(device))
         with self._lock:
             if dev in self._hubert:
                 return self._hubert[dev]
@@ -175,7 +167,7 @@ class ModelManager:
     def set_hubert(self, params: Dict, cfg: HubertConfig) -> None:
         """Inject HuBERT weights (tests / preloaded); they serve the
         device their leaves are on."""
-        dev = _device_key(params["fp_proj"]["w"].device)
+        dev = indexed_device(params["fp_proj"]["w"].device)
         with self._lock:
             self._hubert[dev] = (params, cfg)
 
@@ -186,7 +178,7 @@ class ModelManager:
         ``roberta.safetensors`` or ``tokenizer.json`` is missing: Chinese
         BERT features are then zero. A ``config.json`` beside them may
         override RobertaConfig fields, as HuBERT's does."""
-        dev = _device_key(resolve_device(device))
+        dev = indexed_device(resolve_device(device))
         with self._lock:
             if dev in self._roberta:
                 return self._roberta[dev]
@@ -212,7 +204,7 @@ class ModelManager:
     def set_roberta(self, params: Dict, cfg: RobertaConfig, tokenizer) -> None:
         """Inject RoBERTa weights (on their device) + a tokenizer with
         ``encode(text) -> .ids, .attention_mask`` (tests / preloaded)."""
-        dev = _device_key(params["word_embed"].device)
+        dev = indexed_device(params["word_embed"].device)
         with self._lock:
             self._roberta[dev] = (params, cfg, tokenizer)
             self._install_bert_hook(dev)

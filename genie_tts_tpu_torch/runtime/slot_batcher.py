@@ -34,7 +34,9 @@ merged so far, bumped at dispatch so that the in-flight segment is
 covered), or the full read when a row is past either ladder.
 
 One scheduler serves one character; ``api.get_slot_batcher`` keeps one
-per loaded character. Not ported (ROADMAP.md): AOT warmup units.
+per loaded character. On a serving mesh it runs on the character's
+replica 0; where that replica's T2S is tp-sharded, so are its slot caches
+(``models/slots.py``), and the scheduling is the same. Not ported (ROADMAP.md): AOT warmup units.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ import numpy as np
 import torch
 
 from ..models import slots as slots_mod
-from ..models.t2s import finalize_semantic_tokens
+from ..models.t2s import finalize_semantic_tokens, shard_devices
 from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
@@ -822,7 +824,8 @@ class SlotBatcher:
         self._state = slots_mod.init_slots(
             self.char.t2s_cfg, self.n_slots, self.sx, self.sp, self.ring,
             dtype=self.char.t2s_params["audio_embed"].dtype,
-            kv_int8=self.cfg.slot_kv_int8, device=dev)
+            kv_int8=self.cfg.slot_kv_int8, device=dev,
+            tp_devices=shard_devices(self.char.t2s_params))
         # one generator on the scheduler thread draws every Gumbel table
         # and every pumped row's noise table
         self._gen = torch.Generator(device=dev).manual_seed(0)

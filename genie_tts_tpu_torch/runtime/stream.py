@@ -23,7 +23,8 @@ bucket, so overlapping frames see the same noise.
 The loop is pipelined one segment deep: segment k's tokens, ``done`` and
 ``counts`` go to pinned host memory behind an event before segment k+1 is
 dispatched (the caches are updated in place, every other state leaf is
-new per segment).
+new per segment). A tp-sharded character's machine holds its caches per
+shard (``models/slots.py``) and gives the same chunks.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch
 
 from ..models import slots as slots_mod
 from ..models import sovits
-from ..models.t2s import finalize_semantic_tokens
+from ..models.t2s import finalize_semantic_tokens, shard_devices
 from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
@@ -127,7 +128,8 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
 
     # the request's solo machine, exact KV (no int8 scales, no kernel)
     state = slots_mod.init_slots(tcfg, 1, sx, sp, ring,
-                                 dtype=char.t2s_params["audio_embed"].dtype, device=dev)
+                                 dtype=char.t2s_params["audio_embed"].dtype, device=dev,
+                                 tp_devices=shard_devices(char.t2s_params))
     samp = rows_from_config(sampling or SamplingConfig(), 1)
     ctx_k, ctx_v, tok0, hist = slots_mod.prefill_join(
         char.t2s_params, tcfg, phones=host_to_device(pad_to(packed, sx)[None], dev),

@@ -280,13 +280,14 @@ def start_server(host: str = "127.0.0.1", port: int = 8000,
     unless named; with no GPU and no device named, loading raises).
     ``workers`` is accepted for reference-API compatibility: one process
     serves many concurrent requests (thread per request, batched onto the
-    card), and N processes sharing one card would only contend. A warning
-    is logged when workers > 1.
+    card), and N processes sharing one card would only contend; several
+    cards serve from this one process through ``GENIE_MESH="DPxTP"``
+    (``api._serving_mesh``). A warning is logged when workers > 1.
     """
     if workers > 1:
         logger.warning(
-            "workers=%d ignored: requests batch onto the card in one process",
-            workers)
+            "workers=%d ignored: requests batch onto the card in one process; "
+            "set GENIE_MESH=DPxTP to serve over several cards", workers)
     global _server, _device
     from ..utils import logs
 

@@ -41,7 +41,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("B,H,S,Dh", [(4, 16, 448, 32), (1, 4, 64, 32), (3, 2, 1000, 64),
-                                      (1, 1, 1, 32), (2, 16, 17, 32), (8, 16, 1024, 32)])
+                                      (1, 1, 1, 32), (2, 16, 17, 32), (8, 16, 1024, 32),
+                                      # a tp shard's heads: 16 heads over tp 2 and 4
+                                      (1, 8, 448, 32), (2, 8, 448, 32), (1, 4, 448, 32)])
 @pytest.mark.parametrize("visible", ["ragged", "last_row_only"])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, B, H, S, Dh, visible):
     """Ragged rows, with the last batch row all masked (mean of V), or one
@@ -234,8 +236,12 @@ def _int8_case(gen, B, H, Dh, sx, sp, ring, kw, head, pad_cols, rows="random"):
     (2, 16, 32, 192, 192, 512, [0, 1], 300, 512, "one_column"),   # 3 of 4 ranks get nothing
     (1, 1, 32, 16, 8, 32, [20], 5, 8, "random"),
     (2, 4, 64, 512, 512, 1024, [1024, 700], 300, 0, "full"),     # a block's largest buffers
+    # a tp shard's heads (16 over tp 2 and 4) at the slot geometry
+    (8, 8, 32, 192, 192, 512, [64, 128, 200, 300, 17, 256, 0, 1], 300, 512, "random"),
+    (8, 4, 32, 192, 192, 512, [512, 400, 300, 200, 150, 120, 101, 450], 100, 512, "random"),
 ], ids=["partial_ring", "wrapped_ring", "empty_row", "unaligned_pitch", "dh64",
-        "wrapped_mid_chunk", "fully_visible", "one_column", "bh1", "dh64_s2048"])
+        "wrapped_mid_chunk", "fully_visible", "one_column", "bh1", "dh64_s2048",
+        "tp2_heads", "tp4_heads"])
 def test_int8_kernel_matches_plain(cuda, case):
     *shape, pad_cols, rows = case
     B, H, Dh, sx, sp, ring, kw, head = shape
@@ -349,3 +355,36 @@ def test_windowed_slot_reads_match_full_read_on_the_card(cuda):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
         else:
             assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+def test_tp_sharded_generate_on_the_card(cuda, B):
+    """A 1x2 serving mesh over one card repeated: the per-layer route with
+    the flash kernel over 8 of 16 heads per shard gives the greedy fp32
+    codes of the unsharded parameters (B=1: against the fused kernel)."""
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig
+    from genie_tts_tpu_torch.parallel.mesh import shard_serving_params
+
+    cfg = T2SConfig(num_layers=4)
+    params = t2s.init_params(cuda, cfg, dtype=torch.float32)
+    sharded = shard_serving_params(params, ["cuda:0"] * 2)
+    Sx, Sp, cap = 32, 48, 24
+    phones = torch.randint(1, cfg.phoneme_vocab, (B, Sx), generator=cuda, device="cuda")
+    prompts = torch.randint(0, 1024, (B, Sp), generator=cuda, device="cuda")
+    x_len = torch.tensor([32, 19, 27][:B], device="cuda")
+    p_len = torch.tensor([48, 30, 11][:B], device="cuda")
+    greedy = SamplingConfig(top_k=1)
+    out = []
+    for p in (params, sharded):
+        with torch.inference_mode():
+            before = flash_decode_attention.launches
+            codes, n = t2s.generate_e2e(p, cfg, greedy, None, phones, None, x_len, prompts,
+                                        p_len, max_steps=cap, cache_len=Sx + Sp + cap,
+                                        min_steps=cap)
+        out.append((codes, n, flash_decode_attention.launches - before))
+    (c1, n1, f1), (c2, n2, f2) = out
+    assert f2 == 2 * cfg.num_layers * (cap - 1)
+    assert f1 == (0 if B == 1 else cfg.num_layers * (cap - 1))
+    assert torch.equal(n1, n2)
+    assert float((c1 == c2).float().mean()) >= 0.9
