@@ -53,6 +53,23 @@ Phases, each of which must pass:
    launches follow). Every response must be 200 with 2 x 2*codes*640
    bytes of PCM holding more than 1000 distinct values; each route prints
    its latency, time to the first chunk, audio seconds and launches.
+9a. graphs (every decode above runs as CUDA-graph replays, captured on
+   first use): phase 3's character loaded as ``graphs`` through the
+   server, ``api.engine.warmup(char, ref, sweep=True)`` (units, graphs
+   captured, wall time, pool and buffer memory), then solo ``tts()``, 4
+   concurrent ``/tts`` (int8 slot route), a short stream (segmented) and
+   a long one (fused head; again twice through the engine and once
+   through ``/tts``), solo, the fused head and ``/tts`` with top-p 0.8,
+   with no cache miss and no capture; graph vs eager on the same noise
+   with identical codes (B=1 fused and B=4 flash ``generate`` at a
+   40-step cap, five B=1 decodes captured while another thread replays a
+   sixth of the same cache length, a slot segment at occupancy 8 on the
+   int8 kernel route and each window pair of the exact route with every
+   state leaf equal, a stream segment); and, graph beside eager (the
+   character's graph cache set ``eager``) in turns, solo decode
+   ms/step, a slot segment at occupancy 8 (CUDA events; device busy and
+   kernels a step by torch.profiler), the segmented stream's first chunk
+   and end, and 4 concurrent slot requests.
 9b. mesh (dp x tp serving, full width): ``make_serving_mesh(2, 2)`` over
    ``cuda:0`` four times (one card: every line of the dp and tp code runs,
    no transfer between cards). ``api.engine`` is swapped for a mesh
@@ -728,6 +745,8 @@ def window_timing(torch, char, feats, phones):
     against the full read, alternated, by CUDA events; then one 8-step
     segment of each under torch.profiler for the device's busy time (a
     32-step one takes the profiler about a minute to digest)."""
+    import dataclasses
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -743,7 +762,9 @@ def window_timing(torch, char, feats, phones):
     times = {name: [] for name, _, _ in variants}
     busy = {}
     with torch.inference_mode():
-        state = slots.init_slots(cfg, B, sx, sp, ring, torch.bfloat16, device=DEV)
+        # persistent: the segment graphs replay on it, with no copy in or out
+        state = dataclasses.replace(
+            slots.init_slots(cfg, B, sx, sp, ring, torch.bfloat16, device=DEV), persistent=True)
         for b in range(B):
             state = slots.insert_slot(state, b, k, v, tok0, hist, len(phones),
                                       len(feats.prompt_tokens), ring, ring, samp)
@@ -762,6 +783,8 @@ def window_timing(torch, char, feats, phones):
                 sync(torch)
                 times[name].append(e0.elapsed_time(e1))
         for name, cw, rw in variants:
+            segment(cw, rw, 8)                  # the 8-step graph's capture, not profiled
+            sync(torch)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 segment(cw, rw, 8)
                 sync(torch)
@@ -1526,6 +1549,439 @@ def phase_serve(torch, root: Path, card: str):
     return out
 
 
+def profiled(torch, fn):
+    """(ms by CUDA events, device busy ms, kernels run) of one call of
+    ``fn`` under torch.profiler; busy and kernels None where the profiler
+    shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        sync(torch)
+    ks = [(getattr(a, "self_device_time_total", None)
+           or getattr(a, "self_cuda_time_total", 0.0), a.count)
+          for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    busy = sum(k[0] for k in ks) / 1e3
+    return e0.elapsed_time(e1), (busy if busy > 0 else None), (sum(k[1] for k in ks)
+                                                              if busy > 0 else None)
+
+
+def phase_graphs(torch, root: Path, card: str):
+    """The decode programs as captured CUDA graphs (``runtime/graphs.py``).
+
+    (1) The sweep: phase 3's character loaded as ``graphs`` through the
+    port's server (POST /load_character, /set_reference_audio), then
+    ``api.engine.warmup(char, ref, sweep=True)`` (units, graphs captured,
+    wall time, the graphs' pool and buffer memory); with the cache's
+    counts set to 0, solo ``tts()``, 4 concurrent /tts (the int8 slot
+    route), one short stream (the segmented stream, idle machine) and one
+    long stream (the fused head), then solo, the fused head and /tts with
+    top-p 0.8: no miss (nothing captured while serving). (2) Graph vs eager on the same noise, codes identical: B=1
+    fused ``generate`` with a 40-step cap (blocks of 16, 16 and 7), B=4
+    flash ``generate``, one slot segment at occupancy 8 from the same
+    state on the int8 kernel route and on each window pair of the exact
+    route (every state leaf equal), one stream segment; five B=1 decodes
+    of one cache length captured while another thread replays a sixth,
+    every decode's codes the eager route's. (3) Times, each beside its eager
+    counterpart in the same run (the character's graph cache set
+    ``eager``), in turns: solo decode
+    ms/step, a slot segment at occupancy 8 (CUDA events; device busy and
+    kernels a step by torch.profiler), the segmented stream's first chunk
+    and latency on an idle machine, and 4 concurrent requests on the int8
+    slot route."""
+    import dataclasses
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.config import RuntimeConfig
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.models import slots, t2s
+    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise
+    from genie_tts_tpu_torch.runtime import graphs, stream
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.runtime.slot_batcher import seg_window_combos
+
+    kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
+               "fused": fu.fused_decode_step}
+    srv = api.start_server(host="127.0.0.1", port=0, block=False)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(path, payload, timeout=600.0):
+        """(status, body, s to the first chunk, s to the end)."""
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            first = r.read1(1 << 16)
+            t_first = time.perf_counter() - t0
+            body = first + r.read()
+            return r.status, body, t_first, time.perf_counter() - t0
+
+    def concurrent(fn, n):
+        out, errors = {}, []
+
+        def client(i):
+            try:
+                out[i] = fn(i)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not errors and len(out) == n, f"graphs: {errors or 'a request hung'}")
+        return [out[i] for i in range(n)]
+
+    def mb(n):
+        return n / 2 ** 20
+
+    out = {}
+    ref_text = "こんにちは、てすとです"
+    try:
+        # ---- (1) the sweep, then serving captures nothing
+        for path, payload in (
+                ("/load_character", {"character_name": "graphs", "model_dir": str(root / "char"),
+                                     "language": "ja"}),
+                ("/set_reference_audio", {"character_name": "graphs",
+                                          "audio_path": str(root / "ref.wav"),
+                                          "audio_text": ref_text, "language": "ja"})):
+            check(post(path, payload)[0] == 200, f"graphs {path}")
+        char = api.model_manager.get("graphs")
+        feats = reference_audio_cache.get_features(
+            api.engine, char, str(root / "ref.wav"), ref_text, "Japanese")
+        cache = graphs.cache_for(char.t2s_params)
+        sync(torch)
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        units = api.engine.warmup(char, feats, sweep=True)
+        sync(torch)
+        sweep_s = time.perf_counter() - t0
+        keys = cache.keys()
+        captured = cache.stats["captures"]
+        buf_bytes = cache.buffer_bytes()
+        print(f"[graphs] sweep: {units} units, {len(keys)} graph keys, {captured} graphs "
+              f"captured in {sweep_s:.1f} s; pools {mb(cache.pool_bytes()):.1f} MiB, static "
+              f"buffers {mb(buf_bytes):.1f} MiB, allocated {mb(torch.cuda.memory_allocated() - mem0):.1f}"
+              f" MiB more than before; keys by kind: " + json.dumps(
+                  {kind: sum(k[0] == kind for k in keys) for kind in ("generate", "segment")}))
+        check(captured >= len(keys) > 0, f"sweep captured {captured} graphs for {len(keys)} keys")
+        cache.reset_stats()
+        codes = min(char.t2s_cfg.max_decode_steps, 128)
+        t0 = time.perf_counter()
+        api.tts("graphs", "きょうはいいてんきですね。", save_path=root / "graphs_tts.wav")
+        solo_s = time.perf_counter() - t0
+        tts4 = concurrent(lambda i: post("/tts", {"character_name": "graphs", "text": SENTENCES[i],
+                                                  "split_sentence": False}), 4)
+        short = post("/tts", {"character_name": "graphs", "text": SENTENCES[4],
+                              "split_sentence": False, "stream": True})
+        long = post("/tts", {"character_name": "graphs", "text": LONG_SENTENCE,
+                             "split_sentence": False, "stream": True})
+        for status, body, _, _ in tts4 + [short, long]:
+            check(status == 200 and len(body) == 2 * 2 * codes * 640
+                  and np.unique(np.frombuffer(body, "<i2")).size > 1000,
+                  f"graphs serving: HTTP {status}, {len(body)} bytes")
+        # the long stream again, through the engine and through /tts
+        long_ph = get_phones_and_bert("。" + LONG_SENTENCE, "ja")[0]
+        again = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            it = api.engine.synthesize_utterance_stream(
+                char, feats, long_ph, np.zeros((len(long_ph), char.t2s_cfg.bert_dim),
+                                               np.float32), pcm16=True)
+            next(it)
+            t1 = time.perf_counter() - t0
+            for _ in it:
+                pass
+            again.append((t1, time.perf_counter() - t0))
+        long2 = post("/tts", {"character_name": "graphs", "text": LONG_SENTENCE,
+                              "split_sentence": False, "stream": True})
+        print(f"[graphs] long stream again: engine first chunk / end "
+              + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in again)
+              + f" s; /tts {long2[2]:.3f} / {long2[3]:.3f} s")
+        # top-p below 1 (a request's override): solo, the fused stream head
+        # and the slot route
+        top_p = SamplingConfig(top_p=0.8)
+        solo_ph = get_phones_and_bert("。きょうはいいてんきですね。", "ja")[0]
+        api.engine.synthesize_utterance(char, feats, solo_ph, np.zeros(
+            (len(solo_ph), char.t2s_cfg.bert_dim), np.float32), sampling=top_p, pcm16=True)
+        for _ in api.engine.synthesize_utterance_stream(
+                char, feats, long_ph, np.zeros((len(long_ph), char.t2s_cfg.bert_dim),
+                                               np.float32), sampling=top_p, pcm16=True):
+            pass
+        check(post("/tts", {"character_name": "graphs", "text": SENTENCES[0],
+                            "split_sentence": False, "top_p": 0.8})[0] == 200,
+              "graphs /tts with top_p")
+        stats = dict(cache.stats)
+        print(f"[graphs] after the sweep: solo tts() {solo_s:.3f} s; 4 x /tts latency "
+              + ", ".join(f"{r[3]:.3f}" for r in tts4) + f" s; short stream first chunk "
+              f"{short[2]:.3f} s, end {short[3]:.3f} s; long stream (fused head) first chunk "
+              f"{long[2]:.3f} s, end {long[3]:.3f} s; cache {json.dumps(stats)}")
+        check(stats["misses"] == stats["variants"] == stats["captures"] == 0
+              and stats["hits"] > 0, f"serving after the sweep missed the cache: {stats}")
+        out["sweep"] = dict(units=units, keys=len(keys), captured=captured, s=sweep_s,
+                            pool_mib=mb(cache.pool_bytes()), buffers_mib=mb(buf_bytes),
+                            tts4_s=[r[3] for r in tts4], short_stream=short[2:],
+                            long_stream=long[2:], stats=stats)
+
+        # ---- (2) graph vs eager, the same noise: identical codes
+        cfg = char.t2s_cfg
+        p = char.t2s_params
+        g = torch.Generator(device=DEV).manual_seed(9)
+        Sx, Sp = 64, 256
+        scfg = SamplingConfig()
+        for B, cap in ((1, 40), (4, 40)):
+            phones = torch.randint(1, cfg.phoneme_vocab, (B, Sx), generator=g, device=DEV)
+            prompts = torch.randint(0, 1024, (B, Sp), generator=g, device=DEV)
+            x_len = torch.tensor([40, 64, 23, 51][:B], device=DEV)
+            p_len = torch.tensor([132, 256, 77, 190][:B], device=DEV)
+            noise = gumbel_noise((cap, B, cfg.semantic_vocab), g, DEV)
+            res = {}
+            for eager in (False, True):
+                for k in kernels.values():
+                    k.launches = 0
+                with torch.inference_mode():
+                    x = t2s.embed_text(p, phones, torch.zeros((B, Sx, cfg.bert_dim), device=DEV))
+                    r = t2s.generate(p, cfg, scfg, None, x, x_len, prompts, p_len,
+                                     max_steps=cap, cache_len=Sx + Sp + cap, min_steps=cap,
+                                     noise=noise, eager=eager)
+                sync(torch)
+                n = kernels["fused" if B == 1 else "flash"].launches
+                res[eager] = (r.tokens.cpu(), r.counts.cpu(), r.steps, n)
+            same = all(torch.equal(a, b) for a, b in zip(res[False][:2], res[True][:2]))
+            per = 1 if B == 1 else cfg.num_layers
+            print(f"[graphs] generate B={B} ({'fused' if B == 1 else 'flash'}), cap {cap}: "
+                  f"graph vs eager codes {'identical' if same else 'DIFFER'}; steps "
+                  f"{res[False][2]} / {res[True][2]}; launches {res[False][3]} / {res[True][3]}")
+            check(same and res[False][2] == res[True][2] == cap
+                  and res[False][3] == res[True][3] == per * (cap - 1),
+                  f"generate B={B} graph vs eager")
+
+        # a capture beside replays: one thread replays the B=1 graph at a
+        # 40-step cap while another captures the programs of five decodes
+        # of the same cache length (caps 24 and 32, top-p 0.8); every
+        # decode's codes must be the eager route's on the same noise
+        phones = torch.randint(1, cfg.phoneme_vocab, (1, Sx), generator=g, device=DEV)
+        prompts = torch.randint(0, 1024, (1, Sp), generator=g, device=DEV)
+        lens = (torch.tensor([40], device=DEV), torch.tensor([132], device=DEV))
+        noise = gumbel_noise((40, 1, cfg.semantic_vocab), g, DEV)
+
+        def decode1(cap, top_p, eager=False):
+            with torch.inference_mode():
+                x = t2s.embed_text(p, phones, torch.zeros((1, Sx, cfg.bert_dim), device=DEV))
+                return t2s.generate(p, cfg, SamplingConfig(top_p=top_p), None, x, lens[0],
+                                    prompts, lens[1], max_steps=cap, cache_len=Sx + Sp + 40,
+                                    min_steps=cap, noise=noise[:cap], eager=eager).tokens.cpu()
+
+        others = [(24, 1.0), (32, 1.0), (40, 0.8), (24, 0.8), (32, 0.8)]
+        want = {k: decode1(*k, eager=True) for k in [(40, 1.0)] + others}
+        decode1(40, 1.0)                                    # captured in (2) already
+        captures0, done, bad, runs = graphs.cache_for(p).stats["captures"], [], [], []
+
+        def replayer():
+            while not done:
+                runs.append(1)
+                if not torch.equal(decode1(40, 1.0), want[(40, 1.0)]):
+                    bad.append("replayed key")
+
+        def capturer():
+            try:
+                for k in others:
+                    if not torch.equal(decode1(*k), want[k]):
+                        bad.append(f"captured key {k}")
+            finally:
+                done.append(1)
+
+        threads = [threading.Thread(target=replayer), threading.Thread(target=capturer)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        captured = graphs.cache_for(p).stats["captures"] - captures0
+        print(f"[graphs] capture beside replay: {len(runs)} replayed decodes while "
+              f"{captured} graphs were captured at the same cache length; codes "
+              f"{'all equal to eager' if not bad else 'DIFFER: ' + ', '.join(bad)}")
+        check(not bad and captured == 2 * len(others) and len(runs) > 1
+              and not any(t.is_alive() for t in threads), "capture beside replay")
+
+        def segment_pair(state, W, sx, sp, ring, kernel, cw, rw, what):
+            """One segment from copies of ``state``: graph and eager."""
+            noise = gumbel_noise((W, state.k_cache.shape[1], cfg.semantic_vocab), g, DEV)
+            a, b = slots.clone_state(state), slots.clone_state(state)
+            with torch.inference_mode():
+                a, ta = slots.decode_segment(p, a, cfg, W, sx, sp, ring, kv_kernel=kernel,
+                                             noise=noise, ctx_win=cw, ring_win=rw)
+                b, tb = slots.decode_segment(p, b, cfg, W, sx, sp, ring, kv_kernel=kernel,
+                                             noise=noise, ctx_win=cw, ring_win=rw, eager=True)
+            sync(torch)
+            leaves = [f.name for f in dataclasses.fields(a)
+                      if isinstance(getattr(a, f.name), torch.Tensor)]
+            diff = [n for n in leaves if not torch.equal(getattr(a, n), getattr(b, n))]
+            print(f"[graphs] {what}: graph vs eager tokens "
+                  f"{'identical' if torch.equal(ta, tb) else 'DIFFER'}, state leaves "
+                  f"{'equal' if not diff else 'differ: ' + ', '.join(diff)}")
+            check(torch.equal(ta, tb) and not diff, f"{what}: graph vs eager")
+
+        slot_char = api.model_manager.get("slots")     # the default T2SConfig (500 steps)
+        scfg_s = slot_char.t2s_cfg
+        sfeats = reference_audio_cache.get_features(
+            api.engine, slot_char, str(root / "ref.wav"), ref_text, "Japanese")
+        sphones = np.concatenate([sfeats.phones, api.get_phones_and_bert(
+            "。" + SENTENCES[0], "ja")[0]])
+        B8, W, sx, sp, ring = 8, 32, 192, 192, 512
+        ctx, samp = _slot_rows(torch, slot_char, sfeats, sphones, sx, sp)
+        rcfg = RuntimeConfig(slot_kv_int8=False, slot_windowed_kv=True)
+        p = slot_char.t2s_params
+        cfg = scfg_s
+        for kv_int8, combos in ((True, [(None, None)]),
+                                (False, seg_window_combos(rcfg, sx, sp, ring))):
+            with torch.inference_mode():
+                st = slots.init_slots(cfg, B8, sx, sp, ring, torch.bfloat16, kv_int8=kv_int8,
+                                      device=DEV)
+                for b in range(B8):
+                    slots.insert_slot(st, b, *ctx, len(sphones), len(sfeats.prompt_tokens),
+                                      ring, ring, samp)
+            for cw, rw in combos:
+                segment_pair(st, W, sx, sp, ring, kv_int8, cw, rw,
+                             f"slot segment, occupancy 8, "
+                             + ("int8 kernel route" if kv_int8 else f"exact KV, windows "
+                                                                    f"({cw}, {rw})"))
+        Ws, rings, ssx, ssp = stream.stream_geometry(api.engine.cfg, cfg)
+        with torch.inference_mode():
+            st1 = slots.init_slots(cfg, 1, ssx, ssp, rings, torch.bfloat16, device=DEV)
+            slots.insert_slot(st1, 0, *ctx, len(sphones), len(sfeats.prompt_tokens), rings,
+                              rings, samp)
+        segment_pair(st1, Ws, ssx, ssp, rings, False, None, None, "stream segment (B=1)")
+
+        # ---- (3) times, graph beside eager in turns
+        eng = api.engine
+        eng.timing = True
+        text = get_phones_and_bert("。きょうはいいてんきですね。", "ja")[0]
+        bert = np.zeros((len(text), char.t2s_cfg.bert_dim), np.float32)
+        solo = {False: [], True: []}
+        # the eager baseline of the engine's routes: the character's graph
+        # cache set to run its programs without a graph
+        for eager in (False, True, True, False):
+            cache.eager = eager
+            eng.synthesize_utterance(char, feats, text, bert, seed=1, pcm16=True)
+            st = eng.last_stats
+            solo[eager].append(st["stages"]["decode"] * 1e3 / st["decode_steps"])
+        prof = {}
+        for eager in (False, True):
+            cache.eager = eager
+            ms, busy, n = profiled(torch, lambda: eng.synthesize_utterance(
+                char, feats, text, bert, seed=1, pcm16=True))
+            steps = eng.last_stats["decode_steps"]
+            prof[eager] = (ms, busy, n, steps)
+        cache.eager = False
+        eng.timing = False
+
+        def fmt(pr):
+            ms, busy, n, steps = pr
+            if busy is None:
+                return f"{ms:.1f} ms, device busy not measured"
+            return (f"{ms:.1f} ms, device busy {busy:.1f} ms ({busy / ms:.1%}), "
+                    f"{n / steps:.0f} kernels a step")
+
+        print(f"[graphs] solo tts() decode ms/step (stage time / steps): graph "
+              + ", ".join(f"{x:.3f}" for x in solo[False]) + "; eager "
+              + ", ".join(f"{x:.3f}" for x in solo[True]) + f"; a profiled call: graph "
+              f"{fmt(prof[False])}; eager {fmt(prof[True])}; {card}")
+        out["solo_ms_step"] = {"graph": solo[False], "eager": solo[True]}
+
+        with torch.inference_mode():
+            st = dataclasses.replace(slots.init_slots(cfg, B8, sx, sp, ring, torch.bfloat16,
+                                                      kv_int8=True, device=DEV),
+                                     persistent=True)
+            for b in range(B8):
+                slots.insert_slot(st, b, *ctx, len(sphones), len(sfeats.prompt_tokens), ring,
+                                  ring, samp)
+        seg = {False: [], True: []}
+        gen = torch.Generator(device=DEV).manual_seed(3)
+
+        def run_seg(eager):
+            slots.decode_segment(p, st, cfg, W, sx, sp, ring, kv_kernel=True, generator=gen,
+                                 eager=eager)
+
+        with torch.inference_mode():
+            run_seg(False)                            # the capture
+            for eager in (False, True, True, False, False, True):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                run_seg(eager)
+                e1.record()
+                sync(torch)
+                seg[eager].append(e0.elapsed_time(e1))
+            sprof = {e: profiled(torch, lambda e=e: run_seg(e)) + (W,) for e in (False, True)}
+        check(bool(st.active.all()) and not bool(st.done.any()), "occupancy 8 in the timing")
+        print(f"[graphs] slot segment W={W} at occupancy 8 (int8 KV, kernel route), CUDA "
+              f"events: graph " + ", ".join(f"{x:.3f}" for x in seg[False]) + " ms; eager "
+              + ", ".join(f"{x:.3f}" for x in seg[True]) + f" ms; profiled: graph "
+              f"{fmt(sprof[False])}; eager {fmt(sprof[True])}; {card}")
+        out["slot_segment_ms"] = {"graph": seg[False], "eager": seg[True],
+                                  "profiled": {str(k): v for k, v in sprof.items()}}
+
+        # the segmented stream on an idle machine: first chunk and the end
+        stext = get_phones_and_bert("。" + SENTENCES[4], "ja")[0]
+        sbert = np.zeros((len(stext), cfg.bert_dim), np.float32)
+        streams = {False: [], True: []}
+        for eager in (False, True, True, False):
+            cache.eager = eager
+            t0 = time.perf_counter()
+            first = None
+            for _ in eng.synthesize_utterance_stream(char, feats, stext, sbert, seed=2,
+                                                     pcm16=True):
+                if first is None:
+                    first = time.perf_counter() - t0
+            streams[eager].append((first, time.perf_counter() - t0))
+        cache.eager = False
+        print(f"[graphs] segmented stream ({char.t2s_cfg.max_decode_steps}-step cap, idle "
+              f"machine): "
+              f"graph first chunk / end " + ", ".join(f"{a:.3f} / {b:.3f}"
+                                                       for a, b in streams[False])
+              + " s; eager " + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in streams[True])
+              + f" s; {card}")
+        out["stream"] = {str(k): v for k, v in streams.items()}
+
+        # 4 concurrent requests on the int8 slot route: the api's batcher,
+        # its segments replayed (graph) or run without a graph (eager)
+        sb = api.get_slot_batcher(char)
+        lat = {False: [], True: []}
+
+        def req(i):
+            t0 = time.perf_counter()
+            ph = get_phones_and_bert("。" + SENTENCES[i], "ja")[0]
+            sb.synthesize(feats, ph, np.zeros((len(ph), cfg.bert_dim), np.float32),
+                          timeout=600)
+            return time.perf_counter() - t0
+
+        try:
+            for eager in (False, True, True, False):
+                cache.eager = eager
+                lat[eager].append(max(concurrent(req, 4)))
+        finally:
+            cache.eager = False
+        print(f"[graphs] 4 concurrent requests on the int8 slot route ({codes} codes each), "
+              f"the slowest one's latency: graph " + ", ".join(f"{x:.3f}" for x in lat[False])
+              + " s; eager " + ", ".join(f"{x:.3f}" for x in lat[True]) + f" s; {card}")
+        out["slot_route_s"] = {"graph": lat[False], "eager": lat[True]}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api.unload_character("graphs")
+    return out
+
+
 # fine-tuning geometry: B=8 clips of 128 phonemes and 384 semantic tokens
 # (15 s at 25 Hz), rows 4-7 cut to 96 phonemes and 256 tokens
 TRAIN_B, TRAIN_SX, TRAIN_SY, TRAIN_STEPS = 8, 128, 384, 10
@@ -1587,6 +2043,7 @@ def phase_train(torch, root: Path, card: str):
                              dtype=torch.float32)
     n_params = sum(x.numel() for x in flatten_tree(params).values())
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # earlier phases' graphs and states, the params
     init_fn, step_fn = make_train_step(cfg, mesh)
     p_init = params                     # init_fn trains a copy
     params, opt = init_fn(params)
@@ -1639,7 +2096,8 @@ def phase_train(torch, root: Path, card: str):
     print(f"[train] step {step_ms:.3f} ms (CUDA events, median of steps 3-{TRAIN_STEPS}; "
           f"all: {', '.join(f'{x:.2f}' for x in ms)}); {positions / step_ms * 1e3:.0f} "
           f"positions/s, {targets / step_ms * 1e3:.0f} target tokens/s; peak memory "
-          f"{peak / 2**30:.2f} GiB (max_memory_allocated); bound {bound_ms:.3f} ms "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated; {held / 2**30:.2f} GiB of it allocated "
+          f"before the first step); bound {bound_ms:.3f} ms "
           f"({bound_by}: {flops:.4e} FLOP at {PEAK_OPS['float32'] / 1e12:.0f} TFLOP/s "
           f"fp32, TF32 off; {p_bytes / 1e9:.2f} GB at 3.35 TB/s), "
           f"{step_ms / bound_ms:.2f}x the bound, {flops / step_ms / 1e9:.2f} TFLOP/s; {card}")
@@ -2231,7 +2689,7 @@ def phase_mesh(torch, root: Path, card: str, tts1, serve1):
     kw8 = torch.tensor([ring // 2 + 7 * b for b in range(B)], dtype=torch.int32, device=DEV)
     xl = torch.tensor([40 + 17 * b for b in range(B)], dtype=torch.int32, device=DEV)
     pl = torch.tensor([130 - 9 * b for b in range(B)], dtype=torch.int32, device=DEV)
-    head = ring // 4
+    head = torch.tensor([ring // 4], dtype=torch.int32, device=DEV)
     caches = []
     for _ in range(L):
         kq, ks_ = slots.quantize_kv_columns(torch.randn((B, H, Dh, S8 + ring), generator=g,
@@ -2347,6 +2805,8 @@ def phase_kernels(torch, char, S, b4):
     # ---- fused: the character's packed decode weights (int8) and bf16 ones
     x_len, p_len = 40, 132
     pos = Sx + Sp + step - 1
+    # the write row in device memory, as the decode graphs pass it
+    pos_d = torch.tensor([pos], dtype=torch.int32, device=DEV)
     fmask = ((kvp[0] < x_len) | ((kvp[0] >= Sx) & (kvp[0] < Sx + p_len))
              | ((kvp[0] >= Sx + Sp) & (kvp[0] <= pos))).float()
     vis = int(fmask.sum())
@@ -2371,10 +2831,11 @@ def phase_kernels(torch, char, S, b4):
         vc = (torch.randn((L, S, D), generator=g, device=DEV) * 0.5).bfloat16()
         ka, va, kb, vb = kc.clone(), vc.clone(), kc.clone(), vc.clone()
         k32, v32 = kc.float(), vc.float()
-        out, _, _ = fu.fused_decode_step(packed, h, ka, va, pos, fmask, num_heads=H)
-        ref, _, _ = fu.fused_decode_step_plain(packed, h, kb, vb, pos, fmask, num_heads=H)
+        out, _, _ = fu.fused_decode_step(packed, h, ka, va, pos_d, fmask, num_heads=H)
+        out = out.clone()           # the packing's output row: the next launch rewrites it
+        ref, _, _ = fu.fused_decode_step_plain(packed, h, kb, vb, pos_d, fmask, num_heads=H)
         # the same function with fp32 caches rounds no operand: the exact result
-        ref32, _, _ = fu.fused_decode_step_plain(packed, h, k32, v32, pos, fmask,
+        ref32, _, _ = fu.fused_decode_step_plain(packed, h, k32, v32, pos_d, fmask,
                                                  num_heads=H)
         sync(torch)
 
@@ -2401,14 +2862,15 @@ def phase_kernels(torch, char, S, b4):
         check(d_kernel <= 2 * d_plain and intact, f"fused_decode_step {wname}")
 
         def step(pk=packed, k=ka, v=va):
-            return fu.fused_decode_step(pk, h, k, v, pos, fmask, num_heads=H)
+            return fu.fused_decode_step(pk, h, k, v, pos_d, fmask, num_heads=H)
 
-        one = {n: t[:1] for n, t in packed.items()}     # layer 0 alone: L=1
+        one = {n: t[:1] for n, t in packed.items()     # layer 0 alone: L=1
+               if not n.startswith("_")}
         ms, how = device_ms(torch, [step] * 8, 100)
         ms1, _ = device_ms(torch, [lambda: step(one, ka[:1], va[:1])] * 8, 100)
         bar_ms, _ = device_ms(torch, [lambda: fu.grid_barriers(L, ka.device)] * 8, 100)
         plain_ms = cuda_ms(torch, lambda: fu.fused_decode_step_plain(
-            packed, h, kb, vb, pos, fmask, num_heads=H), 10)
+            packed, h, kb, vb, pos_d, fmask, num_heads=H), 10)
         moved = wbytes + 2 * L * vis * D * 2 + 2 * L * D * 2 + S * 4 + 2 * D * 4
         ops = 2 * sum(packed[f"w{m}"].numel() for m in ("qkv", "out", "1", "2")) \
             + 4 * L * vis * D
@@ -2419,7 +2881,7 @@ def phase_kernels(torch, char, S, b4):
               f"{ms1:.4f} ms: {(ms - ms1) / (L - 1):.4f} ms) vs a per-layer bound of "
               f"{bms / L:.5f} ms; its {L} grid barriers alone {bar_ms:.4f} ms "
               f"({bar_ms / L * 1e3:.2f} us each)")
-        stamps = fu.phase_cycles(packed, h, ka, va, pos, fmask, num_heads=H)
+        stamps = fu.phase_cycles(packed, h, ka, va, pos_d, fmask, num_heads=H)
         print(f"[kernel] fused {wname} per-layer split in us (clock64 stamps in the "
               f"kernel, mean share of a layer scaled to {ms / L * 1e3:.2f} us; slowest "
               f"block in brackets): "
@@ -2437,8 +2899,8 @@ def phase_kernels(torch, char, S, b4):
     kc = torch.randn((L, S, D), generator=g, device=DEV) * 0.5
     vc = torch.randn((L, S, D), generator=g, device=DEV) * 0.5
     ka, va = kc.clone(), vc.clone()
-    out, _, _ = fu.fused_decode_step(packed, h, ka, va, pos, fmask, num_heads=H)
-    ref, _, _ = fu.fused_decode_step_plain(packed, h, kc, vc, pos, fmask, num_heads=H)
+    out, _, _ = fu.fused_decode_step(packed, h, ka, va, pos_d, fmask, num_heads=H)
+    ref, _, _ = fu.fused_decode_step_plain(packed, h, kc, vc, pos_d, fmask, num_heads=H)
     sync(torch)
     err = max(float((out - ref).abs().max()), float((ka - kc).abs().max()),
               float((va - vc).abs().max()))
@@ -2509,7 +2971,7 @@ def phase_kernel_int8(torch, live, seg_ms, W):
 
     worst = 0.0
     for name, (xl, pl, kw, head) in cases.items():
-        out, err = compare(name, (q, *caches[0], i32(xl), i32(pl), i32(kw), head))
+        out, err = compare(name, (q, *caches[0], i32(xl), i32(pl), i32(kw), i32([head])))
         worst = max(worst, err)
         if name == "empty row":
             o, m, l = out
@@ -2532,7 +2994,7 @@ def phase_kernel_int8(torch, live, seg_ms, W):
     timed = {}
     for name in ("partial ring", "wrapped ring", "fully visible"):
         xl, pl, kw, head = cases[name]
-        sc = (i32(xl), i32(pl), i32(kw), head)
+        sc = (i32(xl), i32(pl), i32(kw), i32([head]))     # the ring head in device memory
         vis = i8.visibility(S, *sc[:3], head, **geom)
         n_vis = int(vis.sum())
         ms = graph_ms(torch, [lambda c=c: i8.int8_big_attention(q, *c, *sc, **geom)
@@ -2551,7 +3013,7 @@ def phase_kernel_int8(torch, live, seg_ms, W):
         timed[name] = dict(sc=sc, ms=ms, bms=bms, by=by, sdpa_ms=sdpa_ms)
     # the floor that every launch pays: no column visible, so no copies and
     # no arithmetic (launch, scalar loads, cluster barriers, the combine)
-    none = (i32([0] * B), i32([0] * B), i32([0] * B), 416)
+    none = (i32([0] * B), i32([0] * B), i32([0] * B), i32([416]))
     floor_ms = graph_ms(torch, [lambda c=c: i8.int8_big_attention(q, *c, *none, **geom)
                                 for c in caches])
     print(f"[kernel] int8 nothing visible (the floor of a launch): kernel {floor_ms:.4f} ms "
@@ -2636,6 +3098,7 @@ def main() -> int:
         timed(phase_slots_bf16, torch, sl["char"], sl["feats"], sl["phones"])
         timed(phase_slot_slice_check, torch, sl["char"])
         serve = timed(phase_serve, torch, work, card)
+        timed(phase_graphs, torch, work, card)
         timed(phase_mesh, torch, work, card, tts, serve)
         _, clip, sv_path = timed(phase_v2pp, torch, work, card)
         timed(phase_v2pp_slice_check, torch, clip, sv_path)

@@ -51,8 +51,13 @@ def main(argv=None) -> int:
                    help="torch device for loaded characters (default cuda; "
                         "'cpu' to serve on the CPU)")
     p.add_argument("--warmup", metavar="MODEL_DIR", default=None,
-                   help="character dir to run one small request and one "
-                        "small stream through before accepting requests")
+                   help="character dir to load as 'warmup', sweep and unload "
+                        "before accepting requests (engine.warmup(..., "
+                        "sweep=True)): builds every kernel and runs every "
+                        "latent and vocode bucket once. Its captured graphs "
+                        "read its weights and go with it; a served character's "
+                        "graphs come from /set_reference_audio with "
+                        "\"warmup\": true (api.warmup_character)")
     p.add_argument("--warmup-lang", default="ja")
     p.add_argument("--warmup-ref", default=None,
                    help="reference wav for the warmup (needs HuBERT; "
@@ -87,10 +92,13 @@ def main(argv=None) -> int:
 
 
 def _warmup(args) -> None:
-    """One small real request and one small stream through the slot
-    machine of the ``--warmup`` character (builds the kernels)."""
+    """Load the ``--warmup`` character as ``warmup``, run the engine's
+    warmup sweep on it (the JAX package's ``serve --warmup``) and unload
+    it. A captured graph reads its character's weights, so its graphs go
+    with it; the kernels it builds and the plans it makes serve every
+    character."""
     from genie_tts_tpu_torch import api
-    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.runtime import graphs
     from genie_tts_tpu_torch.runtime.engine import make_random_reference
 
     api.load_character("warmup", args.warmup, args.warmup_lang, device=args.device)
@@ -101,10 +109,10 @@ def _warmup(args) -> None:
         ref = api._reference_features(char, api._reference_audios["warmup"])
     else:
         ref = make_random_reference(char, api.engine)
-    phones, _ = get_phones_and_bert("。こんにちは。", char.language)
-    n = api.get_slot_batcher(char).warmup(ref, phones, streaming=True)
+    n = api.engine.warmup(char, ref, sweep=True)
+    captured = graphs.cache_for(char.t2s_params).stats["captures"]
     api.unload_character("warmup")
-    print(f"warmup: {n} requests")
+    print(f"warmup: captured {captured} graphs ({n} units)")
 
 
 if __name__ == "__main__":

@@ -180,6 +180,21 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
     return True
 
 
+def warmup_character(character_name: str) -> int:
+    """The warmup sweep (``engine.warmup(char, ref, sweep=True)``) for a
+    loaded character with its reference clip set: every decode graph its
+    requests can reach is captured before they arrive. A captured graph
+    reads its character's weights, so each character is swept on its own.
+    Returns the units run."""
+    char = model_manager.get(character_name)
+    if char is None:
+        raise ValueError(f"character {character_name!r} is not loaded")
+    if character_name not in _reference_audios:
+        raise ValueError("set_reference_audio has not been called")
+    return engine.warmup(char, _reference_features(char, _reference_audios[character_name]),
+                         sweep=True)
+
+
 def clear_reference_audio_cache() -> None:
     reference_audio_cache.clear()
 

@@ -137,7 +137,8 @@ struct Args {
   float* scratch;            // Geo::s_total floats
   const uint8_t* tiles[4];   // the weights tiled per block: [L, grid, Geo::tiles]
   long long* trace;          // null, or [grid, L, kStamps] clock64 stamps
-  int L, S, D, H, F, pos;
+  const int* pos_ptr;        // the write row, one int32 in device memory
+  int L, S, D, H, F, pos;    // pos: *pos_ptr, read once per block
   float scale, eps;
   Geo g;
 };
@@ -607,7 +608,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const Args ar
   __shared__ Plan P;
   __shared__ u64 mbar[4];
 
-  if (threadIdx.x == 0) a = args;
+  if (threadIdx.x == 0) {
+    a = args;
+    // the write row lives in device memory, so a captured graph replays
+    // the step at the row its caller advanced on the device
+    a.pos = *args.pos_ptr;
+    if (a.pos < 0 || a.pos >= a.S) __trap();
+  }
   __syncthreads();
   make_plan<W>(a, P);
   cg::grid_group grid = cg::this_grid();
@@ -1014,10 +1021,11 @@ extern "C" long long fused_decode_tile_index(const int* dims, int wbytes, int ph
   return T;
 }
 
-// ptrs (27 device pointers, 0 for none): wqkv, wout, w1, w2, sqkv, sout, s1,
+// ptrs (28 device pointers, 0 for none): wqkv, wout, w1, w2, sqkv, sout, s1,
 // s2, bqkv, bout, b1, b2, n1s, n1b, n2s, n2b, k_cache, v_cache, mask, h_in,
 // h_out, scratch, trace (0 for none), then the tiled qkv, out, ffn1 and
-// ffn2 weights (fused_decode_tile_index). dims: L, S, D, H, F, pos.
+// ffn2 weights (fused_decode_tile_index), then pos (one int32: the write
+// row, read by the kernel; outside [0, S) it traps). dims: L, S, D, H, F.
 // wtype: 0 float32, 1 bfloat16, 2 int8. ctype (caches and activations): 0 float32, 1 bfloat16. Float
 // weights are in the compute dtype (wtype == ctype); int8 takes either.
 // scratch_floats: the scratch's size (fused_decode_scratch_floats).
@@ -1045,11 +1053,12 @@ extern "C" int fused_decode_step(const unsigned long long* ptrs, const int* dims
     a.tiles[p] = reinterpret_cast<const uint8_t*>(ptrs[23 + p]);
     if (a.tiles[p] == nullptr) return (int)cudaErrorInvalidValue;
   }
+  a.pos_ptr = reinterpret_cast<const int*>(ptrs[27]);
   a.L = dims[0]; a.S = dims[1]; a.D = dims[2]; a.H = dims[3]; a.F = dims[4];
-  a.pos = dims[5];
+  a.pos = 0;
   a.scale = scale;
   a.eps = eps;
-  if ((wtype == 2) != (a.s[0] != nullptr) || a.pos < 0 || a.pos >= a.S || a.L < 1)
+  if ((wtype == 2) != (a.s[0] != nullptr) || a.pos_ptr == nullptr || a.L < 1)
     return (int)cudaErrorInvalidValue;
   DeviceInfo dev;
   if (int e = device_info(&dev)) return e;

@@ -7,6 +7,9 @@
 //   visible(s) = s < x_len+p_len                      (compacted context)
 //              | (rpos >= 0 & floor_mod(head-1-rpos, ring) < keys_written)
 //                with rpos = s - (sx+sp)               (the decode ring)
+//                head: one int32 in device memory, as the slot state
+//                keeps it, so a captured segment graph replays at the
+//                head the last merge advanced on the device
 //   score[s]   = (q . Kq[:, s]) * ks[s] / sqrt(Dh)     -1e30 where not visible
 //   m = max_s score,  p[s] = visible ? exp(score[s] - m) : 0,  l = sum_s p
 //   o[d]       = sum_s p[s] * vs[s] * Vq[d, s]         (unnormalized)
@@ -188,8 +191,8 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap kmap,
                  const int* __restrict__ x_len, const int* __restrict__ p_len,
                  const int* __restrict__ keys_written, float* __restrict__ o,
                  float* __restrict__ m_out, float* __restrict__ l_out, int H, int S,
-                 long long ld, long long lds, int head, int sxsp, int ring, float scale,
-                 int cap, long long* __restrict__ trace) {
+                 long long ld, long long lds, const int* __restrict__ head, int sxsp,
+                 int ring, float scale, int cap, long long* __restrict__ trace) {
   constexpr int kRows = kDh / 32;                 // V rows a lane sums
   constexpr int kChunk = kDh * 16;                // bytes of one chunk of codes
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -217,7 +220,7 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap kmap,
   float qr[kDh];
 #pragma unroll
   for (int d = 0; d < kDh; ++d) qr[d] = genie::to_f(q[(size_t)bh * kDh + d]) * scale;
-  const Share sh = share_of(ctx, kw, head, sxsp, ring, S, rank);
+  const Share sh = share_of(ctx, kw, *head, sxsp, ring, S, rank);
   const int nch = sh.ncols >> 4;
   stamp(1, nch);
   if (kTma && tid == 0) {
@@ -396,7 +399,7 @@ template <typename TQ, int kDh, bool kTma>
 int launch(cudaStream_t st, const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q,
            const void* kq, const void* ks, const void* vq, const void* vs, const void* x_len,
            const void* p_len, const void* kw, void* o, void* m, void* l, int BH, int H, int S,
-           long long ld, long long lds, int head, int sxsp, int ring, float scale,
+           long long ld, long long lds, const void* head, int sxsp, int ring, float scale,
            long long* trace) {
   // a block holds at most a quarter of the row's chunks, rounded up to a
   // 32-column group
@@ -413,14 +416,15 @@ int launch(cudaStream_t st, const CUtensorMap& kmap, const CUtensorMap& vmap, co
   kern<<<dim3(kCluster, BH), kThreads, dyn, st>>>(
       kmap, vmap, (const TQ*)q, (const int8_t*)kq, (const float*)ks, (const int8_t*)vq,
       (const float*)vs, (const int*)x_len, (const int*)p_len, (const int*)kw, (float*)o,
-      (float*)m, (float*)l, H, S, ld, lds, head, sxsp, ring, scale, cap, trace);
+      (float*)m, (float*)l, H, S, ld, lds, (const int*)head, sxsp, ring, scale, cap, trace);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qdtype: 0 = float32, 1 = bfloat16. kq/vq rows have a pitch of ld bytes,
-// ks/vs rows a pitch of lds floats; S == sxsp + ring. vec: kq/vq are
+// ks/vs rows a pitch of lds floats; S == sxsp + ring; head: one int32 in
+// device memory (the ring head, floor modulo ring). vec: kq/vq are
 // 16-byte aligned with a pitch that is a multiple of 16 (the wrapper
 // checks); with 16-byte aligned scale rows too, the copies are TMA
 // (tensor-map copies of the codes, bulk copies of the scales), else byte
@@ -429,10 +433,10 @@ extern "C" int int8_big_attention(const void* q, const void* kq, const void* ks,
                                   const void* vq, const void* vs, const void* x_len,
                                   const void* p_len, const void* keys_written,
                                   void* o, void* m, void* l, int B, int H, int Dh,
-                                  int S, long long ld, long long lds, int head,
+                                  int S, long long ld, long long lds, const void* head,
                                   int sxsp, int ring, float scale, int qdtype,
                                   int vec, void* stream, void* trace) {
-  if (S < 1 || S > kMaxS || ld < S || lds < S || ring < 1 || sxsp < 0 ||
+  if (S < 1 || S > kMaxS || ld < S || lds < S || ring < 1 || sxsp < 0 || head == nullptr ||
       S != sxsp + ring || B * H < 1 || B * H > 65535 || (Dh != 32 && Dh != 64))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

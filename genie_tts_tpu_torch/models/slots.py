@@ -18,13 +18,18 @@ Ring invariant: a slot decodes at most ``ring_len`` tokens, and ring
 column j is rewritten every ``ring_len`` steps, so no visible column is
 ever clobbered. ``ring_len`` is a multiple of W, so a merge never wraps.
 
-The state keeps the JAX package's shapes and layout leaf for leaf. The
-port updates the big caches (and int8 scales) in place, at insert and at
-each merge; every other leaf is replaced, never written in place, so a
-tensor read from one segment's state (``done``, ``counts``) keeps that
-segment's values while later segments run. ``ring_head`` is a Python int
-(it is row-uniform and advances by W per segment), so no segment reads a
-device value on the host.
+The state keeps the JAX package's shapes and layout leaf for leaf, the
+ring head included: an int32 on the device, as in the reference, advanced
+by the segment itself. Every leaf is updated IN PLACE (at insert,
+release and each segment), so a segment is a program over static buffers
+that a CUDA graph captures once per geometry (``runtime/graphs.py``): the
+windowed read gathers its ring window at the device head, the int8
+kernel reads the head from device memory, and the merge writes at it. A
+caller that reads ``done`` or ``counts`` of one segment after the next
+one was dispatched copies them first (the schedulers enqueue one copy
+right behind each segment). A state made ``persistent`` (a slot
+batcher's, ``TTSEngine.take_slot_state``) is the graph's own buffers; any
+other state is copied into the graph's buffers and back around a replay.
 
 Under tp (a parameter set from ``parallel/mesh.py::shard_serving_params``)
 the big caches are per shard, ``H/tp`` heads each on its shard's device;
@@ -35,15 +40,16 @@ the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import T2SConfig
 from ..ops.layers import sine_position_table, unstack
 from ..ops.sampling import SamplingRows, gumbel_noise, sample_token_rows
+from ..runtime import graphs
 from . import t2s
 
 @dataclasses.dataclass
@@ -80,12 +86,15 @@ class SlotState:
     samp_top_p: torch.Tensor          # [B] float32
     samp_temp: torch.Tensor           # [B] float32
     samp_rep: torch.Tensor            # [B] float32
-    ring_head: int                    # next write column in [0, ring_len)
+    ring_head: torch.Tensor           # [] int32 next write column in [0, ring_len)
     # host copy of samp_top_p: whether the top-p branch must run
     top_p_host: np.ndarray
     # tp > 1: (k_cache, v_cache, k_scale, v_scale) of shards 1..tp-1, each
     # of H/tp heads on its device; the four fields above are shard 0's
     tp_caches: tuple = ()
+    # the buffers of the segment graphs that capture it (lives as long as
+    # its slot machine); see the module note
+    persistent: bool = False
 
     @property
     def cache_shards(self) -> list:
@@ -146,7 +155,45 @@ def init_slots(cfg: T2SConfig, n_slots: int, sx: int, sp: int, ring_len: int,
         min_steps=z((B,), i32), max_steps=full(ring_len, i32),
         samp_top_k=z((B,), i32), samp_top_p=full(1.0, torch.float32),
         samp_temp=full(1.0, torch.float32), samp_rep=full(1.0, torch.float32),
-        ring_head=0, top_p_host=np.ones(B, np.float32))
+        ring_head=z((), i32), top_p_host=np.ones(B, np.float32))
+
+
+def reset_slots(state: SlotState, ring_len: int) -> SlotState:
+    """Empty every slot of ``state`` in place: the values of
+    :func:`init_slots`."""
+    for shard in state.cache_shards:
+        for t in shard:
+            if t is not None:
+                t.zero_()
+    for t in (state.cur_tok, state.keys_written, state.counts, state.active, state.hist,
+              state.x_len, state.p_len, state.min_steps, state.samp_top_k,
+              state.ring_head):
+        t.zero_()
+    state.done.fill_(True)
+    state.max_steps.fill_(ring_len)
+    for t in (state.samp_top_p, state.samp_temp, state.samp_rep):
+        t.fill_(1.0)
+    state.top_p_host[:] = 1.0
+    return state
+
+
+def _tensor_fields(state: SlotState) -> list:
+    return [f.name for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)]
+
+
+def clone_state(state: SlotState) -> SlotState:
+    """A copy of a (not tp-sharded) state in buffers of its own."""
+    return dataclasses.replace(
+        state, **{n: getattr(state, n).clone() for n in _tensor_fields(state)},
+        top_p_host=state.top_p_host.copy(), persistent=False)
+
+
+def copy_state(dst: SlotState, src: SlotState) -> None:
+    """Every leaf of ``src`` into ``dst``'s buffers."""
+    for n in _tensor_fields(dst):
+        getattr(dst, n).copy_(getattr(src, n))
+    dst.top_p_host[:] = src.top_p_host
 
 
 def prefill_join(params: t2s.Params, cfg: T2SConfig,
@@ -199,32 +246,28 @@ def prefill_join(params: t2s.Params, cfg: T2SConfig,
     forbid_eos[cfg.eos_id] = True
     tok0 = sample_token_rows(generator, logits0, hist, samp, forbid=forbid_eos,
                              noise=noise, any_top_p=any_top_p)
-    hist = hist + F.one_hot(tok0, V).int()
+    hist = hist.scatter_add(1, tok0[:, None], torch.ones_like(hist[:, :1]))
     return k_ctx, v_ctx, tok0.int(), hist
 
 
-def _scalar(v):
-    """A [] / [1] value as a Python number or a 0-d tensor (no host read)."""
-    if isinstance(v, torch.Tensor):
-        return v.reshape(())
-    return np.asarray(v).reshape(-1)[0].item()
-
-
-def _set1(vec: torch.Tensor, b: int, value) -> torch.Tensor:
-    out = vec.clone()
-    out[b] = _scalar(value)
-    return out
+def _set1(vec: torch.Tensor, b: int, value) -> None:
+    """``vec[b] = value`` in place: a Python or numpy number, or a device
+    tensor of shape [] or [1] (copied on the device, not read)."""
+    if isinstance(value, torch.Tensor):
+        vec[b:b + 1].copy_(value.reshape(1))
+    else:
+        vec[b] = np.asarray(value).reshape(-1)[0].item()
 
 
 def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
                 ctx_v: torch.Tensor, tok0: torch.Tensor, hist: torch.Tensor,
                 x_len, p_len, min_steps, max_steps,
                 samp: SamplingRows) -> SlotState:
-    """Claim slot ``slot`` for a prefilled request. The context columns go
-    into the big caches in place (quantized per column in int8 mode), per
-    tp shard when ``ctx_k``/``ctx_v`` are tuples of shards; every other
-    leaf is replaced. Scalars may be Python numbers, numpy values or
-    device tensors of shape [] or [1]."""
+    """Claim slot ``slot`` for a prefilled request, in place: the context
+    columns go into the big caches (quantized per column in int8 mode),
+    per tp shard when ``ctx_k``/``ctx_v`` are tuples of shards, and the
+    row's leaves are set. Scalars may be Python numbers, numpy values or
+    device tensors of shape [] or [1]. Returns ``state``."""
     b = int(slot)
     if not isinstance(ctx_k, tuple):
         ctx_k, ctx_v = (ctx_k,), (ctx_v,)
@@ -238,47 +281,61 @@ def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
             vs_c[:, b:b + 1, :, :C] = vs
         kc[:, b:b + 1, ..., :C] = ck.to(kc.dtype)
         vc[:, b:b + 1, ..., :C] = cv.to(vc.dtype)
-    hist_all = state.hist.clone()
-    hist_all[b:b + 1] = hist
+    state.hist[b:b + 1].copy_(hist)
     top_p = samp.top_p
-    top_p_host = state.top_p_host.copy()
-    top_p_host[b] = float(top_p.reshape(-1)[0]) if isinstance(top_p, torch.Tensor) \
-        else _scalar(top_p)
-    return dataclasses.replace(
-        state, cur_tok=_set1(state.cur_tok, b, tok0),
-        keys_written=_set1(state.keys_written, b, 0),
-        counts=_set1(state.counts, b, 1),
-        done=_set1(state.done, b, False), active=_set1(state.active, b, True),
-        hist=hist_all, x_len=_set1(state.x_len, b, x_len),
-        p_len=_set1(state.p_len, b, p_len),
-        min_steps=_set1(state.min_steps, b, min_steps),
-        max_steps=_set1(state.max_steps, b, max_steps),
-        samp_top_k=_set1(state.samp_top_k, b, samp.top_k),
-        samp_top_p=_set1(state.samp_top_p, b, samp.top_p),
-        samp_temp=_set1(state.samp_temp, b, samp.temperature),
-        samp_rep=_set1(state.samp_rep, b, samp.repetition_penalty),
-        top_p_host=top_p_host)
+    state.top_p_host[b] = (float(top_p.reshape(-1)[0]) if isinstance(top_p, torch.Tensor)
+                           else np.asarray(top_p).reshape(-1)[0].item())
+    for vec, value in ((state.cur_tok, tok0), (state.keys_written, 0), (state.counts, 1),
+                       (state.done, False), (state.active, True), (state.x_len, x_len),
+                       (state.p_len, p_len), (state.min_steps, min_steps),
+                       (state.max_steps, max_steps), (state.samp_top_k, samp.top_k),
+                       (state.samp_top_p, samp.top_p), (state.samp_temp, samp.temperature),
+                       (state.samp_rep, samp.repetition_penalty)):
+        _set1(vec, b, value)
+    return state
 
 
 def release_slot(state: SlotState, slot: int) -> SlotState:
-    """Free a harvested slot (its cache columns are garbage behind masks)."""
-    return dataclasses.replace(state, active=_set1(state.active, slot, False),
-                               done=_set1(state.done, slot, True))
+    """Free a harvested slot in place (its cache columns are garbage
+    behind masks). Returns ``state``."""
+    state.active[int(slot)] = False
+    state.done[int(slot)] = True
+    return state
+
+
+@dataclasses.dataclass
+class SegmentBuffers:
+    """The static buffers of a segment graph: the state it advances, the
+    Gumbel noise of its W steps [W,B,V] and its tokens [B,W] int32."""
+    state: SlotState
+    noise: torch.Tensor
+    seg_tok: torch.Tensor
+
+
+def _segment_key(state: SlotState, W: int, sx: int, sp: int, ring_len: int,
+                 use_kernel: bool, ctx_win: int, ring_win: int, any_top_p: bool):
+    """The static geometry a segment graph is keyed on; a persistent
+    state's graphs are its own (they replay on its buffers)."""
+    B = state.k_cache.shape[1]
+    return ("segment", B, sx, sp, ring_len, W, use_kernel, ctx_win, ring_win,
+            bool(any_top_p), state.k_scale is not None, state.k_cache.dtype,
+            id(state) if state.persistent else None)
 
 
 def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
                    seg_steps: int, sx: int, sp: int, ring_len: int,
                    kv_kernel: bool = False, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   ctx_win: Optional[int] = None, ring_win: Optional[int] = None
-                   ) -> Tuple[SlotState, torch.Tensor]:
+                   ctx_win: Optional[int] = None, ring_win: Optional[int] = None,
+                   eager: bool = False) -> Tuple[SlotState, torch.Tensor]:
     """Advance every occupied slot ``seg_steps`` decode steps.
 
-    Returns (state', seg_tokens [B, W] int32): the tokens sampled this
-    segment per row (done and empty rows repeat EOS). The loop always runs
-    its W steps and reads nothing back to the host. ``noise`` [W,B,V] is
-    the Gumbel noise of the W steps, drawn from ``generator`` when not
-    given. Each step's K/V columns collect in a [L,B,H,Dh,W] buffer in the
+    Returns (state, seg_tokens [B, W] int32): ``state`` updated in place,
+    and the tokens sampled this segment per row (done and empty rows
+    repeat EOS), a tensor of the caller's. The loop always runs its W
+    steps and reads nothing back to the host. ``noise`` [W,B,V] is the
+    Gumbel noise of the W steps, drawn from ``generator`` when not given.
+    Each step's K/V columns collect in a [L,B,H,Dh,W] buffer in the
     compute dtype; one merge writes them to the ring at the row-uniform
     head, twice (at ``head`` and ``head+ring``), quantized per column in
     int8 mode.
@@ -290,18 +347,65 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     ignores the windows; otherwise the windowed read: the first ``ctx_win``
     context columns and the last ``ring_win`` ring writes, a window that
     ends at ``Sx+Sp+head+ring`` in the doubled ring (window column j holds
-    the write of age ``ring_win-1-j``), with masks. The caller guarantees
-    that every active row fits (``x_len+p_len <= ctx_win``,
-    ``keys_written <= ring_win``); None (the default) reads the whole
-    context or ring.
+    the write of age ``ring_win-1-j``), gathered once per segment at the
+    device head, with masks. The caller guarantees that every active row
+    fits (``x_len+p_len <= ctx_win``, ``keys_written <= ring_win``); None
+    (the default) reads the whole context or ring.
 
-    A tp-sharded ``params`` (with a state from ``init_slots(...,
-    tp_devices=t2s.shard_devices(params))``) runs each layer over its
-    shards: each reads and merges its own caches of ``H/tp`` heads, on the
-    kernel route with one ``int8_big_attention`` launch per shard.
+    The segment runs as :func:`_segment` over static buffers: the graph of
+    its geometry in the parameter set's cache (``runtime/graphs.py``; on
+    the card a replay of a captured CUDA graph), on ``state`` itself when
+    it is ``persistent``, else copied in and back. ``eager`` runs it on
+    the same buffers without a graph. A tp-sharded ``params`` (with a
+    state from ``init_slots(..., tp_devices=t2s.shard_devices(params))``)
+    runs eagerly, each layer over its shards: each reads and merges its own
+    caches of ``H/tp`` heads, on the kernel route with one
+    ``int8_big_attention`` launch per shard.
     """
     assert ring_len % seg_steps == 0, "segment must not wrap the ring"
     W = seg_steps
+    B = state.k_cache.shape[1]
+    dev = state.k_cache.device
+    Sx, Sp = sx, sp
+    ctx_win = min(ctx_win or Sx + Sp, Sx + Sp)
+    ring_win = min(ring_win or ring_len, ring_len)
+    use_kernel = state.k_scale is not None and kv_kernel
+    any_top_p = bool((state.top_p_host < 1.0).any())
+    if noise is None:
+        noise = gumbel_noise((W, B, cfg.semantic_vocab), generator, dev)
+    noise = torch.as_tensor(noise, device=dev)
+    prog = functools.partial(_segment, params, cfg, W=W, sx=Sx, sp=Sp, ring_len=ring_len,
+                             use_kernel=use_kernel, ctx_win=ctx_win, ring_win=ring_win,
+                             any_top_p=any_top_p)
+    if t2s.layer_shards(params) is not None:
+        bufs = SegmentBuffers(state, noise, torch.empty((B, W), dtype=torch.int32,
+                                                        device=dev))
+        prog(bufs)
+        return state, bufs.seg_tok
+    key = _segment_key(state, W, Sx, Sp, ring_len, use_kernel, ctx_win, ring_win,
+                       any_top_p)
+    g = graphs.cache_for(params).graph(key, lambda: SegmentBuffers(
+        state if state.persistent else clone_state(state), torch.zeros_like(noise),
+        torch.zeros((B, W), dtype=torch.int32, device=dev)))
+    with g.lock:
+        b = g.static
+        if b.state is not state:
+            copy_state(b.state, state)
+        b.noise.copy_(noise)
+        g.run(prog, eager=eager)
+        if b.state is not state:
+            copy_state(state, b.state)
+        seg_tok = b.seg_tok.clone()
+    return state, seg_tok
+
+
+def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int,
+             sx: int, sp: int, ring_len: int, use_kernel: bool, ctx_win: int,
+             ring_win: int, any_top_p: bool) -> None:
+    """The program of :func:`decode_segment` over ``bufs``: every value
+    that changes from segment to segment is read from the state's device
+    leaves (the ring head included) and written back in place."""
+    state = bufs.state
     caches = state.cache_shards
     devs = [c[0].device for c in caches]
     L, B, _, Dh, S = state.k_cache.shape
@@ -311,51 +415,51 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     buf_dtype = params["audio_embed"].dtype if int8_kv else state.k_cache.dtype
     V, eos = cfg.semantic_vocab, cfg.eos_id
     Sx, Sp = sx, sp
-    ctx_win = min(ctx_win or Sx + Sp, Sx + Sp)
-    ring_win = min(ring_win or ring_len, ring_len)
-    use_kernel = int8_kv and kv_kernel
     pe_full = sine_position_table(Sx + Sp + ring_len, cfg.embed_dim, device=dev)
-    if noise is None:
-        noise = gumbel_noise((W, B, V), generator, dev)
-    noise = torch.as_tensor(noise, device=dev)
-    forbid_eos = torch.zeros((V,), dtype=torch.bool, device=dev)
-    forbid_eos[eos] = True
-    head0 = int(state.ring_head)
+    noise = bufs.noise
+    forbid_eos = torch.arange(V, device=dev) == eos      # no host scalar: capturable
+    # segment-frozen: the head and the ring keys each row had at its start
+    head0 = state.ring_head.clone()
+    kw0 = state.keys_written.clone()
 
     if use_kernel:
-        S1 = Sx + Sp + ring_len
-        cut = (slice(0, S1),)
         kv_mask = None
     else:
-        w1 = Sx + Sp + ring_len + head0    # the ring writes end at head+ring
-        cut = (slice(0, ctx_win), slice(w1 - ring_win, w1))
+        # the ring window ends at the last write, head+ring in the doubled ring
+        w1 = Sx + Sp + ring_len + head0.long()
+        ring_cols = w1 - ring_win + torch.arange(ring_win, device=dev)
         ctx_len = state.x_len + state.p_len
         win_age = ring_win - 1 - torch.arange(ring_win, device=dev)[None, :]
         kv_mask = (torch.arange(ctx_win, device=dev)[None, :] < ctx_len[:, None],
-                   win_age < state.keys_written[:, None])
+                   win_age < kw0[:, None])
     buf_masks = torch.arange(W, device=dev)[None, :] < torch.arange(W, device=dev)[:, None]
 
     # per shard, the keyword arguments of t2s.buffered_attention for each
     # layer (buffer column and its mask filled in per step): the big-cache
     # regions (one region on the kernel route, which recomputes visibility
-    # from the segment-frozen lengths; the context and ring windows with
-    # masks otherwise) and the segment's write buffer [L,B,H/tp,Dh,W]
-    def regions(t):
-        return None if t is None else tuple(t[..., c] for c in cut)
+    # from the segment-frozen lengths; the context window and the ring
+    # window, gathered once here at the device head, with masks otherwise)
+    # and the segment's write buffer [L,B,H/tp,Dh,W]
+    def regions(t, d):
+        if t is None:
+            return None
+        if use_kernel:
+            return (t[..., :Sx + Sp + ring_len],)
+        return (t[..., :ctx_win], t.index_select(t.dim() - 1, ring_cols.to(d)))
 
-    reads, bufs, step_masks = [], [], []
+    reads, bufs_kv, step_masks = [], [], []
     for (kc, vc, ksc, vsc), d in zip(caches, devs):
         k_buf = torch.zeros(kc.shape[:3] + (Dh, W), dtype=buf_dtype, device=d)
-        bufs.append((k_buf, torch.zeros_like(k_buf)))
+        bufs_kv.append((k_buf, torch.zeros_like(k_buf)))
         step_masks.append(buf_masks.to(d))
         if use_kernel:
-            ctx = tuple(t.to(d) for t in (state.x_len, state.p_len, state.keys_written)) + (
-                head0, Sx, Sp, ring_len)
+            ctx = tuple(t.to(d) for t in (state.x_len, state.p_len, kw0, head0)) + (
+                Sx, Sp, ring_len)
             mask_d = None
         else:
             ctx = None
             mask_d = tuple(m.to(d) for m in kv_mask)
-        rk, rv, rks, rvs = (regions(t) for t in (kc, vc, ksc, vsc))
+        rk, rv, rks, rvs = (regions(t, d) for t in (kc, vc, ksc, vsc))
         per_layer = []
         for l in range(L):
             kb, vb = tuple(r[l] for r in rk), tuple(r[l] for r in rv)
@@ -375,9 +479,8 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
 
         layers = list(zip(*(unstack(sh) for sh in shards)))
 
-    seg_tokens = torch.full((B, W), eos, dtype=torch.int32, device=dev)
+    seg_tokens = bufs.seg_tok
     rows = state.sampling_rows
-    any_top_p = bool((state.top_p_host < 1.0).any())
     predict_w = params["predict"]["w"].float()
     audio_embed, alpha = params["audio_embed"], params["audio_pos_alpha"]
     cur_tok, keys_written, counts = state.cur_tok, state.keys_written, state.counts
@@ -389,13 +492,13 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
         h = (emb + (alpha * pos_emb).to(emb.dtype))[:, None]
         for l, lp in enumerate(layers):
             step = [dict(reads[j][l], k_buf=kb[l], v_buf=vb[l], buf_mask=bm[i])
-                    for j, ((kb, vb), bm) in enumerate(zip(bufs, step_masks))]
+                    for j, ((kb, vb), bm) in enumerate(zip(bufs_kv, step_masks))]
             if shards is None:
                 h, k_new, v_new = t2s._layer_decode_buffered(lp, h, num_heads=H, **step[0])
                 new = [(k_new, v_new)]
             else:
                 h, new = layer_decode_buffered_shards(lp, h, step, H)
-            for (kb, vb), (k_new, v_new) in zip(bufs, new):
+            for (kb, vb), (k_new, v_new) in zip(bufs_kv, new):
                 kb[l, ..., i] = k_new
                 vb[l, ..., i] = v_new
         logits = h[:, 0].float() @ predict_w
@@ -411,25 +514,26 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
         alive = state.active & ~done & (row_step < state.max_steps)
         nxt = torch.where(alive, nxt, torch.full_like(nxt, eos)).int()
         seg_tokens[:, i] = nxt
-        hist = hist + F.one_hot(nxt.long(), V).int() * alive[:, None].int()
+        hist = hist.scatter_add(1, nxt.long()[:, None], alive[:, None].int())
         keys_written = keys_written + alive.int()
         counts = torch.where(alive, counts + 1, counts)
         done = done | now_done | (row_step + 1 >= state.max_steps)
         cur_tok = nxt
 
     # merge the segment's W columns at the ring head, twice, per shard
-    base = Sx + Sp + head0
-    for (kc, vc, ksc, vsc), (k_buf, v_buf) in zip(caches, bufs):
+    base = Sx + Sp + head0.long()
+    cols = torch.cat([base + torch.arange(W, device=dev),
+                      base + ring_len + torch.arange(W, device=dev)])
+    for (kc, vc, ksc, vsc), (k_buf, v_buf), d in zip(caches, bufs_kv, devs):
+        at = cols.to(d)
         if int8_kv:
             k_buf, ks = quantize_kv_columns(k_buf)
             v_buf, vs = quantize_kv_columns(v_buf)
-            for at in (base, base + ring_len):
-                ksc[..., at:at + W] = ks
-                vsc[..., at:at + W] = vs
-        for at in (base, base + ring_len):
-            kc[..., at:at + W] = k_buf.to(kc.dtype)
-            vc[..., at:at + W] = v_buf.to(vc.dtype)
-    state = dataclasses.replace(
-        state, cur_tok=cur_tok, keys_written=keys_written, counts=counts,
-        done=done, hist=hist, ring_head=(head0 + W) % ring_len)
-    return state, seg_tokens
+            ksc.index_copy_(3, at, torch.cat([ks, ks], dim=-1))
+            vsc.index_copy_(3, at, torch.cat([vs, vs], dim=-1))
+        kc.index_copy_(4, at, torch.cat([k_buf, k_buf], dim=-1).to(kc.dtype))
+        vc.index_copy_(4, at, torch.cat([v_buf, v_buf], dim=-1).to(vc.dtype))
+    for leaf, value in ((state.cur_tok, cur_tok), (state.keys_written, keys_written),
+                        (state.counts, counts), (state.done, done), (state.hist, hist)):
+        leaf.copy_(value)
+    state.ring_head.copy_((head0 + W) % ring_len)

@@ -17,7 +17,10 @@ caches; B > 1 runs the per-layer :func:`_layer_decode` with the
 flash-decode attention kernel (``ops/flash_decode.py``) over
 ``[B, H, S, Dh]`` caches. Both write each step's K/V row into the cache in
 place (the JAX package's write-buffered ``generate`` exists only for the
-TPU's tiling; it computes the same tokens). The slot machine
+TPU's tiling; it computes the same tokens). The decode runs in blocks of
+steps over static buffers (:func:`_decode_block`), which the card replays
+as captured CUDA graphs: the counterpart of the JAX package's one
+compiled ``lax.while_loop``. The slot machine
 (``models/slots.py``) decodes through :func:`_layer_decode_buffered`,
 whose read-only big cache may hold int8 codes (``ops/int8_decode.py``).
 
@@ -29,6 +32,8 @@ layers whole, so it serves whole parameters only.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -38,10 +43,14 @@ import torch
 from ..config import T2SConfig
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.fused_decode import fused_decode_step, pack_decode_params
+from ..ops.fused_decode import prepare as prepare_fused
+from ..ops.fused_decode import step_buffers as fused_step_buffers
 from ..ops.int8_decode import int8_big_attention
 from ..ops.layers import (attention, layer_norm, linear, sine_position_table,
                           unstack)
-from ..ops.sampling import SamplingConfig, gumbel_noise, sample_token
+from ..ops.sampling import (SamplingConfig, SamplingRows, gumbel_noise, sample_token,
+                            sample_token_rows)
+from ..runtime import graphs
 
 Params = Dict
 
@@ -179,17 +188,27 @@ def _layer_prefill(lp: Params, h: torch.Tensor, mask: torch.Tensor,
     return h, (k, v)
 
 
+def row_index(pos, device) -> torch.Tensor:
+    """A write row as an int64 index [1] on ``device``: ``pos`` is an int
+    or a one-element int tensor (the decode's device step counter)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.tensor([int(pos)], device=device)
+
+
 def _layer_decode(lp: Params, h: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, pos: int, kv_mask: torch.Tensor,
+                  v_cache: torch.Tensor, pos, kv_mask: torch.Tensor,
                   num_heads: int) -> torch.Tensor:
     """One-token decode layer (the batched route). h: [B,1,D]; caches
     [B,H,S,Dh]; ``pos`` is the row-uniform write position (static text and
-    prompt buckets + step). The new K/V row is written into the caches IN
-    PLACE; attention runs through the flash-decode kernel."""
+    prompt buckets + step): an int, or an int tensor [1] in device memory.
+    The new K/V row is written into the caches IN PLACE; attention runs
+    through the flash-decode kernel."""
     q, k_new, v_new = linear(lp["qkv"], h).chunk(3, dim=-1)
     q = _split_heads(q, num_heads)[:, :, 0]                  # [B,H,Dh]
-    k_cache[:, :, pos] = _split_heads(k_new, num_heads)[:, :, 0]
-    v_cache[:, :, pos] = _split_heads(v_new, num_heads)[:, :, 0]
+    row = row_index(pos, k_cache.device)
+    k_cache.index_copy_(2, row, _split_heads(k_new, num_heads).to(k_cache.dtype))
+    v_cache.index_copy_(2, row, _split_heads(v_new, num_heads).to(v_cache.dtype))
     att = flash_decode_attention(q.contiguous(), k_cache, v_cache, kv_mask)
     h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att[:, :, None])))
     ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
@@ -384,12 +403,188 @@ def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor
     return logits, (k_cache, v_cache)
 
 
+@dataclasses.dataclass
+class DecodeBuffers:
+    """The static buffers of one decode geometry: what the decode program
+    (:func:`_decode_block`) reads and writes, every value that changes
+    from step to step included, so a captured CUDA graph of it replays
+    with nothing from the host (``runtime/graphs.py``). The per-call
+    inputs are copied in by :func:`generate`; ``pe``, ``kv_positions``
+    and ``forbid_eos`` are constants of the geometry."""
+    k_cache: object          # fused: [L,S,D]; per-layer: [L,B,H,S,Dh] (tp: a tuple per shard)
+    v_cache: object
+    tokens: torch.Tensor     # [B, max_steps] int64
+    hist: torch.Tensor       # [B, V] int64 repetition-penalty histogram
+    counts: torch.Tensor     # [B] int64
+    done: torch.Tensor       # [B] bool
+    step: torch.Tensor       # [] int64: the next decode step
+    pos: torch.Tensor        # [1] int32: the step's write row (the fused kernel reads it)
+    noise: torch.Tensor      # [max_steps, B, V] fp32 Gumbel table
+    x_len: torch.Tensor      # [B] int64
+    p_len: torch.Tensor      # [B] int64
+    static_mask: torch.Tensor  # [B, S] bool: valid text and prompt columns
+    min_steps: torch.Tensor  # [] int64
+    ms_dyn: torch.Tensor     # [] int64 per-call cap
+    top_k: torch.Tensor      # [B] per-row sampling parameters
+    top_p: torch.Tensor
+    temperature: torch.Tensor
+    repetition_penalty: torch.Tensor
+    pe: torch.Tensor         # [S, D] fp32 position table
+    kv_positions: torch.Tensor  # [1, S]
+    forbid_eos: torch.Tensor    # [1, V] bool
+    # the fused kernel's output row and scratch, this graph's own (B = 1
+    # on the card; None elsewhere)
+    h_out: Optional[torch.Tensor] = None
+    scratch: Optional[torch.Tensor] = None
+
+
+def _decode_buffers(cfg: T2SConfig, B: int, Sx: int, Sp: int, cache_len: int,
+                    max_steps: int, packed, dtype: torch.dtype, device,
+                    caches=None) -> DecodeBuffers:
+    """Zeroed buffers of a geometry (lengths 1, so a capture's warm-up run
+    sees a row with something to attend to); ``packed``: the fused
+    kernel's packing (B = 1), else None. ``caches``: (k, v) to use as
+    they are instead of new ones (the eager tp route)."""
+    L, H, Dh, D, V = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.embed_dim, cfg.semantic_vocab
+    S = cache_len
+
+    def z(*shape, dt=torch.int64):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if caches is None:
+        shape = (L, S, D) if packed is not None else (L, B, H, S, Dh)
+        caches = (z(*shape, dt=dtype), z(*shape, dt=dtype))
+    forbid = z(1, V, dt=torch.bool)
+    forbid[0, cfg.eos_id] = True
+    ones = torch.ones((B,), dtype=torch.int64, device=device)
+    h_out, scratch = (None, None) if packed is None else fused_step_buffers(
+        packed, S, H, device)
+    return DecodeBuffers(
+        k_cache=caches[0], v_cache=caches[1], tokens=z(B, max_steps), hist=z(B, V),
+        counts=ones.clone(), done=z(B, dt=torch.bool), step=ones[0].clone(),
+        pos=z(1, dt=torch.int32), noise=z(max_steps, B, V, dt=torch.float32),
+        x_len=ones.clone(), p_len=ones.clone(), static_mask=z(B, S, dt=torch.bool),
+        min_steps=z(), ms_dyn=torch.full((), max_steps, dtype=torch.int64, device=device),
+        top_k=z(B), top_p=torch.ones((B,), device=device),
+        temperature=torch.ones((B,), device=device),
+        repetition_penalty=torch.ones((B,), device=device),
+        pe=sine_position_table(S, D, device=device),
+        kv_positions=torch.arange(S, device=device)[None, :], forbid_eos=forbid,
+        h_out=h_out, scratch=scratch)
+
+
+def _decode_block(params: Params, cfg: T2SConfig, b: DecodeBuffers, *, n_steps: int,
+                  Sx: int, Sp: int, any_top_p: bool, packed=None) -> None:
+    """``n_steps`` decode steps over the buffers ``b``, driven by the
+    device step counter ``b.step``: the program a CUDA graph captures.
+
+    A step whose counter has reached the per-call cap changes nothing
+    and leaves the counter as it is, so a block may run past the cap (the
+    host reads ``done`` and the counter once per block). Finished rows
+    keep their tokens and counts. Routes: ``packed`` (B = 1) runs the
+    fused all-layer kernel; otherwise the per-layer route with the flash
+    kernel, over tp shards when the caches are tuples."""
+    H, V, eos = cfg.num_heads, cfg.semantic_vocab, cfg.eos_id
+    B, ms = b.tokens.shape
+    S = b.static_mask.shape[1]
+    audio_embed, alpha = params["audio_embed"], params["audio_pos_alpha"]
+    predict_w = params["predict"]["w"].float()
+    rows = SamplingRows(b.top_k, b.top_p, b.temperature, b.repetition_penalty)
+    shards = layer_shards(params)
+    if packed is None and shards is None:
+        layers = unstack(params["layers"])
+    elif shards is not None:
+        from ..parallel.tp import layer_decode_shards
+
+        shard_layers = list(zip(*(unstack(sh) for sh in shards)))
+        devs = shard_devices(params)
+    front = Sx + Sp
+    for _ in range(n_steps):
+        step = b.step
+        live = step < b.ms_dyn                  # a step past the cap changes nothing
+        prev = (step - 1).clamp(0, ms - 1).reshape(1, 1).expand(B, 1)
+        cur_tok = b.tokens.gather(1, prev)[:, 0]
+        emb = audio_embed[cur_tok]                              # [B, D]
+        pos_emb = b.pe[b.p_len + step - 1]                      # [B, D]
+        h = emb + (alpha * pos_emb).to(emb.dtype)
+        # keys visible: valid text, valid prompt, decoded tokens so far
+        kv_mask = b.static_mask | ((b.kv_positions >= front)
+                                   & (b.kv_positions <= front + step - 1))
+        # the row-uniform write position (its last row once past the cap)
+        b.pos.copy_((front + step - 1).clamp(max=S - 1).reshape(1))
+        if packed is not None:
+            h_last, _, _ = fused_decode_step(packed, h.float(), b.k_cache, b.v_cache,
+                                             b.pos, kv_mask[0].float(), num_heads=H,
+                                             h_out=b.h_out, scratch=b.scratch)
+        else:
+            row = b.pos.long()                  # the per-layer routes' cache index
+            hb = h[:, None]
+            if shards is None:
+                for l, lp in enumerate(layers):
+                    hb = _layer_decode(lp, hb, b.k_cache[l], b.v_cache[l], row, kv_mask, H)
+            else:
+                masks = [kv_mask.to(d) for d in devs]
+                for l, lps in enumerate(shard_layers):
+                    hb = layer_decode_shards(lps, hb, [k[l] for k in b.k_cache],
+                                             [v[l] for v in b.v_cache], row, masks, H)
+            h_last = hb[:, 0]
+        logits = h_last.float() @ predict_w                     # [B, V]
+
+        # below min_steps EOS is masked out of sampling entirely
+        forbid = b.forbid_eos & (step < b.min_steps)
+        noise = b.noise.index_select(0, step.clamp(max=ms - 1).reshape(1))[0]
+        nxt = sample_token_rows(None, logits, b.hist, rows, forbid=forbid, noise=noise,
+                                any_top_p=any_top_p)
+        argmax_eos = torch.argmax(logits, dim=-1) == eos
+        now_done = (argmax_eos | (nxt == eos)) & (step >= b.min_steps)
+        active = ~b.done & live
+        nxt = torch.where(active, nxt, torch.full_like(nxt, eos))  # freeze finished rows
+        write = step.clamp(max=ms - 1).reshape(1, 1).expand(B, 1)
+        b.tokens.scatter_(1, write, torch.where(active[:, None], nxt[:, None],
+                                                b.tokens.gather(1, write)))
+        b.hist.scatter_add_(1, nxt[:, None], active[:, None].long())
+        b.counts.copy_(torch.where(active, step + 1, b.counts))
+        b.done.copy_(b.done | ((now_done | (step + 1 >= b.ms_dyn)) & live))
+        b.step.add_(live.long())
+
+
+# the variants of a decode graph: a block of DONE_READ_EVERY steps, and
+# the single step that the last block of a decode repeats up to its cap
+DECODE_BLOCKS = (DONE_READ_EVERY, 1)
+
+
+def _generate_key(B, Sx, Sp, cache_len, max_steps, dtype):
+    """The static geometry a decode graph of :func:`generate` is keyed on.
+    Its programs are variants of one graph on one set of buffers
+    (``Graph.run``): (block length in :data:`DECODE_BLOCKS`, top-p flag)."""
+    return ("generate", "fused" if B == 1 else "flash", B, Sx, Sp, cache_len,
+            max_steps, dtype)
+
+
+def decode_graph(params: Params, cfg: T2SConfig, B: int, Sx: int, Sp: int,
+                 cache_len: int, max_steps: int, dtype):
+    """The graph of :func:`generate`'s decode at this geometry, from the
+    parameter set's cache (its buffers made on a miss), and the fused
+    kernel's packing for B = 1 (made once per parameter set and prepared
+    for ``cache_len`` before any capture)."""
+    cache = graphs.cache_for(params)
+    dev = params["audio_embed"].device
+    packed = None
+    if B == 1:
+        packed = cache.shared("packed", lambda: pack_decode_params(params))
+        prepare_fused(packed, cache_len, cfg.num_heads, dev)
+    g = cache.graph(_generate_key(B, Sx, Sp, cache_len, max_steps, dtype),
+                    lambda: _decode_buffers(cfg, B, Sx, Sp, cache_len, max_steps,
+                                            packed, dtype, dev))
+    return g, packed
+
+
 def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
              generator: Optional[torch.Generator], x: torch.Tensor,
              x_len: torch.Tensor, prompts: torch.Tensor, p_len: torch.Tensor,
              max_steps: int, cache_len: int, min_steps: int = 0,
              max_steps_dyn: Optional[int] = None,
-             noise: Optional[torch.Tensor] = None) -> GenerateResult:
+             noise: Optional[torch.Tensor] = None, eager: bool = False) -> GenerateResult:
     """Prefill + sample + full AR decode.
 
     ``min_steps``: EOS may not fire before this many tokens. ``max_steps``:
@@ -397,16 +592,26 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     ``noise`` [max_steps, B, V] (drawn from ``generator`` up front when not
     given); ``max_steps_dyn``: an optional per-call cap <= max_steps.
 
-    Routes: B = 1 on whole parameters runs the fused all-layer kernel; a
-    tp-sharded parameter set (every B) and B > 1 run the per-layer route
-    with the flash kernel, a sharded set over its shards' ``H/tp`` heads
-    (``parallel/tp.py::layer_decode_shards``). Logits, sampling and the
-    token history stay on the device of ``x``.
+    The prefill and the first token run once; the decode runs in blocks
+    of ``DONE_READ_EVERY`` steps of :func:`_decode_block` (the last one,
+    where the per-call cap is nearer, as that many single steps) over the
+    static buffers of the geometry's graph (``runtime/graphs.py``), held
+    from the inputs' copy in to the outputs' copy out: on the card each
+    block is a replay of a captured CUDA graph (one per block length in
+    :data:`DECODE_BLOCKS` and top-p flag, so every cap replays the same
+    ones); the host reads ``done`` and the step counter once per block.
+    ``eager`` runs the same blocks on the same buffers without a graph.
+
+    Routes: B = 1 on whole parameters runs the fused all-layer kernel; B >
+    1 the per-layer route with the flash kernel; a tp-sharded parameter
+    set (every B) the per-layer route over its shards' ``H/tp`` heads
+    (``parallel/tp.py::layer_decode_shards``), eagerly. Logits, sampling
+    and the token history stay on the device of ``x``.
     """
     ms_dyn = max_steps if max_steps_dyn is None else min(int(max_steps_dyn), max_steps)
     B, Sx, D = x.shape
     Sp = prompts.shape[1]
-    H, L, V, eos = cfg.num_heads, cfg.num_layers, cfg.semantic_vocab, cfg.eos_id
+    L, V, eos = cfg.num_layers, cfg.semantic_vocab, cfg.eos_id
     dev = x.device
 
     logits0, (k_cache, v_cache) = prefill(params, cfg, x, x_len, prompts,
@@ -416,7 +621,6 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     hist = torch.zeros((B, V), dtype=torch.int64, device=dev)
     prompt_valid = torch.arange(Sp, device=dev)[None, :] < p_len[:, None]
     hist.scatter_add_(1, prompts.long(), prompt_valid.long())
-
     if noise is None:
         noise = gumbel_noise((max_steps, B, V), generator, dev)
 
@@ -424,81 +628,59 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     forbid_eos = torch.zeros((V,), dtype=torch.bool, device=dev)
     forbid_eos[eos] = True
     tok0 = sample_token(None, logits0, hist, scfg, forbid=forbid_eos, noise=noise[0])
-    tokens = torch.zeros((B, max_steps), dtype=torch.int64, device=dev)
-    tokens[:, 0] = tok0
-    hist += torch.nn.functional.one_hot(tok0, V)
+    hist.scatter_add_(1, tok0[:, None], torch.ones_like(tok0)[:, None])
 
-    kv_positions = torch.arange(cache_len, device=dev)[None, :]
-    pe_full = sine_position_table(cache_len, D, device=dev)
-    predict_w = params["predict"]["w"].float()
-    audio_embed, alpha = params["audio_embed"], params["audio_pos_alpha"]
-    static_mask = ((kv_positions < x_len[:, None])
-                   | ((kv_positions >= Sx) & (kv_positions < Sx + p_len[:, None])))
-
-    shards = layer_shards(params)
-    fused = B == 1 and shards is None
-    if fused:
-        # fused route: one kernel launch per step over [L, S, D] caches
-        packed = pack_decode_params(params)
-        kf = k_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D).contiguous()
-        vf = v_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D).contiguous()
-        del k_cache, v_cache
-    elif shards is None:
-        layers = unstack(params["layers"])
+    any_top_p = scfg.top_p < 1.0
+    if layer_shards(params) is not None:
+        # per-shard caches of this call: a graph of no cache, run eagerly
+        g, packed = graphs.Graph(None, None, _decode_buffers(
+            cfg, B, Sx, Sp, cache_len, max_steps, None, k_cache[0].dtype, dev,
+            caches=(k_cache, v_cache))), None
     else:
-        from ..parallel.tp import layer_decode_shards
-
-        shard_layers = list(zip(*(unstack(s) for s in shards)))
-        devs = shard_devices(params)
-
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    counts = torch.ones((B,), dtype=torch.int64, device=dev)
-    step = 1
-    while step < ms_dyn:
-        # the host reads `done` every DONE_READ_EVERY steps; the steps run
-        # after every row finished leave tokens and counts as they are
-        if (step - 1) % DONE_READ_EVERY == 0 and bool(done.all()):
-            break
-        cur_tok = tokens[:, step - 1]
-        emb = audio_embed[cur_tok]                              # [B, D]
-        pos_emb = pe_full[p_len + step - 1]                     # [B, D]
-        h = emb + (alpha * pos_emb).to(emb.dtype)
-        # keys visible: valid text, valid prompt, decoded tokens so far
-        kv_mask = static_mask | ((kv_positions >= Sx + Sp)
-                                 & (kv_positions <= Sx + Sp + step - 1))
-        pos = Sx + Sp + step - 1       # row-uniform write position
-        if fused:
-            h_last, _, _ = fused_decode_step(
-                packed, h.float(), kf, vf, pos, kv_mask[0].float(), num_heads=H)
-        elif shards is None:
-            hb = h[:, None]
-            for l, lp in enumerate(layers):
-                hb = _layer_decode(lp, hb, k_cache[l], v_cache[l], pos, kv_mask, H)
-            h_last = hb[:, 0]
-        else:
-            hb = h[:, None]
-            masks = [kv_mask.to(d) for d in devs]
-            for l, lps in enumerate(shard_layers):
-                hb = layer_decode_shards(lps, hb, [k[l] for k in k_cache],
-                                         [v[l] for v in v_cache], pos, masks, H)
-            h_last = hb[:, 0]
-        logits = h_last.float() @ predict_w                     # [B, V]
-
-        # below min_steps EOS is masked out of sampling entirely
-        nxt = sample_token(None, logits, hist, scfg,
-                           forbid=forbid_eos if step < min_steps else None,
-                           noise=noise[min(step, max_steps - 1)])
-        argmax_eos = torch.argmax(logits, dim=-1) == eos
-        now_done = (argmax_eos | (nxt == eos)) & (step >= min_steps)
-        active = ~done
-        nxt = torch.where(active, nxt, torch.full_like(nxt, eos))  # freeze finished rows
-        write = min(step, max_steps - 1)
-        tokens[:, write] = torch.where(active, nxt, tokens[:, write])
-        hist += torch.nn.functional.one_hot(nxt, V) * active[:, None]
-        counts = torch.where(active, torch.full_like(counts, step + 1), counts)
-        done = done | now_done | (step + 1 >= ms_dyn)
-        step += 1
-    return GenerateResult(tokens=tokens, counts=counts, steps=step)
+        g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps,
+                                 k_cache.dtype)
+    with g.lock:
+        b = g.static
+        if packed is not None:      # [L,1,H,S,Dh] -> the kernel's [L,S,D]
+            b.k_cache.copy_(k_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D))
+            b.v_cache.copy_(v_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D))
+        elif b.k_cache is not k_cache:
+            b.k_cache.copy_(k_cache)
+            b.v_cache.copy_(v_cache)
+        del k_cache, v_cache
+        b.tokens.zero_()
+        b.tokens[:, 0] = tok0
+        b.hist.copy_(hist)
+        b.counts.fill_(1)
+        b.done.zero_()
+        b.step.fill_(1)
+        b.noise.copy_(noise)
+        b.x_len.copy_(x_len)
+        b.p_len.copy_(p_len)
+        kv = b.kv_positions
+        b.static_mask.copy_((kv < b.x_len[:, None])
+                            | ((kv >= Sx) & (kv < Sx + b.p_len[:, None])))
+        b.min_steps.fill_(int(min_steps))
+        b.ms_dyn.fill_(ms_dyn)
+        b.top_k.fill_(scfg.top_k)
+        b.top_p.fill_(scfg.top_p)
+        b.temperature.fill_(scfg.temperature)
+        b.repetition_penalty.fill_(scfg.repetition_penalty)
+        step = 1
+        while step < ms_dyn:
+            # a block of DONE_READ_EVERY steps, or as many single steps as
+            # are left before the cap (no step past it runs)
+            n = min(DONE_READ_EVERY, ms_dyn - step)
+            for w in [n] if n == DONE_READ_EVERY else [1] * n:
+                g.run(functools.partial(_decode_block, params, cfg, n_steps=w, Sx=Sx,
+                                        Sp=Sp, any_top_p=any_top_p, packed=packed),
+                      variant=(w, any_top_p), eager=eager)
+            # the host reads `done` and the step counter once per block
+            all_done, step = torch.stack([b.done.all().long(), b.step]).tolist()
+            if all_done:
+                break
+        tokens, counts = b.tokens.clone(), b.counts.clone()
+    return GenerateResult(tokens=tokens, counts=counts, steps=int(step))
 
 
 def finalize_tokens_device(tokens: torch.Tensor, counts: torch.Tensor,
@@ -529,7 +711,7 @@ def generate_e2e(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
 
     Returns (codes [B, max_steps], codes_len [B]). ``stats``: optional
     dict that receives ``decode_steps`` (loop iterations run) and
-    ``cache_len``. ``noise``: the Gumbel table of :func:`generate`."""
+    ``cache_len``. ``noise``: as :func:`generate`'s."""
     if bert is None:
         bert = torch.zeros(phones.shape + (cfg.bert_dim,), device=phones.device)
     x = embed_text(params, phones, bert)

@@ -17,6 +17,7 @@ launch; the wrappers raise when it is not 0. Nothing here runs at import.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -110,13 +111,41 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``; request threads launch kernels
-    concurrently, and a bare ``+=`` can lose counts."""
+    concurrently, and a bare ``+=`` can lose counts. While this thread
+    records (:func:`recording`: a graph capture, or the warm-up run
+    before it), the launch goes to the record instead."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's kernel launches into a dict {wrapper: n}
+    instead of the wrappers' ``launches`` (what a captured CUDA graph
+    launches on each replay; ``runtime/graphs.py``)."""
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = {}
+    try:
+        yield _recording.counts
+    finally:
+        _recording.counts = prev
+
+
+def add_launches(counts) -> None:
+    """Add a record of :func:`recording` to the wrappers' counts (one
+    replay of a captured graph runs its kernels once each)."""
+    with _count_lock:
+        for wrapper, n in counts.items():
+            wrapper.launches += n
 
 
 def check(err: int, what: str) -> None:

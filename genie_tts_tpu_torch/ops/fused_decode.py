@@ -6,10 +6,15 @@ one cooperative launch per decode step; its source note says what bounds
 it on the H100 and what its design does about that. ``models/t2s.py::
 generate`` runs every B=1 decode step through it.
 
-Weights are packed once per ``generate`` call by :func:`pack_decode_params`
-(views of the stacked layer weights; small vectors in fp32); the first
-launch on a packing adds the kernel's per-block tiled copy of the weights
-to it (:func:`_tiled_weights`). They are
+Weights are packed once per character by :func:`pack_decode_params`
+(views of the stacked layer weights; small vectors in fp32), and
+:func:`prepare` adds to the packing, for a cache length, the kernel's
+per-block tiled copy of the weights (:func:`_prepared`, read-only). A
+caller that launches inside a CUDA graph (``runtime/graphs.py``) also
+owns the launch's output row and scratch (:func:`step_buffers`), so that
+a launch allocates nothing and copies nothing from the host, and no two
+graphs write the same buffers. The write row ``pos`` is an int32 in
+device memory that the kernel reads. They are
 bf16/fp32, or int8 codes with a per-output-channel fp32 scale (the default
 ``t2s_int8`` decode weights): the kernel reads the int8 bytes and computes
 ``(x . w_int8) * scale + b`` in fp32, the int8 path of ``ops/layers.py::
@@ -24,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -69,21 +74,31 @@ def _product(x: torch.Tensor, stacked, name: str, layer: int,
     return y + stacked["b" + name][layer]
 
 
+def _pos_index(pos, device) -> torch.Tensor:
+    """The write row as an int64 index [1]: ``pos`` is an int or a
+    one-element int tensor (the device's step counter)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).long()
+    return torch.tensor([int(pos)], device=device)
+
+
 def fused_decode_step_plain(stacked, h: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor, pos: int, mask: torch.Tensor,
+                            v_cache: torch.Tensor, pos, mask: torch.Tensor,
                             *, num_heads: int):
-    """The kernel's function in plain PyTorch (same signature and effect)."""
+    """The kernel's function in plain PyTorch (same signature and effect;
+    ``pos`` an int or a one-element int tensor)."""
     L, S, D = k_cache.shape
     H, Dh = num_heads, D // num_heads
     cdt = k_cache.dtype
     scale = 1.0 / math.sqrt(Dh)
     madd = (mask.float() - 1.0) * 1e10
     h = h.float().reshape(1, D)
+    row = _pos_index(pos, k_cache.device)
     for l in range(L):
         qkv = _product(h, stacked, "qkv", l, cdt)[0]
         # in-place cache update at the row-uniform write position
-        k_cache[l, pos] = qkv[D:2 * D].to(cdt)
-        v_cache[l, pos] = qkv[2 * D:].to(cdt)
+        k_cache[l].index_copy_(0, row, qkv[None, D:2 * D].to(cdt))
+        v_cache[l].index_copy_(0, row, qkv[None, 2 * D:].to(cdt))
         q = qkv[:D].to(cdt).float().view(H, Dh)
         keys = k_cache[l].float().view(S, H, Dh)
         vals = v_cache[l].float().view(S, H, Dh)
@@ -104,9 +119,9 @@ _tile_index = None
 _scratch_floats: Dict[tuple, int] = {}
 _tile_idx: Dict[tuple, torch.Tensor] = {}
 _TILES = (("wqkv", "tqkv"), ("wout", "tout"), ("w1", "t1"), ("w2", "t2"))
-# request threads launch on one shared packing: one of them builds its
-# tiled copy, the others wait for it
-_tile_lock = threading.Lock()
+# request threads may prepare one shared packing at once: one of them
+# builds each piece, the others wait for it
+_prep_lock = threading.Lock()
 
 
 def _kernel():
@@ -144,21 +159,6 @@ def _scratch_len(dev: torch.device, dims, wbytes: int) -> int:
     return _scratch_floats[key]
 
 
-def _tiled_weights(stacked, dev: torch.device, dims, wbytes: int):
-    """The weights re-laid per block for the kernel's bulk copies (one
-    contiguous tile per block, phase and layer; csrc/fused_decode.cu::
-    fused_decode_tile_index), [L, SMs, tile bytes] uint8 each. Built on
-    the first launch with a packing and kept in it under ``tqkv``,
-    ``tout``, ``t1``, ``t2``; the gather indices are cached per device,
-    shape and weight width. Locked: concurrent first launches on one
-    packing build one copy."""
-    L = dims[0]
-    G = torch.cuda.get_device_properties(dev).multi_processor_count
-    with _tile_lock:
-        return [_tiled_one(stacked, dev, dims, wbytes, L, G, phase, wname, tname)
-                for phase, (wname, tname) in enumerate(_TILES)]
-
-
 def _tiled_one(stacked, dev, dims, wbytes, L, G, phase, wname, tname):
     key = (dev.index, *dims[1:5], wbytes, phase)
     if key not in _tile_idx:
@@ -172,15 +172,69 @@ def _tiled_one(stacked, dev, dims, wbytes, L, G, phase, wname, tname):
         _tile_idx[key] = idx.to(dev)
     idx = _tile_idx[key]
     shape = (L, G, idx.numel() // G * 16)
-    t = stacked.get(tname)
-    if t is None or tuple(t.shape) != shape or t.device != dev:
-        w = stacked[wname]
-        t = w.view(torch.uint8).reshape(L, -1, 16)[:, idx].reshape(shape)
-        stacked[tname] = t
-    return t
+    w = stacked[wname]
+    return w.view(torch.uint8).reshape(L, -1, 16)[:, idx].reshape(shape)
 
 
-def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace=None):
+def _dims(stacked, S: int, num_heads: int):
+    L, D = stacked["wqkv"].shape[:2]
+    F = stacked["w1"].shape[-1]
+    return (ctypes.c_int * 5)(L, S, D, num_heads, F)
+
+
+def _prepared(stacked, dev: torch.device, S: int, num_heads: int) -> dict:
+    """The weights re-laid per block for the kernel's bulk copies at cache
+    length ``S`` on ``dev`` (one contiguous tile per block, phase and
+    layer; csrc/fused_decode.cu::fused_decode_tile_index; [L, SMs, tile
+    bytes] uint8 each, the gather indices cached per device, shape and
+    weight width), made once and kept in the packing under ``_prep``.
+    Launches only read them. Locked: concurrent first launches on one
+    packing build one copy."""
+    key = (dev.index, S, num_heads)
+    prep = stacked.get("_prep", {}).get(key)
+    if prep is not None:
+        return prep
+    with _prep_lock:
+        if "_prep" not in stacked:
+            stacked["_prep"] = {}
+        prep = stacked["_prep"].get(key)
+        if prep is None:
+            dims = _dims(stacked, S, num_heads)
+            wbytes = stacked["wqkv"].element_size()
+            G = torch.cuda.get_device_properties(dev).multi_processor_count
+            prep = {"tiles": [_tiled_one(stacked, dev, dims, wbytes, dims[0], G, phase,
+                                         wname, tname)
+                              for phase, (wname, tname) in enumerate(_TILES)]}
+            stacked["_prep"][key] = prep
+    return prep
+
+
+def prepare(stacked, S: int, num_heads: int, device) -> None:
+    """Make the packing's tiled weights for cache length ``S`` on
+    ``device`` ahead of any launch (no-op for CPU tensors): before a CUDA
+    graph captures the step, since a capture may not allocate for later
+    use or copy from the host."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        _prepared(stacked, device, S, num_heads)
+
+
+def step_buffers(stacked, S: int, num_heads: int, device):
+    """(h_out [1, D] fp32, scratch) for launches at cache length ``S`` on
+    ``device``, for one caller alone (a decode graph's static buffers):
+    the kernel writes both on every launch, and two launches that share
+    them may not run at once. (None, None) for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None, None
+    dims = _dims(stacked, S, num_heads)
+    return (torch.empty((1, dims[2]), dtype=torch.float32, device=device),
+            torch.empty(_scratch_len(device, dims, stacked["wqkv"].element_size()),
+                        dtype=torch.float32, device=device))
+
+
+def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace=None,
+            h_out=None, scratch=None):
     L, S, D = k_cache.shape
     dev = k_cache.device
     F = stacked["w1"].shape[-1]
@@ -220,27 +274,37 @@ def _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads, trace=None):
     if h.dtype != torch.float32 or mask.dtype != torch.float32 \
             or h.device != dev or mask.device != dev:
         raise TypeError(f"h and mask must be float32 tensors on {dev}")
-    if not 0 <= int(pos) < S:
-        raise ValueError(f"pos {pos} outside the cache of {S} rows")
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int32 or pos.numel() != 1 or pos.device != dev:
+            raise TypeError(f"pos must be one int32 on {dev} (or an int)")
+    else:       # a host row: checked here, copied to the device (not capturable)
+        if not 0 <= int(pos) < S:
+            raise ValueError(f"pos {pos} outside the cache of {S} rows")
+        pos = torch.tensor([int(pos)], dtype=torch.int32, device=dev)
     h = h.contiguous()
     mask = mask.contiguous()
-    dims = (ctypes.c_int * 6)(L, S, D, num_heads, F, int(pos))
-    n_scratch = _scratch_len(dev, dims, stacked["wqkv"].element_size())
-    h_out = torch.empty((1, D), dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    pos = pos.contiguous()
+    prep = _prepared(stacked, dev, S, num_heads)
+    dims = _dims(stacked, S, num_heads)
+    if h_out is None:           # buffers of this launch alone
+        h_out, scratch = step_buffers(stacked, S, num_heads, dev)
+    elif (h_out.shape != (1, D) or h_out.dtype != torch.float32 or h_out.device != dev
+          or scratch.dtype != torch.float32 or scratch.device != dev
+          or scratch.numel() < _scratch_len(dev, dims, stacked["wqkv"].element_size())):
+        raise ValueError("h_out and scratch must come from step_buffers at this "
+                         "cache length and device")
     s = stacked.get
     ptrs = [stacked["wqkv"], stacked["wout"], stacked["w1"], stacked["w2"],
             s("sqkv"), s("sout"), s("s1"), s("s2"),
             stacked["bqkv"], stacked["bout"], stacked["b1"], stacked["b2"],
             stacked["n1s"], stacked["n1b"], stacked["n2s"], stacked["n2b"],
-            k_cache, v_cache, mask, h, h_out, scratch, trace,
-            *_tiled_weights(stacked, dev, dims, stacked["wqkv"].element_size())]
+            k_cache, v_cache, mask, h, h_out, scratch, trace, *prep["tiles"], pos]
     arr = (ctypes.c_ulonglong * len(ptrs))(
         *[0 if t is None else t.data_ptr() for t in ptrs])
     with torch.cuda.device(dev):        # the kernel sizes its grid for it
         err = _kernel()(ctypes.addressof(arr), ctypes.addressof(dims),
                         1.0 / math.sqrt(D // num_heads), 1e-5, _WTYPES[wdt],
-                        _CTYPES[cdt], n_scratch,
+                        _CTYPES[cdt], scratch.numel(),
                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_decode_step")
     if trace is None:
@@ -281,17 +345,24 @@ def grid_barriers(n: int, device: torch.device) -> None:
 
 
 def fused_decode_step(stacked, h: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, pos: int, mask: torch.Tensor,
-                      *, num_heads: int):
+                      v_cache: torch.Tensor, pos, mask: torch.Tensor,
+                      *, num_heads: int, h_out: Optional[torch.Tensor] = None,
+                      scratch: Optional[torch.Tensor] = None):
     """One decode step over all layers.
 
     stacked: see :func:`pack_decode_params`. h: [1, D] fp32 hidden (token +
     position embedding). k_cache / v_cache: [L, S, D] in the compute dtype
-    (heads merged into D). pos: write position; mask: [S] fp32 (1 =
-    attend). Returns (h_out [1, D] fp32, k_cache, v_cache); row ``pos`` of
-    every layer's caches is written in place."""
+    (heads merged into D). pos: the write row, one int32 tensor on the
+    caches' device (what a captured graph advances; an int is copied
+    there first); mask: [S] fp32 (1 = attend). Returns (h_out [1, D] fp32,
+    k_cache, v_cache); row ``pos`` of every layer's caches is written in
+    place. ``h_out`` and ``scratch``: the caller's own buffers from
+    :func:`step_buffers` (the returned ``h_out`` is then that buffer,
+    rewritten by the caller's next launch); without them the launch
+    allocates its own. The plain version ignores them."""
     if k_cache.is_cuda:
-        return _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads)
+        return _launch(stacked, h, k_cache, v_cache, pos, mask, num_heads,
+                       h_out=h_out, scratch=scratch)
     return fused_decode_step_plain(stacked, h, k_cache, v_cache, pos, mask,
                                    num_heads=num_heads)
 

@@ -46,13 +46,16 @@ PHASE_STAMPS = ("start", "share known", "copies issued", "K landed", "V landed",
 
 
 def visibility(S: int, x_len: torch.Tensor, p_len: torch.Tensor,
-               keys_written: torch.Tensor, ring_head: int, *, sx: int, sp: int,
+               keys_written: torch.Tensor, ring_head, *, sx: int, sp: int,
                ring: int) -> torch.Tensor:
     """[B, S] bool: the compacted context ``[0, x_len+p_len)`` and the last
-    ``keys_written`` ring writes before ``ring_head`` (floor modulo, as
+    ``keys_written`` ring writes before ``ring_head`` (an int, or a
+    one-element int tensor as the slot state keeps it; floor modulo, as
     ``jnp.mod``)."""
     pos = torch.arange(S, device=x_len.device)[None, :]
     rpos = pos - (sx + sp)
+    if isinstance(ring_head, torch.Tensor):
+        ring_head = ring_head.reshape(()).long()
     age = torch.remainder(ring_head - 1 - rpos, ring)
     return ((pos < (x_len + p_len)[:, None])
             | ((rpos >= 0) & (age < keys_written[:, None])))
@@ -132,7 +135,7 @@ def _kernel():
         fn = _build.load_library("int8_decode").int8_big_attention
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p])
         _fn = fn
@@ -144,8 +147,12 @@ def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ri
     B, H, Dh, S = kq.shape
     dev = q.device
     if isinstance(ring_head, torch.Tensor):
-        raise TypeError("ring_head must be a Python int (reading a device "
-                        "tensor would wait for the device)")
+        if (ring_head.dtype != torch.int32 or ring_head.numel() != 1
+                or ring_head.device != dev):
+            raise TypeError(f"ring_head must be one int32 on {dev} (or an int)")
+    else:       # a host head: copied to the device (not capturable)
+        ring_head = torch.tensor([int(ring_head)], dtype=torch.int32, device=dev)
+    ring_head = ring_head.contiguous()
     if S != sx + sp + ring or S > _MAX_S or Dh not in (32, 64):
         raise ValueError(f"int8_big_attention kernel takes S == sx+sp+ring <= "
                          f"{_MAX_S} and Dh in (32, 64), got S={S} (sx={sx}, "
@@ -180,7 +187,7 @@ def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ri
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
         x_len.data_ptr(), p_len.data_ptr(), keys_written.data_ptr(),
         o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Dh, S, ld, lds,
-        int(ring_head), sx + sp, ring, 1.0 / math.sqrt(Dh), _QDTYPES[q.dtype], vec,
+        ring_head.data_ptr(), sx + sp, ring, 1.0 / math.sqrt(Dh), _QDTYPES[q.dtype], vec,
         torch.cuda.current_stream(dev).cuda_stream,
         None if trace is None else trace.data_ptr())
     _build.check(err, "int8_big_attention")
@@ -192,9 +199,10 @@ def _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head, sx, sp, ri
 def int8_big_attention(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head,
                        *, sx: int, sp: int, ring: int):
     """Flash partials over the int8 big cache (see the plain version for
-    shapes). ``ring_head`` is the segment-frozen write head, an int on the
-    kernel route; ``keys_written`` must be the segment-frozen count too,
-    never a per-step counter."""
+    shapes). ``ring_head`` is the segment-frozen write head: one int32
+    tensor on the card, which the kernel reads (what a captured segment
+    graph advances; an int is copied there first); ``keys_written`` must
+    be the segment-frozen count too, never a per-step counter."""
     if q.is_cuda:
         return _launch(q, kq, ks, vq, vs, x_len, p_len, keys_written, ring_head,
                        sx, sp, ring)

@@ -5,7 +5,11 @@ repetition penalty over previously emitted tokens, then top-p, then top-k,
 then temperature, drawn with the Gumbel-max trick. The Gumbel noise comes
 from a ``torch.Generator``, or is passed in (tests hand both packages the
 same noise). :func:`sample_token` takes one config for the batch;
-:func:`sample_token_rows` takes per-row parameters (the slot machine's).
+:func:`sample_token_rows` takes per-row parameters as device tensors (the
+slot machine's, and ``generate``'s decode) and a ``forbid`` mask that the
+caller computes on the device (EOS below ``min_steps``, from the device
+step counter), so it reads nothing back to the host and a CUDA graph
+captures it.
 """
 from __future__ import annotations
 
@@ -142,7 +146,8 @@ def sample_token_rows(generator: Optional[torch.Generator], logits: torch.Tensor
     def col(a, dtype):
         return torch.as_tensor(a, device=dev).to(dtype)[:, None]
 
-    neg = torch.tensor(-1e10, dtype=torch.float32, device=dev)
+    # made on the device (a host scalar's copy could not be captured)
+    neg = logits.new_full((), -1e10)
     pen = col(rows.repetition_penalty, torch.float32)
     seen = (token_counts > 0) & (pen != 1.0)
     penalized = torch.where(logits < 0, logits * pen, logits / pen)
@@ -157,7 +162,7 @@ def sample_token_rows(generator: Optional[torch.Generator], logits: torch.Tensor
                                              stable=True)
         cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
         remove_sorted = cum > col(rows.top_p, torch.float32)
-        remove_sorted[..., 0] = False                      # keep argmax
+        remove_sorted[..., 0].fill_(False)                 # keep argmax
         keep = torch.ones_like(remove_sorted)
         keep.scatter_(-1, sort_idx, ~remove_sorted)
         logits = torch.where(keep, logits, neg)

@@ -152,15 +152,17 @@ def layer_prefill_shards(lps, h: torch.Tensor, masks, num_heads: int):
     return _megatron_layer(lps, h, num_heads, attend)
 
 
-def layer_decode_shards(lps, h: torch.Tensor, k_caches, v_caches, pos: int,
+def layer_decode_shards(lps, h: torch.Tensor, k_caches, v_caches, pos,
                         kv_masks, num_heads: int) -> torch.Tensor:
     """``models/t2s.py::_layer_decode`` over tp shards: shard ``i`` writes
-    its heads' K/V row at ``pos`` into ``k_caches[i]`` / ``v_caches[i]``
-    ([B, H/tp, S, Dh] on its device) in place and attends through the
-    flash-decode kernel over its ``H/tp`` heads, with ``kv_masks[i]``."""
+    its heads' K/V row at ``pos`` (an int, or an int tensor [1]) into
+    ``k_caches[i]`` / ``v_caches[i]`` ([B, H/tp, S, Dh] on its device) in
+    place and attends through the flash-decode kernel over its ``H/tp``
+    heads, with ``kv_masks[i]``."""
     def attend(i, q, k, v):
-        k_caches[i][:, :, pos] = k[:, :, 0]
-        v_caches[i][:, :, pos] = v[:, :, 0]
+        row = t2s.row_index(pos, k_caches[i].device)
+        k_caches[i].index_copy_(2, row, k.to(k_caches[i].dtype))
+        v_caches[i].index_copy_(2, row, v.to(v_caches[i].dtype))
         att = flash_decode_attention(q[:, :, 0].contiguous(), k_caches[i],
                                      v_caches[i], kv_masks[i])
         return att[:, :, None], None

@@ -32,9 +32,11 @@ embedding) are computed once per reference clip and cached by
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -48,6 +50,7 @@ from ..ops.sampling import SamplingConfig, gumbel_noise
 from ..parallel.mesh import place_tree, shard_serving_params
 from ..parallel.tp import on_device
 from ..utils.metrics import metrics
+from . import graphs
 from .buckets import pad_to, pick_bucket
 
 logger = logging.getLogger(__name__)
@@ -223,10 +226,40 @@ class TTSEngine:
         self._lock = threading.Lock()
         self._rng = np.random.default_rng(0)
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._slot_states: Dict[tuple, tuple] = {}
 
     def _next_seed(self) -> int:
         with self._lock:
             return int(self._rng.integers(0, 2 ** 31 - 1))
+
+    def take_slot_state(self, char: CharacterModel, key: tuple, factory):
+        """A persistent slot state of ``char`` at the slot geometry ``key``
+        for the caller alone: the one a warmup sweep left
+        (:meth:`offer_slot_state`; its segment graphs are captured on its
+        buffers), else a new one from ``factory()``. A slot machine keeps
+        the state it takes for as long as it lives, so no two users ever
+        decode in one state; a sweep while a slot machine holds the
+        character's state captures on a new one."""
+        k = (id(char), key)
+        with self._lock:
+            hit = self._slot_states.pop(k, None)
+        if hit is not None and hit[0]() is char:
+            return hit[1]
+        with torch.inference_mode(False):     # updated in place in any mode
+            return dataclasses.replace(factory(), persistent=True)
+
+    def offer_slot_state(self, char: CharacterModel, key: tuple, state) -> None:
+        """Leave ``state`` (emptied, not in use) for the next
+        :meth:`take_slot_state` of ``char`` at ``key``; it is dropped with
+        its character."""
+        k = (id(char), key)
+
+        def drop(ref, k=k):      # no lock: a collection may run while it is held
+            if self._slot_states.get(k, (None,))[0] is ref:
+                self._slot_states.pop(k, None)
+
+        with self._lock:
+            self._slot_states[k] = (weakref.ref(char, drop), state)
 
     # -- serving over a mesh ----------------------------------------------
 
@@ -828,6 +861,194 @@ class TTSEngine:
         metrics.incr("utterances", B)
         return [audio[i, : 2 * int(lens[i]) * vcfg.hop_length].astype(np.float32)
                 for i in range(B)]
+
+
+    # -- warmup ------------------------------------------------------------
+
+    def _run_compile_units(self, units) -> int:
+        """Run warmup thunks, one after another (a capture synchronizes the
+        card, and the graphs of one parameter set share their cache).
+        Returns the number of units run."""
+        for u in units:
+            u()
+        return len(units)
+
+    @torch.inference_mode()
+    def warmup(self, char: CharacterModel, ref: ReferenceFeatures,
+               sweep: bool = False) -> int:
+        """Prepare the steady-state programs ahead of serving.
+
+        ``sweep=False``: one synthesis (the smallest bucket combination).
+        ``sweep=True``: capture every decode graph the serving path can hit
+        (``runtime/graphs.py``) — solo ``generate`` per phoneme bucket at
+        the reference's prompt bucket and the character's step cap (with
+        and without BERT features: one decode graph; the fused stream head
+        and the staged branch decode through it too), the window
+        batcher's B > 1 decode per batch and phoneme bucket, each with and
+        without top-p and in both block lengths (``t2s.DECODE_BLOCKS``:
+        every per-request cap replays them), and (when slot
+        serving is on) every slot segment graph (:func:`slot_warmup_units`)
+        and (when segmented streaming is on) the stream's
+        (:func:`stream_warmup_units`) — and, on the card, run each SoVITS
+        latent and vocode bucket once, so that kernels and convolution
+        plans exist before traffic (on the CPU there is nothing to
+        prepare, and the decode graphs' keys and variants are recorded
+        without a run). Returns the number of units run; the cache's
+        ``stats`` count the graphs captured.
+
+        A captured graph reads the weights of the character it was
+        captured for, so the sweep warms ``char`` alone (the kernels it
+        builds and the plans it makes serve every character)."""
+        if not sweep:
+            phones = np.zeros(8, np.int32)
+            bert = np.zeros((8, char.t2s_cfg.bert_dim), np.float32)
+            self.synthesize_utterance(char, ref, phones, bert, seed=0)
+            return 1
+        tcfg, vcfg = char.t2s_cfg, char.sovits_cfg
+        dev = char.device
+        params = char.t2s_params
+        p_bucket = pick_bucket(len(ref.prompt_tokens), self.cfg.prompt_buckets)
+        cap = pick_bucket(tcfg.max_decode_steps, self.cfg.step_caps)
+        dtype = params["audio_embed"].dtype
+        units = []
+
+        def decode(B, xb):
+            # the graph of the geometry, each block length and top-p flag
+            # captured on its zeroed buffers (on the CPU: its key and
+            # variants recorded)
+            g, packed = t2s.decode_graph(params, tcfg, B, xb, p_bucket, xb + p_bucket + cap,
+                                         cap, dtype)
+            with g.lock:
+                for n in t2s.DECODE_BLOCKS:
+                    for top_p in (False, True):
+                        g.prepare(functools.partial(
+                            t2s._decode_block, params, tcfg, n_steps=n, Sx=xb, Sp=p_bucket,
+                            any_top_p=top_p, packed=packed), variant=(n, top_p))
+
+        if t2s.layer_shards(params) is None:
+            batch = [1] + ([b for b in self.cfg.batch_buckets if b > 1]
+                           if self.cfg.serve_batching else [])
+            for B in batch:
+                for xb in self.cfg.phoneme_buckets:
+                    units.append(functools.partial(decode, B, xb))
+        ge = torch.zeros((1, vcfg.gin_channels, 1), device=dev)
+        gm = torch.zeros((1, vcfg.mrte_channels, 1), device=dev)
+        one = torch.ones((1,), dtype=torch.int64, device=dev)
+
+        def latent(fb, tb):
+            sovits.synthesize_latent(
+                char.sovits_params, vcfg, torch.zeros((1, fb), dtype=torch.int64, device=dev),
+                one, torch.zeros((1, tb), dtype=torch.int64, device=dev), one, ge, gm, 0.5,
+                generator=torch.Generator(device=dev).manual_seed(0))
+
+        if dev.type == "cuda":
+            for fb in self.cfg.frame_buckets:
+                for tb in self.cfg.phoneme_buckets:
+                    units.append(functools.partial(latent, fb, tb))
+            # the HiFi-GAN windows the chunked vocoder and the stream head run
+            chunk, halo = self.cfg.vocode_chunk, self.cfg.vocode_halo
+            widths = {2 * fb for fb in self.cfg.frame_buckets if 2 * fb <= chunk + 2 * halo}
+            widths |= {chunk + halo, chunk + 2 * halo,
+                       min(self.cfg.stream_first_chunk, chunk) + halo}
+            units += [functools.partial(self._vocode_once, char, 1, w)
+                      for w in sorted(widths)]
+        if self.cfg.serve_slots:
+            from .slot_batcher import slot_warmup_units
+
+            units.extend(slot_warmup_units(self, char, pcm16=True))
+        if self.cfg.stream_segmented:
+            from .stream import stream_warmup_units
+
+            units.extend(stream_warmup_units(self, char, pcm16=True))
+        with metrics.timer("warmup_sweep"):
+            n = self._run_compile_units(units)
+        logger.info("warmup sweep ran %d units, %d graphs captured", n,
+                    graphs.cache_for(params).stats["captures"])
+        return n
+
+    def _vocode_once(self, char: CharacterModel, B: int, width: int,
+                     pcm16: bool = False) -> None:
+        vcfg = char.sovits_cfg
+        dev = char.device
+        z = torch.zeros((B, width, vcfg.inter_channels), device=dev,
+                        dtype=char.sovits_params["quantizer_embed"].dtype)
+        a = sovits.vocode_frames(char.sovits_params, vcfg, z,
+                                 torch.zeros((B, vcfg.gin_channels, 1), device=dev),
+                                 torch.full((B,), width, dtype=torch.int64, device=dev))
+        if pcm16:
+            _to_pcm16(a)
+
+    def finisher_warmup_units(self, char: CharacterModel, t_buckets=None,
+                              pcm16: bool = False) -> list:
+        """Warmup thunks for the batched codes -> waveform tail
+        (:meth:`vocode_codes_dispatch`): the latent at every (batch, frame,
+        text) bucket the finisher can hit, and the HiFi-GAN windows at
+        every batch bucket, each run once. ``t_buckets`` narrows the text
+        ladder (the slot batcher pins one text bucket)."""
+        vcfg = char.sovits_cfg
+        dev = char.device
+        units = []
+        t_buckets = tuple(t_buckets or self.cfg.phoneme_buckets)
+        chunk, halo = self.cfg.vocode_chunk, self.cfg.vocode_halo
+
+        def latent(b, fb, tb):
+            lens = torch.ones((b,), dtype=torch.int64, device=dev)
+            sovits.synthesize_latent(
+                char.sovits_params, vcfg, torch.zeros((b, fb), dtype=torch.int64, device=dev),
+                lens, torch.zeros((b, tb), dtype=torch.int64, device=dev), lens,
+                torch.zeros((b, vcfg.gin_channels, 1), device=dev),
+                torch.zeros((b, vcfg.mrte_channels, 1), device=dev), 0.5,
+                generator=torch.Generator(device=dev).manual_seed(0))
+
+        for b in self.cfg.batch_buckets:
+            widths = set()
+            for fb in self.cfg.frame_buckets:
+                for tb in t_buckets:
+                    units.append(functools.partial(latent, b, fb, tb))
+                # the windows vocode_frames_chunked cuts out of z [b, 2*fb, :]
+                F = 2 * fb
+                if F <= chunk + 2 * halo:
+                    widths.add(F)
+                else:
+                    for start in range(0, F, chunk):
+                        s0 = max(start - halo, 0)
+                        widths.add(min(start + chunk + halo, F) - s0)
+            units += [functools.partial(self._vocode_once, char, b, w, pcm16)
+                      for w in sorted(widths)]
+        return units
+
+    def window_warmup_units(self, char: CharacterModel, wins, t_bucket: int,
+                            pcm16: bool = False) -> list:
+        """Warmup thunks for the slot window pump
+        (:meth:`vocode_windows_dispatch`): the per-row prefix latent at
+        every (batch, frame >= win/2) bucket and the fixed-width window
+        vocode at every batch bucket, each run once."""
+        vcfg = char.sovits_cfg
+        dev = char.device
+        units = []
+
+        def run(b, fb, win_list):
+            lens = torch.ones((b,), dtype=torch.int64, device=dev)
+            ge = torch.zeros((b, vcfg.gin_channels, 1), device=dev)
+            z = sovits.synthesize_latent_rows(
+                char.sovits_params, vcfg,
+                torch.zeros((b, 2 * fb, vcfg.inter_channels), device=dev),
+                torch.zeros((b, fb), dtype=torch.int64, device=dev), lens,
+                torch.zeros((b, t_bucket), dtype=torch.int64, device=dev), lens, ge,
+                torch.zeros((b, vcfg.mrte_channels, 1), device=dev), 0.5)
+            for win in win_list:
+                a = sovits.vocode_window_rows(char.sovits_params, vcfg, z, ge,
+                                              torch.zeros_like(lens), 2 * lens, win)
+                if pcm16:
+                    _to_pcm16(a)
+
+        for b in self.cfg.batch_buckets:
+            for fb in self.cfg.frame_buckets:
+                if 2 * fb < min(wins):
+                    continue
+                units.append(functools.partial(run, b, fb,
+                                               [w for w in wins if 2 * fb >= w]))
+        return units
 
 
 # ---------------------------------------------------------------------------

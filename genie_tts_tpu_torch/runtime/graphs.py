@@ -1,0 +1,256 @@
+"""Captured CUDA graphs of the decode programs, and their cache.
+
+The counterpart of the JAX package's compiled decode programs and its JIT
+caches. There, a whole decode is one compiled device program (solo
+``generate`` is one ``lax.while_loop``, a slot segment one ``jax.jit``),
+compiled once per static geometry. Here each decode program is a step
+function over STATIC buffers: every value that changes between runs (the
+decode step, the write row, the ring head) lives in device memory and is
+advanced by the program itself, so the program is captured once per
+geometry as a CUDA graph and then replayed:
+
+* :class:`Graph` holds one program's static buffers, its lock and, on the
+  card, its captured graph. A caller takes the lock, copies its inputs
+  into the buffers, calls :meth:`Graph.run` (a capture on the first run,
+  a replay after) as often as it needs, and copies the outputs out
+  before it lets go of the lock.
+* :class:`GraphCache` keys the graphs of ONE parameter set (a captured
+  graph reads its weights by address) on their static geometry, and
+  counts hits, misses, variants and captures; :func:`cache_for` finds a
+  parameter set's cache. ``runtime/engine.py::TTSEngine.warmup(..., sweep=True)``
+  captures every key that serving can reach before traffic arrives.
+
+A capture first runs the program once on a side stream (lazy work: kernel
+builds, library handles), puts the buffers back as they were, then
+captures it in a private memory pool (one pool per graph, so graphs that
+different threads replay at once never share memory). A program writes
+only its graph's static buffers (the fused kernel's output row and
+scratch included), so a capture may run beside other threads' replays.
+The kernel wrappers' launches made while capturing go to the graph's
+record and are added to the wrappers' counts on every replay
+(``ops/_build.py``), so a count is the number of kernel executions. A capture that fails raises;
+nothing falls back to running eagerly. On the CPU there is no graph: the
+program runs eagerly on the same buffers, with the same keys and counts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import weakref
+from typing import Callable, Dict, Hashable, List, Optional
+
+import torch
+
+from ..ops import _build
+
+# one capture at a time: a capture synchronizes the card and swaps the
+# allocator's pool for its stream
+_capture_lock = threading.Lock()
+
+
+def tensors_of(obj) -> List[torch.Tensor]:
+    """Every tensor in a buffer object: a dataclass, a dict, a list or a
+    tuple, nested."""
+    out: List[torch.Tensor] = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+        elif isinstance(o, dict):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+
+    walk(obj)
+    return out
+
+
+class Graph:
+    """One decode program over its static buffers ``static``.
+
+    ``lock`` is held by the caller from copying its inputs in to copying
+    the outputs out. ``run(fn, variant)`` runs ``fn(static)``, which
+    updates the buffers in place and reads nothing back to the host: on
+    the card, a replay of the graph captured from ``fn`` on the first run
+    of ``variant`` (the variants of one program share its buffers: a
+    decode block of 16 steps and the single step that ends a decode at
+    its cap, each with and without top-p). ``prepare(fn, variant)`` captures a variant without running
+    it. ``run(..., eager=True)``, a graph of a cache set ``eager``, and a
+    graph with no cache (the buffers of one call) run ``fn`` without a
+    graph: a comparison's baseline, or a program that is not captured."""
+
+    def __init__(self, cache: "Optional[GraphCache]", key: Hashable, static):
+        self.key, self.static = key, static
+        self.lock = threading.Lock()
+        self._cache = cache
+        # variant -> (CUDA graph, kernel launches per replay, pool bytes),
+        # or None on the CPU (nothing to capture)
+        self._graphs: Dict[Hashable, Optional[tuple]] = {}
+
+    @property
+    def pool_bytes(self) -> int:
+        """Card memory the captures reserved for their pools."""
+        return sum(g[2] for g in self._graphs.values() if g is not None)
+
+    @property
+    def variants(self) -> list:
+        """The variants prepared (captured on the card)."""
+        return list(self._graphs)
+
+    def _on_card(self) -> bool:
+        bufs = tensors_of(self.static)
+        return bool(bufs) and bufs[0].is_cuda
+
+    def prepare(self, fn: Callable, variant: Hashable = None) -> None:
+        """Capture ``variant`` unless it was (on the CPU: only count it)."""
+        if variant in self._graphs:
+            return
+        on_card = self._on_card()
+        self._graphs[variant] = self._capture(fn) if on_card else None
+        self._cache._prepared(self, on_card)
+
+    def run(self, fn: Callable, variant: Hashable = None, eager: bool = False) -> None:
+        if eager or self._cache is None or self._cache.eager:
+            fn(self.static)
+            return
+        self.prepare(fn, variant)
+        entry = self._graphs[variant]
+        if entry is None:
+            fn(self.static)
+            return
+        entry[0].replay()
+        _build.add_launches(entry[1])
+
+    def _capture(self, fn: Callable) -> tuple:
+        bufs = tensors_of(self.static)
+        dev = bufs[0].device
+        with _capture_lock, torch.cuda.device(dev):
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            saved = [t.clone() for t in bufs]
+            side.wait_stream(main)
+            # the warm-up run: what is built or allocated once (kernels,
+            # cuBLAS handles) happens here, outside the capture; its
+            # launches are not counted. It writes only this graph's
+            # buffers, so it may run beside other threads' replays.
+            with torch.cuda.stream(side), _build.recording():
+                fn(self.static)
+            main.wait_stream(side)
+            for t, s in zip(bufs, saved):
+                t.copy_(s)
+            del saved
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            with _build.recording() as rec:
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    fn(self.static)
+            return graph, dict(rec), max(torch.cuda.memory_reserved(dev) - before, 0)
+
+
+class GraphCache:
+    """The graphs of one parameter set, keyed on static geometry (route,
+    B, Sx, Sp, cache length, step cap, W, read windows, top-p flag,
+    dtype), and the objects they share (the fused kernel's packing).
+
+    ``stats``: ``hits`` and ``misses`` count lookups of a key (a miss
+    makes the graph's buffers; the capture follows on its first run),
+    ``variants`` the (key, variant) programs prepared (on any device),
+    ``captures`` the graphs captured on the card.
+
+    ``eager``: run every program of the set without a graph (a
+    comparison's baseline; serving never sets it)."""
+
+    def __init__(self):
+        self._graphs: Dict[Hashable, Graph] = {}
+        self._objects: Dict[Hashable, object] = {}
+        self._lock = threading.RLock()     # a factory may ask for a shared object
+        self.stats = {"hits": 0, "misses": 0, "variants": 0, "captures": 0}
+        self.eager = False
+
+    def graph(self, key: Hashable, make_static: Callable[[], object]) -> Graph:
+        """The graph for ``key``; on a miss its buffers come from
+        ``make_static()``."""
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is not None:
+                self.stats["hits"] += 1
+                return g
+            self.stats["misses"] += 1
+            with torch.inference_mode(False):     # updated in place in any mode
+                g = Graph(self, key, make_static())
+            self._graphs[key] = g
+            return g
+
+    def shared(self, name: Hashable, factory: Callable[[], object]):
+        """The object ``name`` of this parameter set, made once by
+        ``factory()``."""
+        with self._lock:
+            obj = self._objects.get(name)
+            if obj is None:
+                with torch.inference_mode(False):
+                    obj = self._objects[name] = factory()
+            return obj
+
+    def _prepared(self, graph: Graph, captured: bool) -> None:
+        with self._lock:
+            self.stats["variants"] += 1
+            self.stats["captures"] += captured
+
+    def programs(self) -> list:
+        """(key, variant) of every program prepared."""
+        with self._lock:
+            return [(k, v) for k, g in self._graphs.items() for v in g.variants]
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._graphs)
+
+    def pool_bytes(self) -> int:
+        """Card memory the captures reserved for their pools."""
+        with self._lock:
+            return sum(g.pool_bytes for g in self._graphs.values())
+
+    def buffer_bytes(self) -> int:
+        """Bytes of the graphs' static buffers (a persistent slot state's
+        once)."""
+        with self._lock:
+            seen = {id(t): t for g in self._graphs.values() for t in tensors_of(g.static)}
+        return sum(t.numel() * t.element_size() for t in seen.values())
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            for k in self.stats:
+                self.stats[k] = 0
+
+
+_caches: Dict[int, tuple] = {}
+_caches_lock = threading.RLock()   # the drop callback may run inside cache_for
+
+
+def cache_for(params) -> GraphCache:
+    """The graph cache of a T2S parameter set, found by its
+    ``audio_embed`` tensor and dropped with it."""
+    t = params["audio_embed"]
+    k = id(t)
+    with _caches_lock:
+        hit = _caches.get(k)
+        if hit is not None and hit[0]() is t:
+            return hit[1]
+        cache = GraphCache()
+
+        def drop(_ref, k=k):
+            with _caches_lock:
+                cur = _caches.get(k)
+                if cur is not None and cur[0] is _ref:
+                    del _caches[k]
+
+        _caches[k] = (weakref.ref(t, drop), cache)
+        return cache

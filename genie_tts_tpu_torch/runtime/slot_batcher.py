@@ -36,7 +36,18 @@ covered), or the full read when a row is past either ladder.
 One scheduler serves one character; ``api.get_slot_batcher`` keeps one
 per loaded character. On a serving mesh it runs on the character's
 replica 0; where that replica's T2S is tp-sharded, so are its slot caches
-(``models/slots.py``), and the scheduling is the same. Not ported (ROADMAP.md): AOT warmup units.
+(``models/slots.py``), and the scheduling is the same.
+
+The machine owns its persistent slot state for as long as it lives
+(``TTSEngine.take_slot_state``: the one a warmup sweep left, else a new
+one), updated in place; each segment is a replay of the CUDA graph of its
+width, read windows and top-p flag, captured on that state
+(``runtime/graphs.py``; a tp-sharded character decodes eagerly). The host
+keeps a mirror of the ring head. :func:`slot_warmup_units` captures every
+segment graph the scheduler can dispatch on a state it then leaves for
+the character's next slot machine, and runs the prefill and the finisher
+and window-pump buckets once, ahead of traffic (``TTSEngine.warmup(...,
+sweep=True)``).
 """
 from __future__ import annotations
 
@@ -98,6 +109,92 @@ def slot_geometry(cfg, tcfg) -> "tuple[int, int, int, int, int]":
 def _slot_finisher_t_bucket(cfg) -> int:
     """The ONE text bucket the slot finisher pads to."""
     return pick_bucket(cfg.slot_phoneme_bucket, cfg.phoneme_buckets)
+
+
+def _state_key(engine: TTSEngine, char: CharacterModel) -> tuple:
+    B, _, ring, sx, sp = slot_geometry(engine.cfg, char.t2s_cfg)
+    return (B, sx, sp, ring, char.t2s_params["audio_embed"].dtype, engine.cfg.slot_kv_int8)
+
+
+def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotState:
+    """An empty slot machine state of the character at the engine's slot
+    geometry, for the caller alone: a persistent one
+    (``TTSEngine.take_slot_state``: the buffers its segment graphs replay
+    on), or a new one for a tp-sharded character (which decodes
+    eagerly)."""
+    cfg, tcfg = engine.cfg, char.t2s_cfg
+    B, _, ring, sx, sp = slot_geometry(cfg, tcfg)
+    params = char.t2s_params
+    kw = dict(dtype=params["audio_embed"].dtype, kv_int8=cfg.slot_kv_int8,
+              device=char.device)
+    if len(shard_devices(params)) > 1:
+        return slots_mod.init_slots(tcfg, B, sx, sp, ring, tp_devices=shard_devices(params),
+                                    **kw)
+    state = engine.take_slot_state(char, _state_key(engine, char),
+                                   lambda: slots_mod.init_slots(tcfg, B, sx, sp, ring, **kw))
+    return slots_mod.reset_slots(state, ring)
+
+
+def slot_warmup_units(engine: TTSEngine, char: CharacterModel, pcm16: bool = True) -> list:
+    """Warmup thunks for every slot-serving program: the prefill (with and
+    without BERT features) and an insert and release once, a capture of
+    every segment graph the scheduler can dispatch (each width of
+    :func:`seg_widths` x each read-window pair of
+    :func:`seg_window_combos` x the top-p flag) on a persistent slot
+    state that it leaves for the character's next slot machine
+    (``TTSEngine.offer_slot_state``), and the window-pump and finisher
+    buckets (``engine.window_warmup_units`` / ``finisher_warmup_units``,
+    on the card only). Returns thunks for ``engine._run_compile_units``."""
+    cfg, tcfg = engine.cfg, char.t2s_cfg
+    B, W, ring, sx, sp = slot_geometry(cfg, tcfg)
+    params = char.t2s_params
+    dev = char.device
+    units = []
+
+    def prefill(bert):
+        samp = rows_from_config(SamplingConfig(), 1)
+        out = slots_mod.prefill_join(
+            params, tcfg, phones=torch.zeros((1, sx), dtype=torch.int64, device=dev),
+            bert=bert, x_len=torch.ones((1,), dtype=torch.int64, device=dev),
+            prompts=torch.zeros((1, sp), dtype=torch.int64, device=dev),
+            p_len=torch.ones((1,), dtype=torch.int64, device=dev),
+            samp=SamplingRows(*(host_to_device(a, dev) for a in samp)),
+            generator=torch.Generator(device=dev).manual_seed(0), any_top_p=False)
+        return out, samp
+
+    for bert in (None, torch.zeros((1, sx, tcfg.bert_dim), device=dev)):
+        units.append(functools.partial(prefill, bert))
+
+    def segment(w, cw, rw, top_p):
+        state = take_slot_state(engine, char)
+        (ctx_k, ctx_v, tok0, hist), samp = prefill(None)
+        slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist, 1, 1, 0, w,
+                              SamplingRows(*(a[0] for a in samp)))
+        state.top_p_host[0] = 0.5 if top_p else 1.0
+        slots_mod.decode_segment(params, state, tcfg, w, sx, sp, ring,
+                                 kv_kernel=cfg.slot_kv_int8, ctx_win=cw, ring_win=rw,
+                                 generator=torch.Generator(device=dev).manual_seed(0))
+        slots_mod.release_slot(state, 0)
+        engine.offer_slot_state(char, _state_key(engine, char),
+                                slots_mod.reset_slots(state, ring))
+
+    if len(shard_devices(params)) == 1:
+        for cw, rw in seg_window_combos(cfg, sx, sp, ring):
+            for w in seg_widths(cfg, ring):
+                for top_p in (False, True):
+                    units.append(functools.partial(segment, w, cw, rw, top_p))
+    if dev.type != "cuda":      # SoVITS: no kernels or plans to prepare
+        return units
+    # window-pump programs: streaming rows pump per row even without the
+    # machine-wide flag, so a server must have them warm
+    units.extend(engine.window_warmup_units(
+        char, wins=(cfg.vocode_chunk + 2 * cfg.vocode_halo,
+                    cfg.vocode_chunk // 2 + 2 * cfg.vocode_halo),
+        t_bucket=_slot_finisher_t_bucket(cfg), pcm16=pcm16))
+    if not cfg.slot_stream_finisher:
+        units.extend(engine.finisher_warmup_units(
+            char, t_buckets=(_slot_finisher_t_bucket(cfg),), pcm16=pcm16))
+    return units
 
 
 def spec_codes(tok0s, seg_tok: torch.Tensor, slots: torch.Tensor, *, fb: int,
@@ -200,6 +297,7 @@ class SlotBatcher:
             self.win_first = self.win_small
         self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0,
                       "windowed_segments": 0}
+        self._state = take_slot_state(engine, char)     # this machine's alone
         self._reset_state()
         self._slots: List[Optional[_Request]] = [None] * self.n_slots
         self._q: "queue.Queue[_Request]" = queue.Queue()
@@ -240,23 +338,6 @@ class SlotBatcher:
         """Whether a request fits the slot machine's static geometry."""
         return (len(ref.phones) + len(phones) <= self.sx
                 and len(ref.prompt_tokens) <= self.sp)
-
-    def warmup(self, ref: ReferenceFeatures, text_phones: np.ndarray,
-               max_steps: Optional[int] = None, streaming: bool = False) -> int:
-        """One small real request through prefill, insert, a segment and
-        the finisher (builds the kernels on first use), and with
-        ``streaming`` one small stream (the join segments, the speculative
-        first piece, the window completion). Returns the requests run."""
-        max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
-        steps = min(2 * self.W, max_steps)
-        bert = np.zeros((len(text_phones), self.char.t2s_cfg.bert_dim), np.float32)
-        self.synthesize(ref, text_phones, bert, timeout=600, max_steps=steps)
-        if not streaming:
-            return 1
-        for _ in self.synthesize_stream(ref, text_phones, bert, timeout=600,
-                                        min_steps=steps, max_steps=steps):
-            pass
-        return 2
 
     def synthesize(self, ref: ReferenceFeatures, phones: np.ndarray, bert: np.ndarray,
                    timeout: Optional[float] = None, min_steps: int = 0,
@@ -703,6 +784,7 @@ class SlotBatcher:
             self._state, seg_tok = seg_fn(self.char.t2s_params, self._state,
                                           generator=self._gen, ctx_win=ctx_win,
                                           ring_win=ring_win)
+        self._head = (self._head + w) % self.ring
         self.stats["segments"] += 1
         self.stats["steps"] += w
         self.stats["windowed_segments"] += ctx_win is not None
@@ -750,7 +832,7 @@ class SlotBatcher:
                 r is not None and r.stream_q is not None and r.emitted == 0
                 and not r.harvested and not r.cancelled for r in self._slots):
             w = self.join_W
-        if self._state.ring_head + w > self.ring:
+        if self._head + w > self.ring:
             w = self.join_W
         return w
 
@@ -821,11 +903,8 @@ class SlotBatcher:
         dev = self.char.device
         self._steps_since_pump = 0
         self._merged = [0] * self.n_slots      # ring keys merged per slot
-        self._state = slots_mod.init_slots(
-            self.char.t2s_cfg, self.n_slots, self.sx, self.sp, self.ring,
-            dtype=self.char.t2s_params["audio_embed"].dtype,
-            kv_int8=self.cfg.slot_kv_int8, device=dev,
-            tp_devices=shard_devices(self.char.t2s_params))
+        self._head = 0                         # host mirror of state.ring_head
+        slots_mod.reset_slots(self._state, self.ring)
         # one generator on the scheduler thread draws every Gumbel table
         # and every pumped row's noise table
         self._gen = torch.Generator(device=dev).manual_seed(0)

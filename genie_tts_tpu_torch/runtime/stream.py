@@ -22,12 +22,17 @@ bucket, so overlapping frames see the same noise.
 
 The loop is pipelined one segment deep: segment k's tokens, ``done`` and
 ``counts`` go to pinned host memory behind an event before segment k+1 is
-dispatched (the caches are updated in place, every other state leaf is
-new per segment). A tp-sharded character's machine holds its caches per
-shard (``models/slots.py``) and gives the same chunks.
+dispatched (the state is updated in place). Each segment replays the
+captured graph of the stream geometry (``models/slots.py::
+decode_segment``: the request's state is copied into the graph's buffers
+and back, so concurrent streams share one graph); :func:`stream_warmup_units`
+captures it ahead of traffic. A tp-sharded character's machine holds its
+caches per shard (``models/slots.py``), decodes eagerly and gives the same
+chunks.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -234,3 +239,82 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
     metrics.incr("utterances")
     metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
     metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
+
+
+def stream_warmup_units(engine: TTSEngine, char: CharacterModel,
+                        pcm16: bool = True) -> list:
+    """Warmup thunks for the segmented stream: the prefill at the stream
+    geometry (with and without BERT features), a capture of its segment
+    graph (per top-p flag), and on the card the stream head at every text
+    bucket and the window vocodes the emitter can dispatch, each run
+    once. Returns thunks for ``engine._run_compile_units``."""
+    cfg, tcfg, vcfg = engine.cfg, char.t2s_cfg, char.sovits_cfg
+    W, ring, sx, sp = stream_geometry(cfg, tcfg)
+    params = char.t2s_params
+    dev = char.device
+    units = []
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def prefill(bert):
+        samp = rows_from_config(SamplingConfig(), 1)
+        return slots_mod.prefill_join(
+            params, tcfg, phones=torch.zeros((1, sx), dtype=torch.int64, device=dev),
+            bert=bert, x_len=torch.ones((1,), dtype=torch.int64, device=dev),
+            prompts=torch.zeros((1, sp), dtype=torch.int64, device=dev),
+            p_len=torch.ones((1,), dtype=torch.int64, device=dev),
+            samp=SamplingRows(*(host_to_device(a, dev) for a in samp)), generator=gen(),
+            any_top_p=False), samp
+
+    for bert in (None, torch.zeros((1, sx, tcfg.bert_dim), device=dev)):
+        units.append(functools.partial(prefill, bert))
+
+    def segment(top_p):
+        state = slots_mod.init_slots(tcfg, 1, sx, sp, ring,
+                                     dtype=params["audio_embed"].dtype, device=dev,
+                                     tp_devices=shard_devices(params))
+        (ctx_k, ctx_v, tok0, hist), samp = prefill(None)
+        slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist, 1, 1, 0, W,
+                              SamplingRows(*(a[0] for a in samp)))
+        state.top_p_host[0] = 0.5 if top_p else 1.0
+        slots_mod.decode_segment(params, state, tcfg, W, sx, sp, ring, generator=gen())
+
+    if len(shard_devices(params)) == 1:
+        units += [functools.partial(segment, top_p) for top_p in (False, True)]
+    if dev.type != "cuda":      # SoVITS: no kernels or plans to prepare
+        return units
+    head_cb = pick_bucket(W + 1, cfg.frame_buckets)
+    ge = torch.zeros((1, vcfg.gin_channels, 1), device=dev)
+    gm = torch.zeros((1, vcfg.mrte_channels, 1), device=dev)
+    one = torch.ones((1,), dtype=torch.int64, device=dev)
+
+    def head(tb):
+        _stream_head(char.sovits_params, noise_table(cfg, vcfg, gen()),
+                     torch.zeros((1,), dtype=torch.int32, device=dev),
+                     torch.zeros((1, W), dtype=torch.int32, device=dev),
+                     torch.full((1,), W + 1, dtype=torch.int32, device=dev),
+                     torch.zeros((1,), dtype=torch.bool, device=dev),
+                     torch.zeros((1, tb), dtype=torch.int64, device=dev), one, ge, gm,
+                     0.5, vcfg=vcfg, cb=head_cb, first_window=2 * (W + 1),
+                     lookahead=cfg.stream_lookahead, pcm16=pcm16)
+
+    units += [functools.partial(head, tb) for tb in cfg.phoneme_buckets]
+    # the emitter's window vocodes (the latent grid is engine.warmup's)
+    chunk, halo = cfg.stream_chunk, cfg.vocode_halo
+    widths = set()
+    for fb in cfg.frame_buckets:
+        F = 2 * fb
+        for start in range(0, F, chunk):
+            s0 = max(start - halo, 0)
+            widths.add(min(start + chunk + halo, F) - s0)
+
+    def vocode(w):
+        z = torch.zeros((1, w, vcfg.inter_channels), device=dev,
+                        dtype=char.sovits_params["quantizer_embed"].dtype)
+        a = sovits.vocode_frames(char.sovits_params, vcfg, z, ge, torch.full_like(one, w))
+        if pcm16:
+            _to_pcm16(a)
+
+    units += [functools.partial(vocode, w) for w in sorted(widths)]
+    return units

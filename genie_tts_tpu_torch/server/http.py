@@ -3,7 +3,8 @@ the port's API. POST ``/load_character``, ``/set_reference_audio``,
 ``/tts`` (chunked PCM16 stream), ``/unload_character``, ``/stop``,
 ``/clear_reference_audio_cache``, ``/convert``, ``/presets``; GET
 ``/health``, ``/metrics``, ``/logs``, ``/convert_jobs``, ``/presets`` and
-the web UI at ``/``.
+the web UI at ``/``. ``/set_reference_audio`` with ``"warmup": true``
+also runs the character's warmup sweep (``api.warmup_character``).
 
 Implemented on the stdlib (ThreadingHTTPServer + chunked transfer
 encoding, one thread per request); a FastAPI app factory is provided
@@ -203,6 +204,8 @@ class GenieHandler(BaseHTTPRequestHandler):
                                              device=_device)
                 if not ok:
                     return self._reply(400, {"detail": "unsupported audio format"})
+                if payload.get("warmup"):
+                    api.warmup_character(payload["character_name"])
                 return self._reply(200, {"status": "ok"})
             if self.path == "/unload_character":
                 api.unload_character(payload["character_name"])
@@ -342,6 +345,8 @@ def create_fastapi_app():
         api.set_reference_audio(payload["character_name"], payload["audio_path"],
                                 payload["audio_text"], payload.get("language"),
                                 device=_device)
+        if payload.get("warmup"):
+            api.warmup_character(payload["character_name"])
         return {"status": "ok"}
 
     @app.post("/unload_character")

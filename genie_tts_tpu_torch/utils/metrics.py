@@ -3,7 +3,8 @@
 Own copy of ``genie_tts_tpu/utils/metrics.py`` (host-only; the port
 imports nothing of the JAX package). Stages record wall-clock samples into
 bounded ring buffers; the slot scheduler reads ``timer``/``gauge``/
-``incr``. The JAX package's profiler ``trace`` helper is not copied.
+``incr``. :func:`trace` is the JAX package's profiler context as a
+``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import contextlib
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 _WINDOW = 512
 
@@ -102,3 +105,25 @@ class Metrics:
 
 
 metrics = Metrics()
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace around a block: the host's operators,
+    and the card's kernels where there is one, written to ``log_dir`` as
+    a Chrome trace (``trace.json``; TensorBoard and Perfetto read it).
+    Nothing is traced without ``log_dir``."""
+    if log_dir is None:
+        yield
+        return
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

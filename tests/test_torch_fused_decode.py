@@ -114,3 +114,21 @@ def test_int8_matches_stacked_layer_decode(setup, pos):
     for layer in range(CFG.num_layers):
         np.testing.assert_allclose(tk[layer, pos].numpy(), ref_rows[layer],
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("pos", [0, 101, S - 1])
+def test_plain_takes_the_write_row_in_device_memory(setup, pos):
+    """The decode graphs pass the write row as one int32 tensor (the
+    kernel reads it from device memory): the plain version gives, bit for
+    bit, what it gives with the row as an int."""
+    jparams, h0, kc, vc = setup
+    packed = tfd.pack_decode_params(params_from_numpy(jparams, torch.float32))
+    mask = torch.from_numpy((np.arange(S) <= pos).astype(np.float32))
+    out = []
+    for p in (pos, torch.tensor([pos], dtype=torch.int32)):
+        tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+        th, _, _ = tfd.fused_decode_step(packed, torch.from_numpy(h0), tk, tv, p, mask,
+                                         num_heads=CFG.num_heads)
+        out.append((th, tk, tv))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

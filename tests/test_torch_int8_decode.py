@@ -184,3 +184,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert tint8.int8_big_attention.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_takes_the_ring_head_in_device_memory(name):
+    """The slot state keeps its ring head as a 0-d int32 tensor, which the
+    kernel reads from device memory: the plain version (and the
+    visibility it computes) gives, bit for bit, what it gives with the
+    head as an int."""
+    head, kw, empty = CASES[name]
+    c, head = _case(0, head, kw, empty)
+    args = [torch.from_numpy(c[k]) for k in ORDER]
+    want = tint8.int8_big_attention_plain(*args, head, **GEOM)
+    for h in (torch.tensor(head, dtype=torch.int32), torch.tensor([head], dtype=torch.int32)):
+        got = tint8.int8_big_attention(*args, h, **GEOM)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert torch.equal(tint8.visibility(S, *args[5:], h, **GEOM),
+                           tint8.visibility(S, *args[5:], head, **GEOM))

@@ -128,7 +128,7 @@ def test_fused_kernel_repeats_itself(cuda, wname):
         ka, va = kc.clone(), vc.clone()
         out, _, _ = fu.fused_decode_step(packed, h, ka, va, 200, mask,
                                          num_heads=cfg.num_heads)
-        outs.append((out, ka[:, 200], va[:, 200]))
+        outs.append((out.clone(), ka[:, 200], va[:, 200]))
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
@@ -138,14 +138,16 @@ def test_fused_kernel_repeats_itself(cuda, wname):
 def test_fused_first_launches_from_threads(cuda):
     """8 request threads launch the fused step on one fresh packing at
     once: the launch count is exact and ONE tiled copy of the weights is
-    built (the first launch adds it to the packing under a lock)."""
+    built (the first launch adds it to the packing under a lock:
+    ``fused_decode.prepare``); each launch writes an output row and a
+    scratch of its own."""
     import threading
 
     class Packing(dict):
         sets = 0
 
         def __setitem__(self, k, v):
-            if k == "tqkv":
+            if k == "_prep":
                 Packing.sets += 1
             super().__setitem__(k, v)
 
@@ -174,7 +176,7 @@ def test_fused_first_launches_from_threads(cuda):
     torch.cuda.synchronize()
     assert not errors and not any(t.is_alive() for t in threads)
     assert fu.fused_decode_step.launches - before == 32
-    assert Packing.sets == 1
+    assert Packing.sets == 1 and len(packed["_prep"]) == 1
 
 
 @pytest.mark.cuda
@@ -266,7 +268,7 @@ def test_int8_kernel_matches_plain(cuda, case):
 def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     args, geom = _int8_case(cuda, 2, 4, 32, 16, 8, 32, [3, 4], 4, 0)
     q, kq, ks, vq, vs, x_len, p_len, kw, head = args
-    with pytest.raises(TypeError):             # a device ring head would need a host read
+    with pytest.raises(TypeError):             # the kernel reads one int32 ring head
         int8_big_attention(q, kq, ks, vq, vs, x_len, p_len, kw,
                            torch.tensor(head, device="cuda"), **geom)
     with pytest.raises(TypeError):
@@ -388,3 +390,209 @@ def test_tp_sharded_generate_on_the_card(cuda, B):
     assert f1 == (0 if B == 1 else cfg.num_layers * (cap - 1))
     assert torch.equal(n1, n2)
     assert float((c1 == c2).float().mean()) >= 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wname", ["bfloat16", "int8"])
+def test_fused_kernel_reads_the_device_pos_under_replay(cuda, wname):
+    """The fused step captured once in a CUDA graph with its write row in
+    device memory: moving the row on the device and replaying writes the
+    new row, as the plain version does at that row."""
+    cfg, packed, h, kc, vc = _fused_case(cuda, wname, 3, 448)
+    H = cfg.num_heads
+    pos = torch.tensor([100], dtype=torch.int32, device="cuda")
+    fu.prepare(packed, 448, H, "cuda")
+    mask = torch.ones(448, device="cuda")
+    ka, va = kc.clone(), vc.clone()
+    out = torch.empty((1, cfg.embed_dim), device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fu.fused_decode_step(packed, h, ka.clone(), va.clone(), pos, mask, num_heads=H)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out.copy_(fu.fused_decode_step(packed, h, ka, va, pos, mask, num_heads=H)[0])
+    for row in (200, 447):
+        pos.fill_(row)
+        graph.replay()
+        kb, vb = kc.clone(), vc.clone()
+        kb[:, 100], vb[:, 100] = ka[:, 100], va[:, 100]     # an earlier replay's row
+        if row == 447:
+            kb[:, 200], vb[:, 200] = ka[:, 200], va[:, 200]
+        ref, _, _ = fu.fused_decode_step_plain(packed, h, kb, vb, row, mask, num_heads=H)
+        torch.cuda.synchronize()
+        tol = 2e-2
+        torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        torch.testing.assert_close(ka[:, row].float(), kb[:, row].float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_reads_the_device_head_under_replay(cuda):
+    """int8_big_attention captured once with the ring head in device
+    memory: a new head on the device moves the visible ring window."""
+    args, geom = _int8_case(cuda, 8, 16, 32, 192, 192, 512,
+                            [64, 128, 200, 300, 17, 256, 0, 1], 300, 512)
+    *rest, _ = args
+    head = torch.tensor([300], dtype=torch.int32, device="cuda")
+    outs = [torch.empty((8, 16, 32), device="cuda"), torch.empty((8, 16), device="cuda"),
+            torch.empty((8, 16), device="cuda")]
+    int8_big_attention(*rest, head, **geom)                # built outside the capture
+    before = int8_big_attention.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for o, r in zip(outs, int8_big_attention(*rest, head, **geom)):
+            o.copy_(r)
+    for h in (5, 511):
+        head.fill_(h)
+        graph.replay()
+        ref = int8_big_attention_plain(*rest, h, **geom)
+        torch.cuda.synchronize()
+        seen = ref[1] > -1e30
+        for a, b in zip(outs, ref):
+            torch.testing.assert_close(a[seen], b[seen], rtol=1e-4,
+                                       atol=1e-4 * float(b[seen].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4], ids=["fused_B1", "flash_B4"])
+def test_generate_graph_replays_equal_eager_on_the_card(cuda, B):
+    """``generate`` on its captured graphs (blocks of 16 steps and the 7
+    single steps that end at a cap of 40) gives the eager route's codes
+    on the same noise; a kernel's launches are counted per replayed
+    execution (the capture and its warm-up count none)."""
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise
+
+    cfg = T2SConfig(num_layers=2)
+    params = t2s.quantize_params(t2s.init_params(cuda, cfg, dtype=torch.bfloat16))
+    Sx, Sp, cap = 32, 64, 40
+    phones = torch.randint(1, cfg.phoneme_vocab, (B, Sx), generator=cuda, device="cuda")
+    prompts = torch.randint(0, 1024, (B, Sp), generator=cuda, device="cuda")
+    x_len = torch.tensor([32, 19, 27, 8][:B], device="cuda")
+    p_len = torch.tensor([64, 30, 11, 50][:B], device="cuda")
+    noise = gumbel_noise((cap, B, cfg.semantic_vocab), cuda, "cuda")
+    wrapper = fu.fused_decode_step if B == 1 else flash_decode_attention
+    per = 1 if B == 1 else cfg.num_layers
+    out = {}
+    for eager in (False, True, False):
+        with torch.inference_mode():
+            x = t2s.embed_text(params, phones, torch.zeros((B, Sx, cfg.bert_dim), device="cuda"))
+            before = wrapper.launches
+            res = t2s.generate(params, cfg, SamplingConfig(), None, x, x_len, prompts, p_len,
+                               max_steps=cap, cache_len=Sx + Sp + cap, min_steps=cap,
+                               noise=noise, eager=eager)
+            torch.cuda.synchronize()
+        assert wrapper.launches - before == per * (cap - 1)
+        out.setdefault(eager, []).append(res)
+    g1, g2 = out[False]
+    e = out[True][0]
+    for r in (g1, g2):
+        assert torch.equal(r.tokens, e.tokens) and torch.equal(r.counts, e.counts)
+        assert r.steps == e.steps == cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["int8_kernel", "exact_windows"])
+def test_segment_graph_replays_equal_eager_on_the_card(cuda, route):
+    """A slot segment at occupancy 4 on its captured graph (the state
+    copied in and back, and a persistent state replayed in place) gives
+    the eager segment's tokens and every state leaf, twice in a row."""
+    import dataclasses
+
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise, rows_from_config
+
+    cfg = T2SConfig(num_layers=2)
+    params = t2s.quantize_params(t2s.init_params(cuda, cfg, dtype=torch.bfloat16))
+    Sx, Sp, ring, W, V = 32, 64, 64, 16, cfg.semantic_vocab
+    int8 = route == "int8_kernel"
+    win = (None, None) if int8 else (80, 32)
+    samp = rows_from_config(SamplingConfig(), 1)
+    with torch.inference_mode():
+        st = slots.init_slots(cfg, 4, Sx, Sp, ring, torch.bfloat16, kv_int8=int8,
+                              device="cuda")
+        for b in range(4):
+            phones = torch.randint(1, cfg.phoneme_vocab, (1, Sx), generator=cuda,
+                                   device="cuda")
+            prompts = torch.randint(0, 1024, (1, Sp), generator=cuda, device="cuda")
+            k, v, tok0, hist = slots.prefill_join(
+                params, cfg, phones, None, torch.tensor([20 + b], device="cuda"), prompts,
+                torch.tensor([40 + b], device="cuda"),
+                type(samp)(*(torch.as_tensor(a, device="cuda") for a in samp)),
+                noise=torch.zeros((1, V), device="cuda"))
+            slots.insert_slot(st, b, k, v, tok0, hist, 20 + b, 40 + b, ring, ring,
+                              type(samp)(*(a[0] for a in samp)))
+        runs = {"copied": slots.clone_state(st), "eager": slots.clone_state(st),
+                "persistent": dataclasses.replace(slots.clone_state(st), persistent=True)}
+        for _ in range(2):
+            noise = gumbel_noise((W, 4, V), cuda, "cuda")
+            toks = {}
+            for name, s in runs.items():
+                _, toks[name] = slots.decode_segment(params, s, cfg, W, Sx, Sp, ring,
+                                                     kv_kernel=int8, noise=noise,
+                                                     ctx_win=win[0], ring_win=win[1],
+                                                     eager=name == "eager")
+            torch.cuda.synchronize()
+            for name in ("copied", "persistent"):
+                assert torch.equal(toks[name], toks["eager"]), name
+                for f in dataclasses.fields(st):
+                    x = getattr(runs[name], f.name)
+                    if isinstance(x, torch.Tensor):
+                        assert torch.equal(x, getattr(runs["eager"], f.name)), (name, f.name)
+
+
+@pytest.mark.cuda
+def test_capture_beside_replay_at_one_cache_length(cuda):
+    """One thread replays a B=1 ``generate`` graph while another captures
+    the programs of five decodes of the same cache length (other caps,
+    top-p 0.8): each graph has the fused kernel's output row and scratch
+    of its own, so every decode's codes are the eager route's on the same
+    noise."""
+    import threading
+
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise
+    from genie_tts_tpu_torch.runtime import graphs
+
+    cfg = T2SConfig(num_layers=2)
+    params = t2s.quantize_params(t2s.init_params(cuda, cfg, dtype=torch.bfloat16))
+    Sx, Sp = 32, 64
+    phones = torch.randint(1, cfg.phoneme_vocab, (1, Sx), generator=cuda, device="cuda")
+    prompts = torch.randint(0, 1024, (1, Sp), generator=cuda, device="cuda")
+    noise = gumbel_noise((40, 1, cfg.semantic_vocab), cuda, "cuda")
+
+    def decode(cap, top_p, eager=False):
+        with torch.inference_mode():
+            x = t2s.embed_text(params, phones, torch.zeros((1, Sx, cfg.bert_dim), device="cuda"))
+            return t2s.generate(params, cfg, SamplingConfig(top_p=top_p), None, x,
+                                torch.tensor([27], device="cuda"), prompts,
+                                torch.tensor([50], device="cuda"), max_steps=cap,
+                                cache_len=Sx + Sp + 40, min_steps=cap, noise=noise[:cap],
+                                eager=eager).tokens.cpu()
+
+    others = [(24, 1.0), (32, 1.0), (40, 0.8), (24, 0.8), (32, 0.8)]
+    want = {k: decode(*k, eager=True) for k in [(40, 1.0)] + others}
+    assert torch.equal(decode(40, 1.0), want[(40, 1.0)])       # captured here
+    cache = graphs.cache_for(params)
+    captures0, done, bad, runs = cache.stats["captures"], [], [], []
+
+    def replayer():
+        while not done:
+            runs.append(1)
+            if not torch.equal(decode(40, 1.0), want[(40, 1.0)]):
+                bad.append("replayed key")
+
+    def capturer():
+        try:
+            for k in others:
+                if not torch.equal(decode(*k), want[k]):
+                    bad.append(f"captured key {k}")
+        finally:
+            done.append(1)
+
+    threads = [threading.Thread(target=replayer), threading.Thread(target=capturer)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad and len(runs) > 1
+    assert cache.stats["captures"] - captures0 == 2 * len(others)

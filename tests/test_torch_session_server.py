@@ -16,8 +16,10 @@ port=0, device="cpu")`` in-process, small slot and stream geometries:
   returns; concurrent ``tts`` calls each get their own audio, and a
   failed sentence raises from ``tts``; ``tts_async`` yields PCM16; ``stop()`` ends a session early;
   ``play=True`` without sounddevice logs a warning and still synthesizes;
-* ``serve --device cpu --warmup DIR`` runs its small request and stream,
-  then answers ``/health`` from the CLI, and ``serve``
+* ``/set_reference_audio`` with ``"warmup": true`` sweeps the character;
+* ``serve --device cpu --warmup DIR`` runs the warmup sweep (on the CPU
+  the decode programs run eagerly, no graph is captured), then answers
+  ``/health`` from the CLI, and ``serve``
   with no device named stops when there is no GPU.
 
 Every request, join and queue read has a timeout.
@@ -116,6 +118,30 @@ def test_tts_before_reference_is_an_error(served):
         _post(base, "/tts", {"character_name": "noref", "text": SHORT})
     assert e.value.code == 500
     assert b"set_reference_audio" in e.value.read()
+
+
+def test_set_reference_audio_with_warmup_sweeps(served):
+    """``"warmup": true`` runs the character's warmup sweep: its decode
+    graphs' keys exist before its first request, which then finds them."""
+    from genie_tts_tpu_torch.runtime import graphs
+
+    base, char_dir, ref, _ = served
+    _post(base, "/load_character", {"character_name": "warm", "model_dir": str(char_dir),
+                                    "language": "ja"}).read()
+    try:
+        _post(base, "/set_reference_audio", {
+            "character_name": "warm", "audio_path": str(ref),
+            "audio_text": "こんにちは、てすとです", "language": "ja", "warmup": True}).read()
+        cache = graphs.cache_for(api.model_manager.get("warm").t2s_params)
+        assert any(k[0] == "generate" for k in cache.keys())
+        assert cache.stats["variants"] > 0
+        cache.reset_stats()
+        _post(base, "/tts", {"character_name": "warm", "text": SHORT,
+                             "split_sentence": False}).read()
+        assert cache.stats["misses"] == 0 and cache.stats["hits"] > 0
+    finally:
+        api.unload_character("warm")
+        api._reference_audios.pop("warm", None)
 
 
 def test_tts_bytes_are_the_int16_waveform(served):
@@ -247,7 +273,7 @@ def test_cli_serve_on_cpu(served):
             if "listening on" in line:
                 port = int(line.rsplit(":", 1)[1])
         assert port is not None, "the server never started:\n" + "".join(seen)
-        assert any("warmup: 2 requests" in x for x in seen), "".join(seen)
+        assert any("warmup: captured" in x for x in seen), "".join(seen)
         assert json.loads(_get(f"http://127.0.0.1:{port}", "/health").read())["status"] == "ok"
     finally:
         proc.terminate()
