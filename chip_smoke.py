@@ -53,23 +53,36 @@ Phases, each of which must pass:
    launches follow). Every response must be 200 with 2 x 2*codes*640
    bytes of PCM holding more than 1000 distinct values; each route prints
    its latency, time to the first chunk, audio seconds and launches.
-9a. graphs (every decode above runs as CUDA-graph replays, captured on
-   first use): phase 3's character loaded as ``graphs`` through the
-   server, ``api.engine.warmup(char, ref, sweep=True)`` (units, graphs
-   captured, wall time, pool and buffer memory), then solo ``tts()``, 4
-   concurrent ``/tts`` (int8 slot route), a short stream (segmented) and
-   a long one (fused head; again twice through the engine and once
-   through ``/tts``), solo, the fused head and ``/tts`` with top-p 0.8,
-   with no cache miss and no capture; graph vs eager on the same noise
-   with identical codes (B=1 fused and B=4 flash ``generate`` at a
-   40-step cap, five B=1 decodes captured while another thread replays a
-   sixth of the same cache length, a slot segment at occupancy 8 on the
-   int8 kernel route and each window pair of the exact route with every
-   state leaf equal, a stream segment); and, graph beside eager (the
-   character's graph cache set ``eager``) in turns, solo decode
-   ms/step, a slot segment at occupancy 8 (CUDA events; device busy and
-   kernels a step by torch.profiler), the segmented stream's first chunk
-   and end, and 4 concurrent slot requests.
+9a. graphs (every decode, prefill and SoVITS stage above runs as CUDA-graph
+   replays, captured on first use): with ``serve --warmup``'s flag
+   (``api.sweep_on_reference``), phase 3's character loaded as ``graphs``
+   and then as ``graphs2`` through the server, each swept at its
+   ``/set_reference_audio`` (``graphs`` on the full bucket ladder,
+   ``graphs2`` on a shorter one: depth cut for time) (units, graphs
+   captured, client wall time, pool and static-buffer memory, the T2S and
+   SoVITS families apart); solo ``tts()`` after the sweep (its stage split,
+   and its embed, prefill, decode, latent and vocode as replays only: no
+   miss, no capture); per character 4 concurrent ``/tts`` (int8 slot
+   route), a short stream (segmented) and a long one (fused head) with no
+   miss, no new variant and no capture in either cache; for ``graphs`` the
+   long stream again and top-p 0.8 requests; then the character cache cut
+   to 1 evicts ``graphs2`` and ``memory_reserved`` after ``gc`` and
+   ``empty_cache`` must fall by at least its pools, and the first
+   ``/tts`` after it reloads ``graphs2``, waits for its sweep and is
+   timed. Graph vs eager on the
+   same noise: the prefill program and decode of B=1 fused and B=4 flash
+   ``generate`` at a 40-step cap (codes identical, and identical to the
+   embedded-input route), five B=1 decodes captured while another thread
+   replays a sixth, a slot segment at occupancy 8 (int8 and each window
+   pair, every state leaf equal), a stream segment, and the SoVITS
+   stages (the latent at B=1 and B=8, the whole and the chunked vocode,
+   the window rows: max abs difference, bound 1e-5 in fp32). Graph beside
+   eager (the character's caches set ``eager``) in turns: solo ``tts()``
+   decode ms/step and stage split, each stage's device ms by CUDA events
+   (the prefill program and the SoVITS stages), a slot segment at
+   occupancy 8 (CUDA events; device busy and kernels a step by
+   torch.profiler), the segmented stream's first chunk and end, and 4
+   concurrent slot requests.
 9b. mesh (dp x tp serving, full width): ``make_serving_mesh(2, 2)`` over
    ``cuda:0`` four times (one card: every line of the dp and tp code runs,
    no transfer between cards). ``api.engine`` is swapped for a mesh
@@ -1570,30 +1583,79 @@ def profiled(torch, fn):
                                                               if busy > 0 else None)
 
 
-def phase_graphs(torch, root: Path, card: str):
-    """The decode programs as captured CUDA graphs (``runtime/graphs.py``).
+def sovits_stages(torch, char, feats, g):
+    """The SoVITS stages at the serving paths' shapes, each a thunk over
+    fixed inputs from ``g`` (one noise table each) through the programs of
+    ``models/sovits.py`` (graph replays, or eager runs on the same buffers
+    when the character's SoVITS cache is set ``eager``): the solo latent
+    (B=1, the 128-code cap, text bucket 64), the finisher's (B=8, 256
+    codes), the solo whole vocode (256 frames), the finisher's chunked
+    vocode (B=8, 1024 frames: windows of 280 and 304 frames) and the
+    window pump's per-row windows (B=8, 304 of 512 frames)."""
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.models import sovits
 
-    (1) The sweep: phase 3's character loaded as ``graphs`` through the
-    port's server (POST /load_character, /set_reference_audio), then
-    ``api.engine.warmup(char, ref, sweep=True)`` (units, graphs captured,
-    wall time, the graphs' pool and buffer memory); with the cache's
-    counts set to 0, solo ``tts()``, 4 concurrent /tts (the int8 slot
-    route), one short stream (the segmented stream, idle machine) and one
-    long stream (the fused head), then solo, the fused head and /tts with
-    top-p 0.8: no miss (nothing captured while serving). (2) Graph vs eager on the same noise, codes identical: B=1
-    fused ``generate`` with a 40-step cap (blocks of 16, 16 and 7), B=4
-    flash ``generate``, one slot segment at occupancy 8 from the same
-    state on the int8 kernel route and on each window pair of the exact
-    route (every state leaf equal), one stream segment; five B=1 decodes
-    of one cache length captured while another thread replays a sixth,
-    every decode's codes the eager route's. (3) Times, each beside its eager
-    counterpart in the same run (the character's graph cache set
-    ``eager``), in turns: solo decode
-    ms/step, a slot segment at occupancy 8 (CUDA events; device busy and
-    kernels a step by torch.profiler), the segmented stream's first chunk
-    and latency on an idle machine, and 4 concurrent requests on the int8
-    slot route."""
+    vp, vc = char.sovits_params, char.sovits_cfg
+    C = vc.inter_channels
+    ecfg = api.engine.cfg
+    ge = torch.as_tensor(feats.ge, device=DEV)[None].float().expand(8, -1, -1)
+    gm = torch.as_tensor(feats.ge_mrte, device=DEV)[None].float().expand(8, -1, -1)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=DEV)
+
+    def latent_args(B, Ts, Tt):
+        return ((ints(0, vc.vq_codes, (B, Ts)), ints(Ts // 2, Ts + 1, (B,)),
+                 ints(1, 300, (B, Tt)), ints(Tt // 2, Tt + 1, (B,)), ge[:B], gm[:B]),
+                torch.randn((B, 2 * Ts, C), generator=g, device=DEV))
+
+    (l1, n1), (l8, n8) = latent_args(1, 128, 64), latent_args(8, 256, 64)
+    z1, z8, zr = (torch.randn(shape, generator=g, device=DEV)
+                  for shape in ((1, 256, C), (8, 1024, C), (8, 512, C)))
+    v1, v8, vr = torch.tensor([200], device=DEV), ints(600, 1025, (8,)), ints(200, 513, (8,))
+    starts = torch.tensor([0, 32, 64, 96, 128, 160, 192, 208], device=DEV)
+    return {
+        "latent B=1 (128 codes, text 64)": lambda: sovits.latent(vp, vc, *l1, 0.5, noise=n1),
+        "latent B=8 (256 codes, text 64)": lambda: sovits.latent(vp, vc, *l8, 0.5, noise=n8),
+        "vocode B=1 whole (256 frames)": lambda: sovits.vocode(vp, vc, z1, ge[:1], v1),
+        "vocode B=8 chunked (1024 frames)": lambda: sovits.vocode_frames_chunked(
+            vp, vc, z8, ge, v8, chunk=ecfg.vocode_chunk, halo=ecfg.vocode_halo),
+        "window rows B=8 (304 of 512 frames)": lambda: sovits.vocode_rows(
+            vp, vc, zr, ge, starts, vr, ecfg.vocode_chunk + 2 * ecfg.vocode_halo),
+    }
+
+
+def phase_graphs(torch, root: Path, card: str):
+    """The sentence programs as captured CUDA graphs (``runtime/graphs.py``).
+
+    (1) ``serve --warmup``'s semantics: phase 3's character loaded as
+    ``graphs`` and as ``graphs2`` through the port's server, each swept
+    at its first /set_reference_audio (units, graphs captured, wall time,
+    pool and buffer memory, the T2S and SoVITS families apart); solo
+    ``tts()`` (stage split, nothing captured), and per character 4
+    concurrent /tts (the int8 slot route), one short stream (the segmented
+    stream, idle machine) and one long stream (the fused head); for
+    ``graphs`` the long stream again and top-p 0.8 requests: no miss, no
+    new variant, no capture. Then the character cache cut to 1 evicts
+    ``graphs2``: ``memory_reserved`` falls by at least its pools; the
+    first /tts after it reloads ``graphs2`` and waits for its sweep
+    (timed beside the first sweep). (2)
+    Graph vs eager on the same noise: codes identical for B=1 fused and
+    B=4 flash ``generate`` with a 40-step cap (the prefill program, then
+    blocks of 16, 16 and 7), one slot segment at occupancy 8 from the
+    same state on the int8 kernel route and on each window pair of the
+    exact route (every state leaf equal), one stream segment; five B=1
+    decodes of one cache length captured while another thread replays a
+    sixth, every decode's codes the eager route's; the SoVITS stages
+    within 1e-5 (fp32). (3) Times, each beside its eager counterpart in
+    the same run (the character's graph caches set ``eager``), in turns:
+    solo decode ms/step and stage split, the prefill program's and each
+    SoVITS stage's device ms, a slot segment at occupancy 8 (CUDA events;
+    device busy and kernels a step by torch.profiler), the segmented
+    stream's first chunk and latency on an idle machine, and 4
+    concurrent requests on the int8 slot route."""
     import dataclasses
+    import gc
     import threading
     import urllib.request
 
@@ -1608,6 +1670,7 @@ def phase_graphs(torch, root: Path, card: str):
     from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise
     from genie_tts_tpu_torch.runtime import graphs, stream
     from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.runtime.buckets import pick_bucket
     from genie_tts_tpu_torch.runtime.slot_batcher import seg_window_combos
 
     kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
@@ -1648,49 +1711,131 @@ def phase_graphs(torch, root: Path, card: str):
 
     out = {}
     ref_text = "こんにちは、てすとです"
-    try:
-        # ---- (1) the sweep, then serving captures nothing
+    # serve --warmup's semantics: every character swept at its first
+    # /set_reference_audio; the sweep's units recorded per character
+    api.sweep_on_reference = True
+    cap_prev = api.model_manager._cache.capacity
+    api.model_manager._cache.capacity = cap_prev + 2       # room for both characters
+    units_of, split_of = {}, {}
+    warmup = api.engine.warmup
+
+    def recording_warmup(char, ref, sweep=False):
+        n = warmup(char, ref, sweep=sweep)
+        units_of.setdefault(char.name, []).append(n)
+        return n
+
+    def timed_units(units):
+        """The sweep's units one after another, as the engine runs them,
+        with each kind's wall time (module.function of the unit)."""
+        split = {}
+        for u in units:
+            fn = getattr(u, "func", u)
+            kind = f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}"
+            t0 = time.perf_counter()
+            u()
+            split[kind] = split.get(kind, 0.0) + time.perf_counter() - t0
+        split_of["last"] = split
+        return len(units)
+
+    api.engine.warmup = recording_warmup
+    api.engine._run_compile_units = timed_units
+
+    def caches_of(char):
+        return {"T2S": graphs.cache_for(char.t2s_params),
+                "SoVITS": graphs.cache_for(char.sovits_params)}
+
+    def load_swept(name, ladder):
+        """Load ``name`` over HTTP; its /set_reference_audio sweeps it.
+        Prints the sweep per family and its wall time per kind of unit;
+        returns the numbers."""
+        t0 = time.perf_counter()
         for path, payload in (
-                ("/load_character", {"character_name": "graphs", "model_dir": str(root / "char"),
+                ("/load_character", {"character_name": name, "model_dir": str(root / "char"),
                                      "language": "ja"}),
-                ("/set_reference_audio", {"character_name": "graphs",
+                ("/set_reference_audio", {"character_name": name,
                                           "audio_path": str(root / "ref.wav"),
                                           "audio_text": ref_text, "language": "ja"})):
-            check(post(path, payload)[0] == 200, f"graphs {path}")
-        char = api.model_manager.get("graphs")
-        feats = reference_audio_cache.get_features(
-            api.engine, char, str(root / "ref.wav"), ref_text, "Japanese")
-        cache = graphs.cache_for(char.t2s_params)
+            check(post(path, payload)[0] == 200, f"graphs {path} ({name})")
         sync(torch)
-        mem0 = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        units = api.engine.warmup(char, feats, sweep=True)
-        sync(torch)
-        sweep_s = time.perf_counter() - t0
-        keys = cache.keys()
-        captured = cache.stats["captures"]
-        buf_bytes = cache.buffer_bytes()
-        print(f"[graphs] sweep: {units} units, {len(keys)} graph keys, {captured} graphs "
-              f"captured in {sweep_s:.1f} s; pools {mb(cache.pool_bytes()):.1f} MiB, static "
-              f"buffers {mb(buf_bytes):.1f} MiB, allocated {mb(torch.cuda.memory_allocated() - mem0):.1f}"
-              f" MiB more than before; keys by kind: " + json.dumps(
-                  {kind: sum(k[0] == kind for k in keys) for kind in ("generate", "segment")}))
-        check(captured >= len(keys) > 0, f"sweep captured {captured} graphs for {len(keys)} keys")
-        cache.reset_stats()
-        codes = min(char.t2s_cfg.max_decode_steps, 128)
-        t0 = time.perf_counter()
-        api.tts("graphs", "きょうはいいてんきですね。", save_path=root / "graphs_tts.wav")
-        solo_s = time.perf_counter() - t0
-        tts4 = concurrent(lambda i: post("/tts", {"character_name": "graphs", "text": SENTENCES[i],
+        wall = time.perf_counter() - t0
+        char = api.model_manager.get(name)
+        check(units_of.get(name) and api._swept[name][0]() is char,
+              f"{name} was not swept at its /set_reference_audio")
+        fam = {}
+        for fname, c in caches_of(char).items():
+            keys = c.keys()
+            fam[fname] = dict(keys=len(keys), captured=c.stats["captures"],
+                              pool_mib=mb(c.pool_bytes()), buffers_mib=mb(c.buffer_bytes()),
+                              by_kind={kind: sum(k[0] == kind for k in keys)
+                                       for kind in sorted({k[0] for k in keys})})
+            check(c.stats["captures"] >= len(keys) > 0,
+                  f"{name} {fname}: {c.stats['captures']} graphs for {len(keys)} keys")
+        total = sum(f["pool_mib"] + f["buffers_mib"] for f in fam.values())
+        split = {k: round(v, 2) for k, v in split_of["last"].items()}
+        print(f"[graphs] {name} ({ladder}): swept at its /set_reference_audio: "
+              f"{units_of[name][-1]} units, load + reference + sweep {wall:.1f} s (client "
+              f"clock; the units by kind, s: {json.dumps(split)}); "
+              + "; ".join(f"{n}: {f['keys']} keys {json.dumps(f['by_kind'])}, {f['captured']} "
+                          f"graphs captured, pool {f['pool_mib']:.1f} MiB, static buffers "
+                          f"{f['buffers_mib']:.1f} MiB" for n, f in fam.items())
+              + f"; {total / 1024:.2f} GiB in all; {card}")
+        return dict(units=units_of[name][-1], wall_s=wall, split_s=split, families=fam,
+                    gib=total / 1024)
+
+    def serve_routes(name):
+        """4 concurrent /tts (the int8 slot route), a short stream (the
+        segmented stream, idle machine) and a long one (the fused head):
+        audio checked, no miss, no new variant and no capture in either
+        cache of ``name``."""
+        cs = caches_of(api.model_manager.get(name))
+        for c in cs.values():
+            c.reset_stats()
+        tts4 = concurrent(lambda i: post("/tts", {"character_name": name, "text": SENTENCES[i],
                                                   "split_sentence": False}), 4)
-        short = post("/tts", {"character_name": "graphs", "text": SENTENCES[4],
+        short = post("/tts", {"character_name": name, "text": SENTENCES[4],
                               "split_sentence": False, "stream": True})
-        long = post("/tts", {"character_name": "graphs", "text": LONG_SENTENCE,
+        long = post("/tts", {"character_name": name, "text": LONG_SENTENCE,
                              "split_sentence": False, "stream": True})
         for status, body, _, _ in tts4 + [short, long]:
             check(status == 200 and len(body) == 2 * 2 * codes * 640
                   and np.unique(np.frombuffer(body, "<i2")).size > 1000,
-                  f"graphs serving: HTTP {status}, {len(body)} bytes")
+                  f"graphs serving {name}: HTTP {status}, {len(body)} bytes")
+        stats = {n: dict(c.stats) for n, c in cs.items()}
+        print(f"[graphs] {name} served after its sweep: 4 x /tts latency "
+              + ", ".join(f"{r[3]:.3f}" for r in tts4) + f" s; short stream first chunk "
+              f"{short[2]:.3f} s, end {short[3]:.3f} s; long stream (fused head) first chunk "
+              f"{long[2]:.3f} s, end {long[3]:.3f} s; caches {json.dumps(stats)}")
+        check(all(st["misses"] == st["variants"] == st["captures"] == 0 and st["hits"] > 0
+                  for st in stats.values()), f"serving {name} after its sweep missed: {stats}")
+        return dict(tts4_s=[r[3] for r in tts4], short_stream=short[2:], long_stream=long[2:],
+                    stats=stats)
+
+    try:
+        # ---- (1) two characters, each swept at its first reference, then
+        # served with nothing captured; one evicted releases its graphs
+        sweep = load_swept("graphs", "the full bucket ladder")
+        char = api.model_manager.get("graphs")
+        codes = min(char.t2s_cfg.max_decode_steps, 128)   # EOS pinned: every request hits it
+        feats = reference_audio_cache.get_features(
+            api.engine, char, str(root / "ref.wav"), ref_text, "Japanese")
+        cache, vcache = caches_of(char).values()
+        for c in (cache, vcache):
+            c.reset_stats()
+        eng = api.engine
+        eng.timing = True
+        t0 = time.perf_counter()
+        api.tts("graphs", "きょうはいいてんきですね。", save_path=root / "graphs_tts.wav")
+        solo_s = time.perf_counter() - t0
+        eng.timing = False
+        solo_stages = {k: v * 1e3 for k, v in eng.last_stats["stages"].items()}
+        solo_stats = {n: dict(c.stats) for n, c in (("T2S", cache), ("SoVITS", vcache))}
+        print(f"[graphs] solo tts() after the sweep: {solo_s:.3f} s, stages (ms, synced) "
+              + json.dumps({k: round(v, 3) for k, v in solo_stages.items()})
+              + f"; embed, prefill, decode, latent and vocode as graph replays only: caches "
+              f"{json.dumps(solo_stats)}")
+        check(all(st["misses"] == st["variants"] == st["captures"] == 0 and st["hits"] > 0
+                  for st in solo_stats.values()), f"solo tts() after the sweep: {solo_stats}")
+        served = serve_routes("graphs")
         # the long stream again, through the engine and through /tts
         long_ph = get_phones_and_bert("。" + LONG_SENTENCE, "ja")[0]
         again = []
@@ -1722,17 +1867,83 @@ def phase_graphs(torch, root: Path, card: str):
         check(post("/tts", {"character_name": "graphs", "text": SENTENCES[0],
                             "split_sentence": False, "top_p": 0.8})[0] == 200,
               "graphs /tts with top_p")
-        stats = dict(cache.stats)
-        print(f"[graphs] after the sweep: solo tts() {solo_s:.3f} s; 4 x /tts latency "
-              + ", ".join(f"{r[3]:.3f}" for r in tts4) + f" s; short stream first chunk "
-              f"{short[2]:.3f} s, end {short[3]:.3f} s; long stream (fused head) first chunk "
-              f"{long[2]:.3f} s, end {long[3]:.3f} s; cache {json.dumps(stats)}")
-        check(stats["misses"] == stats["variants"] == stats["captures"] == 0
-              and stats["hits"] > 0, f"serving after the sweep missed the cache: {stats}")
-        out["sweep"] = dict(units=units, keys=len(keys), captured=captured, s=sweep_s,
-                            pool_mib=mb(cache.pool_bytes()), buffers_mib=mb(buf_bytes),
-                            tts4_s=[r[3] for r in tts4], short_stream=short[2:],
-                            long_stream=long[2:], stats=stats)
+        stats = {n: dict(c.stats) for n, c in (("T2S", cache), ("SoVITS", vcache))}
+        print(f"[graphs] top-p 0.8 and the long stream again: caches {json.dumps(stats)}")
+        check(all(st["misses"] == st["variants"] == st["captures"] == 0 and st["hits"] > 0
+                  for st in stats.values()), f"serving after the sweep missed the cache: {stats}")
+        # the second character on a shorter bucket ladder (batch buckets 1
+        # and 4, frame buckets 64-256: every key its routes below reach):
+        # depth cut, not width, to keep the run inside its time limit
+        full_cfg = api.engine.cfg
+        short_cfg = dataclasses.replace(full_cfg, batch_buckets=(1, 4),
+                                        frame_buckets=(64, 128, 256))
+        api.engine.cfg = short_cfg
+        try:
+            sweep2 = load_swept("graphs2", "a shorter ladder: batch buckets (1, 4), frame "
+                                           "buckets (64, 128, 256), depth cut for time")
+            served2 = serve_routes("graphs2")
+        finally:
+            api.engine.cfg = full_cfg
+        # eviction: the character cache cut to 1 keeps the most recent
+        # character ("graphs"); "graphs2" is evicted, its slot machine
+        # stopped, and nothing else holds it, so its graphs, pools and
+        # static buffers are freed
+        sb2 = api._slot_batchers.get("graphs2")
+        c2 = caches_of(api.model_manager.get("graphs2"))
+        pools2 = sum(c.pool_bytes() for c in c2.values())
+        bufs2 = sum(c.buffer_bytes() for c in c2.values())
+        del c2
+        keep = [api.model_manager.get(n) for n in ("smoke", "slots")]
+        gc.collect()
+        sync(torch)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        api.model_manager._cache.capacity = 1
+        api.model_manager.register(api.model_manager.get("graphs"))
+        check("graphs2" not in api.model_manager._cache and "graphs2" not in api._swept,
+              "graphs2 was not evicted")
+        if sb2 is not None:
+            sb2._thread.join(timeout=60)
+            check(not sb2._thread.is_alive(), "graphs2's slot machine did not stop")
+        del sb2
+        gc.collect()
+        sync(torch)
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_reserved()
+        api.model_manager._cache.capacity = cap_prev + 2
+        for c in keep:                     # phase 3's and phase 6's characters stay loaded
+            api.model_manager.register(c)
+        del keep
+        print(f"[graphs] max_cached_characters=1 evicted graphs2: memory_reserved "
+              f"{mb(before):.1f} -> {mb(after):.1f} MiB after gc and empty_cache, "
+              f"{mb(before - after):.1f} MiB released; its graphs held pools "
+              f"{mb(pools2):.1f} MiB and static buffers {mb(bufs2):.1f} MiB; {card}")
+        check(before - after >= pools2, "evicting graphs2 did not release its graph pools")
+        # the first request after the eviction reloads graphs2 and waits
+        # for its sweep (at the same shorter ladder) before it is served
+        api.engine.cfg = short_cfg
+        try:
+            status, body, _, reload_s = post("/tts", {"character_name": "graphs2",
+                                                      "text": SENTENCES[0],
+                                                      "split_sentence": False})
+        finally:
+            api.engine.cfg = full_cfg
+        re2 = api.model_manager.get("graphs2")
+        check(status == 200 and len(body) == 2 * 2 * codes * 640
+              and len(units_of["graphs2"]) == 2 and api._swept["graphs2"][0]() is re2,
+              f"graphs2's request after its eviction: HTTP {status}, sweeps "
+              f"{units_of['graphs2']}")
+        del re2
+        split = {k: round(v, 2) for k, v in split_of["last"].items()}
+        print(f"[graphs] the first /tts after the eviction reloads graphs2 and waits for its "
+              f"sweep: {reload_s:.1f} s (client clock; the sweep {units_of['graphs2'][-1]} "
+              f"units, by kind, s: {json.dumps(split)}), beside its first load + reference "
+              f"+ sweep {sweep2['wall_s']:.1f} s; {card}")
+        api.unload_character("graphs2")
+        out["sweep"] = dict(graphs=sweep, graphs2=sweep2, solo_s=solo_s,
+                            solo_stages_ms=solo_stages, served=served, served2=served2,
+                            evicted_mib=mb(before - after), pools2_mib=mb(pools2),
+                            reload_s=reload_s)
 
         # ---- (2) graph vs eager, the same noise: identical codes
         cfg = char.t2s_cfg
@@ -1742,29 +1953,38 @@ def phase_graphs(torch, root: Path, card: str):
         scfg = SamplingConfig()
         for B, cap in ((1, 40), (4, 40)):
             phones = torch.randint(1, cfg.phoneme_vocab, (B, Sx), generator=g, device=DEV)
+            bert = torch.randn((B, Sx, cfg.bert_dim), generator=g, device=DEV)
             prompts = torch.randint(0, 1024, (B, Sp), generator=g, device=DEV)
             x_len = torch.tensor([40, 64, 23, 51][:B], device=DEV)
             p_len = torch.tensor([132, 256, 77, 190][:B], device=DEV)
             noise = gumbel_noise((cap, B, cfg.semantic_vocab), g, DEV)
             res = {}
-            for eager in (False, True):
+            # the prefill program embeds (generate_e2e's route), graph and
+            # eager; then the embedded-input route's graph
+            for route in ("graph", "eager", "embedded"):
                 for k in kernels.values():
                     k.launches = 0
                 with torch.inference_mode():
-                    x = t2s.embed_text(p, phones, torch.zeros((B, Sx, cfg.bert_dim), device=DEV))
+                    x = ((phones, bert) if route != "embedded"
+                         else t2s.embed_text(p, phones, bert))
                     r = t2s.generate(p, cfg, scfg, None, x, x_len, prompts, p_len,
                                      max_steps=cap, cache_len=Sx + Sp + cap, min_steps=cap,
-                                     noise=noise, eager=eager)
+                                     noise=noise, eager=route == "eager")
                 sync(torch)
                 n = kernels["fused" if B == 1 else "flash"].launches
-                res[eager] = (r.tokens.cpu(), r.counts.cpu(), r.steps, n)
-            same = all(torch.equal(a, b) for a, b in zip(res[False][:2], res[True][:2]))
+                res[route] = (r.tokens.cpu(), r.counts.cpu(), r.steps, n)
+            same = {rt: all(torch.equal(a, b) for a, b in zip(res["graph"][:2], res[rt][:2]))
+                    for rt in ("eager", "embedded")}
             per = 1 if B == 1 else cfg.num_layers
-            print(f"[graphs] generate B={B} ({'fused' if B == 1 else 'flash'}), cap {cap}: "
-                  f"graph vs eager codes {'identical' if same else 'DIFFER'}; steps "
-                  f"{res[False][2]} / {res[True][2]}; launches {res[False][3]} / {res[True][3]}")
-            check(same and res[False][2] == res[True][2] == cap
-                  and res[False][3] == res[True][3] == per * (cap - 1),
+            print(f"[graphs] generate B={B} ({'fused' if B == 1 else 'flash'}), cap {cap}, "
+                  f"the prefill program (embed, prefill into the graph's caches, first token) "
+                  f"and the decode: graph vs eager codes "
+                  f"{'identical' if same['eager'] else 'DIFFER'}, vs the embedded-input route "
+                  f"{'identical' if same['embedded'] else 'DIFFER'}; steps "
+                  + " / ".join(str(v[2]) for v in res.values()) + "; launches "
+                  + " / ".join(str(v[3]) for v in res.values()))
+            check(all(same.values()) and all(v[2] == cap for v in res.values())
+                  and all(v[3] == per * (cap - 1) for v in res.values()),
                   f"generate B={B} graph vs eager")
 
         # a capture beside replays: one thread replays the B=1 graph at a
@@ -1811,7 +2031,9 @@ def phase_graphs(torch, root: Path, card: str):
         print(f"[graphs] capture beside replay: {len(runs)} replayed decodes while "
               f"{captured} graphs were captured at the same cache length; codes "
               f"{'all equal to eager' if not bad else 'DIFFER: ' + ', '.join(bad)}")
-        check(not bad and captured == 2 * len(others) and len(runs) > 1
+        # each decode captures its prefill program, a 16-step block and the
+        # one-step tail
+        check(not bad and captured == 3 * len(others) and len(runs) > 1
               and not any(t.is_alive() for t in threads), "capture beside replay")
 
         def segment_pair(state, W, sx, sp, ring, kernel, cw, rw, what):
@@ -1863,28 +2085,91 @@ def phase_graphs(torch, root: Path, card: str):
                               rings, samp)
         segment_pair(st1, Ws, ssx, ssp, rings, False, None, None, "stream segment (B=1)")
 
+        # the SoVITS programs, graph vs eager (the character's SoVITS cache
+        # set eager: the same programs on the same buffers) on one noise
+        # table; the synthesizer computes in fp32 whatever its weights'
+        # dtype, so the fp32 bound holds
+        stages = sovits_stages(torch, char, feats, g)
+        for name, fn in stages.items():
+            got = {}
+            for eager in (False, True):
+                vcache.eager = eager
+                with torch.inference_mode():
+                    got[eager] = fn()
+                sync(torch)
+            vcache.eager = False
+            diff = float((got[False] - got[True]).abs().max())
+            print(f"[graphs] SoVITS {name}: graph vs eager max abs difference {diff:.3g} "
+                  f"(fp32, bound 1e-5); output {tuple(got[False].shape)}, finite "
+                  f"{bool(torch.isfinite(got[False]).all())}")
+            check(diff <= 1e-5 and bool(torch.isfinite(got[False]).all()),
+                  f"SoVITS {name}: graph vs eager {diff}")
+
         # ---- (3) times, graph beside eager in turns
         eng = api.engine
         eng.timing = True
         text = get_phones_and_bert("。きょうはいいてんきですね。", "ja")[0]
         bert = np.zeros((len(text), char.t2s_cfg.bert_dim), np.float32)
         solo = {False: [], True: []}
+        split = {False: [], True: []}
         # the eager baseline of the engine's routes: the character's graph
-        # cache set to run its programs without a graph
+        # caches (T2S and SoVITS) set to run their programs without a graph
+
+        def set_eager(eager):
+            cache.eager = vcache.eager = eager
+
         for eager in (False, True, True, False):
-            cache.eager = eager
+            set_eager(eager)
             eng.synthesize_utterance(char, feats, text, bert, seed=1, pcm16=True)
             st = eng.last_stats
             solo[eager].append(st["stages"]["decode"] * 1e3 / st["decode_steps"])
+            split[eager].append({k: round(v * 1e3, 3) for k, v in st["stages"].items()})
         prof = {}
         for eager in (False, True):
-            cache.eager = eager
+            set_eager(eager)
             ms, busy, n = profiled(torch, lambda: eng.synthesize_utterance(
                 char, feats, text, bert, seed=1, pcm16=True))
             steps = eng.last_stats["decode_steps"]
             prof[eager] = (ms, busy, n, steps)
-        cache.eager = False
+        set_eager(False)
         eng.timing = False
+        print(f"[graphs] solo tts() stage split, ms (the device synced at each boundary; "
+              f"host = inputs before and the copy out after): graph "
+              + "; ".join(json.dumps(x) for x in split[False]) + "; eager "
+              + "; ".join(json.dumps(x) for x in split[True]) + f"; {card}")
+        out["solo_split_ms"] = {"graph": split[False], "eager": split[True]}
+
+        # each stage's device time by CUDA events, graph beside eager in
+        # turns: the prefill program at the solo key the sweep captured,
+        # and the SoVITS stages of the comparison above
+        xb = pick_bucket(len(feats.phones) + len(text), eng.cfg.phoneme_buckets)
+        pb = pick_bucket(len(feats.prompt_tokens), eng.cfg.prompt_buckets)
+        cap = pick_bucket(char.t2s_cfg.max_decode_steps, eng.cfg.step_caps)
+        g1, packed = t2s.decode_graph(char.t2s_params, char.t2s_cfg, 1, xb, pb, xb + pb + cap,
+                                      cap, char.t2s_params["audio_embed"].dtype)
+        variant = ("prefill", True, False)
+        pre = t2s.generate_programs(char.t2s_params, char.t2s_cfg, xb, pb, packed)[variant]
+
+        def prefill_once():
+            with g1.lock:
+                g1.run(pre, variant)
+
+        timed_stages = {f"prefill program B=1 (text {xb}, prompt {pb})": prefill_once}
+        timed_stages.update(stages)
+        dev_ms = {}
+        for name, fn in timed_stages.items():
+            dev_ms[name] = {"graph": [], "eager": []}
+            for eager in (False, True, True, False):
+                set_eager(eager)
+                with torch.inference_mode():
+                    dev_ms[name]["eager" if eager else "graph"].append(
+                        cuda_ms(torch, fn, 5, warmup=1))
+        set_eager(False)
+        for name, t in dev_ms.items():
+            print(f"[graphs] {name}: device ms by CUDA events, graph "
+                  + ", ".join(f"{x:.3f}" for x in t["graph"]) + "; eager "
+                  + ", ".join(f"{x:.3f}" for x in t["eager"]) + f"; {card}")
+        out["stage_ms"] = dev_ms
 
         def fmt(pr):
             ms, busy, n, steps = pr
@@ -1978,7 +2263,12 @@ def phase_graphs(torch, root: Path, card: str):
     finally:
         srv.shutdown()
         srv.server_close()
-        api.unload_character("graphs")
+        del api.engine.warmup               # the engine's own methods again
+        del api.engine._run_compile_units
+        api.sweep_on_reference = False
+        api.model_manager._cache.capacity = cap_prev
+        for name in ("graphs", "graphs2"):
+            api.unload_character(name)
     return out
 
 

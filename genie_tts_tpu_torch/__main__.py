@@ -53,11 +53,10 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", metavar="MODEL_DIR", default=None,
                    help="character dir to load as 'warmup', sweep and unload "
                         "before accepting requests (engine.warmup(..., "
-                        "sweep=True)): builds every kernel and runs every "
-                        "latent and vocode bucket once. Its captured graphs "
-                        "read its weights and go with it; a served character's "
-                        "graphs come from /set_reference_audio with "
-                        "\"warmup\": true (api.warmup_character)")
+                        "sweep=True)): builds every kernel. Its captured graphs "
+                        "read its weights and go with it; then every character "
+                        "the server loads is swept at its first "
+                        "/set_reference_audio (api.sweep_on_reference)")
     p.add_argument("--warmup-lang", default="ja")
     p.add_argument("--warmup-ref", default=None,
                    help="reference wav for the warmup (needs HuBERT; "
@@ -93,10 +92,12 @@ def main(argv=None) -> int:
 
 def _warmup(args) -> None:
     """Load the ``--warmup`` character as ``warmup``, run the engine's
-    warmup sweep on it (the JAX package's ``serve --warmup``) and unload
-    it. A captured graph reads its character's weights, so its graphs go
-    with it; the kernels it builds and the plans it makes serve every
-    character."""
+    warmup sweep on it (the kernels it builds and the plans it makes
+    serve every character) and unload it (its graphs go with it), then
+    set ``api.sweep_on_reference``: a captured graph reads its
+    character's weights, so every character the server loads is swept at
+    its first ``/set_reference_audio`` (the JAX package's ``serve
+    --warmup`` compiles programs that serve every character)."""
     from genie_tts_tpu_torch import api
     from genie_tts_tpu_torch.runtime import graphs
     from genie_tts_tpu_torch.runtime.engine import make_random_reference
@@ -110,9 +111,13 @@ def _warmup(args) -> None:
     else:
         ref = make_random_reference(char, api.engine)
     n = api.engine.warmup(char, ref, sweep=True)
-    captured = graphs.cache_for(char.t2s_params).stats["captures"]
+    captured = sum(graphs.cache_for(p).stats["captures"]
+                   for p in (char.t2s_params, char.sovits_params))
+    del char
     api.unload_character("warmup")
-    print(f"warmup: captured {captured} graphs ({n} units)")
+    api.sweep_on_reference = True
+    print(f"warmup: captured {captured} graphs ({n} units); every character is swept "
+          f"at its first /set_reference_audio")
 
 
 if __name__ == "__main__":

@@ -21,6 +21,16 @@ this one process: the module's engine is built on that serving mesh and
 ``load_character`` places each character on it (``TTSEngine.
 shard_character``: a replica per dp row, the T2S decoder tp-sharded over
 the row's cards). With fewer cards than ``dp * tp`` the import raises.
+
+A captured graph reads its character's weights (``runtime/graphs.py``),
+so warmth is per character: ``serve --warmup`` sets ``sweep_on_reference``,
+and every character is then swept (``engine.warmup(char, ref,
+sweep=True)``) at its first ``set_reference_audio``, for each new prompt
+bucket of a later clip, and again after an eviction reloads it (the
+request that reloads it waits for that sweep). An evicted or unloaded
+character's slot machine is retired (it finishes the requests it holds,
+then exits) and its sweep record dropped, so its weights and graphs go
+with it: graph memory is bounded by ``max_cached_characters``.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import asyncio
 import logging
 import os
 import threading
+import weakref
 from os import PathLike
 from typing import AsyncIterator, Dict, Optional, Union
 
@@ -38,6 +49,7 @@ from .config import RuntimeConfig, indexed_device, resolve_device
 from .frontend.dispatcher import get_phones_and_bert
 from .frontend.language import MONOLINGUAL, normalize_language, require_supported
 from .ops.sampling import SamplingConfig
+from .runtime.buckets import pick_bucket
 from .runtime.engine import TTSEngine
 from .runtime.model_manager import model_manager
 from .runtime.reference_audio import reference_audio_cache
@@ -72,6 +84,12 @@ engine = TTSEngine(RuntimeConfig(), mesh=_serving_mesh())
 
 # character -> reference-audio config
 _reference_audios: Dict[str, dict] = {}
+# set by ``serve --warmup``: sweep every character before its first request
+sweep_on_reference = False
+# character name -> (a weak reference to the character object swept, the
+# prompt buckets swept); a reload after an eviction is another object
+_swept: Dict[str, tuple] = {}
+_sweep_lock = threading.Lock()
 # device -> (the HuBERT params it closes over, forward)
 _hubert_fns: Dict[torch.device, tuple] = {}
 
@@ -138,12 +156,23 @@ def load_character(character_name: str, model_dir: Union[str, PathLike],
 
 def unload_character(character_name: str) -> None:
     model_manager.remove_character(character_name)
-    # popped under the lock: a concurrent first request in get_slot_batcher
-    # must not re-insert a batcher for the character being unloaded
+    _release_character(character_name)
+
+
+def _release_character(character_name: str) -> None:
+    """Let go of what the API holds for a character that left the cache
+    (unloaded or evicted): its slot machine, retired (it finishes the
+    requests queued and in flight in it, then exits), and its sweep
+    record. Then nothing keeps the character, so its weights, graphs,
+    graph pools and static buffers are freed."""
     with _slot_batchers_lock:
         sb = _slot_batchers.pop(character_name, None)
+    _swept.pop(character_name, None)
     if sb is not None:
-        sb.stop()
+        sb.retire()
+
+
+model_manager.on_evict = _release_character
 
 
 def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
@@ -176,23 +205,50 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
     hubert_fn = _hubert_fn(device)
     reference_audio_cache.get_clip(audio_path, audio_text, language, hubert_fn=hubert_fn)
     if model is not None and hubert_fn is not None:
-        _reference_features(model, ref_cfg)
+        _sweep(model, _reference_features(model, ref_cfg))
     return True
+
+
+def _sweep(char, feats, always: bool = False) -> int:
+    """The warmup sweep of ``char`` at the prompt bucket of ``feats``,
+    unless this character object was swept there already; only with
+    ``sweep_on_reference`` set (``serve --warmup``) or ``always``.
+    Returns the units run (0: nothing to do)."""
+    if not (always or sweep_on_reference):
+        return 0
+    bucket = pick_bucket(len(feats.prompt_tokens), engine.cfg.prompt_buckets)
+
+    def swept():
+        ref, buckets = _swept.get(char.name, (None, ()))
+        return ref is not None and ref() is char and bucket in buckets
+
+    if swept():
+        return 0
+    with _sweep_lock:                 # one sweep at a time: a capture syncs the card
+        if swept():
+            return 0
+        n = engine.warmup(char, feats, sweep=True)
+        ref, buckets = _swept.get(char.name, (None, frozenset()))
+        if ref is None or ref() is not char:      # a reload after an eviction
+            buckets = frozenset()
+        _swept[char.name] = (weakref.ref(char), buckets | {bucket})
+        return n
 
 
 def warmup_character(character_name: str) -> int:
     """The warmup sweep (``engine.warmup(char, ref, sweep=True)``) for a
-    loaded character with its reference clip set: every decode graph its
+    loaded character with its reference clip set: every graph its
     requests can reach is captured before they arrive. A captured graph
     reads its character's weights, so each character is swept on its own.
-    Returns the units run."""
+    Returns the units run (0 when it was swept at this clip's prompt
+    bucket already)."""
     char = model_manager.get(character_name)
     if char is None:
         raise ValueError(f"character {character_name!r} is not loaded")
     if character_name not in _reference_audios:
         raise ValueError("set_reference_audio has not been called")
-    return engine.warmup(char, _reference_features(char, _reference_audios[character_name]),
-                         sweep=True)
+    return _sweep(char, _reference_features(char, _reference_audios[character_name]),
+                  always=True)
 
 
 def clear_reference_audio_cache() -> None:
@@ -226,18 +282,28 @@ _slot_batchers_lock = threading.Lock()
 
 
 def get_slot_batcher(char):
-    """Lazy per-character SlotBatcher (in-flight continuous batching).
+    """Lazy per-character SlotBatcher (in-flight continuous batching), or
+    None for a character object no longer loaded (evicted or unloaded:
+    its machine is draining, and a new one would keep it alive).
 
     Locked: two concurrent first requests must not each build a batcher
     (the loser would leak a scheduler thread and a slot KV cache)."""
+    # asked before the lock: an eviction calls _release_character under
+    # the cache's lock
+    loaded = model_manager.holds(char)
     with _slot_batchers_lock:
         sb = _slot_batchers.get(char.name)
-        if sb is None:
-            from .runtime.slot_batcher import SlotBatcher
+        if sb is not None and sb.char is char:
+            return sb
+        if not loaded:
+            return None
+        if sb is not None:             # an earlier object of this name
+            sb.retire()
+        from .runtime.slot_batcher import SlotBatcher
 
-            # serving emits PCM16, made on the device
-            sb = SlotBatcher(engine, char, pcm16=True)
-            _slot_batchers[char.name] = sb
+        # serving emits PCM16, made on the device
+        sb = SlotBatcher(engine, char, pcm16=True)
+        _slot_batchers[char.name] = sb
         return sb
 
 
@@ -261,6 +327,7 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
     if char is None:
         raise ValueError(f"Character '{character_name}' is not loaded")
     feats = _reference_features(char, _reference_audios[character_name])
+    _sweep(char, feats)          # a reload after an eviction is swept again
 
     def synth(sentence: str) -> Optional[np.ndarray]:
         # a leading 。 guards against the model swallowing the first phrase
@@ -271,7 +338,7 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
             if engine.cfg.serve_slots:
                 # per-request sampling joins too: it is per-row slot state
                 sb = get_slot_batcher(char)
-                if sb.fits(feats, phones):
+                if sb is not None and sb.fits(feats, phones):
                     return sb.synthesize(feats, phones, bert, sampling=sampling)
             return get_batcher().synthesize(char, feats, phones, bert,
                                             sampling=sampling)
@@ -284,8 +351,8 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
             return
         if engine.cfg.serve_slots:
             sb = get_slot_batcher(char)
-            if sb.fits(feats, phones) and (engine.cfg.slot_stream_finisher
-                                           or sb._occupied() or not sb._q.empty()):
+            if sb is not None and sb.fits(feats, phones) and (
+                    engine.cfg.slot_stream_finisher or sb._occupied() or not sb._q.empty()):
                 yield from sb.synthesize_stream(feats, phones, bert, sampling=sampling)
                 return
         yield from engine.synthesize_utterance_stream(char, feats, phones, bert,

@@ -16,9 +16,19 @@ Activations are [B, T, C] between the public functions; HiFi-GAN runs in
 [B, C, T]. As in the JAX package, every conv casts its weight to the
 activation's dtype, and the quantizer codebook is an fp32 leaf, so the
 whole synthesizer computes in fp32.
+
+The serving routes run the latent and the vocode as programs over static
+buffers (:func:`latent`, :func:`vocode`, :func:`vocode_frames_chunked`),
+captured as CUDA graphs per geometry (``runtime/graphs.py``; a parameter
+set's graphs are one family: one pool, one lock): the counterpart of the
+JAX engine's jitted ``_latent``, ``_vocode``, ``_latent_rows`` and
+``_vocode_window_rows``. The flow noise is an input of the latent
+program, drawn in place from the request's generator outside it.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,6 +37,7 @@ import torch.nn.functional as F
 from ..config import SoVITSConfig
 from ..ops.layers import (conv1d, conv1d_ncw, conv_transpose1d_ncw, layer_norm,
                           matmul, unstack)
+from ..runtime import graphs
 
 Params = Dict
 
@@ -365,29 +376,41 @@ def vocode_window_rows(params: Params, cfg: SoVITSConfig, z: torch.Tensor,
     return hifigan(params["dec"], zw, ge, cfg, frames_len=valid)
 
 
+def chunk_windows(F: int, chunk: int, halo: int):
+    """The halo-padded windows of :func:`vocode_frames_chunked` over ``F``
+    frames: (start, s0, s1, n) per window, which vocodes z[:, s0:s1] and
+    keeps its frames [start, start + n)."""
+    for start in range(0, F, chunk):
+        s0, s1 = max(start - halo, 0), min(start + chunk + halo, F)
+        yield start, s0, s1, min(chunk, F - start)
+
+
 def vocode_frames_chunked(params: Params, cfg: SoVITSConfig, z: torch.Tensor,
                           ge: torch.Tensor, frames_valid: torch.Tensor,
-                          chunk: int, halo: int) -> torch.Tensor:
-    """Chunked HiFi-GAN: halo-padded windows of ``chunk`` frames, the halo
-    trimmed from each output, and windows past the longest valid row
-    skipped. Equal to one whole-``F`` pass away from chunk edges, since
-    the generator's receptive field (~14 frames) is inside the halo."""
+                          chunk: int, halo: int, bound: Optional[int] = None
+                          ) -> torch.Tensor:
+    """Chunked HiFi-GAN through the vocode graphs (:func:`vocode`):
+    halo-padded windows of ``chunk`` frames, the halo trimmed from each
+    output. Equal to one whole-``F`` pass away from chunk edges, since the
+    generator's receptive field (~14 frames) is inside the halo.
+
+    ``bound``: frames no row exceeds, known to the host (a decode's step
+    counter bounds its codes); windows from it on are skipped. The JAX
+    package skips windows past ``frames_valid`` inside its program
+    (``lax.cond``); a window between the true length and the bound is
+    fully masked and gives the zeros a skipped one leaves. Nothing is
+    read back to the host."""
     B, F_, _ = z.shape
     hop = cfg.hop_length
     if F_ <= chunk + 2 * halo:
-        return vocode_frames(params, cfg, z, ge, frames_valid)
+        return vocode(params, cfg, z, ge, frames_valid)
     out = torch.zeros((B, F_ * hop), dtype=torch.float32, device=z.device)
-    fv = int(frames_valid.max())
-    for start in range(0, F_, chunk):
-        if fv <= start:
+    for start, s0, s1, n in chunk_windows(F_, chunk, halo):
+        if bound is not None and start >= bound:
             break
-        s0 = max(start - halo, 0)
-        s1 = min(start + chunk + halo, F_)
         valid = torch.clamp(frames_valid - s0, 0, s1 - s0)
-        n = min(chunk, F_ - start)
-        a = vocode_frames(params, cfg, z[:, s0:s1], ge, valid)
-        out[:, start * hop:(start + n) * hop] = a[:, (start - s0) * hop:
-                                                 (start - s0 + n) * hop]
+        a = vocode(params, cfg, z[:, s0:s1], ge, valid)
+        out[:, start * hop:(start + n) * hop] = a[:, (start - s0) * hop:(start - s0 + n) * hop]
     return out
 
 
@@ -401,6 +424,142 @@ def synthesize(params: Params, cfg: SoVITSConfig, codes: torch.Tensor,
     z = synthesize_latent(params, cfg, codes, codes_len, text_ids, text_len,
                           ge, ge_mrte, noise_scale, noise, generator)
     return hifigan(params["dec"], z, ge, cfg, frames_len=2 * codes_len)
+
+
+# ---------------------------------------------------------------------------
+# The latent and vocode programs over static buffers (runtime/graphs.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LatentBuffers:
+    """The static buffers of one latent geometry (B rows, Ts codes, Tt
+    text ids): the per-call inputs, the flow noise among them, and the
+    latent ``z`` the program writes."""
+    codes: torch.Tensor        # [B, Ts] int64
+    codes_len: torch.Tensor    # [B] int64
+    text: torch.Tensor         # [B, Tt] int64
+    text_len: torch.Tensor     # [B] int64
+    ge: torch.Tensor           # [B, gin, 1] fp32
+    ge_mrte: torch.Tensor      # [B, mrte, 1] fp32
+    noise: torch.Tensor        # [B, 2*Ts, C] fp32 standard normal
+    noise_scale: torch.Tensor  # [] fp32
+    z: torch.Tensor            # [B, 2*Ts, C] the output
+
+
+@dataclasses.dataclass
+class VocodeBuffers:
+    """The static buffers of one vocode geometry (B rows, W frames)."""
+    z: torch.Tensor            # [B, W, C]
+    ge: torch.Tensor           # [B, gin, 1] fp32
+    valid: torch.Tensor        # [B] int64 valid frames
+    audio: torch.Tensor        # [B, W*hop] fp32, the output
+
+
+def _latent_program(params: Params, cfg: SoVITSConfig, b: LatentBuffers) -> None:
+    b.z.copy_(synthesize_latent(params, cfg, b.codes, b.codes_len, b.text, b.text_len,
+                                b.ge, b.ge_mrte, b.noise_scale, noise=b.noise))
+
+
+def _vocode_program(params: Params, cfg: SoVITSConfig, b: VocodeBuffers) -> None:
+    b.audio.copy_(vocode_frames(params, cfg, b.z, b.ge, b.valid))
+
+
+def latent_graph(params: Params, cfg: SoVITSConfig, B: int, Ts: int, Tt: int):
+    """The graph of the latent program at (B, Ts, Tt), from the parameter
+    set's cache (its buffers made on a miss), and the program."""
+    dev, dt = params["quantizer_embed"].device, params["quantizer_embed"].dtype
+
+    def make():
+        def z(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        ones = torch.ones((B,), dtype=torch.int64, device=dev)
+        return LatentBuffers(
+            codes=z(B, Ts), codes_len=ones.clone(), text=z(B, Tt), text_len=ones.clone(),
+            ge=z(B, cfg.gin_channels, 1, dtype=torch.float32),
+            ge_mrte=z(B, cfg.mrte_channels, 1, dtype=torch.float32),
+            noise=z(B, 2 * Ts, cfg.inter_channels, dtype=torch.float32),
+            noise_scale=z(dtype=torch.float32), z=z(B, 2 * Ts, cfg.inter_channels, dtype=dt))
+
+    g = graphs.cache_for(params).graph(("latent", B, Ts, Tt), make)
+    return g, functools.partial(_latent_program, params, cfg)
+
+
+def vocode_graph(params: Params, cfg: SoVITSConfig, B: int, W: int):
+    """The graph of the vocode program at (B, W frames), and the program."""
+    dev, dt = params["quantizer_embed"].device, params["quantizer_embed"].dtype
+
+    def make():
+        return VocodeBuffers(
+            z=torch.zeros((B, W, cfg.inter_channels), dtype=dt, device=dev),
+            ge=torch.zeros((B, cfg.gin_channels, 1), device=dev),
+            valid=torch.full((B,), W, dtype=torch.int64, device=dev),
+            audio=torch.zeros((B, W * cfg.hop_length), device=dev))
+
+    g = graphs.cache_for(params).graph(("vocode", B, W), make)
+    return g, functools.partial(_vocode_program, params, cfg)
+
+
+def prepare(graph_and_program) -> None:
+    """Capture a program of :func:`latent_graph` / :func:`vocode_graph`
+    (a warmup unit; on the CPU its key and buffers are made)."""
+    g, fn = graph_and_program
+    with g.lock:
+        g.prepare(fn)
+
+
+def latent(params: Params, cfg: SoVITSConfig, codes: torch.Tensor,
+           codes_len: torch.Tensor, text_ids: torch.Tensor, text_len: torch.Tensor,
+           ge: torch.Tensor, ge_mrte: torch.Tensor, noise_scale: float = 0.5,
+           noise: Optional[torch.Tensor] = None,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """:func:`synthesize_latent` as the latent program over the buffers of
+    its geometry (a graph replay on the card). ``noise`` [B, >= 2*Ts, C]
+    (a per-row table is read from its start, as
+    :func:`synthesize_latent_rows` does), else drawn in place from
+    ``generator``. Returns z [B, 2*Ts, C] (the caller's copy)."""
+    B, Ts = codes.shape
+    g, fn = latent_graph(params, cfg, B, Ts, text_ids.shape[1])
+    with g.lock:
+        b = g.static
+        b.codes.copy_(codes)
+        b.codes_len.copy_(codes_len)
+        b.text.copy_(text_ids)
+        b.text_len.copy_(text_len)
+        b.ge.copy_(ge)
+        b.ge_mrte.copy_(ge_mrte)
+        b.noise_scale.fill_(noise_scale)
+        if noise is None:
+            b.noise.normal_(generator=generator)
+        else:
+            b.noise.copy_(noise[:, :2 * Ts])
+        g.run(fn)
+        return b.z.clone()
+
+
+def vocode(params: Params, cfg: SoVITSConfig, z: torch.Tensor, ge: torch.Tensor,
+           frames_valid: torch.Tensor) -> torch.Tensor:
+    """:func:`vocode_frames` as the vocode program over the buffers of its
+    geometry (a graph replay on the card). Returns [B, W*hop] (the
+    caller's copy)."""
+    B, W, _ = z.shape
+    g, fn = vocode_graph(params, cfg, B, W)
+    with g.lock:
+        b = g.static
+        b.z.copy_(z)
+        b.ge.copy_(ge)
+        b.valid.copy_(frames_valid)
+        g.run(fn)
+        return b.audio.clone()
+
+
+def vocode_rows(params: Params, cfg: SoVITSConfig, z: torch.Tensor, ge: torch.Tensor,
+                starts: torch.Tensor, frames_valid: torch.Tensor, win: int) -> torch.Tensor:
+    """:func:`vocode_window_rows` through the vocode program at ``win``
+    frames: each row's window is gathered into its buffer."""
+    idx = starts.long()[:, None] + torch.arange(win, device=z.device)[None, :]
+    zw = torch.gather(z, 1, idx[..., None].expand(-1, -1, z.shape[-1]))
+    return vocode(params, cfg, zw, ge, torch.clamp(frames_valid - starts, 0, win))
 
 
 def reference_embedding(params, cfg: SoVITSConfig, spec: torch.Tensor,

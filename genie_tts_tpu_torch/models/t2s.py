@@ -48,7 +48,7 @@ from ..ops.fused_decode import step_buffers as fused_step_buffers
 from ..ops.int8_decode import int8_big_attention
 from ..ops.layers import (attention, layer_norm, linear, sine_position_table,
                           unstack)
-from ..ops.sampling import (SamplingConfig, SamplingRows, gumbel_noise, sample_token,
+from ..ops.sampling import (SamplingConfig, SamplingRows, gumbel_noise_,
                             sample_token_rows)
 from ..runtime import graphs
 
@@ -360,59 +360,81 @@ def shard_devices(params: Params) -> list:
 
 
 def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor,
-            prompts: torch.Tensor, p_len: torch.Tensor, cache_len: int
+            prompts: torch.Tensor, p_len: torch.Tensor, cache_len: int, caches=None
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run the packed sequence through all layers and build the KV cache.
 
     Returns (logits_first [B, V] fp32, (k_cache, v_cache) each
     [L, B, H, cache_len, Dh], zero past the prefill). For a tp-sharded
     parameter set (:func:`layer_shards`) the caches are tuples with one
-    ``[L, B, H/tp, cache_len, Dh]`` cache per shard, on its device."""
+    ``[L, B, H/tp, cache_len, Dh]`` cache per shard, on its device.
+    ``caches``: (k, v) of those layouts, or the fused kernel's
+    ``[L, cache_len, D]`` (B = 1), written in place instead of new ones
+    (a decode graph's own)."""
     B, Sx, D = x.shape
     Sp = prompts.shape[1]
     H, L, Dh = cfg.num_heads, cfg.num_layers, cfg.head_dim
+    T = Sx + Sp
     y_emb = params["audio_embed"][prompts]
     pe = sine_position_table(Sp, D, device=x.device)
     y = y_emb + (params["audio_pos_alpha"] * pe).to(y_emb.dtype)[None]
     h = torch.cat([x, y], dim=1)                              # [B, S_pre, D]
     mask = _prefill_mask(Sx, Sp, x_len, p_len)[:, None]       # [B,1,S,S]
     shards = layer_shards(params)
+    devs = shard_devices(params)
+    if caches is None:
+        k_cache = tuple(torch.zeros((L, B, H // len(devs), cache_len, Dh), dtype=h.dtype,
+                                    device=d) for d in devs)
+        v_cache = tuple(torch.zeros_like(k) for k in k_cache)
+    else:
+        k_cache, v_cache = (c if isinstance(c, tuple) else (c,) for c in caches)
+        for c in k_cache + v_cache:          # nothing of an earlier call stays
+            c.narrow(-2, T, c.shape[-2] - T).zero_()
+
+    def write(cache, l, kv):
+        if cache.dim() == 3:                 # [L, S, D]: [1, H, T, Dh] -> [T, D]
+            cache[l, :T] = kv[0].transpose(0, 1).reshape(T, D)
+        else:
+            cache[l, :, :, :T] = kv
+
     if shards is None:
-        k_cache = torch.zeros((L, B, H, cache_len, Dh), dtype=h.dtype, device=h.device)
-        v_cache = torch.zeros_like(k_cache)
         for l, lp in enumerate(unstack(params["layers"])):
             h, (k, v) = _layer_prefill(lp, h, mask, H)
-            k_cache[l, :, :, :Sx + Sp] = k
-            v_cache[l, :, :, :Sx + Sp] = v
+            write(k_cache[0], l, k)
+            write(v_cache[0], l, v)
     else:
         from ..parallel.tp import layer_prefill_shards
 
-        devs = shard_devices(params)
-        k_cache = tuple(torch.zeros((L, B, H // len(devs), cache_len, Dh),
-                                    dtype=h.dtype, device=d) for d in devs)
-        v_cache = tuple(torch.zeros_like(k) for k in k_cache)
         masks = [mask.to(d) for d in devs]
         for l, lps in enumerate(zip(*(unstack(s) for s in shards))):
             h, kv = layer_prefill_shards(lps, h, masks, H)
             for i, (k, v) in enumerate(kv):
-                k_cache[i][l, :, :, :Sx + Sp] = k
-                v_cache[i][l, :, :, :Sx + Sp] = v
+                write(k_cache[i], l, k)
+                write(v_cache[i], l, v)
     last_idx = Sx + p_len - 1                                 # [B]
     h_last = h[torch.arange(B, device=h.device), last_idx]   # [B, D]
     logits = h_last.float() @ params["predict"]["w"].float()
+    if shards is None:
+        k_cache, v_cache = k_cache[0], v_cache[0]
     return logits, (k_cache, v_cache)
 
 
 @dataclasses.dataclass
 class DecodeBuffers:
-    """The static buffers of one decode geometry: what the decode program
-    (:func:`_decode_block`) reads and writes, every value that changes
-    from step to step included, so a captured CUDA graph of it replays
-    with nothing from the host (``runtime/graphs.py``). The per-call
-    inputs are copied in by :func:`generate`; ``pe``, ``kv_positions``
-    and ``forbid_eos`` are constants of the geometry."""
+    """The static buffers of one decode geometry: what the prefill
+    program (:func:`_prefill_block`) and the decode program
+    (:func:`_decode_block`) read and write, every value that changes
+    from step to step included, so a captured CUDA graph of either
+    replays with nothing from the host (``runtime/graphs.py``). The
+    per-call inputs are copied in by :func:`generate` (the Gumbel table
+    drawn in place); ``pe``, ``kv_positions`` and ``forbid_eos`` are
+    constants of the geometry."""
     k_cache: object          # fused: [L,S,D]; per-layer: [L,B,H,S,Dh] (tp: a tuple per shard)
     v_cache: object
+    phones: torch.Tensor     # [B, Sx] int64 text ids
+    bert: torch.Tensor       # [B, Sx, bert_dim] fp32 BERT features
+    x: torch.Tensor          # [B, Sx, D] embedded text (the embedded-input route)
+    prompts: torch.Tensor    # [B, Sp] int64 semantic prompt ids
     tokens: torch.Tensor     # [B, max_steps] int64
     hist: torch.Tensor       # [B, V] int64 repetition-penalty histogram
     counts: torch.Tensor     # [B] int64
@@ -440,18 +462,22 @@ class DecodeBuffers:
 
 def _decode_buffers(cfg: T2SConfig, B: int, Sx: int, Sp: int, cache_len: int,
                     max_steps: int, packed, dtype: torch.dtype, device,
-                    caches=None) -> DecodeBuffers:
+                    devices=None) -> DecodeBuffers:
     """Zeroed buffers of a geometry (lengths 1, so a capture's warm-up run
     sees a row with something to attend to); ``packed``: the fused
-    kernel's packing (B = 1), else None. ``caches``: (k, v) to use as
-    they are instead of new ones (the eager tp route)."""
+    kernel's packing (B = 1), else None. ``devices``: a tp-sharded set's
+    devices, a cache on each (the eager tp route)."""
     L, H, Dh, D, V = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.embed_dim, cfg.semantic_vocab
     S = cache_len
 
     def z(*shape, dt=torch.int64):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    if caches is None:
+    if devices is not None and len(devices) > 1:
+        shape = (L, B, H // len(devices), S, Dh)
+        caches = tuple(tuple(torch.zeros(shape, dtype=dtype, device=d) for d in devices)
+                       for _ in range(2))
+    else:
         shape = (L, S, D) if packed is not None else (L, B, H, S, Dh)
         caches = (z(*shape, dt=dtype), z(*shape, dt=dtype))
     forbid = z(1, V, dt=torch.bool)
@@ -460,7 +486,9 @@ def _decode_buffers(cfg: T2SConfig, B: int, Sx: int, Sp: int, cache_len: int,
     h_out, scratch = (None, None) if packed is None else fused_step_buffers(
         packed, S, H, device)
     return DecodeBuffers(
-        k_cache=caches[0], v_cache=caches[1], tokens=z(B, max_steps), hist=z(B, V),
+        k_cache=caches[0], v_cache=caches[1], phones=z(B, Sx),
+        bert=z(B, Sx, cfg.bert_dim, dt=torch.float32), x=z(B, Sx, D, dt=dtype),
+        prompts=z(B, Sp), tokens=z(B, max_steps), hist=z(B, V),
         counts=ones.clone(), done=z(B, dt=torch.bool), step=ones[0].clone(),
         pos=z(1, dt=torch.int32), noise=z(max_steps, B, V, dt=torch.float32),
         x_len=ones.clone(), p_len=ones.clone(), static_mask=z(B, S, dt=torch.bool),
@@ -471,6 +499,34 @@ def _decode_buffers(cfg: T2SConfig, B: int, Sx: int, Sp: int, cache_len: int,
         pe=sine_position_table(S, D, device=device),
         kv_positions=torch.arange(S, device=device)[None, :], forbid_eos=forbid,
         h_out=h_out, scratch=scratch)
+
+
+def _prefill_block(params: Params, cfg: T2SConfig, b: DecodeBuffers, *, Sx: int, Sp: int,
+                   embed: bool, any_top_p: bool) -> None:
+    """The first program of a decode: the text embedded (``embed``: from
+    ``b.phones`` and ``b.bert``; else ``b.x`` as given), the prefill
+    written into the graph's own caches, the repetition histogram seeded
+    with the valid prompt tokens, the first token drawn (EOS forbidden)
+    with the first row of the Gumbel table, and the decode state set to
+    step 1. Reads nothing back to the host, so a CUDA graph captures it
+    (a variant of the decode graph, on its buffers)."""
+    x = embed_text(params, b.phones, b.bert) if embed else b.x
+    logits0, _ = prefill(params, cfg, x, b.x_len, b.prompts, b.p_len,
+                         b.static_mask.shape[1], caches=(b.k_cache, b.v_cache))
+    kv = b.kv_positions
+    b.static_mask.copy_((kv < b.x_len[:, None])
+                        | ((kv >= Sx) & (kv < Sx + b.p_len[:, None])))
+    b.hist.zero_()
+    b.hist.scatter_add_(1, b.prompts, (kv[:, :Sp] < b.p_len[:, None]).long())
+    rows = SamplingRows(b.top_k, b.top_p, b.temperature, b.repetition_penalty)
+    tok0 = sample_token_rows(None, logits0, b.hist, rows, forbid=b.forbid_eos,
+                             noise=b.noise[0], any_top_p=any_top_p)
+    b.hist.scatter_add_(1, tok0[:, None], torch.ones_like(tok0)[:, None])
+    b.tokens.zero_()
+    b.tokens[:, 0] = tok0
+    b.counts.fill_(1)
+    b.done.zero_()
+    b.step.fill_(1)
 
 
 def _decode_block(params: Params, cfg: T2SConfig, b: DecodeBuffers, *, n_steps: int,
@@ -556,17 +612,18 @@ DECODE_BLOCKS = (DONE_READ_EVERY, 1)
 def _generate_key(B, Sx, Sp, cache_len, max_steps, dtype):
     """The static geometry a decode graph of :func:`generate` is keyed on.
     Its programs are variants of one graph on one set of buffers
-    (``Graph.run``): (block length in :data:`DECODE_BLOCKS`, top-p flag)."""
+    (``Graph.run``): ("prefill", embed flag, top-p flag) and (block
+    length in :data:`DECODE_BLOCKS`, top-p flag)."""
     return ("generate", "fused" if B == 1 else "flash", B, Sx, Sp, cache_len,
             max_steps, dtype)
 
 
 def decode_graph(params: Params, cfg: T2SConfig, B: int, Sx: int, Sp: int,
                  cache_len: int, max_steps: int, dtype):
-    """The graph of :func:`generate`'s decode at this geometry, from the
-    parameter set's cache (its buffers made on a miss), and the fused
-    kernel's packing for B = 1 (made once per parameter set and prepared
-    for ``cache_len`` before any capture)."""
+    """The graph of :func:`generate` at this geometry, from the parameter
+    set's cache (its buffers made on a miss), and the fused kernel's
+    packing for B = 1 (made once per parameter set and prepared for
+    ``cache_len`` before any capture)."""
     cache = graphs.cache_for(params)
     dev = params["audio_embed"].device
     packed = None
@@ -579,93 +636,93 @@ def decode_graph(params: Params, cfg: T2SConfig, B: int, Sx: int, Sp: int,
     return g, packed
 
 
+def generate_programs(params: Params, cfg: T2SConfig, Sx: int, Sp: int, packed):
+    """Every program of a decode graph, by variant: the prefill (with the
+    embedding, as :func:`generate_e2e` runs it) and the decode blocks,
+    each with and without top-p (what the warmup sweep captures)."""
+    progs = {}
+    for top_p in (False, True):
+        progs[("prefill", True, top_p)] = functools.partial(
+            _prefill_block, params, cfg, Sx=Sx, Sp=Sp, embed=True, any_top_p=top_p)
+        for n in DECODE_BLOCKS:
+            progs[(n, top_p)] = functools.partial(
+                _decode_block, params, cfg, n_steps=n, Sx=Sx, Sp=Sp, any_top_p=top_p,
+                packed=packed)
+    return progs
+
+
 def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
-             generator: Optional[torch.Generator], x: torch.Tensor,
-             x_len: torch.Tensor, prompts: torch.Tensor, p_len: torch.Tensor,
+             generator: Optional[torch.Generator], x, x_len: torch.Tensor,
+             prompts: torch.Tensor, p_len: torch.Tensor,
              max_steps: int, cache_len: int, min_steps: int = 0,
              max_steps_dyn: Optional[int] = None,
              noise: Optional[torch.Tensor] = None, eager: bool = False) -> GenerateResult:
     """Prefill + sample + full AR decode.
 
-    ``min_steps``: EOS may not fire before this many tokens. ``max_steps``:
-    the static cap that sizes the token buffer and the Gumbel table
-    ``noise`` [max_steps, B, V] (drawn from ``generator`` up front when not
-    given); ``max_steps_dyn``: an optional per-call cap <= max_steps.
+    ``x``: the embedded text [B, Sx, D], or (phone ids [B, Sx], BERT
+    features [B, Sx, bert_dim]) for the prefill program to embed (the
+    route of :func:`generate_e2e`). ``min_steps``: EOS may not fire
+    before this many tokens. ``max_steps``: the static cap that sizes the
+    token buffer and the Gumbel table ``noise`` [max_steps, B, V] (drawn
+    in place from ``generator`` when not given); ``max_steps_dyn``: an
+    optional per-call cap <= max_steps.
 
-    The prefill and the first token run once; the decode runs in blocks
-    of ``DONE_READ_EVERY`` steps of :func:`_decode_block` (the last one,
-    where the per-call cap is nearer, as that many single steps) over the
-    static buffers of the geometry's graph (``runtime/graphs.py``), held
-    from the inputs' copy in to the outputs' copy out: on the card each
-    block is a replay of a captured CUDA graph (one per block length in
-    :data:`DECODE_BLOCKS` and top-p flag, so every cap replays the same
-    ones); the host reads ``done`` and the step counter once per block.
-    ``eager`` runs the same blocks on the same buffers without a graph.
+    Everything runs over the static buffers of the geometry's graph
+    (``runtime/graphs.py``), held from the inputs' copy in to the
+    outputs' copy out: the prefill program (:func:`_prefill_block`:
+    embedding, prefill into the graph's caches, histogram, first token)
+    once, then the decode in blocks of ``DONE_READ_EVERY`` steps of
+    :func:`_decode_block` (the last one, where the per-call cap is
+    nearer, as that many single steps). On the card each is a replay of
+    a captured CUDA graph (a variant per program and top-p flag, so
+    every cap replays the same ones); the host reads ``done`` and the
+    step counter once per block. ``eager`` runs the same programs on the
+    same buffers without a graph.
 
     Routes: B = 1 on whole parameters runs the fused all-layer kernel; B >
     1 the per-layer route with the flash kernel; a tp-sharded parameter
     set (every B) the per-layer route over its shards' ``H/tp`` heads
-    (``parallel/tp.py::layer_decode_shards``), eagerly. Logits, sampling
-    and the token history stay on the device of ``x``.
+    (``parallel/tp.py::layer_decode_shards``), eagerly, on buffers of its
+    own call. Logits, sampling and the token history stay on the device
+    of ``x``.
     """
     ms_dyn = max_steps if max_steps_dyn is None else min(int(max_steps_dyn), max_steps)
-    B, Sx, D = x.shape
+    embed = isinstance(x, (tuple, list))
+    B, Sx = x[0].shape if embed else x.shape[:2]
     Sp = prompts.shape[1]
-    L, V, eos = cfg.num_layers, cfg.semantic_vocab, cfg.eos_id
-    dev = x.device
-
-    logits0, (k_cache, v_cache) = prefill(params, cfg, x, x_len, prompts,
-                                          p_len, cache_len)
-
-    # histogram of emitted tokens for the repetition penalty (prompt included)
-    hist = torch.zeros((B, V), dtype=torch.int64, device=dev)
-    prompt_valid = torch.arange(Sp, device=dev)[None, :] < p_len[:, None]
-    hist.scatter_add_(1, prompts.long(), prompt_valid.long())
-    if noise is None:
-        noise = gumbel_noise((max_steps, B, V), generator, dev)
-
-    # first token: EOS forbidden (GPT-SoVITS masks EOS on the first draw)
-    forbid_eos = torch.zeros((V,), dtype=torch.bool, device=dev)
-    forbid_eos[eos] = True
-    tok0 = sample_token(None, logits0, hist, scfg, forbid=forbid_eos, noise=noise[0])
-    hist.scatter_add_(1, tok0[:, None], torch.ones_like(tok0)[:, None])
-
+    dev = x_len.device
+    dtype = params["audio_embed"].dtype
     any_top_p = scfg.top_p < 1.0
     if layer_shards(params) is not None:
         # per-shard caches of this call: a graph of no cache, run eagerly
         g, packed = graphs.Graph(None, None, _decode_buffers(
-            cfg, B, Sx, Sp, cache_len, max_steps, None, k_cache[0].dtype, dev,
-            caches=(k_cache, v_cache))), None
+            cfg, B, Sx, Sp, cache_len, max_steps, None, dtype, dev,
+            devices=shard_devices(params))), None
     else:
-        g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps,
-                                 k_cache.dtype)
+        g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps, dtype)
     with g.lock:
         b = g.static
-        if packed is not None:      # [L,1,H,S,Dh] -> the kernel's [L,S,D]
-            b.k_cache.copy_(k_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D))
-            b.v_cache.copy_(v_cache[:, 0].transpose(1, 2).reshape(L, cache_len, D))
-        elif b.k_cache is not k_cache:
-            b.k_cache.copy_(k_cache)
-            b.v_cache.copy_(v_cache)
-        del k_cache, v_cache
-        b.tokens.zero_()
-        b.tokens[:, 0] = tok0
-        b.hist.copy_(hist)
-        b.counts.fill_(1)
-        b.done.zero_()
-        b.step.fill_(1)
-        b.noise.copy_(noise)
+        if embed:
+            b.phones.copy_(x[0])
+            b.bert.copy_(x[1])
+        else:
+            b.x.copy_(x)
+        b.prompts.copy_(prompts)
         b.x_len.copy_(x_len)
         b.p_len.copy_(p_len)
-        kv = b.kv_positions
-        b.static_mask.copy_((kv < b.x_len[:, None])
-                            | ((kv >= Sx) & (kv < Sx + b.p_len[:, None])))
+        if noise is None:
+            gumbel_noise_(b.noise, generator)
+        else:
+            b.noise.copy_(noise)
         b.min_steps.fill_(int(min_steps))
         b.ms_dyn.fill_(ms_dyn)
         b.top_k.fill_(scfg.top_k)
         b.top_p.fill_(scfg.top_p)
         b.temperature.fill_(scfg.temperature)
         b.repetition_penalty.fill_(scfg.repetition_penalty)
+        g.run(functools.partial(_prefill_block, params, cfg, Sx=Sx, Sp=Sp, embed=embed,
+                                any_top_p=any_top_p),
+              variant=("prefill", embed, any_top_p), eager=eager)
         step = 1
         while step < ms_dyn:
             # a block of DONE_READ_EVERY steps, or as many single steps as
@@ -710,12 +767,13 @@ def generate_e2e(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     """Embed + prefill + AR decode + EOS finalize.
 
     Returns (codes [B, max_steps], codes_len [B]). ``stats``: optional
-    dict that receives ``decode_steps`` (loop iterations run) and
-    ``cache_len``. ``noise``: as :func:`generate`'s."""
+    dict that receives ``decode_steps`` (loop iterations run; the codes
+    are at most that many plus one) and ``cache_len``. ``noise``: as
+    :func:`generate`'s. The embedding runs inside generate's prefill
+    program."""
     if bert is None:
         bert = torch.zeros(phones.shape + (cfg.bert_dim,), device=phones.device)
-    x = embed_text(params, phones, bert)
-    res = generate(params, cfg, scfg, generator, x, x_len, prompts, p_len,
+    res = generate(params, cfg, scfg, generator, (phones, bert), x_len, prompts, p_len,
                    max_steps=max_steps, cache_len=cache_len,
                    min_steps=min_steps, max_steps_dyn=max_steps_dyn, noise=noise)
     if stats is not None:

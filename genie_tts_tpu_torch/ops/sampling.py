@@ -60,10 +60,16 @@ def rows_from_config(cfg: SamplingConfig, batch: int) -> SamplingRows:
 def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
                  device=None) -> torch.Tensor:
     """Standard Gumbel noise in fp32: -log(-log(U)), U ~ (0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+    return gumbel_noise_(torch.empty(shape, dtype=torch.float32, device=device), generator)
+
+
+def gumbel_noise_(out: torch.Tensor, generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """:func:`gumbel_noise` drawn in place into the fp32 tensor ``out``
+    (the same numbers for the same generator state)."""
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp(min=tiny, max=1.0 - 2 ** -24)))
+    out.uniform_(generator=generator).clamp_(min=tiny, max=1.0 - 2 ** -24)
+    return out.log_().neg_().log_().neg_()
 
 
 def apply_repetition_penalty(logits: torch.Tensor, token_counts: torch.Tensor,

@@ -137,24 +137,29 @@ class ContinuousBatcher:
     def _loop_body(self) -> None:
         while self._running:
             batch = self._collect()
-            if not batch:
-                continue
-            metrics.observe("batch_size", len(batch))
-            try:
-                st: dict = {}
-                outs = self.engine.synthesize_batch(
-                    batch[0].char, [(r.ref, r.phones, r.bert) for r in batch],
-                    sampling=batch[0].sampling, max_steps=batch[0].max_steps,
-                    min_steps=batch[0].min_steps, stats=st)
-                self.stats["batches"] += 1
-                self.stats["rows"] += len(batch)
-                self.stats["decode_steps"] += st.get("decode_steps", 0)
-                self.stats["last_batch"] = len(batch)
-                for r, a in zip(batch, outs):
-                    r.result = a
-                    r.done.set()
-            except BaseException as e:  # noqa: BLE001 — to every waiter
-                logger.exception("batched synthesis failed")
-                for r in batch:
-                    r.error = e
-                    r.done.set()
+            if batch:
+                self._run_batch(batch)
+
+    def _run_batch(self, batch: List[_Request]) -> None:
+        """One batch through the engine, its results (or its error) to its
+        waiters. Its locals, which reach the batch's character, end here:
+        the idle loop keeps no character alive."""
+        metrics.observe("batch_size", len(batch))
+        try:
+            st: dict = {}
+            outs = self.engine.synthesize_batch(
+                batch[0].char, [(r.ref, r.phones, r.bert) for r in batch],
+                sampling=batch[0].sampling, max_steps=batch[0].max_steps,
+                min_steps=batch[0].min_steps, stats=st)
+            self.stats["batches"] += 1
+            self.stats["rows"] += len(batch)
+            self.stats["decode_steps"] += st.get("decode_steps", 0)
+            self.stats["last_batch"] = len(batch)
+            for r, a in zip(batch, outs):
+                r.result = a
+                r.done.set()
+        except BaseException as e:  # noqa: BLE001 — to every waiter
+            logger.exception("batched synthesis failed")
+            for r in batch:
+                r.error = e
+                r.done.set()

@@ -155,9 +155,13 @@ def _t2s_and_vocode(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
                     codes_bucket=None, pcm16=False, max_steps_dyn=None,
                     vocode_chunk=0, vocode_halo=0, stages=None, stats=None):
     """Whole utterance: T2S decode + SoVITS vocode, no host read between
-    them. ``codes_bucket`` sizes the vocoder stage (default ``max_steps``);
-    padded frames are masked and the caller trims to
-    ``2 * codes_len * hop`` samples."""
+    them, every stage a program of ``runtime/graphs.py`` (the JAX
+    package's one ``_fused`` program). ``codes_bucket`` sizes the vocoder
+    stage (default ``max_steps``); padded frames are masked and the
+    caller trims to ``2 * codes_len * hop`` samples. The chunked vocode
+    skips the windows past the decode's step counter, which the host
+    read."""
+    stats = {} if stats is None else stats
     codes, codes_len = t2s.generate_e2e(
         t2s_params, tcfg, scfg, generator, phones, bert, x_len, prompts, p_len,
         max_steps=max_steps, cache_len=cache_len, min_steps=min_steps,
@@ -165,17 +169,16 @@ def _t2s_and_vocode(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
     if stages is not None:
         stages.mark("decode")
     codes = _fit_codes(codes, codes_bucket or max_steps)
-    z = sovits.synthesize_latent(sovits_params, vcfg, codes, codes_len, text,
-                                 t_len, ge, ge_mrte, noise_scale,
-                                 generator=generator)
+    z = sovits.latent(sovits_params, vcfg, codes, codes_len, text, t_len, ge, ge_mrte,
+                      noise_scale, generator=generator)
     if stages is not None:
         stages.mark("latent")
     if vocode_chunk:
-        audio = sovits.vocode_frames_chunked(sovits_params, vcfg, z, ge,
-                                             2 * codes_len, chunk=vocode_chunk,
-                                             halo=vocode_halo)
+        audio = sovits.vocode_frames_chunked(sovits_params, vcfg, z, ge, 2 * codes_len,
+                                             chunk=vocode_chunk, halo=vocode_halo,
+                                             bound=2 * (stats["decode_steps"] + 1))
     else:
-        audio = sovits.vocode_frames(sovits_params, vcfg, z, ge, 2 * codes_len)
+        audio = sovits.vocode(sovits_params, vcfg, z, ge, 2 * codes_len)
     if stages is not None:
         stages.mark("vocode")
     if pcm16:
@@ -189,19 +192,20 @@ def _t2s_latent_first(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
                       codes_bucket, first_window, first_frames, pcm16=False,
                       max_steps_dyn=None, stats=None):
     """Streaming head: decode + latent + the FIRST vocode window, with no
-    host read between them. Returns (z [B, 2*codes_bucket, C], which stays
-    on the device for the remaining chunks, codes_len [B], the first
-    audio [B, first_frames*hop])."""
+    host read between them (programs of ``runtime/graphs.py``). Returns
+    (z [B, 2*codes_bucket, C], which stays on the device for the
+    remaining chunks, codes_len [B], the first audio [B,
+    first_frames*hop])."""
     codes, codes_len = t2s.generate_e2e(
         t2s_params, tcfg, scfg, generator, phones, bert, x_len, prompts, p_len,
         max_steps=max_steps, cache_len=cache_len, min_steps=min_steps,
         max_steps_dyn=max_steps_dyn, stats=stats)
     codes = _fit_codes(codes, codes_bucket)
-    z = sovits.synthesize_latent(sovits_params, vcfg, codes, codes_len, text, t_len,
-                                 ge, ge_mrte, noise_scale, generator=generator)
+    z = sovits.latent(sovits_params, vcfg, codes, codes_len, text, t_len, ge, ge_mrte,
+                      noise_scale, generator=generator)
     zc = z[:, :min(first_window, z.shape[1])]
     valid = torch.clamp(2 * codes_len, 0, zc.shape[1])
-    a = sovits.vocode_frames(sovits_params, vcfg, zc, ge, valid)
+    a = sovits.vocode(sovits_params, vcfg, zc, ge, valid)
     first = a[:, :min(first_frames * vcfg.hop_length, a.shape[1])]
     return z, codes_len, _to_pcm16(first) if pcm16 else first
 
@@ -474,12 +478,12 @@ class TTSEngine:
                 logger.warning("T2S produced no semantic tokens; returning silence")
                 return np.zeros(0, np.int16 if pcm16 else np.float32)
             codes = _fit_codes(codes, pick_bucket(n_codes, self.cfg.frame_buckets))
-            z = sovits.synthesize_latent(char.sovits_params, vcfg, codes, codes_len,
-                                         *tail.values(), noise_scale, generator=gen)
+            z = sovits.latent(char.sovits_params, vcfg, codes, codes_len, *tail.values(),
+                              noise_scale, generator=gen)
             stages.mark("latent")
             audio = sovits.vocode_frames_chunked(
                 char.sovits_params, vcfg, z, tail["ge"], 2 * codes_len,
-                chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo)
+                chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo, bound=2 * n_codes)
             stages.mark("vocode")
             audio = audio[0, :2 * n_codes * vcfg.hop_length]
             out = (_to_pcm16(audio) if pcm16 else audio).cpu().numpy()
@@ -512,8 +516,9 @@ class TTSEngine:
         codes)] vocode as ONE batch, padded to ``b_buckets`` (default
         ``batch_buckets``) with copies of the first row, codes to a
         ``frame_buckets`` bucket and text to one ``t_buckets`` bucket; one
-        ``synthesize_latent``, a chunked HiFi-GAN, PCM16 made on the device
-        when ``pcm16``. The waveform's copy to host memory is enqueued
+        latent program and the chunked HiFi-GAN's (``models/sovits.py``:
+        graph replays on the card), PCM16 made on the device when
+        ``pcm16``. The waveform's copy to host memory is enqueued
         right behind it; the returned handle goes to
         :meth:`vocode_codes_fetch`, which may run on any thread.
 
@@ -551,13 +556,13 @@ class TTSEngine:
             noise = host_to_device(noise, dev)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         ge = host_to_device(ge_b, dev)
-        z = sovits.synthesize_latent(
+        z = sovits.latent(
             char.sovits_params, vcfg, host_to_device(codes_b, dev), lens_d,
             host_to_device(text_b, dev), host_to_device(t_lens, dev), ge,
             host_to_device(gm_b, dev), noise_scale, noise=noise, generator=gen)
         audio = sovits.vocode_frames_chunked(
-            char.sovits_params, vcfg, z, ge, 2 * lens_d,
-            chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo)[:B]
+            char.sovits_params, vcfg, z, ge, 2 * lens_d, chunk=self.cfg.vocode_chunk,
+            halo=self.cfg.vocode_halo, bound=2 * int(lens.max()))[:B]
         audio = _to_pcm16(audio) if pcm16 else audio.float()
         metrics.incr("utterances", B)
         return start_host_copy(audio), lens[:B], vcfg.hop_length
@@ -617,18 +622,17 @@ class TTSEngine:
         text_b = np.stack([pad_to(np.asarray(r[1], np.int64), t_bucket) for r in rows])
         ge = host_to_device(np.stack([r[0].ge for r in rows]).astype(np.float32), dev)
         gm = host_to_device(np.stack([r[0].ge_mrte for r in rows]).astype(np.float32), dev)
-        noise = torch.stack([r[4] for r in rows])
-        z = sovits.synthesize_latent_rows(
-            char.sovits_params, vcfg, noise, codes_b, host_to_device(lens, dev),
+        # each row's noise table, read from its start (synthesize_latent_rows)
+        z = sovits.latent(
+            char.sovits_params, vcfg, codes_b, host_to_device(lens, dev),
             host_to_device(text_b, dev), host_to_device(t_lens, dev), ge, gm,
-            noise_scale)
+            noise_scale, noise=torch.stack([r[4] for r in rows]))
         F = 2 * fb
         win = min(win, F)          # tiny ladders: the window covers the grid
         starts = np.array([r[5] for r in rows], np.int64)
         s0 = np.clip(starts - halo, 0, F - win)
-        audio = sovits.vocode_window_rows(char.sovits_params, vcfg, z, ge,
-                                          host_to_device(s0, dev),
-                                          host_to_device(2 * lens, dev), win)
+        audio = sovits.vocode_rows(char.sovits_params, vcfg, z, ge, host_to_device(s0, dev),
+                                   host_to_device(2 * lens, dev), win)
         audio = _to_pcm16(audio) if pcm16 else audio.float()
         hop = vcfg.hop_length
         widths = np.array([r[6] for r in rows], np.int64) * hop
@@ -702,15 +706,14 @@ class TTSEngine:
         yield first_np
 
         # the remaining chunks over the valid frames: all dispatched (and
-        # their host copies enqueued) before the first is read
+        # their host copies enqueued) before the first is read; one window
+        # width (one vocode graph), placed inside the latent's frames
         jobs = []
+        win = min(chunk + 2 * halo, F)
         for start in range(first, total_valid, chunk):
-            s0 = max(start - halo, 0)
-            s1 = min(start + chunk + halo, F)
-            valid = torch.tensor([min(max(total_valid - s0, 0), s1 - s0)],
-                                 device=char.device)
-            a = sovits.vocode_frames(char.sovits_params, vcfg, z[:, s0:s1], tail["ge"],
-                                     valid)
+            s0 = min(max(start - halo, 0), F - win)
+            valid = torch.tensor([min(max(total_valid - s0, 0), win)], device=char.device)
+            a = sovits.vocode(char.sovits_params, vcfg, z[:, s0:s0 + win], tail["ge"], valid)
             n_frames = min(chunk, total_valid - start)
             a = a[0, (start - s0) * hop:(start - s0 + n_frames) * hop]
             jobs.append((start_host_copy(_to_pcm16(a) if pcm16 else a), n_frames))
@@ -846,13 +849,13 @@ class TTSEngine:
             d = rep.device
             codes, codes_len = decoded[r]
             ge = host_to_device(ge_b[rows], d)
-            z = sovits.synthesize_latent(
+            z = sovits.latent(
                 rep.sovits_params, vcfg, _fit_codes(codes, c_bucket), codes_len,
                 host_to_device(text_b[rows], d), host_to_device(t_lens[rows], d), ge,
                 host_to_device(gm_b[rows], d), noise_scale, noise=flow_noise[rows].to(d))
             return sovits.vocode_frames_chunked(
-                rep.sovits_params, vcfg, z, ge, 2 * codes_len,
-                chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo).cpu().numpy()
+                rep.sovits_params, vcfg, z, ge, 2 * codes_len, chunk=self.cfg.vocode_chunk,
+                halo=self.cfg.vocode_halo, bound=2 * int(lens[rows].max())).cpu().numpy()
 
         audio = np.concatenate(self._rows_map(finish, reps))
         if stats is not None:
@@ -879,22 +882,25 @@ class TTSEngine:
         """Prepare the steady-state programs ahead of serving.
 
         ``sweep=False``: one synthesis (the smallest bucket combination).
-        ``sweep=True``: capture every decode graph the serving path can hit
+        ``sweep=True``: capture every graph the serving path can hit
         (``runtime/graphs.py``) — solo ``generate`` per phoneme bucket at
         the reference's prompt bucket and the character's step cap (with
         and without BERT features: one decode graph; the fused stream head
         and the staged branch decode through it too), the window
-        batcher's B > 1 decode per batch and phoneme bucket, each with and
-        without top-p and in both block lengths (``t2s.DECODE_BLOCKS``:
-        every per-request cap replays them), and (when slot
-        serving is on) every slot segment graph (:func:`slot_warmup_units`)
-        and (when segmented streaming is on) the stream's
-        (:func:`stream_warmup_units`) — and, on the card, run each SoVITS
-        latent and vocode bucket once, so that kernels and convolution
-        plans exist before traffic (on the CPU there is nothing to
-        prepare, and the decode graphs' keys and variants are recorded
-        without a run). Returns the number of units run; the cache's
-        ``stats`` count the graphs captured.
+        batcher's B > 1 decode per batch and phoneme bucket, each with its
+        prefill program and both block lengths (``t2s.DECODE_BLOCKS``:
+        every per-request cap replays them), with and without top-p; the
+        SoVITS latent and vocode programs of the solo routes
+        (:meth:`solo_warmup_units`) and of the window batcher
+        (:meth:`finisher_warmup_units`); and (when slot serving is on)
+        every slot segment graph with the finisher's and window pump's
+        SoVITS programs (:func:`slot_warmup_units`) and (when segmented
+        streaming is on) the stream's (:func:`stream_warmup_units`). On
+        the CPU nothing is captured: the keys, buffers and variants are
+        recorded. Returns the number of units run; the caches' ``stats``
+        (``graphs.cache_for(char.t2s_params)`` and
+        ``graphs.cache_for(char.sovits_params)``) count the graphs
+        captured.
 
         A captured graph reads the weights of the character it was
         captured for, so the sweep warms ``char`` alone (the kernels it
@@ -904,8 +910,7 @@ class TTSEngine:
             bert = np.zeros((8, char.t2s_cfg.bert_dim), np.float32)
             self.synthesize_utterance(char, ref, phones, bert, seed=0)
             return 1
-        tcfg, vcfg = char.t2s_cfg, char.sovits_cfg
-        dev = char.device
+        tcfg = char.t2s_cfg
         params = char.t2s_params
         p_bucket = pick_bucket(len(ref.prompt_tokens), self.cfg.prompt_buckets)
         cap = pick_bucket(tcfg.max_decode_steps, self.cfg.step_caps)
@@ -913,17 +918,14 @@ class TTSEngine:
         units = []
 
         def decode(B, xb):
-            # the graph of the geometry, each block length and top-p flag
-            # captured on its zeroed buffers (on the CPU: its key and
-            # variants recorded)
+            # every program of the geometry's graph captured on its zeroed
+            # buffers (on the CPU: its key and variants recorded)
             g, packed = t2s.decode_graph(params, tcfg, B, xb, p_bucket, xb + p_bucket + cap,
                                          cap, dtype)
             with g.lock:
-                for n in t2s.DECODE_BLOCKS:
-                    for top_p in (False, True):
-                        g.prepare(functools.partial(
-                            t2s._decode_block, params, tcfg, n_steps=n, Sx=xb, Sp=p_bucket,
-                            any_top_p=top_p, packed=packed), variant=(n, top_p))
+                for variant, fn in t2s.generate_programs(params, tcfg, xb, p_bucket,
+                                                         packed).items():
+                    g.prepare(fn, variant)
 
         if t2s.layer_shards(params) is None:
             batch = [1] + ([b for b in self.cfg.batch_buckets if b > 1]
@@ -931,124 +933,96 @@ class TTSEngine:
             for B in batch:
                 for xb in self.cfg.phoneme_buckets:
                     units.append(functools.partial(decode, B, xb))
-        ge = torch.zeros((1, vcfg.gin_channels, 1), device=dev)
-        gm = torch.zeros((1, vcfg.mrte_channels, 1), device=dev)
-        one = torch.ones((1,), dtype=torch.int64, device=dev)
-
-        def latent(fb, tb):
-            sovits.synthesize_latent(
-                char.sovits_params, vcfg, torch.zeros((1, fb), dtype=torch.int64, device=dev),
-                one, torch.zeros((1, tb), dtype=torch.int64, device=dev), one, ge, gm, 0.5,
-                generator=torch.Generator(device=dev).manual_seed(0))
-
-        if dev.type == "cuda":
-            for fb in self.cfg.frame_buckets:
-                for tb in self.cfg.phoneme_buckets:
-                    units.append(functools.partial(latent, fb, tb))
-            # the HiFi-GAN windows the chunked vocoder and the stream head run
-            chunk, halo = self.cfg.vocode_chunk, self.cfg.vocode_halo
-            widths = {2 * fb for fb in self.cfg.frame_buckets if 2 * fb <= chunk + 2 * halo}
-            widths |= {chunk + halo, chunk + 2 * halo,
-                       min(self.cfg.stream_first_chunk, chunk) + halo}
-            units += [functools.partial(self._vocode_once, char, 1, w)
-                      for w in sorted(widths)]
+        units += self.solo_warmup_units(char)
+        if self.cfg.serve_batching:
+            units += self.finisher_warmup_units(char)
         if self.cfg.serve_slots:
             from .slot_batcher import slot_warmup_units
 
-            units.extend(slot_warmup_units(self, char, pcm16=True))
+            units.extend(slot_warmup_units(self, char))
         if self.cfg.stream_segmented:
             from .stream import stream_warmup_units
 
-            units.extend(stream_warmup_units(self, char, pcm16=True))
+            units.extend(stream_warmup_units(self, char))
         with metrics.timer("warmup_sweep"):
             n = self._run_compile_units(units)
-        logger.info("warmup sweep ran %d units, %d graphs captured", n,
-                    graphs.cache_for(params).stats["captures"])
+        logger.info("warmup sweep ran %d units, %d + %d graphs captured (T2S + SoVITS)", n,
+                    graphs.cache_for(params).stats["captures"],
+                    graphs.cache_for(char.sovits_params).stats["captures"])
         return n
 
-    def _vocode_once(self, char: CharacterModel, B: int, width: int,
-                     pcm16: bool = False) -> None:
-        vcfg = char.sovits_cfg
-        dev = char.device
-        z = torch.zeros((B, width, vcfg.inter_channels), device=dev,
-                        dtype=char.sovits_params["quantizer_embed"].dtype)
-        a = sovits.vocode_frames(char.sovits_params, vcfg, z,
-                                 torch.zeros((B, vcfg.gin_channels, 1), device=dev),
-                                 torch.full((B,), width, dtype=torch.int64, device=dev))
-        if pcm16:
-            _to_pcm16(a)
-
-    def finisher_warmup_units(self, char: CharacterModel, t_buckets=None,
-                              pcm16: bool = False) -> list:
-        """Warmup thunks for the batched codes -> waveform tail
-        (:meth:`vocode_codes_dispatch`): the latent at every (batch, frame,
-        text) bucket the finisher can hit, and the HiFi-GAN windows at
-        every batch bucket, each run once. ``t_buckets`` narrows the text
-        ladder (the slot batcher pins one text bucket)."""
-        vcfg = char.sovits_cfg
-        dev = char.device
-        units = []
-        t_buckets = tuple(t_buckets or self.cfg.phoneme_buckets)
+    def chunk_widths(self, F: int) -> set:
+        """The window widths ``sovits.vocode_frames_chunked`` vocodes over
+        ``F`` latent frames at the engine's ``vocode_chunk`` and halo."""
         chunk, halo = self.cfg.vocode_chunk, self.cfg.vocode_halo
+        if not chunk or F <= chunk + 2 * halo:        # one whole-F pass
+            return {F}
+        return {s1 - s0 for _, s0, s1, _ in sovits.chunk_windows(F, chunk, halo)}
 
-        def latent(b, fb, tb):
-            lens = torch.ones((b,), dtype=torch.int64, device=dev)
-            sovits.synthesize_latent(
-                char.sovits_params, vcfg, torch.zeros((b, fb), dtype=torch.int64, device=dev),
-                lens, torch.zeros((b, tb), dtype=torch.int64, device=dev), lens,
-                torch.zeros((b, vcfg.gin_channels, 1), device=dev),
-                torch.zeros((b, vcfg.mrte_channels, 1), device=dev), 0.5,
-                generator=torch.Generator(device=dev).manual_seed(0))
+    def solo_warmup_units(self, char: CharacterModel) -> list:
+        """Warmup thunks for the SoVITS programs of solo synthesis: the
+        latent over the character's step cap (the fused branch and the
+        fused stream head; every frame bucket too when the cap takes the
+        staged branch) at every text bucket, the chunked vocode's windows
+        over them, and the fused stream head's first and later windows."""
+        cfg = self.cfg
+        cap = pick_bucket(char.t2s_cfg.max_decode_steps, cfg.step_caps)
+        frames = {cap} | (set(cfg.frame_buckets) if cap > cfg.solo_fused_max_codes else set())
+        latents = {(1, fb, tb) for fb in frames for tb in cfg.phoneme_buckets}
+        vocodes = {(1, w) for fb in frames for w in self.chunk_widths(2 * fb)}
+        F, chunk, halo = 2 * cap, cfg.vocode_chunk, cfg.vocode_halo
+        vocodes |= {(1, min(min(cfg.stream_first_chunk, chunk) + halo, F)),
+                    (1, min(chunk + 2 * halo, F))}
+        return sovits_warmup_units(char, latents, vocodes)
 
-        for b in self.cfg.batch_buckets:
-            widths = set()
-            for fb in self.cfg.frame_buckets:
-                for tb in t_buckets:
-                    units.append(functools.partial(latent, b, fb, tb))
-                # the windows vocode_frames_chunked cuts out of z [b, 2*fb, :]
-                F = 2 * fb
-                if F <= chunk + 2 * halo:
-                    widths.add(F)
-                else:
-                    for start in range(0, F, chunk):
-                        s0 = max(start - halo, 0)
-                        widths.add(min(start + chunk + halo, F) - s0)
-            units += [functools.partial(self._vocode_once, char, b, w, pcm16)
-                      for w in sorted(widths)]
-        return units
+    def finisher_warmup_units(self, char: CharacterModel, t_buckets=None) -> list:
+        """Warmup thunks for the batched codes -> waveform tails
+        (:meth:`vocode_codes_dispatch`, and :meth:`synthesize_batch`'s
+        finish): a capture of the latent program at every (batch, frame,
+        text) bucket they can hit, and of the vocode program at every
+        window of the chunked HiFi-GAN at every batch bucket.
+        ``t_buckets`` narrows the text ladder (the slot batcher pins one
+        text bucket)."""
+        cfg = self.cfg
+        t_buckets = tuple(t_buckets or cfg.phoneme_buckets)
+        latents = {(b, fb, tb) for b in cfg.batch_buckets for fb in cfg.frame_buckets
+                   for tb in t_buckets}
+        vocodes = {(b, w) for b in cfg.batch_buckets for fb in cfg.frame_buckets
+                   for w in self.chunk_widths(2 * fb)}
+        return sovits_warmup_units(char, latents, vocodes)
 
-    def window_warmup_units(self, char: CharacterModel, wins, t_bucket: int,
-                            pcm16: bool = False) -> list:
+    def window_warmup_units(self, char: CharacterModel, wins, t_bucket: int) -> list:
         """Warmup thunks for the slot window pump
-        (:meth:`vocode_windows_dispatch`): the per-row prefix latent at
-        every (batch, frame >= win/2) bucket and the fixed-width window
-        vocode at every batch bucket, each run once."""
-        vcfg = char.sovits_cfg
-        dev = char.device
-        units = []
+        (:meth:`vocode_windows_dispatch`): a capture of the per-row prefix
+        latent at every (batch, frame) bucket a window of ``wins`` can
+        take (frame >= win/2) and of the window's vocode there."""
+        cfg = self.cfg
+        latents, vocodes = set(), set()
+        for b in cfg.batch_buckets:
+            for win in wins:
+                fb_min = pick_bucket(-(-win // 2), cfg.frame_buckets)
+                for fb in cfg.frame_buckets:
+                    if fb >= fb_min:
+                        latents.add((b, fb, t_bucket))
+                        vocodes.add((b, min(win, 2 * fb)))
+        return sovits_warmup_units(char, latents, vocodes)
 
-        def run(b, fb, win_list):
-            lens = torch.ones((b,), dtype=torch.int64, device=dev)
-            ge = torch.zeros((b, vcfg.gin_channels, 1), device=dev)
-            z = sovits.synthesize_latent_rows(
-                char.sovits_params, vcfg,
-                torch.zeros((b, 2 * fb, vcfg.inter_channels), device=dev),
-                torch.zeros((b, fb), dtype=torch.int64, device=dev), lens,
-                torch.zeros((b, t_bucket), dtype=torch.int64, device=dev), lens, ge,
-                torch.zeros((b, vcfg.mrte_channels, 1), device=dev), 0.5)
-            for win in win_list:
-                a = sovits.vocode_window_rows(char.sovits_params, vcfg, z, ge,
-                                              torch.zeros_like(lens), 2 * lens, win)
-                if pcm16:
-                    _to_pcm16(a)
 
-        for b in self.cfg.batch_buckets:
-            for fb in self.cfg.frame_buckets:
-                if 2 * fb < min(wins):
-                    continue
-                units.append(functools.partial(run, b, fb,
-                                               [w for w in wins if 2 * fb >= w]))
-        return units
+def sovits_warmup_units(char: CharacterModel, latents, vocodes) -> list:
+    """Warmup thunks capturing ``char``'s SoVITS latent programs at the
+    (B, Ts, Tt) keys ``latents`` and vocode programs at the (B, W) keys
+    ``vocodes`` (``models/sovits.py``; on the CPU the keys and buffers
+    are made)."""
+    p, v = char.sovits_params, char.sovits_cfg
+
+    def latent(key):
+        sovits.prepare(sovits.latent_graph(p, v, *key))
+
+    def vocode(key):
+        sovits.prepare(sovits.vocode_graph(p, v, *key))
+
+    return ([functools.partial(latent, k) for k in sorted(latents)]
+            + [functools.partial(vocode, k) for k in sorted(vocodes)])
 
 
 # ---------------------------------------------------------------------------

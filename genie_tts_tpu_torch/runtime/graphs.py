@@ -1,13 +1,14 @@
-"""Captured CUDA graphs of the decode programs, and their cache.
+"""Captured CUDA graphs of the sentence programs, and their cache.
 
-The counterpart of the JAX package's compiled decode programs and its JIT
-caches. There, a whole decode is one compiled device program (solo
-``generate`` is one ``lax.while_loop``, a slot segment one ``jax.jit``),
-compiled once per static geometry. Here each decode program is a step
-function over STATIC buffers: every value that changes between runs (the
-decode step, the write row, the ring head) lives in device memory and is
-advanced by the program itself, so the program is captured once per
-geometry as a CUDA graph and then replayed:
+The counterpart of the JAX package's compiled programs and its JIT
+caches. There, a whole sentence is one compiled device program (embed,
+prefill, the ``lax.while_loop`` decode, the SoVITS latent and the
+HiFi-GAN vocode; a slot segment is one ``jax.jit``), compiled once per
+static geometry. Here each program is a step function over STATIC
+buffers: every value that changes between runs (the decode step, the
+write row, the ring head, the flow noise, the valid lengths) lives in
+device memory and is advanced by the program itself, so the program is
+captured once per geometry as a CUDA graph and then replayed:
 
 * :class:`Graph` holds one program's static buffers, its lock and, on the
   card, its captured graph. A caller takes the lock, copies its inputs
@@ -20,12 +21,21 @@ geometry as a CUDA graph and then replayed:
   parameter set's cache. ``runtime/engine.py::TTSEngine.warmup(..., sweep=True)``
   captures every key that serving can reach before traffic arrives.
 
-A capture first runs the program once on a side stream (lazy work: kernel
-builds, library handles), puts the buffers back as they were, then
-captures it in a private memory pool (one pool per graph, so graphs that
-different threads replay at once never share memory). A program writes
-only its graph's static buffers (the fused kernel's output row and
-scratch included), so a capture may run beside other threads' replays.
+A capture first runs the program once on the device's capture stream
+(lazy work: kernel builds, library handles, convolution plans), puts the
+buffers back as they were, then captures it on that stream. Each graph of a T2S set (a decode geometry)
+captures its programs in a private memory pool, which its variants share
+(its lock runs them one at a time), so graphs that different threads
+replay at once never share memory. A SoVITS set's graphs (the latent and vocode
+programs: a hundred or more per set, whose activations reach hundreds of
+MB at the largest buckets) form one FAMILY: they share one pool and one
+lock, so they replay one at a time, each from its inputs' copy in to its
+outputs' copy out, and the pool holds the largest program's temporaries
+once instead of every program's. A program keeps nothing in its pool
+between runs (its outputs are static buffers, made outside any capture),
+so family members may replay in any order. A program writes only its
+graph's static buffers (the fused kernel's output row and scratch
+included), so a capture may run beside other threads' replays.
 The kernel wrappers' launches made while capturing go to the graph's
 record and are added to the wrappers' counts on every replay
 (``ops/_build.py``), so a count is the number of kernel executions. A capture that fails raises;
@@ -46,6 +56,11 @@ from ..ops import _build
 # one capture at a time: a capture synchronizes the card and swaps the
 # allocator's pool for its stream
 _capture_lock = threading.Lock()
+# the stream every capture (and its warm-up run) of a device runs on: the
+# allocator reuses a pool's freed blocks only on the stream that freed
+# them, so captures that share a pool (a graph's variants, a family) must
+# share one stream
+_capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def tensors_of(obj) -> List[torch.Tensor]:
@@ -71,10 +86,10 @@ def tensors_of(obj) -> List[torch.Tensor]:
 
 
 class Graph:
-    """One decode program over its static buffers ``static``.
+    """One program over its static buffers ``static``.
 
-    ``lock`` is held by the caller from copying its inputs in to copying
-    the outputs out. ``run(fn, variant)`` runs ``fn(static)``, which
+    ``lock`` (the family's, for a SoVITS set) is held by the caller from
+    copying its inputs in to copying the outputs out. ``run(fn, variant)`` runs ``fn(static)``, which
     updates the buffers in place and reads nothing back to the host: on
     the card, a replay of the graph captured from ``fn`` on the first run
     of ``variant`` (the variants of one program share its buffers: a
@@ -86,11 +101,13 @@ class Graph:
 
     def __init__(self, cache: "Optional[GraphCache]", key: Hashable, static):
         self.key, self.static = key, static
-        self.lock = threading.Lock()
+        self.lock = (cache.family_lock if cache is not None and cache.family
+                     else threading.Lock())
         self._cache = cache
         # variant -> (CUDA graph, kernel launches per replay, pool bytes),
         # or None on the CPU (nothing to capture)
         self._graphs: Dict[Hashable, Optional[tuple]] = {}
+        self._pool = None        # the memory pool of this graph's captures
 
     @property
     def pool_bytes(self) -> int:
@@ -131,7 +148,9 @@ class Graph:
         dev = bufs[0].device
         with _capture_lock, torch.cuda.device(dev):
             main = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
+            side = _capture_streams.get(dev)
+            if side is None:
+                side = _capture_streams[dev] = torch.cuda.Stream(dev)
             saved = [t.clone() for t in bufs]
             side.wait_stream(main)
             # the warm-up run: what is built or allocated once (kernels,
@@ -145,20 +164,30 @@ class Graph:
                 t.copy_(s)
             del saved
             torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved(dev)
             graph = torch.cuda.CUDAGraph()
-            with _build.recording() as rec:
-                with torch.cuda.graph(graph, stream=side,
-                                      capture_error_mode="thread_local"):
+            pool = self._cache.pool() if self._cache.family else self._pool
+            # capture_begin / capture_end, not torch.cuda.graph: its entry
+            # collects garbage and empties the allocator's cache, which
+            # costs a sweep time and hides the pool's growth from the count
+            with _build.recording() as rec, torch.cuda.stream(side):
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
                     fn(self.static)
+                finally:
+                    graph.capture_end()
+            self._pool = graph.pool()
             return graph, dict(rec), max(torch.cuda.memory_reserved(dev) - before, 0)
 
 
 class GraphCache:
     """The graphs of one parameter set, keyed on static geometry (route,
     B, Sx, Sp, cache length, step cap, W, read windows, top-p flag,
-    dtype), and the objects they share (the fused kernel's packing).
+    dtype; the SoVITS stage, B and frame, text or window widths), and the
+    objects they share (the fused kernel's packing).
+
+    ``family``: the graphs form one family (a SoVITS set's): one memory
+    pool, made at the first capture, and one lock, ``family_lock``.
 
     ``stats``: ``hits`` and ``misses`` count lookups of a key (a miss
     makes the graph's buffers; the capture follows on its first run),
@@ -168,12 +197,21 @@ class GraphCache:
     ``eager``: run every program of the set without a graph (a
     comparison's baseline; serving never sets it)."""
 
-    def __init__(self):
+    def __init__(self, family: bool = False):
         self._graphs: Dict[Hashable, Graph] = {}
         self._objects: Dict[Hashable, object] = {}
         self._lock = threading.RLock()     # a factory may ask for a shared object
         self.stats = {"hits": 0, "misses": 0, "variants": 0, "captures": 0}
         self.eager = False
+        self.family = family
+        self.family_lock = threading.Lock() if family else None
+        self._pool = None
+
+    def pool(self):
+        """The family's memory pool handle (None: each capture's own)."""
+        if self.family and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     def graph(self, key: Hashable, make_static: Callable[[], object]) -> Graph:
         """The graph for ``key``; on a miss its buffers come from
@@ -225,6 +263,13 @@ class GraphCache:
             seen = {id(t): t for g in self._graphs.values() for t in tensors_of(g.static)}
         return sum(t.numel() * t.element_size() for t in seen.values())
 
+    def clear(self) -> None:
+        """Let go of every graph and shared object: the parameter set is
+        gone, and a graph refers back to its cache, so the cycle would
+        otherwise wait for the next collection to free the pools."""
+        self._graphs.clear()
+        self._objects.clear()
+
     def reset_stats(self) -> None:
         with self._lock:
             for k in self.stats:
@@ -236,21 +281,25 @@ _caches_lock = threading.RLock()   # the drop callback may run inside cache_for
 
 
 def cache_for(params) -> GraphCache:
-    """The graph cache of a T2S parameter set, found by its
-    ``audio_embed`` tensor and dropped with it."""
-    t = params["audio_embed"]
+    """The graph cache of a parameter set, found by one of its tensors
+    and dropped with it: a T2S set's by ``audio_embed``, a SoVITS set's
+    (a family: one pool, one lock) by ``quantizer_embed``."""
+    family = "audio_embed" not in params
+    t = params["quantizer_embed" if family else "audio_embed"]
     k = id(t)
     with _caches_lock:
         hit = _caches.get(k)
         if hit is not None and hit[0]() is t:
             return hit[1]
-        cache = GraphCache()
+        cache = GraphCache(family)
 
         def drop(_ref, k=k):
             with _caches_lock:
                 cur = _caches.get(k)
-                if cur is not None and cur[0] is _ref:
-                    del _caches[k]
+                if cur is None or cur[0] is not _ref:
+                    return
+                del _caches[k]
+            cur[1].clear()
 
         _caches[k] = (weakref.ref(t, drop), cache)
         return cache

@@ -5,7 +5,9 @@ validation (a V2ProPlus character also needs its prompt encoder),
 ``config.json`` hyperparameter overrides (a V2ProPlus character's
 synthesizer defaults to ``gin_channels=1024``), int8 decode weights at
 load (``RuntimeConfig.t2s_int8``), an LRU of loaded characters with reload
-after eviction, and the lazy shared models: HuBERT, and RoBERTa with the
+after eviction (an evicted character is dropped, and with it its captured
+graphs: ``runtime/graphs.py``; ``on_evict`` is told, so the API lets go
+of what it holds for it), and the lazy shared models: HuBERT, and RoBERTa with the
 Chinese BERT-feature hook it installs into the G2P dispatcher. Both are
 kept per device, so a second character on the same card loads neither
 again.
@@ -16,7 +18,7 @@ import dataclasses
 import logging
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,8 +81,10 @@ class ModelManager:
         self.cfg = runtime_cfg or RuntimeConfig()
         self._lock = threading.RLock()
         self._cache: LRUCache[str, CharacterModel] = LRUCache(
-            self.cfg.max_cached_characters,
-            on_evict=lambda name, _: logger.info("evicted character '%s'", name))
+            self.cfg.max_cached_characters, on_evict=self._evicted)
+        # called with a character's name when the LRU evicts it: what it
+        # lets go of would keep the character (its weights and graphs) alive
+        self.on_evict: Optional[Callable[[str], None]] = None
         # name -> (model_dir, language, device, dtype) for reload after evict
         self._registry: Dict[str, Tuple] = {}
         self._hubert: Dict[torch.device, Tuple[Dict, HubertConfig]] = {}
@@ -88,6 +92,11 @@ class ModelManager:
         self._roberta: Dict[torch.device, Tuple[Dict, RobertaConfig, object]] = {}
 
     # -- characters -------------------------------------------------------
+
+    def _evicted(self, name: str, _model: CharacterModel) -> None:
+        logger.info("evicted character '%s'", name)
+        if self.on_evict is not None:
+            self.on_evict(name)
 
     def load_character(self, name: str, model_dir: str, language: str,
                        compute_dtype=None, device=None) -> CharacterModel:
@@ -137,6 +146,11 @@ class ModelManager:
                 logger.info("reloading evicted character '%s'", name)
                 return self.load_character(name, model_dir, language, dtype, dev)
             return None
+
+    def holds(self, model: CharacterModel) -> bool:
+        """Whether ``model`` is the loaded character of its name (not one
+        evicted, unloaded or replaced since)."""
+        return self._cache.get(model.name) is model
 
     def remove_character(self, name: str) -> None:
         with self._lock:

@@ -138,29 +138,30 @@ class TTSSession:
             item = self._text_q.get()
             if item is _STREAM_END:
                 self._finish_session()
-                continue
-            if self._stop_event.is_set():
-                continue
-            try:
-                stream_fn = self._synth_stream_fn
-                if self._chunk_cb is not None and stream_fn is not None:
-                    # intra-utterance streaming: emit vocoder chunks live
-                    for piece in stream_fn(item):
-                        if self._stop_event.is_set():
-                            break
-                        self._emit(piece)
-                    continue
-                audio = self._synth_fn(item)
-            except Exception as e:
-                # per-sentence isolation; the first failure is kept so
-                # callers (HTTP /tts) can report it when the whole session
-                # produced nothing
-                logger.exception("synthesis failed for %r", item)
-                if self.first_error is None:
-                    self.first_error = e
-                continue
-            if audio is None or self._stop_event.is_set():
-                continue
+            elif not self._stop_event.is_set():
+                self._synthesize(item)
+
+    def _synthesize(self, item: str) -> None:
+        """One sentence through the session's synth function (or, with a
+        chunk callback, its stream function). A failure is logged and the
+        first one kept, not raised: per-sentence isolation, and callers
+        (HTTP /tts) report it when the whole session produced nothing."""
+        try:
+            stream_fn = self._synth_stream_fn
+            if self._chunk_cb is not None and stream_fn is not None:
+                # intra-utterance streaming: emit vocoder chunks live
+                for piece in stream_fn(item):
+                    if self._stop_event.is_set():
+                        break
+                    self._emit(piece)
+                return
+            audio = self._synth_fn(item)
+        except Exception as e:
+            logger.exception("synthesis failed for %r", item)
+            if self.first_error is None:
+                self.first_error = e
+            return
+        if audio is not None and not self._stop_event.is_set():
             self._emit(audio)
 
     def _emit(self, audio: np.ndarray) -> None:
@@ -184,6 +185,9 @@ class TTSSession:
             self._chunk_cb(None)
         if self._play:
             self._audio_q.put(_AUDIO_END)
+        # the worker outlives the session: it must not keep the synth
+        # functions (and the character they close over) alive
+        self._synth_fn = self._synth_stream_fn = self._chunk_cb = None
         self._tts_done.set()
 
     def _playback_worker(self) -> None:  # pragma: no cover - needs audio HW

@@ -34,8 +34,10 @@ merged so far, bumped at dispatch so that the in-flight segment is
 covered), or the full read when a row is past either ladder.
 
 One scheduler serves one character; ``api.get_slot_batcher`` keeps one
-per loaded character. On a serving mesh it runs on the character's
-replica 0; where that replica's T2S is tp-sharded, so are its slot caches
+per loaded character, and retires (:meth:`SlotBatcher.retire`) that of a
+character evicted or unloaded: it finishes what it holds, then exits.
+On a serving mesh it runs on the character's replica 0; where that
+replica's T2S is tp-sharded, so are its slot caches
 (``models/slots.py``), and the scheduling is the same.
 
 The machine owns its persistent slot state for as long as it lives
@@ -90,12 +92,28 @@ def seg_window_combos(cfg, sx: int, sp: int, ring: int) -> list:
 def seg_widths(cfg, ring: int) -> "tuple[int, ...]":
     """The segment widths the scheduler dispatches: slot_steps always, and
     the shorter slot_join_steps while a streaming row owes its first
-    piece. Both divide the ring."""
+    piece, kept only where it divides both slot_steps and the ring: the
+    head then stays on the join width's grid, so a join-width segment
+    always fits before the end of the ring."""
     widths = [cfg.slot_steps]
     j = cfg.slot_join_steps
-    if j and j != cfg.slot_steps and ring % j == 0:
+    if j and j != cfg.slot_steps and ring % j == 0 and cfg.slot_steps % j == 0:
         widths.append(j)
     return tuple(widths)
+
+
+def pump_windows(cfg) -> "tuple[int, int, int]":
+    """(first, small, large): the window pump's vocode widths in latent
+    frames: a first piece's (``slot_first_piece`` + both halos, unless
+    that is not below the small one), half a chunk's and a chunk's, each
+    with both halos."""
+    chunk, halo = cfg.vocode_chunk, cfg.vocode_halo
+    win, win_small = chunk + 2 * halo, chunk // 2 + 2 * halo
+    first_piece = min(cfg.slot_first_piece, chunk)
+    win_first = first_piece + 2 * halo if first_piece else 0
+    if not win_first or win_first >= win_small:
+        win_first = win_small
+    return win_first, win_small, win
 
 
 def slot_geometry(cfg, tcfg) -> "tuple[int, int, int, int, int]":
@@ -135,16 +153,17 @@ def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotSt
     return slots_mod.reset_slots(state, ring)
 
 
-def slot_warmup_units(engine: TTSEngine, char: CharacterModel, pcm16: bool = True) -> list:
+def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     """Warmup thunks for every slot-serving program: the prefill (with and
     without BERT features) and an insert and release once, a capture of
     every segment graph the scheduler can dispatch (each width of
     :func:`seg_widths` x each read-window pair of
     :func:`seg_window_combos` x the top-p flag) on a persistent slot
     state that it leaves for the character's next slot machine
-    (``TTSEngine.offer_slot_state``), and the window-pump and finisher
-    buckets (``engine.window_warmup_units`` / ``finisher_warmup_units``,
-    on the card only). Returns thunks for ``engine._run_compile_units``."""
+    (``TTSEngine.offer_slot_state``), and captures of the window pump's
+    and the finisher's SoVITS programs (``engine.window_warmup_units`` /
+    ``finisher_warmup_units``). Returns thunks for
+    ``engine._run_compile_units``."""
     cfg, tcfg = engine.cfg, char.t2s_cfg
     B, W, ring, sx, sp = slot_geometry(cfg, tcfg)
     params = char.t2s_params
@@ -183,17 +202,13 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel, pcm16: bool = Tru
             for w in seg_widths(cfg, ring):
                 for top_p in (False, True):
                     units.append(functools.partial(segment, w, cw, rw, top_p))
-    if dev.type != "cuda":      # SoVITS: no kernels or plans to prepare
-        return units
     # window-pump programs: streaming rows pump per row even without the
     # machine-wide flag, so a server must have them warm
-    units.extend(engine.window_warmup_units(
-        char, wins=(cfg.vocode_chunk + 2 * cfg.vocode_halo,
-                    cfg.vocode_chunk // 2 + 2 * cfg.vocode_halo),
-        t_bucket=_slot_finisher_t_bucket(cfg), pcm16=pcm16))
+    units.extend(engine.window_warmup_units(char, wins=pump_windows(cfg),
+                                            t_bucket=_slot_finisher_t_bucket(cfg)))
     if not cfg.slot_stream_finisher:
         units.extend(engine.finisher_warmup_units(
-            char, t_buckets=(_slot_finisher_t_bucket(cfg),), pcm16=pcm16))
+            char, t_buckets=(_slot_finisher_t_bucket(cfg),)))
     return units
 
 
@@ -264,6 +279,15 @@ class SlotBatcher:
         self.cfg = engine.cfg
         tcfg = char.t2s_cfg
         (self.n_slots, self.W, self.ring, self.sx, self.sp) = slot_geometry(self.cfg, tcfg)
+        widths = seg_widths(self.cfg, self.ring)
+        j = self.cfg.slot_join_steps
+        if 0 < j < self.W and j not in widths:
+            # mixed widths off the join width's grid can leave the ring head
+            # where neither fits before the end of the ring
+            raise ValueError(
+                f"slot_join_steps={j} must divide slot_steps={self.W} and the "
+                f"{self.ring}-step ring (slot_ring={self.cfg.slot_ring}); use one "
+                f"that divides both, or 0")
         self._t_buckets = (_slot_finisher_t_bucket(self.cfg),)
         # int8 KV caches read through the int8_big_attention kernel (on CPU
         # tensors its wrapper runs the plain version)
@@ -271,7 +295,7 @@ class SlotBatcher:
             w: functools.partial(slots_mod.decode_segment, cfg=tcfg, seg_steps=w,
                                  sx=self.sx, sp=self.sp, ring_len=self.ring,
                                  kv_kernel=self.cfg.slot_kv_int8)
-            for w in seg_widths(self.cfg, self.ring)}
+            for w in widths}
         # the default width's segment is an attribute so tests can inject
         # faults through it
         self._decode_seg = self._decode_segs[self.W]
@@ -286,15 +310,11 @@ class SlotBatcher:
         self.windows = self.cfg.slot_stream_finisher
         self.chunk = self.cfg.vocode_chunk
         self.halo = self.cfg.vocode_halo
-        self.win = self.chunk + 2 * self.halo
-        self.win_small = self.chunk // 2 + 2 * self.halo
         self.lookahead = self.cfg.stream_lookahead
         # the first piece must fit the large window
         self.first_piece = min(self.cfg.slot_first_piece, self.chunk)
         # a small window of its own for first pieces and short remainders
-        self.win_first = self.first_piece + 2 * self.halo if self.first_piece else 0
-        if not self.win_first or self.win_first >= self.win_small:
-            self.win_first = self.win_small
+        self.win_first, self.win_small, self.win = pump_windows(self.cfg)
         self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0,
                       "windowed_segments": 0}
         self._state = take_slot_state(engine, char)     # this machine's alone
@@ -303,8 +323,9 @@ class SlotBatcher:
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._defer_pump = False
         self._running = False
+        self._retired = False       # exit once drained (retire)
         self._thread: Optional[threading.Thread] = None
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()       # start() runs under it in _submit
         self._vocoder = ThreadPoolExecutor(max_workers=2,
                                            thread_name_prefix="slot-vocode")
         # window pieces and window completions on ONE worker, in submission
@@ -328,11 +349,26 @@ class SlotBatcher:
                                             name="tts-slots")
             self._thread.start()
 
+    def _submit(self, req: "_Request") -> None:
+        """Make sure a loop runs, and queue ``req``: under the lock, so a
+        retired loop cannot exit between the two."""
+        with self._lock:
+            self.start()
+            self._q.put(req)
+
     def stop(self) -> None:
         """Signal shutdown. The loop thread fails every queued and
         in-flight request on its way out (no hung waiters)."""
         with self._lock:
             self._running = False
+
+    def retire(self) -> None:
+        """Let the machine go once it has drained: the loop finishes the
+        requests queued and in its slots, then exits (failing none), and
+        drops its hold on the character. A request submitted later starts
+        the loop again, which exits when that one is done too."""
+        with self._lock:
+            self._retired = True
 
     def fits(self, ref: ReferenceFeatures, phones: np.ndarray) -> bool:
         """Whether a request fits the slot machine's static geometry."""
@@ -346,12 +382,11 @@ class SlotBatcher:
         """Blocking submit; decodes in flight with concurrent requests.
         ``sampling`` is per request (rows with different configs share the
         machine)."""
-        self.start()
         max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
         req = _Request(ref, np.asarray(phones, np.int32), bert,
                        min_steps=min(min_steps, max_steps), max_steps=max_steps,
                        sampling=sampling)
-        self._q.put(req)
+        self._submit(req)
         if not req.done.wait(timeout):
             # the scheduler drops it from the queue or releases its slot
             req.cancelled = True
@@ -368,7 +403,6 @@ class SlotBatcher:
         them, while the request decodes in flight beside others (the
         counterpart under load of the solo segmented stream). ``timeout``
         bounds the whole stream."""
-        self.start()
         max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
         if self.first_piece:
             # the speculative first piece claims this many tokens of the
@@ -381,7 +415,7 @@ class SlotBatcher:
                        min_steps=min(min_steps, max_steps), max_steps=max_steps,
                        sampling=sampling, stream_q=queue.Queue(),
                        t_submit=time.perf_counter())
-        self._q.put(req)
+        self._submit(req)
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             budget = (None if deadline is None
@@ -814,13 +848,32 @@ class SlotBatcher:
         self._harvest(seg_tok, done, counts, occupants)
 
     def _loop(self) -> None:
-        # inference mode is per thread: enter it on the scheduler thread
+        drained = False
         try:
+            # inference mode is per thread: enter it on the scheduler thread
             with torch.inference_mode():
-                self._loop_body()
+                drained = self._loop_body()
         finally:
             # drain on shutdown: no waiter may hang on a dead scheduler
-            self._fail_all(RuntimeError("slot batcher stopped"))
+            if not drained:
+                self._fail_all(RuntimeError("slot batcher stopped"))
+
+    def _drained_exit(self, pending) -> bool:
+        """A retired machine with nothing queued, in its slots, in flight
+        or awaiting the finisher stops its loop (under the lock, so no
+        request is queued behind the check; not waiting for it, since
+        ``start`` may hold it while it joins this thread)."""
+        if not self._retired or pending is not None or self._occupied() or self._finish_pending:
+            return False
+        if not self._lock.acquire(blocking=False):
+            return False
+        try:
+            if not self._q.empty():
+                return False
+            self._running = False
+            return True
+        finally:
+            self._lock.release()
 
     def _segment_width(self) -> int:
         """Short segments while a streaming row owes its first piece (fewer
@@ -836,13 +889,17 @@ class SlotBatcher:
             w = self.join_W
         return w
 
-    def _loop_body(self) -> None:
-        # depth-1 pipeline: dispatch segment k+1 BEFORE waiting for segment
-        # k's outputs, so the host work overlaps the device's. Joins land
-        # between dispatches; releases apply to the state after the
-        # in-flight segment, which is safe (done rows are frozen by masks).
+    def _loop_body(self) -> bool:
+        """The scheduler loop, until stopped, or until a retired machine
+        has drained (then True). Depth-1 pipeline: dispatch segment k+1
+        BEFORE waiting for segment k's outputs, so the host work overlaps
+        the device's. Joins land between dispatches; releases apply to the
+        state after the in-flight segment, which is safe (done rows are
+        frozen by masks)."""
         pending = None
         while self._running:
+            if self._drained_exit(pending):
+                return True
             try:
                 self._fill_slots(block=not self._occupied() and pending is None
                                  and not self._finish_pending)

@@ -25,8 +25,10 @@ The loop is pipelined one segment deep: segment k's tokens, ``done`` and
 dispatched (the state is updated in place). Each segment replays the
 captured graph of the stream geometry (``models/slots.py::
 decode_segment``: the request's state is copied into the graph's buffers
-and back, so concurrent streams share one graph); :func:`stream_warmup_units`
-captures it ahead of traffic. A tp-sharded character's machine holds its
+and back, so concurrent streams share one graph), and each prefix latent
+and window vocode replays a SoVITS program (``models/sovits.py``; one
+window width per frame bucket); :func:`stream_warmup_units` captures them
+ahead of traffic. A tp-sharded character's machine holds its
 caches per shard (``models/slots.py``), decodes eagerly and gives the same
 chunks.
 """
@@ -46,7 +48,8 @@ from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
 from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, _to_pcm16,
-                     finish_host_copy, host_to_device, start_host_copy)
+                     finish_host_copy, host_to_device, sovits_warmup_units,
+                     start_host_copy)
 
 
 def stream_geometry(cfg, tcfg) -> "tuple[int, int, int, int]":
@@ -74,7 +77,8 @@ def _stream_head(sovits_params, noise, tok0, seg_tok, counts, done, text, t_len,
                  ge, ge_mrte, noise_scale, *, vcfg, cb, first_window, lookahead,
                  pcm16):
     """Latent + first vocode window from the FIRST segment's tokens on the
-    device, dispatched before any host read. Returns (audio [1,
+    device (the latent and vocode programs of ``models/sovits.py``),
+    dispatched before any host read. Returns (audio [1,
     first_window*hop], emit_frames [1]): the emitted frames trail the
     frontier by ``lookahead`` codes unless the row already finished (then
     all of it emits, the last code set to 0 as the reference does)."""
@@ -86,10 +90,10 @@ def _stream_head(sovits_params, noise, tok0, seg_tok, counts, done, text, t_len,
                         torch.zeros_like(codes), codes)
     codes = torch.nn.functional.pad(torch.clamp(codes, 0, vcfg.vq_codes - 1),
                                     (0, cb - toks.shape[1]))
-    z = sovits.synthesize_latent_rows(sovits_params, vcfg, noise[None], codes, n,
-                                      text, t_len, ge, ge_mrte, noise_scale)
-    audio = sovits.vocode_frames(sovits_params, vcfg, z[:, :first_window], ge,
-                                 torch.clamp(2 * n, max=first_window))
+    z = sovits.latent(sovits_params, vcfg, codes, n, text, t_len, ge, ge_mrte, noise_scale,
+                      noise=noise[None])
+    audio = sovits.vocode(sovits_params, vcfg, z[:, :first_window], ge,
+                          torch.clamp(2 * n, max=first_window))
     emit = torch.where(done, 2 * n, 2 * torch.clamp(n - lookahead, min=0))
     emit = torch.clamp(emit, max=first_window)
     return (_to_pcm16(audio) if pcm16 else audio), emit
@@ -199,19 +203,22 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
             return
         fb = pick_bucket(max(count, 1), cfg.frame_buckets)
         codes = pad_to(np.clip(codes_np, 0, vcfg.vq_codes - 1).astype(np.int64), fb)
-        z = sovits.synthesize_latent_rows(
-            char.sovits_params, vcfg, noise[None], host_to_device(codes[None], dev),
+        z = sovits.latent(
+            char.sovits_params, vcfg, host_to_device(codes[None], dev),
             host_to_device(np.array([count]), dev), text_b, t_len, ge, ge_mrte,
-            noise_scale)
+            noise_scale, noise=noise[None])
         F = 2 * fb
+        # one window width per frame bucket (one vocode graph), placed
+        # inside the latent's frames with the halo on both sides of the
+        # piece where the frames allow
+        win = min(chunk + 2 * halo, F)
         jobs = []
         while frontier - emitted >= (1 if done else chunk):
             start = emitted
             w = min(chunk, frontier - start)
-            s0 = max(start - halo, 0)
-            s1 = min(start + chunk + halo, F)
-            valid = torch.tensor([min(max(2 * count - s0, 0), s1 - s0)], device=dev)
-            a = sovits.vocode_frames(char.sovits_params, vcfg, z[:, s0:s1], ge, valid)
+            s0 = min(max(start - halo, 0), F - win)
+            valid = torch.tensor([min(max(2 * count - s0, 0), win)], device=dev)
+            a = sovits.vocode(char.sovits_params, vcfg, z[:, s0:s0 + win], ge, valid)
             a = a[0, (start - s0) * hop:(start - s0 + w) * hop]
             jobs.append(start_host_copy(_to_pcm16(a) if pcm16 else a))
             emitted += w
@@ -241,14 +248,14 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
     metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
 
 
-def stream_warmup_units(engine: TTSEngine, char: CharacterModel,
-                        pcm16: bool = True) -> list:
+def stream_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     """Warmup thunks for the segmented stream: the prefill at the stream
     geometry (with and without BERT features), a capture of its segment
-    graph (per top-p flag), and on the card the stream head at every text
-    bucket and the window vocodes the emitter can dispatch, each run
-    once. Returns thunks for ``engine._run_compile_units``."""
-    cfg, tcfg, vcfg = engine.cfg, char.t2s_cfg, char.sovits_cfg
+    graph (per top-p flag), and captures of its SoVITS programs: the
+    stream head's latent at every text bucket and its first window, and
+    the emitter's prefix latent at every (frame, text) bucket and its
+    window over each. Returns thunks for ``engine._run_compile_units``."""
+    cfg, tcfg = engine.cfg, char.t2s_cfg
     W, ring, sx, sp = stream_geometry(cfg, tcfg)
     params = char.t2s_params
     dev = char.device
@@ -282,39 +289,9 @@ def stream_warmup_units(engine: TTSEngine, char: CharacterModel,
 
     if len(shard_devices(params)) == 1:
         units += [functools.partial(segment, top_p) for top_p in (False, True)]
-    if dev.type != "cuda":      # SoVITS: no kernels or plans to prepare
-        return units
     head_cb = pick_bucket(W + 1, cfg.frame_buckets)
-    ge = torch.zeros((1, vcfg.gin_channels, 1), device=dev)
-    gm = torch.zeros((1, vcfg.mrte_channels, 1), device=dev)
-    one = torch.ones((1,), dtype=torch.int64, device=dev)
-
-    def head(tb):
-        _stream_head(char.sovits_params, noise_table(cfg, vcfg, gen()),
-                     torch.zeros((1,), dtype=torch.int32, device=dev),
-                     torch.zeros((1, W), dtype=torch.int32, device=dev),
-                     torch.full((1,), W + 1, dtype=torch.int32, device=dev),
-                     torch.zeros((1,), dtype=torch.bool, device=dev),
-                     torch.zeros((1, tb), dtype=torch.int64, device=dev), one, ge, gm,
-                     0.5, vcfg=vcfg, cb=head_cb, first_window=2 * (W + 1),
-                     lookahead=cfg.stream_lookahead, pcm16=pcm16)
-
-    units += [functools.partial(head, tb) for tb in cfg.phoneme_buckets]
-    # the emitter's window vocodes (the latent grid is engine.warmup's)
-    chunk, halo = cfg.stream_chunk, cfg.vocode_halo
-    widths = set()
-    for fb in cfg.frame_buckets:
-        F = 2 * fb
-        for start in range(0, F, chunk):
-            s0 = max(start - halo, 0)
-            widths.add(min(start + chunk + halo, F) - s0)
-
-    def vocode(w):
-        z = torch.zeros((1, w, vcfg.inter_channels), device=dev,
-                        dtype=char.sovits_params["quantizer_embed"].dtype)
-        a = sovits.vocode_frames(char.sovits_params, vcfg, z, ge, torch.full_like(one, w))
-        if pcm16:
-            _to_pcm16(a)
-
-    units += [functools.partial(vocode, w) for w in sorted(widths)]
-    return units
+    win = cfg.stream_chunk + 2 * cfg.vocode_halo
+    latents = ({(1, head_cb, tb) for tb in cfg.phoneme_buckets}
+               | {(1, fb, tb) for fb in cfg.frame_buckets for tb in cfg.phoneme_buckets})
+    vocodes = {(1, 2 * (W + 1))} | {(1, min(win, 2 * fb)) for fb in cfg.frame_buckets}
+    return units + sovits_warmup_units(char, latents, vocodes)

@@ -12,6 +12,8 @@ cache keys. Tiny T2S models, fp32, inputs and Gumbel noise from seeds:
   version) and B=4 (the flash route, rows that end at different steps),
   with a cap of 37 steps (not a multiple of 16): tokens and counts
   IDENTICAL, and tokens, counts and steps identical to ``eager=True``;
+  the same through the prefill program that embeds the text itself
+  (``generate_e2e``'s route), equal to the embedded-input route;
 * ``decode_segment`` with the ring head in device memory against the
   JAX package's segment, leaf by leaf and token by token (the harness of
   tests/test_torch_slots.py: integers exactly, floats within 1e-5), on
@@ -19,21 +21,28 @@ cache keys. Tiny T2S models, fp32, inputs and Gumbel noise from seeds:
   read and each window pair, across a ring wrap that starts mid-ring;
   both on a state copied into the graph's buffers and on a persistent
   state that is the graph's buffers;
-* the step functions read nothing back to the host (a dispatch mode
-  fails on ``aten._local_scalar_dense``, which ``.item()``, ``bool()``
-  and ``int()`` of a tensor call);
+* the step functions and the prefill program read nothing back to the
+  host (a dispatch mode fails on ``aten._local_scalar_dense``, which
+  ``.item()``, ``bool()`` and ``int()`` of a tensor call);
 * the graphs' buffers keep their addresses from one run to the next;
 * ``TTSEngine.warmup(..., sweep=True)`` prepares every key and variant
   that solo, batched, slot and stream requests then ask for, with and
   without top-p and at caps other than the character's: no miss and no
-  new variant while serving; a slot machine owns its state (the one the
-  sweep left, else its own), so a second machine or a later sweep never
-  writes it; ``/set_reference_audio`` with ``"warmup": true`` sweeps;
+  new variant while serving, in the decode and in the SoVITS caches; a
+  slot machine owns its state (the one the sweep left, else its own),
+  so a second machine or a later sweep never writes it;
+* a server with ``serve --warmup``'s flag sweeps each of two characters
+  at its first ``/set_reference_audio`` and serves it with no miss; a
+  character evicted by the character cache leaves no graph cache behind
+  (``gc.collect()``), and its next request reloads and sweeps it; a
+  request in flight in its slot machine across the eviction finishes
+  with the audio it would have had;
 * ``utils/metrics.py::trace`` writes a trace file.
 """
 import dataclasses
 import functools
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -109,6 +118,58 @@ def test_generate_matches_jax_and_eager(t2s_params, B, sampling):
         assert len(set(jc.tolist())) > 1, "rows ended together; reseed the fixture"
 
 
+@pytest.mark.parametrize("sampling", ["greedy", "jax_noise"])
+@pytest.mark.parametrize("B", [1, 4], ids=["fused_B1", "flash_B4"])
+def test_generate_prefill_program_matches_jax_and_eager(t2s_params, B, sampling):
+    """``generate`` given phone ids and BERT features (``generate_e2e``'s
+    route): the prefill program embeds the text, writes the graph's own
+    caches, seeds the histogram and draws the first token. Tokens and
+    counts identical to the JAX package's ``generate`` on the same noise,
+    to the eager run of the same programs and to the embedded-input
+    route."""
+    jp, tp = t2s_params
+    jscfg, scfg = SAMPLING[sampling]
+    phones, bert, x_len, prompts, p_len = _inputs(B)
+    key = jax.random.PRNGKey(12)
+    jx = jt2s.embed_text(jp, jnp.asarray(phones), jnp.asarray(bert))
+    jres = jt2s.generate(jp, JCFG, jscfg, key, jx, jnp.asarray(x_len), jnp.asarray(prompts),
+                         jnp.asarray(p_len), max_steps=CAP, cache_len=SX + SP + CAP)
+    noise = torch.from_numpy(np.array(jax.random.gumbel(
+        key, (CAP, B, TCFG.semantic_vocab), dtype=jnp.float32)))
+    out = {}
+    for route, eager in (("program", False), ("eager", True)):
+        out[route] = tt2s.generate(tp, TCFG, scfg, None, (_t(phones), _t(bert)), _t(x_len),
+                                   _t(prompts), _t(p_len), max_steps=CAP,
+                                   cache_len=SX + SP + CAP, noise=noise, eager=eager)
+    out["embedded"] = _port_generate(tp, B, scfg, noise, eager=False)
+    np.testing.assert_array_equal(out["program"].tokens.numpy(), np.asarray(jres.tokens))
+    np.testing.assert_array_equal(out["program"].counts.numpy(), np.asarray(jres.counts))
+    for route in ("eager", "embedded"):
+        assert torch.equal(out[route].tokens, out["program"].tokens), route
+        assert torch.equal(out[route].counts, out["program"].counts), route
+        assert out[route].steps == out["program"].steps, route
+    g, _ = tt2s.decode_graph(tp, TCFG, B, SX, SP, SX + SP + CAP, CAP, torch.float32)
+    top_p = scfg.top_p < 1.0
+    assert {("prefill", True, top_p), ("prefill", False, top_p)} <= set(g.variants)
+
+
+@pytest.mark.parametrize("B", [1, 4], ids=["fused_B1", "flash_B4"])
+def test_prefill_block_reads_nothing_back(t2s_params, B):
+    _, tp = t2s_params
+    phones, bert, x_len, prompts, p_len = _inputs(B)
+    g, _ = tt2s.decode_graph(tp, TCFG, B, SX, SP, SX + SP + CAP, CAP, torch.float32)
+    with g.lock:
+        b = g.static
+        for buf, a in ((b.phones, phones), (b.bert, bert), (b.x_len, x_len),
+                       (b.prompts, prompts), (b.p_len, p_len)):
+            buf.copy_(_t(a))
+        b.step.fill_(7)
+        with _NoHostReads():
+            tt2s._prefill_block(tp, TCFG, b, Sx=SX, Sp=SP, embed=True, any_top_p=True)
+        assert int(b.step) == 1 and b.counts.tolist() == [1] * B
+        assert int(b.hist.sum()) == int(p_len.sum()) + B      # the prompts and tok0
+
+
 def test_generate_cap_reached_inside_a_block(t2s_params):
     """Every row runs to a cap of 37 (min_steps = cap): two blocks of 16
     steps and 4 single steps (the block that ends at the cap: the
@@ -126,7 +187,8 @@ def test_generate_cap_reached_inside_a_block(t2s_params):
         assert r.steps == CAP and r.counts.tolist() == [CAP] * 4
     np.testing.assert_array_equal(out[0].tokens.numpy(), out[1].tokens.numpy())
     g, _ = tt2s.decode_graph(tp, TCFG, 4, SX, SP, SX + SP + CAP, CAP, torch.float32)
-    assert sorted(g.variants) == [(1, False), (16, False)]
+    assert {v for v in g.variants if v[0] != "prefill"} == {(1, False), (16, False)}
+    assert ("prefill", False, False) in g.variants
     assert tt2s.DECODE_BLOCKS == (16, 1)
     with g.lock:
         b = g.static
@@ -317,9 +379,15 @@ def test_sweep_covers_every_serving_key(kv_int8):
     gens = [k for k in keys if k[0] == "generate"]
     assert len(gens) == 3 * 2               # B 1/2/4 x phoneme buckets
     assert {(k, v) for k, v in programs if k[0] == "generate"} == {
-        (k, (n, top_p)) for k in gens for n in tt2s.DECODE_BLOCKS for top_p in (False, True)}
+        (k, v) for k in gens for top_p in (False, True)
+        for v in [("prefill", True, top_p)] + [(n, top_p) for n in tt2s.DECODE_BLOCKS]}
     assert n > len(keys) and cache.stats["captures"] == 0     # no card here
+    vcache = graphs.cache_for(char.sovits_params)
+    vkeys = vcache.keys()
+    assert {k[0] for k in vkeys} == {"latent", "vocode"} and vcache.family
+    assert vcache.stats["captures"] == 0 and vcache is not cache
     cache.reset_stats()
+    vcache.reset_stats()
 
     short = np.arange(1, 7, dtype=np.int32)
     bert = np.zeros((len(short), TINY_T2S.bert_dim), np.float32)
@@ -347,6 +415,11 @@ def test_sweep_covers_every_serving_key(kv_int8):
     assert cache.stats["hits"] > 0
     assert cache.stats["misses"] == 0, cache.keys()
     assert cache.stats["variants"] == 0 and cache.programs() == programs
+    # the SoVITS programs of every route: solo, the window batcher, the
+    # slot finisher and window pump, and both stream routes
+    assert vcache.stats["hits"] > 0
+    assert vcache.stats["misses"] == 0, set(vcache.keys()) - set(vkeys)
+    assert vcache.stats["variants"] == 0
 
 
 def test_slot_machines_own_their_state():
@@ -376,6 +449,178 @@ def test_slot_machines_own_their_state():
     finally:
         a.stop()
         b.stop()
+
+
+@pytest.fixture
+def warm_server(tmp_path, monkeypatch):
+    """The port's server on the CPU as ``serve --warmup`` leaves it
+    (``api.sweep_on_reference``), with a small bucket ladder; yields (base
+    URL, a tiny character's dir, a reference wav)."""
+    from genie_tts_tpu_torch import api
+    from test_torch_pair import write_character
+
+    char_dir, hub, ref = write_character(tmp_path)
+    eng = TTSEngine(RuntimeConfig(
+        phoneme_buckets=(32, 64, 128), prompt_buckets=(32, 128), frame_buckets=(32, 64),
+        batch_buckets=(1, 2), slot_batch=2, slot_steps=8, slot_phoneme_bucket=64,
+        slot_prompt_bucket=128, batch_window_ms=1.0))
+    monkeypatch.setenv("GENIE_HUBERT_DIR", str(hub))
+    monkeypatch.setattr(api, "engine", eng)
+    monkeypatch.setattr(api, "_batcher", None)
+    monkeypatch.setattr(api, "sweep_on_reference", True)
+    srv = api.start_server(host="127.0.0.1", port=0, block=False, device="cpu")
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}", char_dir, ref
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for name in ("w1", "w2", "w3"):
+            api.unload_character(name)
+            api._reference_audios.pop(name, None)
+        if api._batcher is not None:
+            api._batcher.stop()
+
+
+def _post(base, path, payload):
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read()
+
+
+def _load_and_reference(base, name, char_dir, ref):
+    for path, payload in (("/load_character", {"character_name": name,
+                                                "model_dir": str(char_dir), "language": "ja"}),
+                          ("/set_reference_audio", {"character_name": name,
+                                                    "audio_path": str(ref),
+                                                    "audio_text": "こんにちは、てすとです",
+                                                    "language": "ja"})):
+        assert _post(base, path, payload)[0] == 200
+
+
+def _caches(char):
+    return graphs.cache_for(char.t2s_params), graphs.cache_for(char.sovits_params)
+
+
+def test_warmup_server_sweeps_each_character_at_its_reference(warm_server):
+    """With ``serve --warmup``'s flag, each of two characters is swept at
+    its first ``/set_reference_audio`` (its decode and SoVITS keys exist
+    before its first request), and a request then captures nothing new;
+    a second reference at a swept prompt bucket does not sweep again."""
+    from genie_tts_tpu_torch import api
+
+    base, char_dir, ref = warm_server
+    for name in ("w1", "w2"):
+        _load_and_reference(base, name, char_dir, ref)
+        char = api.model_manager.get(name)
+        assert api._swept[name][0]() is char
+        t2s_cache, vcache = _caches(char)
+        assert any(k[0] == "generate" for k in t2s_cache.keys())
+        assert any(k[0] == "latent" for k in vcache.keys())
+        for c in (t2s_cache, vcache):
+            c.reset_stats()
+        status, body = _post(base, "/tts", {"character_name": name, "text": "きょうは。",
+                                            "split_sentence": False})
+        assert status == 200 and len(body) > 0
+        for c in (t2s_cache, vcache):
+            assert c.stats["hits"] > 0 and c.stats["misses"] == c.stats["variants"] == 0
+    assert api.warmup_character("w1") == 0          # swept at this bucket already
+    assert _caches(api.model_manager.get("w1"))[0].stats["variants"] == 0
+
+
+def test_evicted_character_is_released_and_swept_again_at_reload(warm_server, monkeypatch):
+    """A character evicted by the character cache (capacity 1 here) takes
+    its graph caches with it (gone after ``gc.collect()``, its slot
+    machine stopped); its next request reloads it, sweeps the reloaded
+    character first, and misses nothing."""
+    import gc
+    import weakref
+
+    from genie_tts_tpu_torch import api
+
+    base, char_dir, ref = warm_server
+    _load_and_reference(base, "w1", char_dir, ref)
+    assert _post(base, "/tts", {"character_name": "w1", "text": "きょうは。",
+                                "split_sentence": False})[0] == 200
+    old = api.model_manager.get("w1")
+    gone = [weakref.ref(x) for x in (old, *_caches(old))]
+    sb = api._slot_batchers["w1"]
+    del old
+    monkeypatch.setattr(api.model_manager._cache, "capacity", 1)
+    _load_and_reference(base, "w2", char_dir, ref)        # evicts w1
+    assert "w1" not in api._slot_batchers and "w1" not in api._swept
+    sb._thread.join(timeout=60)
+    assert not sb._thread.is_alive()
+    del sb
+    gc.collect()
+    assert all(r() is None for r in gone), [r() is None for r in gone]
+    assert _post(base, "/tts", {"character_name": "w1", "text": "きょうは。",
+                                "split_sentence": False})[0] == 200    # reloads w1
+    new = api.model_manager.get("w1")
+    assert api._swept["w1"][0]() is new
+    t2s_cache, vcache = _caches(new)
+    for c in (t2s_cache, vcache):
+        c.reset_stats()
+    assert _post(base, "/tts", {"character_name": "w1", "text": "きょうは。",
+                                "split_sentence": False})[0] == 200
+    for c in (t2s_cache, vcache):
+        assert c.stats["hits"] > 0 and c.stats["misses"] == 0
+
+
+def test_request_in_flight_across_an_eviction_finishes(warm_server, monkeypatch):
+    """A request decoding in its character's slot machine when another
+    load evicts the character finishes with the audio it would have had:
+    the evicted machine drains (its queue and slots), then exits, and the
+    character's graph caches are gone after ``gc.collect()``."""
+    import gc
+    import weakref
+
+    from genie_tts_tpu_torch import api
+
+    base, char_dir, ref = warm_server
+    _load_and_reference(base, "w1", char_dir, ref)
+    payload = {"character_name": "w1", "text": "きょうは。", "split_sentence": False}
+    sb = api._slot_batchers.get("w1")
+    if sb is None:                       # built by the first request
+        assert _post(base, "/tts", payload)[0] == 200
+        sb = api._slot_batchers["w1"]
+    sb._reset_state()                    # the same ring head and noise draws for both
+    status, want = _post(base, "/tts", payload)
+    assert status == 200 and len(want) > 0
+    sb._reset_state()
+    # hold the machine's next segment until the eviction is done
+    entered, release = threading.Event(), threading.Event()
+    dispatch = sb._dispatch_segment
+
+    def held(w):
+        entered.set()
+        assert release.wait(120)
+        return dispatch(w)
+
+    monkeypatch.setattr(sb, "_dispatch_segment", held)
+    got = {}
+    client = threading.Thread(target=lambda: got.update(r=_post(base, "/tts", payload)))
+    client.start()
+    assert entered.wait(120)             # the request sits in a slot
+    old = api.model_manager.get("w1")
+    gone = [weakref.ref(x) for x in (old, *_caches(old))]
+    del old
+    monkeypatch.setattr(api.model_manager._cache, "capacity", 1)
+    assert _post(base, "/load_character", {"character_name": "w2", "model_dir": str(char_dir),
+                                           "language": "ja"})[0] == 200    # evicts w1
+    assert "w1" not in api.model_manager._cache and "w1" not in api._slot_batchers
+    assert sb._thread.is_alive()         # still serving what it holds
+    release.set()
+    client.join(120)
+    assert got["r"] == (200, want)
+    sb._thread.join(timeout=60)
+    assert not sb._thread.is_alive()
+    monkeypatch.undo()                   # drops the wrapper's hold on the machine
+    del sb, dispatch, held
+    gc.collect()
+    assert all(r() is None for r in gone), [r() is None for r in gone]
 
 
 def test_trace_writes_a_trace_file(tmp_path):

@@ -23,7 +23,7 @@ from genie_tts_tpu_torch.convert.io import save_character_config, save_params
 from genie_tts_tpu_torch.models import hubert
 from genie_tts_tpu_torch.runtime.engine import (ReferenceFeatures, TTSEngine,
                                                 make_random_character)
-from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher
+from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher, seg_widths, slot_geometry
 
 TCFG = T2SConfig(phoneme_vocab=40, semantic_vocab=33, embed_dim=32, num_layers=2,
                  num_heads=4, ffn_dim=64, bert_dim=16, ssl_dim=8, eos_id=32,
@@ -212,3 +212,32 @@ def test_make_synth_fn_takes_the_slot_route_on_cpu(tmp_path, monkeypatch):
     assert "slots" not in api._slot_batchers
     sb._thread.join(timeout=60)
     assert not sb._thread.is_alive()
+
+
+def test_seg_widths_keep_the_join_width_only_on_the_grid():
+    """The join width is kept only where it divides slot_steps and the
+    ring: mixed widths then keep the head on its grid. The defaults
+    (32 / 16) are unchanged."""
+    assert seg_widths(RuntimeConfig(), 512) == (32, 16)
+    assert seg_widths(RuntimeConfig(slot_steps=12, slot_join_steps=8), 48) == (12,)
+    assert seg_widths(RuntimeConfig(slot_steps=8, slot_join_steps=16), 32) == (8,)
+    assert seg_widths(RuntimeConfig(slot_steps=12, slot_join_steps=4), 48) == (12, 4)
+    assert seg_widths(RuntimeConfig(slot_join_steps=0), 512) == (32,)
+
+
+def test_slot_batcher_refuses_widths_that_overflow_the_ring(char):
+    """slot_steps 12 with a join width of 8 over a 48-step ring: a head at
+    44 (8 + 3 x 12) fits neither width, and the segment's merge would
+    write past the ring (an IndexError here, a device assert inside a
+    graph replay on the card). The machine refuses the configuration at
+    construction, naming the three settings."""
+    cfg = RuntimeConfig(**BUCKETS, slot_phoneme_bucket=32, slot_prompt_bucket=16,
+                        slot_steps=12, slot_join_steps=8, slot_ring=48)
+    assert slot_geometry(cfg, char.t2s_cfg)[2] == 48
+    with pytest.raises(ValueError, match="slot_join_steps=8.*slot_steps=12.*slot_ring=48"):
+        SlotBatcher(TTSEngine(cfg), char)
+    ok = SlotBatcher(TTSEngine(RuntimeConfig(**BUCKETS, slot_phoneme_bucket=32,
+                                             slot_prompt_bucket=16, slot_steps=12,
+                                             slot_join_steps=4, slot_ring=48)), char)
+    assert ok.join_W == 4
+    ok.stop()

@@ -13,6 +13,9 @@ noise plays no part:
   step);
 * a sentence too long for the stream geometry takes the fused stream head
   in both packages, with the same pieces;
+* near the end of the latent, where the port shifts the last vocode
+  window left to keep one window width (the JAX stream cuts a shorter
+  one), both routes still give the JAX pieces;
 * flow noise is prefix-stable: two latent recomputes from one request's
   noise table agree on their common frames at noise_scale 0.5 (rtol/atol
   1e-5), while another table does not.
@@ -28,6 +31,7 @@ from genie_tts_tpu_torch.config import RuntimeConfig
 from genie_tts_tpu_torch.models import sovits
 from genie_tts_tpu_torch.ops.sampling import SamplingConfig
 from genie_tts_tpu_torch.runtime import stream
+from genie_tts_tpu_torch.runtime.buckets import pick_bucket
 from genie_tts_tpu_torch.runtime.engine import TTSEngine
 
 from test_torch_pair import HOP, load_pair, make_refs, write_character
@@ -135,3 +139,36 @@ def test_noise_prefix_stable(setup):
     np.testing.assert_allclose(a[0, :40].numpy(), b[1, :40].numpy(), rtol=1e-5, atol=1e-5)
     c = latent(other[None], torch.nn.functional.pad(codes, (0, 12))[None], [20])
     assert float((a[0, :40] - c[0, :40]).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("route", ["segmented", "fused_head"])
+def test_shifted_last_window_matches_jax(setup, route):
+    """The port places each later vocode window inside the latent's
+    frames (one window width per frame bucket): a window that would reach
+    past the last frame starts at ``F - win`` instead, where the JAX
+    stream cuts a shorter one. Near the end of the bucket (the segmented
+    stream at 28 codes in a 32-code bucket, the fused head at its 64-step
+    cap) the last window is shifted, and its pieces still match the JAX
+    package's."""
+    jchar, tchar, jeng, teng, jref, tref = setup
+    if route == "fused_head":
+        from genie_tts_tpu.runtime.engine import TTSEngine as JEngine
+
+        kw = dict(KW, slot_phoneme_bucket=16)
+        jeng, teng = JEngine(JRuntimeConfig(**kw)), TTSEngine(RuntimeConfig(**kw))
+        n_steps = min(teng.cfg.step_caps)
+    else:
+        n_steps = 28
+    assert stream.fits_stream(teng.cfg, tref, TEXT) == (route == "segmented")
+    args = dict(seed=0, noise_scale=0.0, min_steps=n_steps, max_steps=n_steps)
+    jp = list(jeng.synthesize_utterance_stream(jchar, jref, TEXT, BERT,
+                                               sampling=JGREEDY, **args))
+    tp = list(teng.synthesize_utterance_stream(tchar, tref, TEXT, BERT,
+                                               sampling=GREEDY, **args))
+    _same_pieces(tp, jp)
+    frames = sum(len(p) for p in tp) // HOP
+    n = frames // 2
+    F = 2 * (n_steps if route == "fused_head" else pick_bucket(n, KW["frame_buckets"]))
+    win = KW["vocode_chunk"] + 2 * KW["vocode_halo"]
+    last_start = frames - len(tp[-1]) // HOP
+    assert last_start - KW["vocode_halo"] > F - win, (last_start, F, n)
