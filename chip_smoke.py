@@ -26,8 +26,10 @@ Phases, each of which must pass:
    after 2 segments. Every request must return finite PCM16 of
    2*codes*640 samples, the int8 attention kernel must launch 24 times per
    decode step dispatched (and neither earlier kernel), and 8 slots must
-   be busy at once. Then decode ms per segment at occupancy 8, from CUDA
-   events around ``decode_segment`` on the live state.
+   be busy at once; the ``slot_join`` timer of the 10 joins (prefill and
+   insert graphs, the first capturing them). Then decode ms per segment
+   at occupancy 8, from CUDA events around ``decode_segment`` on the live
+   state.
 7. slot serving in the bf16 KV mode (the JAX package's default): 2
    requests through ``SlotBatcher.synthesize``; the int8 kernel must not
    launch, and segments must read windowed KV (``windowed_segments``).
@@ -64,7 +66,10 @@ Phases, each of which must pass:
    and its embed, prefill, decode, latent and vocode as replays only: no
    miss, no capture); per character 4 concurrent ``/tts`` (int8 slot
    route), a short stream (segmented) and a long one (fused head) with no
-   miss, no new variant and no capture in either cache; for ``graphs`` the
+   miss, no new variant and no capture in either cache, then a short
+   stream sent while 3 default ``/tts`` occupy the slot machine (the
+   slot-joined stream: its join and speculative codes replayed), with the
+   ``slot_join`` timer of the 4 requests; for ``graphs`` the
    long stream again and top-p 0.8 requests; then the character cache cut
    to 1 evicts ``graphs2`` and ``memory_reserved`` after ``gc`` and
    ``empty_cache`` must fall by at least its pools, and the first
@@ -74,7 +79,13 @@ Phases, each of which must pass:
    ``generate`` at a 40-step cap (codes identical, and identical to the
    embedded-input route), five B=1 decodes captured while another thread
    replays a sixth, a slot segment at occupancy 8 (int8 and each window
-   pair, every state leaf equal), a stream segment, and the SoVITS
+   pair, every state leaf equal), a stream segment, the slot join
+   (``prefill_join`` with BERT rows, then ``insert_slot`` into slot 3 of an
+   int8 state at occupancy 8: tok0 and the histogram identical, the
+   context columns' max abs difference within one bf16 step, then the
+   segment that follows with identical codes; the join's, the prefill's
+   and the insert's device ms by CUDA events and wall ms, graph beside
+   eager in turns), and the SoVITS
    stages (the latent at B=1 and B=8, the whole and the chunked vocode,
    the window rows: max abs difference, bound 1e-5 in fp32). Graph beside
    eager (the character's caches set ``eager``) in turns: solo ``tts()``
@@ -107,8 +118,12 @@ Phases, each of which must pass:
    ``load_character`` -> ``set_reference_audio`` (timed: HuBERT, Kaldi
    fbank, ERes2NetV2, prompt encoder) -> ``tts`` twice (fused launches =
    decode steps, ge [1024, 1], ge_mrte [512, 1]), the SV forward timed
-   alone, then 2 concurrent requests on the int8 slot route (int8
-   launches = 24 x slot steps).
+   alone, the first ``set_reference_audio`` split by program (device ms
+   of HuBERT, extract_prompt_tokens, the Kaldi fbank, ERes2NetV2, the
+   linear spectrogram, the prompt encoder, and the V2
+   ``reference_embedding`` on phase 3's character; eager, as the port runs
+   them once per clip), then 2 concurrent requests on the int8 slot route
+   (int8 launches = 24 x slot steps).
 11. V2ProPlus slice check, card vs CPU on fp32 weights: the SV embedding
    (relative L2 <= 1e-3), ge / ge_mrte (within 1e-3), greedy fp32 codes
    (agreement >= 0.9).
@@ -117,14 +132,22 @@ Phases, each of which must pass:
    the port's writer under ``GENIE_ROBERTA_DIR`` beside a BERT-layout
    ``tokenizer.json`` covering the phase's text; phase 3's character
    loaded as ``zh`` (``load_character`` loads RoBERTa once on the card,
-   timed) with a Chinese reference transcript (non-zero reference BERT
-   rows); the RoBERTa forward of the sentence (CUDA events, beside its
-   bound) and host G2P times; ``tts`` twice on a Chinese sentence, then
+   timed); RoBERTa's feature program captured at every token bucket by
+   the units a Chinese character's sweep runs (timed, pool and buffer
+   MiB; run again as a second character's sweep: hits only), each
+   bucket's device ms graph beside eager and beside its bound; a Chinese
+   reference transcript (non-zero reference BERT
+   rows); the exact-length eager RoBERTa forward of the sentence (CUDA
+   events, beside its bound) and host G2P times; ``tts`` twice on a
+   Chinese sentence, then
    four more with ``done`` read every step and every 16 steps in turns
    (decode ms/step); 2 concurrent Chinese requests on the int8 slot route
    (int8 launches = 24 x slot steps); card vs CPU: greedy fp32 codes of
    the Chinese sentence with its BERT rows (identical) and RoBERTa's
-   ``phone_features`` in fp32 (relative L2 <= 1e-4); then the character
+   ``phone_features`` in fp32 (relative L2 <= 1e-4), and on the card the
+   padded graph route against the exact-length eager route (relative L2
+   <= 1e-5); every RoBERTa call of the phase after the capture a replay
+   (no miss, no capture); then the character
    as ``en`` (zero BERT rows, reference too) and as
    ``Hybrid-Chinese-English``, ``tts`` once each. Every ``tts`` wav is
    finite, 2*codes*640 samples of more than 1000 distinct values, with
@@ -511,6 +534,7 @@ def phase_slots(torch, root: Path):
     from genie_tts_tpu_torch import api
     from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
     from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.utils.metrics import metrics
 
     # the tts phase's weights (linked) under the default T2SConfig: 500 steps
     char_dir = root / "char_slots"
@@ -547,6 +571,7 @@ def phase_slots(torch, root: Path):
     fl.flash_decode_attention.launches = 0
     fu.fused_decode_step.launches = 0
     sb.stats.update(segments=0, steps=0, peak_occupancy=0)
+    metrics.reset()
     sync(torch)
     t0 = time.perf_counter()
     for t in threads[:6]:
@@ -577,6 +602,11 @@ def phase_slots(torch, root: Path):
           f"max {lats[-1]:.3f} s; {10 / wall:.3f} utt/s, {audio_s / wall:.2f} audio s/s; "
           f"{sb.stats['segments']} segments, {steps} decode steps, {launches} int8 "
           f"launches, peak occupancy {sb.stats['peak_occupancy']}")
+    joins = metrics.snapshot()["timers"]["slot_join"]
+    check(joins["count"] == 10, f"slot_join timer: {joins}")
+    print(f"[slots] slot_join timer (host clock: the join's prefill and insert graphs "
+          f"dispatched, the first join capturing them: the machine was not swept): "
+          f"{json.dumps(joins)}")
 
     # decode ms per segment at occupancy 8, on the live state
     sb.stop()
@@ -631,7 +661,8 @@ def phase_slots(torch, root: Path):
         print("[slots] profiled segment: the profiler shows no device time (not measured)")
     live = dict(state=state, head=state.ring_head)
     return {"launches": launches, "steps": steps, "wall_s": wall, "seg_ms": seg_ms,
-            "sb": sb, "feats": feats, "phones": phones, "char": char, "live": live}
+            "sb": sb, "feats": feats, "phones": phones, "char": char, "live": live,
+            "slot_join": joins}
 
 
 def phase_slots_bf16(torch, char, feats, phones):
@@ -948,6 +979,8 @@ def phase_v2pp(torch, root: Path, card: str):
           f"ERes2NetV2, prompt encoder, prompt tokens) {out['reference_s'] * 1e3:.1f} ms wall; "
           f"SV forward alone on {fb.shape[1]} frames: fbank {out['fbank_ms']:.3f} ms + "
           f"ERes2NetV2 {out['sv_ms']:.3f} ms (CUDA events); {card}")
+    out["reference_split_ms"] = reference_split(torch, char, clip, audio16, fb, sv_params,
+                                                out, card)
 
     for call in (1, 2):
         fu.fused_decode_step.launches = 0
@@ -1014,6 +1047,49 @@ def phase_v2pp(torch, root: Path, card: str):
           f"{card}")
     out["slots"] = {"wall_s": wall, "steps": steps, "launches": launches}
     return out, clip, sv_path
+
+
+def reference_split(torch, char, clip, audio16, fb, sv_params, out, card):
+    """Where a first ``set_reference_audio`` spends its device time: each
+    program of the reference features alone at this clip's length (CUDA
+    events, eager, as the port runs them: once per clip), the V2
+    ``reference_embedding`` on phase 3's character beside the V2ProPlus
+    programs."""
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.models import hubert, prompt_encoder, sovits, t2s
+    from genie_tts_tpu_torch.ops.audio import linear_spectrogram
+
+    hparams, hcfg = api.model_manager.load_hubert(DEV)
+    v2 = api.model_manager.get("smoke")
+    vcfg = char.sovits_cfg
+    with torch.inference_mode():
+        audio32 = torch.as_tensor(clip.audio_32k, device=DEV)[None]
+        ssl = hubert.apply(hparams, audio16, hcfg)
+        spec = linear_spectrogram(audio32, n_fft=vcfg.n_fft, hop=vcfg.hop_length,
+                                  win_length=vcfg.win_length)
+        lens = torch.tensor([spec.shape[1]], device=DEV)
+        sv = torch.randn((1, 20480), device=DEV)
+        progs = {
+            "HuBERT": lambda: hubert.apply(hparams, audio16, hcfg),
+            "extract_prompt_tokens": lambda: t2s.extract_prompt_tokens(char.t2s_params, ssl),
+            "Kaldi fbank": None, "ERes2NetV2": None,
+            "linear spectrogram": lambda: linear_spectrogram(
+                audio32, n_fft=vcfg.n_fft, hop=vcfg.hop_length, win_length=vcfg.win_length),
+            "prompt encoder": lambda: prompt_encoder.apply(char.prompt_encoder_params, spec,
+                                                           lens, sv),
+            "reference_embedding (V2)": lambda: sovits.reference_embedding(
+                v2.sovits_params, v2.sovits_cfg, spec, lens),
+        }
+        split = {k: (cuda_ms(torch, fn, 5) if fn is not None else None)
+                 for k, fn in progs.items()}
+    split["Kaldi fbank"], split["ERes2NetV2"] = out["fbank_ms"], out["sv_ms"]
+    v2pp = sum(v for k, v in split.items() if k != "reference_embedding (V2)")
+    print(f"[v2pp] a first set_reference_audio, split by program ({audio16.shape[1] / 16000:.2f} "
+          f"s clip, {fb.shape[1]} fbank frames, {ssl.shape[1]} HuBERT frames; device ms by "
+          f"CUDA events, eager): " + json.dumps({k: round(v, 3) for k, v in split.items()})
+          + f"; V2ProPlus programs {v2pp:.3f} ms of the {out['reference_s'] * 1e3:.1f} ms wall; "
+          f"{card}")
+    return split
 
 
 def phase_v2pp_slice_check(torch, clip, sv_path):
@@ -1135,6 +1211,7 @@ def phase_zh(torch, root: Path, card: str):
     from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
     from genie_tts_tpu_torch.ops import int8_decode as i8
     from genie_tts_tpu_torch.ops.sampling import SamplingConfig
+    from genie_tts_tpu_torch.runtime import graphs
     from genie_tts_tpu_torch.runtime.buckets import pick_bucket
     from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
     from genie_tts_tpu_torch.utils.wavio import read_audio
@@ -1158,6 +1235,60 @@ def phase_zh(torch, root: Path, card: str):
           and rparams["word_embed"].dtype == torch.bfloat16
           and rparams["word_embed"].device.type == "cuda",
           "RoBERTa: full size, bf16, on the card")
+
+    # RoBERTa's feature program per token bucket: captured once per device
+    # by the units a Chinese character's sweep runs (the second run, as a
+    # second character's sweep, finds them), then timed graph beside eager
+    rcache = graphs.cache_for(rparams)
+    buckets = api.model_manager.cfg.phoneme_buckets
+    sweeps = []
+    for _ in range(2):
+        rcache.reset_stats()
+        units = api.model_manager.roberta_warmup_units(DEV)
+        sync(torch)
+        t0 = time.perf_counter()
+        for u in units:
+            u()
+        sync(torch)
+        sweeps.append((time.perf_counter() - t0, dict(rcache.stats)))
+    check(sweeps[0][1]["captures"] == len(buckets) == len(units)
+          and sweeps[1][1] == {"hits": len(buckets), "misses": 0, "variants": 0,
+                               "captures": 0}, f"RoBERTa sweep: {sweeps}")
+    out["roberta_sweep"] = {"s": [w for w, _ in sweeps], "pool_mib": rcache.pool_bytes() / 2 ** 20,
+                            "buffers_mib": rcache.buffer_bytes() / 2 ** 20}
+    print(f"[zh] RoBERTa feature graphs at token buckets {list(buckets)}: captured in "
+          f"{sweeps[0][0]:.2f} s (caches {json.dumps(sweeps[0][1])}); again (a second "
+          f"Chinese character's sweep) {sweeps[1][0]:.3f} s (caches "
+          f"{json.dumps(sweeps[1][1])}); pool {out['roberta_sweep']['pool_mib']:.1f} MiB, "
+          f"static buffers {out['roberta_sweep']['buffers_mib']:.1f} MiB, once per device; "
+          f"{card}")
+    n_layers = rcfg.feature_layer % (rcfg.num_layers + 1)
+    w_bytes = 2 * n_layers * (4 * rcfg.embed_dim ** 2 + 2 * rcfg.embed_dim * rcfg.ffn_dim)
+    out["roberta_buckets"] = {}
+    for T in buckets:
+        fg, ffn = roberta.feature_graph(rparams, rcfg, T)
+        with fg.lock:
+            fg.static.ids.copy_(torch.randint(0, rcfg.vocab_size, (1, T), generator=torch.Generator(
+                device=DEV).manual_seed(T), device=DEV))
+            fg.static.mask.fill_(1)
+        ms = {"graph": [], "eager": []}
+        for eager in (False, True, True, False):
+            rcache.eager = eager
+            try:
+                with torch.inference_mode(), fg.lock:
+                    ms["eager" if eager else "graph"].append(
+                        cuda_ms(torch, lambda: fg.run(ffn), 5, warmup=1))
+            finally:
+                rcache.eager = False
+        flops = 2 * T * n_layers * (4 * rcfg.embed_dim ** 2 + 2 * rcfg.embed_dim * rcfg.ffn_dim
+                                    + 2 * T * rcfg.embed_dim)
+        b_ms, b_by = bound(w_bytes + T * rcfg.embed_dim * 4, flops, "bfloat16")
+        out["roberta_buckets"][T] = {**ms, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[zh] RoBERTa feature program, {T} tokens ({n_layers} layers, bf16): device ms "
+              f"(CUDA events) graph " + ", ".join(f"{x:.3f}" for x in ms["graph"]) + "; eager "
+              + ", ".join(f"{x:.3f}" for x in ms["eager"]) + f"; bound {b_ms:.4f} ms ({b_by}); "
+              f"{card}")
+    rcache.reset_stats()
 
     char_dir, ref = root / "char", str(root / "ref.wav")
     api.engine.timing = True
@@ -1198,13 +1329,12 @@ def phase_zh(torch, root: Path, card: str):
     for _ in range(10):
         get_phones_and_bert(ZH_SENTENCE, "zh")
     out["zh_g2p_bert_ms"] = (time.perf_counter() - t0) * 100
-    n_layers = rcfg.feature_layer % (rcfg.num_layers + 1)
-    w_bytes = 2 * n_layers * (4 * rcfg.embed_dim ** 2 + 2 * rcfg.embed_dim * rcfg.ffn_dim)
     flops = 2 * len(enc.ids) * n_layers * (4 * rcfg.embed_dim ** 2
                                            + 2 * rcfg.embed_dim * rcfg.ffn_dim)
     out["roberta_bound_ms"], _ = bound(w_bytes, flops, "bfloat16")
     print(f"[zh] first load_roberta {out['load_roberta_s'] * 1e3:.1f} ms wall; RoBERTa "
-          f"forward of the sentence ({len(enc.ids)} tokens, {n_layers} layers, bf16) "
+          f"exact-length eager forward of the sentence ({len(enc.ids)} tokens, {n_layers} "
+          f"layers, bf16) "
           f"{out['roberta_ms']:.3f} ms (CUDA events; bound {out['roberta_bound_ms']:.4f} ms "
           f"for {w_bytes / 1e6:.0f} MB of weights); host G2P: zh {out['zh_g2p_ms']:.3f} ms, "
           f"en {out['en_g2p_ms']:.3f} ms, zh with the BERT hook {out['zh_g2p_bert_ms']:.3f} "
@@ -1320,21 +1450,41 @@ def phase_zh(torch, root: Path, card: str):
     check(torch.equal(got[DEV][0], got["cpu"][0]) and torch.equal(got[DEV][1], got["cpu"][1]),
           "greedy fp32 Chinese codes differ between the card and the CPU")
 
-    # RoBERTa phone_features in fp32, card vs CPU
+    # serving Chinese text after the RoBERTa sweep: every hook call a
+    # replay (the reference, the tts calls, the slot requests)
+    rstats = dict(rcache.stats)
+    print(f"[zh] RoBERTa caches while serving after its sweep: {json.dumps(rstats)}")
+    check(rstats["hits"] > 0 and rstats["misses"] == rstats["captures"] == 0,
+          f"RoBERTa missed while serving: {rstats}")
+
+    # RoBERTa phone_features in fp32, card vs CPU; on the card the padded
+    # graph route against the exact-length eager route
     feats32 = {}
     for dev in (DEV, "cpu"):
         p = load_params(rdir / "roberta.safetensors", torch.float32, dev)
         with torch.inference_mode():
             feats32[dev] = roberta.phone_features(p, ids.to(dev), mask.to(dev), reps.to(dev),
                                                   rcfg).cpu()
+            if dev == DEV:
+                padded = roberta.bucketed_features(
+                    p, rcfg, np.asarray(enc.ids), np.asarray(enc.attention_mask),
+                    np.asarray(word2ph), buckets).cpu()
+                check(graphs.cache_for(p).stats["captures"] == 1,
+                      "the padded fp32 route did not run as a captured graph")
         del p
     a, b = feats32[DEV], feats32["cpu"]
     rel = float((a - b).norm() / b.norm())
+    rel_pad = float((padded - a).norm() / a.norm())
+    out["roberta_padded_rel_l2"] = rel_pad
     print(f"[zh slice] RoBERTa phone_features fp32 card vs CPU (TF32 off): relative L2 "
           f"{rel:.2e} (tolerance 1e-4), max |card - CPU| {float((a - b).abs().max()):.2e}; "
-          f"greedy fp32 codes of the Chinese sentence with its BERT rows: identical "
+          f"the padded graph route ({len(enc.ids)} tokens in the "
+          f"{roberta.token_bucket(len(enc.ids), buckets)} bucket) vs the exact-length eager "
+          f"route on the card: relative L2 {rel_pad:.2e} (tolerance 1e-5); greedy fp32 codes "
+          f"of the Chinese sentence with its BERT rows: identical "
           f"({int(got['cpu'][1][0])} codes)")
     check(rel <= 1e-4, f"RoBERTa card/CPU relative L2 {rel}")
+    check(rel_pad <= 1e-5, f"RoBERTa padded graph vs exact relative L2 {rel_pad}")
 
     # English and hybrid text through tts() on the same weights
     api.load_character("en", char_dir, "en", device=DEV)
@@ -1672,6 +1822,7 @@ def phase_graphs(torch, root: Path, card: str):
     from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
     from genie_tts_tpu_torch.runtime.buckets import pick_bucket
     from genie_tts_tpu_torch.runtime.slot_batcher import seg_window_combos
+    from genie_tts_tpu_torch.utils.metrics import metrics
 
     kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
                "fused": fu.fused_decode_step}
@@ -1783,32 +1934,62 @@ def phase_graphs(torch, root: Path, card: str):
                     gib=total / 1024)
 
     def serve_routes(name):
-        """4 concurrent /tts (the int8 slot route), a short stream (the
-        segmented stream, idle machine) and a long one (the fused head):
-        audio checked, no miss, no new variant and no capture in either
-        cache of ``name``."""
-        cs = caches_of(api.model_manager.get(name))
+        """4 concurrent /tts (the int8 slot route: each joins through the
+        join graphs; the slot_join timer), a short stream (the segmented
+        stream, idle machine), a long one (the fused head) and a short
+        stream sent while 3 default /tts occupy the slot machine (the
+        slot-joined stream): audio checked, no miss, no new variant and no
+        capture in either cache of ``name``."""
+        char_n = api.model_manager.get(name)
+        cs = caches_of(char_n)
         for c in cs.values():
             c.reset_stats()
+        metrics.reset()
         tts4 = concurrent(lambda i: post("/tts", {"character_name": name, "text": SENTENCES[i],
                                                   "split_sentence": False}), 4)
+        joins = metrics.snapshot()["timers"].get("slot_join", {"count": 0})
         short = post("/tts", {"character_name": name, "text": SENTENCES[4],
                               "split_sentence": False, "stream": True})
         long = post("/tts", {"character_name": name, "text": LONG_SENTENCE,
                              "split_sentence": False, "stream": True})
-        for status, body, _, _ in tts4 + [short, long]:
+        sb_n = api.get_slot_batcher(char_n)
+        streams0 = sb_n.stats["streams"]
+        busy = {}
+
+        def busy_req(i):
+            busy[i] = post("/tts", {"character_name": name, "text": SENTENCES[5 + i],
+                                    "split_sentence": False})
+
+        threads = [threading.Thread(target=busy_req, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        t_wait = time.perf_counter()
+        while not sb_n._occupied() and time.perf_counter() - t_wait < 120:
+            time.sleep(0.002)
+        check(sb_n._occupied(), f"{name}: the 3 default requests never joined the machine")
+        joined = post("/tts", {"character_name": name, "text": SENTENCES[8],
+                               "split_sentence": False, "stream": True})
+        for t in threads:
+            t.join(timeout=600)
+        check(len(busy) == 3 and sb_n.stats["streams"] - streams0 == 1,
+              f"{name}: slot-joined stream: {len(busy)} busy requests, "
+              f"{sb_n.stats['streams'] - streams0} streams joined")
+        for status, body, _, _ in tts4 + [short, long, joined] + list(busy.values()):
             check(status == 200 and len(body) == 2 * 2 * codes * 640
                   and np.unique(np.frombuffer(body, "<i2")).size > 1000,
                   f"graphs serving {name}: HTTP {status}, {len(body)} bytes")
         stats = {n: dict(c.stats) for n, c in cs.items()}
         print(f"[graphs] {name} served after its sweep: 4 x /tts latency "
-              + ", ".join(f"{r[3]:.3f}" for r in tts4) + f" s; short stream first chunk "
+              + ", ".join(f"{r[3]:.3f}" for r in tts4) + f" s (slot_join timer, host clock: "
+              f"{json.dumps(joins)}); short stream (segmented) first chunk "
               f"{short[2]:.3f} s, end {short[3]:.3f} s; long stream (fused head) first chunk "
-              f"{long[2]:.3f} s, end {long[3]:.3f} s; caches {json.dumps(stats)}")
+              f"{long[2]:.3f} s, end {long[3]:.3f} s; slot-joined stream beside 3 /tts: first "
+              f"chunk {joined[2]:.3f} s, end {joined[3]:.3f} s; caches {json.dumps(stats)}; "
+              f"{card}")
         check(all(st["misses"] == st["variants"] == st["captures"] == 0 and st["hits"] > 0
                   for st in stats.values()), f"serving {name} after its sweep missed: {stats}")
         return dict(tts4_s=[r[3] for r in tts4], short_stream=short[2:], long_stream=long[2:],
-                    stats=stats)
+                    slot_stream=joined[2:], slot_join=joins, stats=stats)
 
     try:
         # ---- (1) two characters, each swept at its first reference, then
@@ -2084,6 +2265,7 @@ def phase_graphs(torch, root: Path, card: str):
             slots.insert_slot(st1, 0, *ctx, len(sphones), len(sfeats.prompt_tokens), rings,
                               rings, samp)
         segment_pair(st1, Ws, ssx, ssp, rings, False, None, None, "stream segment (B=1)")
+        out["join"] = join_pair(torch, slot_char, sfeats, sphones, g, card)
 
         # the SoVITS programs, graph vs eager (the character's SoVITS cache
         # set eager: the same programs on the same buffers) on one noise
@@ -2270,6 +2452,137 @@ def phase_graphs(torch, root: Path, card: str):
         for name in ("graphs", "graphs2"):
             api.unload_character(name)
     return out
+
+
+def join_pair(torch, char, feats, phones, g, card):
+    """The slot join (``slots.prefill_join`` then ``insert_slot``) at the
+    slot geometry (Sx = Sp = 192, 24 layers), graph beside eager (the
+    character's T2S cache set ``eager``) on the same inputs and noise: tok0
+    and the histogram identical, the context columns' max abs difference,
+    and the int8 slot segment that follows each (occupancy 8, the same
+    noise) with identical codes and state; then each one's device ms
+    (CUDA events) and wall ms (host clock to a sync), in turns."""
+    import dataclasses
+
+    import numpy as np
+
+    from genie_tts_tpu_torch.models import slots
+    from genie_tts_tpu_torch.ops.sampling import (SamplingConfig, SamplingRows, gumbel_noise,
+                                                  rows_from_config)
+    from genie_tts_tpu_torch.runtime import graphs
+
+    cfg, p = char.t2s_cfg, char.t2s_params
+    cache = graphs.cache_for(p)
+    B8, W, sx, sp, ring = 8, 32, 192, 192, 512
+    V = cfg.semantic_vocab
+    phones_t = torch.tensor(np.pad(phones, (0, sx - len(phones)))[None], device=DEV).long()
+    prompts = torch.tensor(np.pad(feats.prompt_tokens, (0, sp - len(feats.prompt_tokens)))[None],
+                           device=DEV).long()
+    x_len = torch.tensor([len(phones)], device=DEV)
+    p_len = torch.tensor([len(feats.prompt_tokens)], device=DEV)
+    bert = torch.randn((1, sx, cfg.bert_dim), generator=g, device=DEV)
+    samp = rows_from_config(SamplingConfig(), 1)
+    samp_dev = SamplingRows(*(torch.tensor(a, device=DEV) for a in samp))
+    noise = gumbel_noise((1, V), g, DEV)
+    seg_noise = gumbel_noise((W, B8, V), g, DEV)
+
+    def join(state, with_bert=True):
+        ck, cv, tok0, hist = slots.prefill_join(p, cfg, phones_t, bert if with_bert else None,
+                                                x_len, prompts, p_len, samp_dev, noise=noise,
+                                                any_top_p=False)
+        if state is not None:
+            slots.insert_slot(state, 3, ck, cv, tok0, hist, len(phones),
+                              len(feats.prompt_tokens), 0, ring,
+                              SamplingRows(*(a[0] for a in samp)), params=p)
+        return ck, cv, tok0, hist
+
+    with torch.inference_mode():
+        # states copied into the graphs' buffers and back (the segment's
+        # graph at this geometry is segment_pair's); the timing below runs
+        # on a persistent state, as a slot machine's
+        base = slots.init_slots(cfg, B8, sx, sp, ring, torch.bfloat16, kv_int8=True,
+                                device=DEV)
+        for b in range(B8):
+            if b != 3:
+                slots.insert_slot(base, b, *join(None), len(phones),
+                                  len(feats.prompt_tokens), ring, ring,
+                                  SamplingRows(*(a[0] for a in samp)))
+        res = {}
+        for eager in (False, True):
+            cache.eager = eager
+            try:
+                st = slots.clone_state(base)
+                outs = join(st)
+                _, toks = slots.decode_segment(p, st, cfg, W, sx, sp, ring, kv_kernel=True,
+                                               noise=seg_noise)
+            finally:
+                cache.eager = False
+            sync(torch)
+            res[eager] = (outs, toks, st)
+    (gk, gv, gt, gh), g_toks, g_st = res[False]
+    (ek, ev, et, eh), e_toks, e_st = res[True]
+    ctx_diff = max(float((gk.float() - ek.float()).abs().max()),
+                   float((gv.float() - ev.float()).abs().max()))
+    leaves = [f.name for f in dataclasses.fields(g_st)
+              if isinstance(getattr(g_st, f.name), torch.Tensor)]
+    diff = [n for n in leaves if not torch.equal(getattr(g_st, n), getattr(e_st, n))]
+    same = torch.equal(gt, et) and torch.equal(gh, eh) and torch.equal(g_toks, e_toks)
+    scale = max(float(ek.float().abs().max()), float(ev.float().abs().max()))
+    print(f"[graphs] slot join (prefill program with BERT rows, then insert into slot 3 of "
+          f"an int8 state at occupancy 8): graph vs eager tok0 and hist "
+          f"{'identical' if torch.equal(gt, et) and torch.equal(gh, eh) else 'DIFFER'}, "
+          f"context columns max abs difference {ctx_diff:.3g} (largest |value| "
+          f"{scale:.3g}, bf16); the segment that follows: "
+          f"codes {'identical' if torch.equal(g_toks, e_toks) else 'DIFFER'}, state leaves "
+          f"{'equal' if not diff else 'differ: ' + ', '.join(diff)}")
+    # one bf16 step at the columns' magnitude bounds a GEMM that cuBLAS
+    # ran by another algorithm under capture; the codes must not move
+    check(same and ctx_diff <= scale * 2 ** -7, "slot join: graph vs eager")
+
+    # device ms by CUDA events and wall ms by the host clock, in turns
+    st = dataclasses.replace(slots.clone_state(base), persistent=True)
+    times = {}
+
+    def prefill_only(with_bert):
+        with torch.inference_mode():
+            join(None, with_bert)
+
+    def insert_only():
+        with torch.inference_mode():
+            slots.insert_slot(st, 3, gk, gv, gt, gh, len(phones), len(feats.prompt_tokens),
+                              0, ring, SamplingRows(*(a[0] for a in samp)), params=p)
+
+    def join_both():
+        with torch.inference_mode():
+            join(st)
+
+    for name, fn in (("prefill_join (BERT rows)", lambda: prefill_only(True)),
+                     ("prefill_join (no BERT)", lambda: prefill_only(False)),
+                     ("insert_slot (int8 columns)", insert_only),
+                     ("the join (prefill_join + insert_slot)", join_both)):
+        t = times[name] = {"graph_ms": [], "eager_ms": [], "graph_wall_ms": [],
+                           "eager_wall_ms": []}
+        for eager in (False, True, True, False):
+            cache.eager = eager
+            try:
+                kind = "eager" if eager else "graph"
+                t[f"{kind}_ms"].append(cuda_ms(torch, fn, 5, warmup=1))
+                walls = []
+                for _ in range(3):
+                    sync(torch)
+                    t0 = time.perf_counter()
+                    fn()
+                    sync(torch)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                t[f"{kind}_wall_ms"].append(min(walls))
+            finally:
+                cache.eager = False
+        print(f"[graphs] {name} at Sx = Sp = 192, {cfg.num_layers} layers: device ms (CUDA events) graph "
+              + ", ".join(f"{x:.3f}" for x in t["graph_ms"]) + "; eager "
+              + ", ".join(f"{x:.3f}" for x in t["eager_ms"]) + "; wall ms (host clock to a "
+              "sync, best of 3) graph " + ", ".join(f"{x:.3f}" for x in t["graph_wall_ms"])
+              + "; eager " + ", ".join(f"{x:.3f}" for x in t["eager_wall_ms"]) + f"; {card}")
+    return {"ctx_diff": ctx_diff, "times": times}
 
 
 # fine-tuning geometry: B=8 clips of 128 phonemes and 384 semantic tokens

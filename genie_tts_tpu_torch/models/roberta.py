@@ -7,22 +7,32 @@ per phoneme by ``word2ph``. Standard BERT-large geometry: embeddings
 (word + position + type, LN), post-LN layers (16 heads, FFN 4096, exact
 GELU), LayerNorm epsilon 1e-12.
 
-The JAX package pads the tokens to a bucket and runs all layers; here
-the exact token count runs, and only the layers up to
-``cfg.feature_layer``. Masked keys weigh exactly zero, so the features
-are the same. Position ids past ``max_position - 1`` take the last row,
-as JAX's clamping gather does.
+:func:`phone_features` runs the exact token count, and only the layers
+up to ``cfg.feature_layer``. The serving route, :func:`bucketed_features`,
+is the JAX hook's jitted program (``runtime/model_manager.py:226-250``
+there): the tokens padded to a bucket of the phoneme ladder, the feature
+layer's rows captured as a CUDA graph per bucket (:func:`feature_graph`;
+a parameter set's graphs form one family, ``runtime/graphs.py``), and the
+per-phoneme repeat as one gather by an index the host builds. Masked
+keys weigh exactly zero, so the padded route gives the exact route's
+features. Position ids past ``max_position - 1`` take the last row, as
+JAX's clamping gather does.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import functools
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import RobertaConfig
 from ..ops.layers import attention, linear, unstack
 from ..ops.layers import layer_norm as _ln_base
+from ..runtime import graphs
+from ..runtime.buckets import pad_to, pick_bucket
 
 Params = Dict
 
@@ -83,6 +93,73 @@ def phone_features(params: Params, input_ids: torch.Tensor,
     feats = states[layer][0, 1:-1].float()                   # [T_chars, D]
     reps = repeats.to(device=feats.device, dtype=torch.long)
     return torch.repeat_interleave(feats[: reps.shape[0]], reps, dim=0)
+
+
+@dataclasses.dataclass
+class FeatureBuffers:
+    """The static buffers of the feature program: the padded token ids
+    and attention mask [1, T] int64, and the feature layer's rows [T, D]
+    fp32."""
+    ids: torch.Tensor
+    mask: torch.Tensor
+    rows: torch.Tensor
+
+
+def _feature_rows(params: Params, cfg: RobertaConfig, b: FeatureBuffers) -> None:
+    layer = cfg.feature_layer % (cfg.num_layers + 1)
+    states = hidden_states(params, b.ids, b.mask, cfg, num_layers=layer)
+    b.rows.copy_(states[layer][0])
+
+
+def token_bucket(n: int, buckets: Sequence[int]) -> int:
+    """The padded token count of ``n`` tokens: a bucket of the ladder, or
+    past its largest a multiple of it (the JAX hook truncates there)."""
+    if n <= buckets[-1]:
+        return pick_bucket(n, buckets)
+    return -(-n // buckets[-1]) * buckets[-1]
+
+
+def feature_graph(params: Params, cfg: RobertaConfig, T: int):
+    """The feature program's graph at ``T`` padded tokens in the
+    parameter set's cache (a family: one pool, one lock), and the
+    program."""
+    dev = params["word_embed"].device
+
+    def make():
+        return FeatureBuffers(torch.zeros((1, T), dtype=torch.int64, device=dev),
+                              torch.ones((1, T), dtype=torch.int64, device=dev),
+                              torch.zeros((T, cfg.embed_dim), device=dev))
+
+    g = graphs.cache_for(params).graph(("roberta", T), make)
+    return g, functools.partial(_feature_rows, params, cfg)
+
+
+def prepare_features(params: Params, cfg: RobertaConfig, T: int) -> None:
+    """Capture the feature program at ``T`` padded tokens (a warmup unit;
+    on the CPU its key and buffers are made)."""
+    g, fn = feature_graph(params, cfg, T)
+    with g.lock:
+        g.prepare(fn)
+
+
+def bucketed_features(params: Params, cfg: RobertaConfig, ids: np.ndarray,
+                      mask: np.ndarray, repeats: np.ndarray,
+                      buckets: Sequence[int]) -> torch.Tensor:
+    """Per-phoneme features [sum(repeats), D] fp32 on the weights' device:
+    :func:`phone_features` through the feature program at the tokens'
+    bucket (:func:`token_bucket`; on the card a graph replay). ``ids`` /
+    ``mask``: [T_tok]; ``repeats``: [T_tok - 2] (CLS/SEP stripped)."""
+    T = token_bucket(len(ids), buckets)
+    dev = params["word_embed"].device
+    index = torch.from_numpy(np.repeat(np.arange(1, len(repeats) + 1),
+                                       np.asarray(repeats, np.int64))).to(dev)
+    g, fn = feature_graph(params, cfg, T)
+    with g.lock:
+        b = g.static
+        b.ids.copy_(torch.from_numpy(pad_to(np.asarray(ids, np.int64), T))[None])
+        b.mask.copy_(torch.from_numpy(pad_to(np.asarray(mask, np.int64), T))[None])
+        g.run(fn)
+        return b.rows.index_select(0, index)
 
 
 def init_params(generator: torch.Generator, cfg: RobertaConfig,

@@ -28,14 +28,23 @@ kernel reads the head from device memory, and the merge writes at it. A
 caller that reads ``done`` or ``counts`` of one segment after the next
 one was dispatched copies them first (the schedulers enqueue one copy
 right behind each segment). A state made ``persistent`` (a slot
-batcher's, ``TTSEngine.take_slot_state``) is the graph's own buffers; any
-other state is copied into the graph's buffers and back around a replay.
+batcher's or a segmented stream's, ``TTSEngine.take_slot_state``) is the
+graph's own buffers; any other state is copied into the graph's buffers
+and back around a replay.
+
+A request joins through three more programs, the JAX package's jitted
+join (``runtime/slot_batcher.py:90-131`` there): :func:`prefill_join`
+(prefill, compaction, first token; a graph per (Sx, Sp) with a variant
+per BERT flag and top-p flag), :func:`insert_slot` and
+:func:`release_slot` (graphs on the state, the slot index and the row's
+values read from device memory, so one graph serves every slot).
 
 Under tp (a parameter set from ``parallel/mesh.py::shard_serving_params``)
 the big caches are per shard, ``H/tp`` heads each on its shard's device;
 the small state stays on the first shard's device, and the prefill, the
 windowed read or the ``int8_big_attention`` kernel, the quantization and
-the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``).
+the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``). A
+tp-sharded set runs its join and segments eagerly.
 """
 from __future__ import annotations
 
@@ -48,7 +57,7 @@ import torch
 
 from ..config import T2SConfig
 from ..ops.layers import sine_position_table, unstack
-from ..ops.sampling import SamplingRows, gumbel_noise, sample_token_rows
+from ..ops.sampling import SamplingRows, gumbel_noise, gumbel_noise_, sample_token_rows
 from ..runtime import graphs
 from . import t2s
 
@@ -196,6 +205,98 @@ def copy_state(dst: SlotState, src: SlotState) -> None:
     dst.top_p_host[:] = src.top_p_host
 
 
+@dataclasses.dataclass
+class JoinBuffers:
+    """The static buffers of the join program (:func:`_join`): one
+    request's inputs (packed phones, BERT features, lengths, prompts, its
+    sampling values and the first draw's Gumbel noise) and outputs (the
+    compacted context columns per tp shard, the first token and the
+    repetition histogram)."""
+    phones: torch.Tensor      # [1, Sx] int64
+    bert: torch.Tensor        # [1, Sx, bert_dim] fp32
+    x_len: torch.Tensor       # [1] int64
+    prompts: torch.Tensor     # [1, Sp] int64
+    p_len: torch.Tensor       # [1] int64
+    samp: SamplingRows        # [1] each: top_k int32, the others fp32
+    noise: torch.Tensor       # [1, V] fp32
+    ctx_k: tuple              # per shard [L, 1, H/tp, Dh, Sx+Sp]
+    ctx_v: tuple
+    tok0: torch.Tensor        # [1] int32
+    hist: torch.Tensor        # [1, V] int32
+
+
+def _join_buffers(params: t2s.Params, cfg: T2SConfig, sx: int, sp: int) -> JoinBuffers:
+    dev = params["audio_embed"].device
+    ctx_dtype = torch.promote_types(params["text_embed"].dtype, params["audio_embed"].dtype)
+    L, H, Dh, V = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.semantic_vocab
+    devs = t2s.shard_devices(params)
+
+    def z(*shape, dt=torch.int64, d=dev):
+        return torch.zeros(shape, dtype=dt, device=d)
+
+    ctx = [tuple(z(L, 1, H // len(devs), Dh, sx + sp, dt=ctx_dtype, d=d) for d in devs)
+           for _ in range(2)]
+    f32 = torch.float32
+    return JoinBuffers(
+        phones=z(1, sx), bert=z(1, sx, cfg.bert_dim, dt=f32), x_len=z(1) + 1,
+        prompts=z(1, sp), p_len=z(1) + 1,
+        samp=SamplingRows(z(1, dt=torch.int32), z(1, dt=f32) + 1, z(1, dt=f32) + 1,
+                          z(1, dt=f32) + 1),
+        noise=z(1, V, dt=f32), ctx_k=ctx[0], ctx_v=ctx[1], tok0=z(1, dt=torch.int32),
+        hist=z(1, V, dt=torch.int32))
+
+
+def _join(params: t2s.Params, cfg: T2SConfig, b: JoinBuffers, *, with_bert: bool,
+          any_top_p: bool) -> None:
+    """The program of :func:`prefill_join` over ``b``: the prefill, the
+    context columns compacted on the device (``x_len`` is read there), the
+    histogram of the valid prompt tokens and the first token (EOS
+    forbidden). Reads nothing back to the host. ``with_bert`` False: the
+    BERT features are zero (the buffer is zeroed here)."""
+    Sx, Sp = b.phones.shape[1], b.prompts.shape[1]
+    V = cfg.semantic_vocab
+    dev = b.phones.device
+    if not with_bert:
+        b.bert.zero_()
+    x = t2s.embed_text(params, b.phones, b.bert)
+    logits0, (k_ctx, v_ctx) = t2s.prefill(params, cfg, x, b.x_len, b.prompts, b.p_len,
+                                          cache_len=Sx + Sp)
+    # kv-major [L,1,H,Dh,Sx+Sp]; position j reads source column j (text) or
+    # Sx + j - x_len (prompt); columns past x_len+p_len are garbage behind
+    # the decode mask
+    pos = torch.arange(Sx + Sp, device=dev)
+    src = torch.where(pos < b.x_len[0], pos,
+                      torch.clamp(Sx + pos - b.x_len[0], max=Sx + Sp - 1))
+    if not isinstance(k_ctx, tuple):
+        k_ctx, v_ctx = (k_ctx,), (v_ctx,)
+    for out, c in zip(b.ctx_k + b.ctx_v, k_ctx + v_ctx, strict=True):
+        out.copy_(c.transpose(-1, -2).index_select(-1, src.to(c.device)))
+    b.hist.zero_()
+    prompt_valid = torch.arange(Sp, device=dev)[None, :] < b.p_len[:, None]
+    b.hist.scatter_add_(1, b.prompts, prompt_valid.int())
+    forbid_eos = torch.arange(V, device=dev) == cfg.eos_id     # no host scalar: capturable
+    tok0 = sample_token_rows(None, logits0, b.hist, b.samp, forbid=forbid_eos,
+                             noise=b.noise, any_top_p=any_top_p)
+    b.hist.scatter_add_(1, tok0[:, None], torch.ones_like(b.hist[:, :1]))
+    b.tok0.copy_(tok0)
+
+
+def join_graph(params: t2s.Params, cfg: T2SConfig, sx: int, sp: int):
+    """The join program's graph at (Sx, Sp) in the parameter set's cache
+    (its buffers made on a miss), and its programs by variant
+    ``(BERT features given, top-p)``. A tp-sharded set's join runs
+    eagerly, on buffers of its own call (a graph of no cache)."""
+    if t2s.layer_shards(params) is not None:
+        g = graphs.Graph(None, None, _join_buffers(params, cfg, sx, sp))
+    else:
+        g = graphs.cache_for(params).graph(
+            ("join", sx, sp, params["audio_embed"].dtype),
+            lambda: _join_buffers(params, cfg, sx, sp))
+    return g, {(bert, top_p): functools.partial(_join, params, cfg, with_bert=bert,
+                                                any_top_p=top_p)
+               for bert in (False, True) for top_p in (False, True)}
+
+
 def prefill_join(params: t2s.Params, cfg: T2SConfig,
                  phones: torch.Tensor,          # [1, Sx] packed [ref_text | text]
                  bert: Optional[torch.Tensor],  # [1, Sx, bert_dim] or None
@@ -212,94 +313,224 @@ def prefill_join(params: t2s.Params, cfg: T2SConfig,
     int32) for :func:`insert_slot` (for a tp-sharded ``params``, ctx_k and
     ctx_v are tuples with each shard's ``H/tp`` heads on its device). The first token forbids EOS, as
     ``t2s.generate``'s does; its Gumbel noise is ``noise`` [1,V], or drawn
-    from ``generator``. ``any_top_p``: whether ``samp.top_p < 1`` (read
+    in place from ``generator``. ``any_top_p``: whether ``samp.top_p < 1`` (read
     from ``samp`` when not given). The context columns come back COMPACTED: the valid
     text columns ``[0, x_len)`` then the prompt columns ``[Sx, Sx+p_len)``
     gathered to the front (decode attention sees the same key set; only
-    the column order changes)."""
+    the column order changes).
+
+    The JAX package's ``_prefill_jit``: the program :func:`_join` over the
+    static buffers of :func:`join_graph` (on the card a replay of the CUDA
+    graph of its variant), held from the inputs' copy in to the outputs'
+    copies out."""
     Sx, Sp = phones.shape[1], prompts.shape[1]
-    V = cfg.semantic_vocab
-    dev = phones.device
-    if bert is None:
-        bert = torch.zeros(phones.shape + (cfg.bert_dim,), device=dev)
-    x = t2s.embed_text(params, phones, bert)
-    logits0, (k_ctx, v_ctx) = t2s.prefill(params, cfg, x, x_len, prompts, p_len,
-                                          cache_len=Sx + Sp)
-    # kv-major [L,1,H,Dh,Sx+Sp]; position j reads source column j (text) or
-    # Sx + j - x_len (prompt); columns past x_len+p_len are garbage behind
-    # the decode mask
-    pos = torch.arange(Sx + Sp, device=dev)
-    src = torch.where(pos < x_len[0], pos,
-                      torch.clamp(Sx + pos - x_len[0], max=Sx + Sp - 1))
-
-    def compact(c):
-        return c.transpose(-1, -2).index_select(-1, src.to(c.device))
-
-    if isinstance(k_ctx, tuple):
-        k_ctx, v_ctx = tuple(map(compact, k_ctx)), tuple(map(compact, v_ctx))
-    else:
-        k_ctx, v_ctx = compact(k_ctx), compact(v_ctx)
-    hist = torch.zeros((1, V), dtype=torch.int32, device=dev)
-    prompt_valid = torch.arange(Sp, device=dev)[None, :] < p_len[:, None]
-    hist.scatter_add_(1, prompts.long(), prompt_valid.int())
-    forbid_eos = torch.zeros((V,), dtype=torch.bool, device=dev)
-    forbid_eos[cfg.eos_id] = True
-    tok0 = sample_token_rows(generator, logits0, hist, samp, forbid=forbid_eos,
-                             noise=noise, any_top_p=any_top_p)
-    hist = hist.scatter_add(1, tok0[:, None], torch.ones_like(hist[:, :1]))
-    return k_ctx, v_ctx, tok0.int(), hist
+    if any_top_p is None:
+        any_top_p = bool((torch.as_tensor(samp.top_p) < 1.0).any())
+    g, progs = join_graph(params, cfg, Sx, Sp)
+    variant = (bert is not None, bool(any_top_p))
+    with g.lock:
+        b = g.static
+        b.phones.copy_(phones)
+        if bert is not None:
+            b.bert.copy_(bert)
+        b.x_len.copy_(x_len)
+        b.prompts.copy_(prompts)
+        b.p_len.copy_(p_len)
+        for buf, value in zip(b.samp, samp):
+            buf.copy_(torch.as_tensor(value).reshape(1))
+        if noise is None:
+            gumbel_noise_(b.noise, generator)
+        else:
+            b.noise.copy_(noise)
+        g.run(progs[variant], variant)
+        ctx_k = tuple(c.clone() for c in b.ctx_k)
+        ctx_v = tuple(c.clone() for c in b.ctx_v)
+        tok0, hist = b.tok0.clone(), b.hist.clone()
+    if len(ctx_k) == 1:
+        ctx_k, ctx_v = ctx_k[0], ctx_v[0]
+    return ctx_k, ctx_v, tok0, hist
 
 
-def _set1(vec: torch.Tensor, b: int, value) -> None:
-    """``vec[b] = value`` in place: a Python or numpy number, or a device
-    tensor of shape [] or [1] (copied on the device, not read)."""
-    if isinstance(value, torch.Tensor):
-        vec[b:b + 1].copy_(value.reshape(1))
-    else:
-        vec[b] = np.asarray(value).reshape(-1)[0].item()
+# the insert program's row: int32 [slot, x_len, p_len, min_steps,
+# max_steps, top_k, tok0], then the float32 bits of [top_p, temperature,
+# repetition_penalty]
+_ROW_INTS, _ROW_FLOATS = 7, 3
+
+
+@dataclasses.dataclass
+class InsertBuffers:
+    """The static buffers of the insert program (:func:`_insert`): the
+    state it writes, the request's context columns per tp shard, its
+    histogram [1,V] int32 and its row (``_ROW_INTS`` + ``_ROW_FLOATS``
+    int32: the slot index and the row's scalars)."""
+    state: SlotState
+    ctx_k: tuple
+    ctx_v: tuple
+    hist: torch.Tensor
+    row: torch.Tensor
+
+
+def _insert(bufs: InsertBuffers) -> None:
+    """The program of :func:`insert_slot`: the slot index and the row's
+    values read from device memory, the context columns written (and
+    quantized per column in int8 mode) into every shard's caches."""
+    st, row = bufs.state, bufs.row
+    at = row[:1].long()
+    f = row[_ROW_INTS:].view(torch.float32)
+    for ck, cv, (kc, vc, ks_c, vs_c) in zip(bufs.ctx_k, bufs.ctx_v, st.cache_shards,
+                                           strict=True):
+        C = ck.shape[-1]
+        i = at.to(kc.device)
+        if ks_c is not None:
+            ck, ks = quantize_kv_columns(ck)
+            cv, vs = quantize_kv_columns(cv)
+            ks_c.narrow(-1, 0, C).index_copy_(1, i, ks)
+            vs_c.narrow(-1, 0, C).index_copy_(1, i, vs)
+        kc.narrow(-1, 0, C).index_copy_(1, i, ck.to(kc.dtype))
+        vc.narrow(-1, 0, C).index_copy_(1, i, cv.to(vc.dtype))
+    st.hist.index_copy_(0, at, bufs.hist)
+    for vec, value in ((st.x_len, row[1:2]), (st.p_len, row[2:3]), (st.min_steps, row[3:4]),
+                       (st.max_steps, row[4:5]), (st.samp_top_k, row[5:6]),
+                       (st.cur_tok, row[6:7]), (st.samp_top_p, f[0:1]),
+                       (st.samp_temp, f[1:2]), (st.samp_rep, f[2:3])):
+        vec.index_copy_(0, at, value.to(vec.dtype))
+    st.keys_written.index_fill_(0, at, 0)
+    st.counts.index_fill_(0, at, 1)
+    st.done.index_fill_(0, at, False)
+    st.active.index_fill_(0, at, True)
+
+
+def _geometry_key(state: SlotState) -> tuple:
+    """A slot state's static geometry; a persistent state's programs are
+    its own (they replay on its buffers)."""
+    return (tuple(state.k_cache.shape), state.k_cache.dtype, state.k_scale is not None,
+            id(state) if state.persistent else None)
+
+
+def _eager_state(params, state: SlotState) -> bool:
+    """The state programs of no cache (run on the state itself): no
+    parameter set given, or a tp-sharded one (its join stays eager)."""
+    return params is None or t2s.layer_shards(params) is not None or bool(state.tp_caches)
+
+
+def _insert_buffers(state: SlotState, ctx_k: tuple, ctx_v: tuple) -> InsertBuffers:
+    dev = state.hist.device
+    return InsertBuffers(state, ctx_k, ctx_v,
+                         torch.zeros((1, state.hist.shape[1]), dtype=torch.int32, device=dev),
+                         torch.zeros(_ROW_INTS + _ROW_FLOATS, dtype=torch.int32, device=dev))
+
+
+def insert_graph(params: t2s.Params, state: SlotState, ctx_k: tuple, ctx_v: tuple):
+    """The insert program's graph for ``state`` and context columns of
+    this shape and dtype, in the parameter set's cache: on a persistent
+    state its own buffers, else a copy that the state is copied into and
+    back (one graph serves every slot: the slot index is a buffer)."""
+    if _eager_state(params, state):
+        return graphs.Graph(None, None, _insert_buffers(state, ctx_k, ctx_v))
+    key = ("insert", ctx_k[0].shape[-1], ctx_k[0].dtype) + _geometry_key(state)
+    return graphs.cache_for(params).graph(key, lambda: _insert_buffers(
+        state if state.persistent else clone_state(state),
+        tuple(map(torch.zeros_like, ctx_k)), tuple(map(torch.zeros_like, ctx_v))))
+
+
+def _fill_row(row: torch.Tensor, ints, floats) -> None:
+    """Write the insert row: host values in one copy to the device, then
+    device tensors (shape [] or [1]) copied on the device, not read."""
+    host = np.zeros(_ROW_INTS + _ROW_FLOATS, np.int32)
+    on_dev = []
+    for j, v in enumerate(ints + floats):
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            on_dev.append((j, v))
+        elif j < _ROW_INTS:
+            host[j] = int(np.asarray(v).reshape(-1)[0])
+        else:
+            host[j] = np.float32(np.asarray(v).reshape(-1)[0]).view(np.int32)
+    row.copy_(torch.from_numpy(host))
+    for j, v in on_dev:
+        dst = row[j:j + 1] if j < _ROW_INTS else row[j:j + 1].view(torch.float32)
+        dst.copy_(v.reshape(1))
 
 
 def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
                 ctx_v: torch.Tensor, tok0: torch.Tensor, hist: torch.Tensor,
                 x_len, p_len, min_steps, max_steps,
-                samp: SamplingRows) -> SlotState:
+                samp: SamplingRows, params: Optional[t2s.Params] = None) -> SlotState:
     """Claim slot ``slot`` for a prefilled request, in place: the context
     columns go into the big caches (quantized per column in int8 mode),
     per tp shard when ``ctx_k``/``ctx_v`` are tuples of shards, and the
     row's leaves are set. Scalars may be Python numbers, numpy values or
-    device tensors of shape [] or [1]. Returns ``state``."""
+    device tensors of shape [] or [1]. Returns ``state``.
+
+    The JAX package's ``_insert_jit``: the program :func:`_insert` over
+    the buffers of :func:`insert_graph` in the cache of ``params`` (the
+    serving paths pass their T2S set; on the card a replay); without
+    ``params``, or for a tp-sharded set, it runs on the state itself. The
+    host mirror ``top_p_host`` is written here."""
     b = int(slot)
     if not isinstance(ctx_k, tuple):
         ctx_k, ctx_v = (ctx_k,), (ctx_v,)
-    for ck, cv, (kc, vc, ks_c, vs_c) in zip(ctx_k, ctx_v, state.cache_shards,
-                                           strict=True):
-        C = ck.shape[-1]
-        if ks_c is not None:
-            ck, ks = quantize_kv_columns(ck)
-            cv, vs = quantize_kv_columns(cv)
-            ks_c[:, b:b + 1, :, :C] = ks
-            vs_c[:, b:b + 1, :, :C] = vs
-        kc[:, b:b + 1, ..., :C] = ck.to(kc.dtype)
-        vc[:, b:b + 1, ..., :C] = cv.to(vc.dtype)
-    state.hist[b:b + 1].copy_(hist)
     top_p = samp.top_p
     state.top_p_host[b] = (float(top_p.reshape(-1)[0]) if isinstance(top_p, torch.Tensor)
                            else np.asarray(top_p).reshape(-1)[0].item())
-    for vec, value in ((state.cur_tok, tok0), (state.keys_written, 0), (state.counts, 1),
-                       (state.done, False), (state.active, True), (state.x_len, x_len),
-                       (state.p_len, p_len), (state.min_steps, min_steps),
-                       (state.max_steps, max_steps), (state.samp_top_k, samp.top_k),
-                       (state.samp_top_p, samp.top_p), (state.samp_temp, samp.temperature),
-                       (state.samp_rep, samp.repetition_penalty)):
-        _set1(vec, b, value)
+    g = insert_graph(params, state, ctx_k, ctx_v)
+    with g.lock:
+        bufs = g.static
+        if bufs.state is not state:
+            copy_state(bufs.state, state)
+        for dst, src in zip(bufs.ctx_k + bufs.ctx_v, ctx_k + ctx_v, strict=True):
+            if dst is not src:
+                dst.copy_(src)
+        bufs.hist.copy_(hist)
+        _fill_row(bufs.row, (b, x_len, p_len, min_steps, max_steps, samp.top_k, tok0),
+                  (samp.top_p, samp.temperature, samp.repetition_penalty))
+        g.run(_insert)
+        if bufs.state is not state:
+            copy_state(state, bufs.state)
     return state
 
 
-def release_slot(state: SlotState, slot: int) -> SlotState:
+@dataclasses.dataclass
+class ReleaseBuffers:
+    """The static buffers of the release program: the state's ``active``
+    and ``done`` flags (a persistent state's own) and the slot [1]
+    int64."""
+    active: torch.Tensor
+    done: torch.Tensor
+    slot: torch.Tensor
+
+
+def _release(bufs: ReleaseBuffers) -> None:
+    bufs.active.index_fill_(0, bufs.slot, False)
+    bufs.done.index_fill_(0, bufs.slot, True)
+
+
+def release_slot(state: SlotState, slot: int,
+                 params: Optional[t2s.Params] = None) -> SlotState:
     """Free a harvested slot in place (its cache columns are garbage
-    behind masks). Returns ``state``."""
-    state.active[int(slot)] = False
-    state.done[int(slot)] = True
+    behind masks). Returns ``state``. The JAX package's ``_release_jit``:
+    a program over the state's two flags with the slot index in device
+    memory, a graph in the cache of ``params`` as :func:`insert_slot`'s
+    is."""
+    dev = state.active.device
+    if _eager_state(params, state):
+        g = graphs.Graph(None, None, ReleaseBuffers(
+            state.active, state.done, torch.zeros(1, dtype=torch.int64, device=dev)))
+    else:
+        g = graphs.cache_for(params).graph(
+            ("release",) + _geometry_key(state),
+            lambda: ReleaseBuffers(*((state.active, state.done) if state.persistent
+                                     else (state.active.clone(), state.done.clone())),
+                                   torch.zeros(1, dtype=torch.int64, device=dev)))
+    with g.lock:
+        bufs = g.static
+        bufs.slot.fill_(int(slot))
+        if bufs.active is not state.active:
+            bufs.active.copy_(state.active)
+            bufs.done.copy_(state.done)
+        g.run(_release)
+        if bufs.active is not state.active:
+            state.active.copy_(bufs.active)
+            state.done.copy_(bufs.done)
     return state
 
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import RuntimeConfig, SoVITSConfig, T2SConfig, resolve_device
+from ..frontend.language import normalize_language
 from ..models import sovits, t2s
 from ..ops.audio import linear_spectrogram
 from ..ops.sampling import SamplingConfig, gumbel_noise
@@ -238,24 +239,26 @@ class TTSEngine:
 
     def take_slot_state(self, char: CharacterModel, key: tuple, factory):
         """A persistent slot state of ``char`` at the slot geometry ``key``
-        for the caller alone: the one a warmup sweep left
-        (:meth:`offer_slot_state`; its segment graphs are captured on its
+        for the caller alone: one a warmup sweep or an earlier user left
+        (:meth:`offer_slot_state`; its graphs are captured on its
         buffers), else a new one from ``factory()``. A slot machine keeps
-        the state it takes for as long as it lives, so no two users ever
-        decode in one state; a sweep while a slot machine holds the
-        character's state captures on a new one."""
+        the state it takes for as long as it lives, a segmented stream
+        for one request, so no two users ever decode in one state; a
+        sweep while every state of the key is taken captures on a new
+        one."""
         k = (id(char), key)
         with self._lock:
-            hit = self._slot_states.pop(k, None)
-        if hit is not None and hit[0]() is char:
-            return hit[1]
+            hit = self._slot_states.get(k)
+            state = hit[1].pop() if hit is not None and hit[0]() is char and hit[1] else None
+        if state is not None:
+            return state
         with torch.inference_mode(False):     # updated in place in any mode
             return dataclasses.replace(factory(), persistent=True)
 
     def offer_slot_state(self, char: CharacterModel, key: tuple, state) -> None:
-        """Leave ``state`` (emptied, not in use) for the next
-        :meth:`take_slot_state` of ``char`` at ``key``; it is dropped with
-        its character."""
+        """Leave ``state`` (not in use) for a later :meth:`take_slot_state`
+        of ``char`` at ``key``; the states left are dropped with their
+        character."""
         k = (id(char), key)
 
         def drop(ref, k=k):      # no lock: a collection may run while it is held
@@ -263,7 +266,11 @@ class TTSEngine:
                 self._slot_states.pop(k, None)
 
         with self._lock:
-            self._slot_states[k] = (weakref.ref(char, drop), state)
+            hit = self._slot_states.get(k)
+            if hit is None or hit[0]() is not char:
+                hit = self._slot_states[k] = (weakref.ref(char, drop), [])
+            if not any(s is state for s in hit[1]):
+                hit[1].append(state)
 
     # -- serving over a mesh ----------------------------------------------
 
@@ -893,11 +900,14 @@ class TTSEngine:
         SoVITS latent and vocode programs of the solo routes
         (:meth:`solo_warmup_units`) and of the window batcher
         (:meth:`finisher_warmup_units`); and (when slot serving is on)
-        every slot segment graph with the finisher's and window pump's
-        SoVITS programs (:func:`slot_warmup_units`) and (when segmented
-        streaming is on) the stream's (:func:`stream_warmup_units`). On
-        the CPU nothing is captured: the keys, buffers and variants are
-        recorded. Returns the number of units run; the caches' ``stats``
+        every slot join and segment program with the finisher's and
+        window pump's SoVITS programs (:func:`slot_warmup_units`), (when
+        segmented streaming is on) the stream's
+        (:func:`stream_warmup_units`), and for a Chinese or hybrid
+        character RoBERTa's feature program at every token bucket, once
+        per device (``model_manager.roberta_warmup_units``; a character
+        swept later finds them captured). On the CPU nothing is captured:
+        the keys, buffers and variants are recorded. Returns the number of units run; the caches' ``stats``
         (``graphs.cache_for(char.t2s_params)`` and
         ``graphs.cache_for(char.sovits_params)``) count the graphs
         captured.
@@ -944,6 +954,10 @@ class TTSEngine:
             from .stream import stream_warmup_units
 
             units.extend(stream_warmup_units(self, char))
+        if "Chinese" in normalize_language(char.language):
+            from .model_manager import model_manager
+
+            units.extend(model_manager.roberta_warmup_units(char.device))
         with metrics.timer("warmup_sweep"):
             n = self._run_compile_units(units)
         logger.info("warmup sweep ran %d units, %d + %d graphs captured (T2S + SoVITS)", n,

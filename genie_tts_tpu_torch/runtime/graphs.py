@@ -282,10 +282,12 @@ _caches_lock = threading.RLock()   # the drop callback may run inside cache_for
 
 def cache_for(params) -> GraphCache:
     """The graph cache of a parameter set, found by one of its tensors
-    and dropped with it: a T2S set's by ``audio_embed``, a SoVITS set's
-    (a family: one pool, one lock) by ``quantizer_embed``."""
-    family = "audio_embed" not in params
-    t = params["quantizer_embed" if family else "audio_embed"]
+    and dropped with it: a T2S set's by ``audio_embed``; a SoVITS set's by
+    ``quantizer_embed`` and a RoBERTa set's by ``word_embed``, each a
+    family (one pool, one lock)."""
+    name = next(n for n in ("audio_embed", "quantizer_embed", "word_embed") if n in params)
+    family = name != "audio_embed"
+    t = params[name]
     k = id(t)
     with _caches_lock:
         hit = _caches.get(k)

@@ -15,6 +15,7 @@ again.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import threading
 from pathlib import Path
@@ -233,6 +234,7 @@ class ModelManager:
 
         params, cfg, tokenizer = self._roberta[dev]
         unstack(params["layers"])      # per-layer views made here, not in a call
+        buckets = self.cfg.phoneme_buckets
 
         @torch.inference_mode()
         def bert_fn(norm_text: str, word2ph) -> np.ndarray:
@@ -241,13 +243,26 @@ class ModelManager:
             if len(enc.ids) - 2 != len(reps):
                 # tokenizer/char mismatch (rare unicode): zero features
                 return np.zeros((int(reps.sum()), cfg.embed_dim), np.float32)
-            out = roberta_model.phone_features(
-                params, torch.as_tensor(enc.ids, device=dev)[None],
-                torch.as_tensor(enc.attention_mask, device=dev)[None],
-                torch.as_tensor(reps, device=dev), cfg)
-            return out.cpu().numpy()
+            return roberta_model.bucketed_features(
+                params, cfg, np.asarray(enc.ids), np.asarray(enc.attention_mask), reps,
+                buckets).cpu().numpy()
 
         set_bert_feature_fn(bert_fn)
+
+    def roberta_warmup_units(self, device) -> list:
+        """Thunks capturing the BERT hook's feature program at every token
+        bucket of its ladder, for the RoBERTa on ``device`` (none when no
+        RoBERTa is loaded there). Its graphs are the device's, shared by
+        every Chinese character: a later sweep finds them captured."""
+        from ..models import roberta as roberta_model
+
+        with self._lock:
+            loaded = self._roberta.get(indexed_device(resolve_device(device)))
+        if loaded is None:
+            return []
+        params, cfg, _ = loaded
+        return [functools.partial(roberta_model.prepare_features, params, cfg, T)
+                for T in self.cfg.phoneme_buckets]
 
 
 model_manager = ModelManager()

@@ -44,12 +44,17 @@ The machine owns its persistent slot state for as long as it lives
 (``TTSEngine.take_slot_state``: the one a warmup sweep left, else a new
 one), updated in place; each segment is a replay of the CUDA graph of its
 width, read windows and top-p flag, captured on that state
-(``runtime/graphs.py``; a tp-sharded character decodes eagerly). The host
-keeps a mirror of the ring head. :func:`slot_warmup_units` captures every
-segment graph the scheduler can dispatch on a state it then leaves for
-the character's next slot machine, and runs the prefill and the finisher
-and window-pump buckets once, ahead of traffic (``TTSEngine.warmup(...,
-sweep=True)``).
+(``runtime/graphs.py``), and so is each join: the prefill program
+(``slots.prefill_join``), the insert and, when the row is harvested, the
+release (``slots.insert_slot`` / ``release_slot``, the slot index in
+device memory), as the JAX package's ``_prefill_jit``, ``_insert_jit``
+and ``_release_jit``; a streaming row's speculative codes are the graph
+of :func:`spec_codes` (``_spec_codes_jit``). A tp-sharded character
+joins and decodes eagerly. The host keeps a mirror of the ring head.
+:func:`slot_warmup_units` captures every one of these programs the
+scheduler can reach, on a state it then leaves for the character's next
+slot machine, and the finisher's and window pump's SoVITS programs,
+ahead of traffic (``TTSEngine.warmup(..., sweep=True)``).
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ from ..models.t2s import finalize_semantic_tokens, shard_devices
 from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
+from . import graphs
 from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, finish_host_copy,
                      host_to_device, start_host_copy)
 from .stream import noise_table
@@ -153,47 +159,68 @@ def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotSt
     return slots_mod.reset_slots(state, ring)
 
 
+def join_warmup_units(char: CharacterModel, sx: int, sp: int) -> list:
+    """Warmup thunks capturing the join program (``slots.prefill_join``)
+    at (Sx, Sp): each variant, with and without BERT features and top-p
+    (a tp-sharded character's join runs eagerly: none)."""
+    params = char.t2s_params
+    if len(shard_devices(params)) > 1:
+        return []
+    g, progs = slots_mod.join_graph(params, char.t2s_cfg, sx, sp)
+
+    def capture(variant):
+        with g.lock:
+            g.prepare(progs[variant], variant)
+
+    return [functools.partial(capture, v) for v in progs]
+
+
+def warmup_join(char: CharacterModel, state: slots_mod.SlotState, sx: int, sp: int,
+                max_steps: int, generator: torch.Generator) -> None:
+    """A warmup row: a one-phoneme, one-prompt request joined into slot 0
+    of ``state`` through the join graphs (the insert's captured on
+    ``state`` at its first join)."""
+    params, tcfg, dev = char.t2s_params, char.t2s_cfg, char.device
+    samp = rows_from_config(SamplingConfig(), 1)
+    ctx_k, ctx_v, tok0, hist = slots_mod.prefill_join(
+        params, tcfg, phones=torch.zeros((1, sx), dtype=torch.int64, device=dev),
+        bert=None, x_len=torch.ones((1,), dtype=torch.int64, device=dev),
+        prompts=torch.zeros((1, sp), dtype=torch.int64, device=dev),
+        p_len=torch.ones((1,), dtype=torch.int64, device=dev),
+        samp=SamplingRows(*(host_to_device(a, dev) for a in samp)), generator=generator,
+        any_top_p=False)
+    slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist, 1, 1, 0, max_steps,
+                          SamplingRows(*(a[0] for a in samp)), params=params)
+
+
 def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
-    """Warmup thunks for every slot-serving program: the prefill (with and
-    without BERT features) and an insert and release once, a capture of
-    every segment graph the scheduler can dispatch (each width of
-    :func:`seg_widths` x each read-window pair of
-    :func:`seg_window_combos` x the top-p flag) on a persistent slot
-    state that it leaves for the character's next slot machine
-    (``TTSEngine.offer_slot_state``), and captures of the window pump's
-    and the finisher's SoVITS programs (``engine.window_warmup_units`` /
-    ``finisher_warmup_units``). Returns thunks for
-    ``engine._run_compile_units``."""
+    """Warmup thunks for every slot-serving program: captures of the join
+    program's variants (:func:`join_warmup_units`), of every segment
+    graph the scheduler can dispatch (each width of :func:`seg_widths` x
+    each read-window pair of :func:`seg_window_combos` x the top-p flag)
+    and of the insert and release programs on a persistent slot state
+    that it leaves for the character's next slot machine
+    (``TTSEngine.offer_slot_state``), of the speculative first piece's
+    codes at every row bucket and width (:func:`spec_codes`), and of the
+    window pump's and the finisher's SoVITS programs
+    (``engine.window_warmup_units`` / ``finisher_warmup_units``). Returns
+    thunks for ``engine._run_compile_units``."""
     cfg, tcfg = engine.cfg, char.t2s_cfg
     B, W, ring, sx, sp = slot_geometry(cfg, tcfg)
     params = char.t2s_params
     dev = char.device
-    units = []
-
-    def prefill(bert):
-        samp = rows_from_config(SamplingConfig(), 1)
-        out = slots_mod.prefill_join(
-            params, tcfg, phones=torch.zeros((1, sx), dtype=torch.int64, device=dev),
-            bert=bert, x_len=torch.ones((1,), dtype=torch.int64, device=dev),
-            prompts=torch.zeros((1, sp), dtype=torch.int64, device=dev),
-            p_len=torch.ones((1,), dtype=torch.int64, device=dev),
-            samp=SamplingRows(*(host_to_device(a, dev) for a in samp)),
-            generator=torch.Generator(device=dev).manual_seed(0), any_top_p=False)
-        return out, samp
-
-    for bert in (None, torch.zeros((1, sx, tcfg.bert_dim), device=dev)):
-        units.append(functools.partial(prefill, bert))
+    units = join_warmup_units(char, sx, sp)
 
     def segment(w, cw, rw, top_p):
+        # a row joined, decoded and released (the insert and release graphs
+        # captured on the state at the first unit)
         state = take_slot_state(engine, char)
-        (ctx_k, ctx_v, tok0, hist), samp = prefill(None)
-        slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist, 1, 1, 0, w,
-                              SamplingRows(*(a[0] for a in samp)))
+        warmup_join(char, state, sx, sp, w, torch.Generator(device=dev).manual_seed(0))
         state.top_p_host[0] = 0.5 if top_p else 1.0
         slots_mod.decode_segment(params, state, tcfg, w, sx, sp, ring,
                                  kv_kernel=cfg.slot_kv_int8, ctx_win=cw, ring_win=rw,
                                  generator=torch.Generator(device=dev).manual_seed(0))
-        slots_mod.release_slot(state, 0)
+        slots_mod.release_slot(state, 0, params=params)
         engine.offer_slot_state(char, _state_key(engine, char),
                                 slots_mod.reset_slots(state, ring))
 
@@ -202,6 +229,16 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
             for w in seg_widths(cfg, ring):
                 for top_p in (False, True):
                     units.append(functools.partial(segment, w, cw, rw, top_p))
+        spec = spec_geometry(cfg)
+        if spec is not None:
+            count, fb = spec
+            rows = sorted({max(pick_bucket(r, cfg.batch_buckets), r) for r in range(1, B + 1)})
+            for r in rows:
+                for w in seg_widths(cfg, ring):
+                    if w >= count - 1:     # _spec_first_pieces' own guard
+                        units.append(functools.partial(
+                            _prepare_spec, params, r, B, w, fb, count,
+                            char.sovits_cfg.vq_codes))
     # window-pump programs: streaming rows pump per row even without the
     # machine-wide flag, so a server must have them warm
     units.extend(engine.window_warmup_units(char, wins=pump_windows(cfg),
@@ -212,16 +249,84 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     return units
 
 
+def spec_geometry(cfg) -> "Optional[tuple[int, int]]":
+    """(count, fb) of a speculative first piece: the codes it claims (its
+    first piece's frames over two, plus the lookahead) and the frame
+    bucket of its codes (the window of a first piece's width, in codes);
+    None without first pieces (``slot_first_piece`` 0)."""
+    first_piece = min(cfg.slot_first_piece, cfg.vocode_chunk)
+    if not first_piece:
+        return None
+    count = first_piece // 2 + cfg.stream_lookahead
+    need = first_piece + 2 * cfg.vocode_halo
+    win = next(w for w in pump_windows(cfg) if need <= w)
+    return count, pick_bucket(max(count, -(-win // 2)), cfg.frame_buckets)
+
+
+@dataclass
+class SpecBuffers:
+    """The static buffers of the speculative codes program: the rows'
+    first tokens [R] int64, the segment's tokens [B, W] int32, each row's
+    slot [R] int64, and the codes [R, fb] int64."""
+    tok0s: torch.Tensor
+    seg_tok: torch.Tensor
+    slots: torch.Tensor
+    codes: torch.Tensor
+
+
+def _spec_program(b: SpecBuffers, *, count: int, vq_codes: int) -> None:
+    b.codes.zero_()
+    b.codes[:, 0].copy_(b.tok0s)
+    b.codes[:, 1:count].copy_(b.seg_tok.index_select(0, b.slots)[:, :count - 1])
+    b.codes.clamp_(0, vq_codes - 1)
+
+
+def _spec_buffers(R: int, B: int, W: int, fb: int, dev) -> SpecBuffers:
+    def z(*shape, dt=torch.int64):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return SpecBuffers(z(R), z(B, W, dt=torch.int32), z(R), z(R, fb))
+
+
+def spec_codes_graph(params, R: int, B: int, W: int, fb: int, count: int, vq_codes: int):
+    """The speculative codes program's graph at (rows, B, W, fb, count)
+    in the T2S set's cache (the JAX ``_spec_codes_jit``, keyed on the row
+    bucket), and the program."""
+    dev = params["audio_embed"].device
+    g = graphs.cache_for(params).graph(("spec_codes", R, B, W, fb, count, vq_codes),
+                                       lambda: _spec_buffers(R, B, W, fb, dev))
+    return g, functools.partial(_spec_program, count=count, vq_codes=vq_codes)
+
+
+def _prepare_spec(params, R, B, W, fb, count, vq_codes) -> None:
+    g, prog = spec_codes_graph(params, R, B, W, fb, count, vq_codes)
+    with g.lock:
+        g.prepare(prog)
+
+
 def spec_codes(tok0s, seg_tok: torch.Tensor, slots: torch.Tensor, *, fb: int,
-               count: int, vq_codes: int) -> torch.Tensor:
+               count: int, vq_codes: int, params=None) -> torch.Tensor:
     """[R, fb] codes for speculative first pieces, on the device: row r is
     ``tok0s[r]`` ([1] tensors) then the first ``count - 1`` tokens of row
     ``slots[r]`` of the segment ``seg_tok`` [B, W], which the host has not
-    read; clipped to the codebook."""
-    codes = torch.zeros((len(tok0s), fb), dtype=torch.int64, device=seg_tok.device)
-    codes[:, 0] = torch.cat([t.reshape(1) for t in tok0s]).long()
-    codes[:, 1:count] = seg_tok[slots, :count - 1].long()
-    return torch.clamp(codes, 0, vq_codes - 1)
+    read; clipped to the codebook. The program over the buffers of
+    :func:`spec_codes_graph` in the cache of ``params`` (the slot
+    machine's T2S set; on the card a replay), else eagerly on buffers of
+    this call. Returns the caller's copy."""
+    R, (B, W) = len(tok0s), seg_tok.shape
+    if params is None:
+        g = graphs.Graph(None, None, _spec_buffers(R, B, W, fb, seg_tok.device))
+        prog = functools.partial(_spec_program, count=count, vq_codes=vq_codes)
+    else:
+        g, prog = spec_codes_graph(params, R, B, W, fb, count, vq_codes)
+    with g.lock:
+        b = g.static
+        for r, t in enumerate(tok0s):
+            b.tok0s[r:r + 1].copy_(t.reshape(1))
+        b.seg_tok.copy_(seg_tok)
+        b.slots.copy_(slots)
+        g.run(prog)
+        return b.codes.clone()
 
 
 def _stream_close(req: "_Request", err: Optional[BaseException] = None) -> None:
@@ -315,6 +420,7 @@ class SlotBatcher:
         self.first_piece = min(self.cfg.slot_first_piece, self.chunk)
         # a small window of its own for first pieces and short remainders
         self.win_first, self.win_small, self.win = pump_windows(self.cfg)
+        self._spec = spec_geometry(self.cfg)     # (count, fb) of a first piece
         self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0,
                       "windowed_segments": 0}
         self._state = take_slot_state(engine, char)     # this machine's alone
@@ -448,7 +554,8 @@ class SlotBatcher:
                 req.harvested = True
                 self._slots[b] = None
                 self._merged[b] = 0
-                self._state = slots_mod.release_slot(self._state, b)
+                self._state = slots_mod.release_slot(self._state, b,
+                                                     params=self.char.t2s_params)
 
     def _pick_windows(self) -> "tuple[Optional[int], Optional[int]]":
         """The smallest (ctx_win, ring_win) ladder entries covering every
@@ -514,16 +621,16 @@ class SlotBatcher:
                 p_len=host_to_device(np.array([len(ref.prompt_tokens)]), dev),
                 samp=SamplingRows(*(host_to_device(a, dev) for a in samp)),
                 generator=self._gen, any_top_p=bool(samp.top_p[0] < 1.0))
+            # ring invariant: a row never decodes more tokens than the ring holds
+            mx = min(req.max_steps, self.ring)
+            self._state = slots_mod.insert_slot(
+                self._state, b, ctx_k, ctx_v, tok0, hist, len(packed),
+                len(ref.prompt_tokens), min(req.min_steps, mx), mx,
+                SamplingRows(*(a[0] for a in samp)), params=self.char.t2s_params)
         req.tok0_dev = tok0   # reaches the host with the next segment's fetch
         if self.windows or req.stream_q is not None:
             # one flow-noise table for every window of this request
             req.noise = noise_table(self.cfg, self.char.sovits_cfg, self._gen)
-        # ring invariant: a row never decodes more tokens than the ring holds
-        mx = min(req.max_steps, self.ring)
-        self._state = slots_mod.insert_slot(
-            self._state, b, ctx_k, ctx_v, tok0, hist, len(packed),
-            len(ref.prompt_tokens), min(req.min_steps, mx), mx,
-            SamplingRows(*(a[0] for a in samp)))
         req.ctx_cols = len(packed) + len(ref.prompt_tokens)
         self._merged[b] = 0
         self._slots[b] = req
@@ -548,7 +655,8 @@ class SlotBatcher:
                 if self._slots[b] is req:
                     self._slots[b] = None
                     self._merged[b] = 0
-                self._state = slots_mod.release_slot(self._state, b)
+                self._state = slots_mod.release_slot(self._state, b,
+                                                     params=self.char.t2s_params)
                 self._finish_pending.append([req, int(counts[b]), 0])
 
     # -- window pump -------------------------------------------------------
@@ -627,7 +735,7 @@ class SlotBatcher:
         claimed count, so every claimed token is a real pre-EOS token."""
         if not self.first_piece:
             return
-        count = self.first_piece // 2 + self.lookahead
+        count, fb = self._spec
         if count - 1 > seg_w:
             return                      # one segment cannot cover it
         jobs, slots = [], []
@@ -639,14 +747,14 @@ class SlotBatcher:
                 slots.append(b)
         if not jobs:
             return
-        fb = pick_bucket(max(count, -(-self._win_for(jobs) // 2)), self.cfg.frame_buckets)
         R = len(jobs)
         R_pad = max(pick_bucket(R, self.cfg.batch_buckets), R)
         tok0s = [req.tok0_dev for req, *_ in jobs] + [jobs[0][0].tok0_dev] * (R_pad - R)
         rows = host_to_device(np.asarray(slots + [slots[0]] * (R_pad - R), np.int64),
                               seg_tok.device)
         codes_dev = spec_codes(tok0s, seg_tok, rows, fb=fb, count=count,
-                               vq_codes=self.char.sovits_cfg.vq_codes)
+                               vq_codes=self.char.sovits_cfg.vq_codes,
+                               params=self.char.t2s_params)
         self._dispatch_windows(jobs, codes_dev=codes_dev)
 
     def _run_pump_flush(self) -> None:

@@ -22,15 +22,16 @@ bucket, so overlapping frames see the same noise.
 
 The loop is pipelined one segment deep: segment k's tokens, ``done`` and
 ``counts`` go to pinned host memory behind an event before segment k+1 is
-dispatched (the state is updated in place). Each segment replays the
-captured graph of the stream geometry (``models/slots.py::
-decode_segment``: the request's state is copied into the graph's buffers
-and back, so concurrent streams share one graph), and each prefix latent
-and window vocode replays a SoVITS program (``models/sovits.py``; one
-window width per frame bucket); :func:`stream_warmup_units` captures them
-ahead of traffic. A tp-sharded character's machine holds its
-caches per shard (``models/slots.py``), decodes eagerly and gives the same
-chunks.
+dispatched (the state is updated in place). A request takes a
+persistent machine state for as long as it lasts (:func:`take_stream_state`:
+the one a sweep or an earlier stream left; concurrent streams take one
+each), and its join (``slots.prefill_join``, ``insert_slot``) and each
+segment replay the graphs captured on it (``models/slots.py``), as each
+prefix latent and window vocode replays a SoVITS program
+(``models/sovits.py``; one window width per frame bucket);
+:func:`stream_warmup_units` captures them ahead of traffic. A tp-sharded
+character's machine holds its caches per shard (``models/slots.py``),
+joins and decodes eagerly and gives the same chunks.
 """
 from __future__ import annotations
 
@@ -64,6 +65,28 @@ def stream_geometry(cfg, tcfg) -> "tuple[int, int, int, int]":
 def fits_stream(cfg, ref: ReferenceFeatures, phones: np.ndarray) -> bool:
     return (len(ref.phones) + len(phones) <= cfg.slot_phoneme_bucket
             and len(ref.prompt_tokens) <= cfg.slot_prompt_bucket)
+
+
+def _stream_state_key(char: CharacterModel, ring: int, sx: int, sp: int) -> tuple:
+    return ("stream", sx, sp, ring, char.t2s_params["audio_embed"].dtype)
+
+
+def take_stream_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotState:
+    """An empty solo machine state at the stream geometry for one
+    request: a persistent one (``TTSEngine.take_slot_state``: one a sweep
+    or an earlier stream left, its graphs captured on it; the caller
+    offers it back), or a new one per request for a tp-sharded character
+    (which joins and decodes eagerly)."""
+    tcfg = char.t2s_cfg
+    _, ring, sx, sp = stream_geometry(engine.cfg, tcfg)
+    params = char.t2s_params
+    kw = dict(dtype=params["audio_embed"].dtype, device=char.device)
+    if len(shard_devices(params)) > 1:
+        return slots_mod.init_slots(tcfg, 1, sx, sp, ring,
+                                    tp_devices=shard_devices(params), **kw)
+    state = engine.take_slot_state(char, _stream_state_key(char, ring, sx, sp),
+                                   lambda: slots_mod.init_slots(tcfg, 1, sx, sp, ring, **kw))
+    return slots_mod.reset_slots(state, ring)
 
 
 def noise_table(cfg, vcfg, generator: torch.Generator) -> torch.Tensor:
@@ -135,157 +158,148 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
     ge = host_to_device(np.asarray(ref.ge, np.float32)[None], dev)
     ge_mrte = host_to_device(np.asarray(ref.ge_mrte, np.float32)[None], dev)
 
-    # the request's solo machine, exact KV (no int8 scales, no kernel)
-    state = slots_mod.init_slots(tcfg, 1, sx, sp, ring,
-                                 dtype=char.t2s_params["audio_embed"].dtype, device=dev,
-                                 tp_devices=shard_devices(char.t2s_params))
-    samp = rows_from_config(sampling or SamplingConfig(), 1)
-    ctx_k, ctx_v, tok0, hist = slots_mod.prefill_join(
-        char.t2s_params, tcfg, phones=host_to_device(pad_to(packed, sx)[None], dev),
-        bert=bert, x_len=host_to_device(np.array([len(packed)]), dev),
-        prompts=host_to_device(pad_to(np.asarray(ref.prompt_tokens, np.int64), sp)[None],
-                               dev),
-        p_len=host_to_device(np.array([len(ref.prompt_tokens)]), dev),
-        samp=SamplingRows(*(host_to_device(a, dev) for a in samp)), generator=gen,
-        any_top_p=bool(samp.top_p[0] < 1.0))
-    state = slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist,
-                                  min(len(packed), sx), min(len(ref.prompt_tokens), sp),
-                                  min_steps, max_steps, SamplingRows(*(a[0] for a in samp)))
+    # the request's solo machine, exact KV (no int8 scales, no kernel): a
+    # persistent state (its join and segment graphs captured on it) for
+    # as long as the request lasts
+    state = take_stream_state(engine, char)
+    try:
+        samp = rows_from_config(sampling or SamplingConfig(), 1)
+        ctx_k, ctx_v, tok0, hist = slots_mod.prefill_join(
+            char.t2s_params, tcfg, phones=host_to_device(pad_to(packed, sx)[None], dev),
+            bert=bert, x_len=host_to_device(np.array([len(packed)]), dev),
+            prompts=host_to_device(pad_to(np.asarray(ref.prompt_tokens, np.int64), sp)[None],
+                                   dev),
+            p_len=host_to_device(np.array([len(ref.prompt_tokens)]), dev),
+            samp=SamplingRows(*(host_to_device(a, dev) for a in samp)), generator=gen,
+            any_top_p=bool(samp.top_p[0] < 1.0))
+        state = slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist,
+                                      min(len(packed), sx), min(len(ref.prompt_tokens), sp),
+                                      min_steps, max_steps, SamplingRows(*(a[0] for a in samp)),
+                                      params=char.t2s_params)
 
-    def segment(state):
-        """Dispatch one segment and enqueue its tokens, done and counts
-        for the host."""
-        state, seg_tok = slots_mod.decode_segment(
-            char.t2s_params, state, tcfg, W, sx, sp, ring, generator=gen)
-        copy = start_host_copy(torch.cat([seg_tok.reshape(-1), state.done.int(),
-                                          state.counts]))
-        return state, seg_tok, copy
+        def segment(state):
+            """Dispatch one segment and enqueue its tokens, done and counts
+            for the host."""
+            state, seg_tok = slots_mod.decode_segment(
+                char.t2s_params, state, tcfg, W, sx, sp, ring, generator=gen)
+            copy = start_host_copy(torch.cat([seg_tok.reshape(-1), state.done.int(),
+                                              state.counts]))
+            return state, seg_tok, copy
 
-    def read(copy):
-        flat = finish_host_copy(copy)
-        return flat[:W], bool(flat[W]), int(flat[W + 1])
+        def read(copy):
+            flat = finish_host_copy(copy)
+            return flat[:W], bool(flat[W]), int(flat[W + 1])
 
-    # segment 1 + the stream head, all dispatched before any host read
-    state, seg1, copy1 = segment(state)
-    head_cb = pick_bucket(W + 1, cfg.frame_buckets)
-    first_window = 2 * (W + 1)
-    head_audio, head_emit = _stream_head(
-        char.sovits_params, noise, tok0, seg1, state.counts, state.done, text_b,
-        t_len, ge, ge_mrte, noise_scale, vcfg=vcfg, cb=head_cb,
-        first_window=first_window, lookahead=lookahead, pcm16=pcm16)
-    head = start_host_copy(torch.cat([head_audio.reshape(-1).float(),
-                                      head_emit.float(), tok0.float()]))
-    # depth-1 pipeline: segment 2 runs while segment 1's outputs come home
-    pending = segment(state) if 2 * W < ring else None
-    seg_np, done, count = read(copy1)
-    flat = finish_host_copy(head)
-    emitted = int(flat[-2])
-    toks_host = [np.array([int(flat[-1])]), seg_np]
-    if emitted > 0:
-        metrics.observe("ttfa", time.perf_counter() - t_start)
-        piece = flat[:first_window * hop][:emitted * hop]
-        yield piece.astype(np.int16) if pcm16 else piece
-    ttfa_pending = emitted == 0
+        # segment 1 + the stream head, all dispatched before any host read
+        state, seg1, copy1 = segment(state)
+        head_cb = pick_bucket(W + 1, cfg.frame_buckets)
+        first_window = 2 * (W + 1)
+        head_audio, head_emit = _stream_head(
+            char.sovits_params, noise, tok0, seg1, state.counts, state.done, text_b,
+            t_len, ge, ge_mrte, noise_scale, vcfg=vcfg, cb=head_cb,
+            first_window=first_window, lookahead=lookahead, pcm16=pcm16)
+        head = start_host_copy(torch.cat([head_audio.reshape(-1).float(),
+                                          head_emit.float(), tok0.float()]))
+        # depth-1 pipeline: segment 2 runs while segment 1's outputs come home
+        pending = segment(state) if 2 * W < ring else None
+        seg_np, done, count = read(copy1)
+        flat = finish_host_copy(head)
+        emitted = int(flat[-2])
+        toks_host = [np.array([int(flat[-1])]), seg_np]
+        if emitted > 0:
+            metrics.observe("ttfa", time.perf_counter() - t_start)
+            piece = flat[:first_window * hop][:emitted * hop]
+            yield piece.astype(np.int16) if pcm16 else piece
+        ttfa_pending = emitted == 0
 
-    def emit_windows(count, done):
-        """Vocode every safe window [emitted, frontier) from a fresh prefix
-        latent (the request's noise table), then read them in order."""
-        nonlocal emitted, ttfa_pending
-        codes_np = np.concatenate(toks_host)[:count]
-        if done:
-            codes_np = finalize_semantic_tokens(codes_np[None], np.array([count]),
-                                                tcfg.eos_id)[0]
-            count = len(codes_np)
-            frontier = 2 * count
-        else:
-            frontier = 2 * max(count - lookahead, 0)
-        if frontier - emitted < (1 if done else chunk):
-            return
-        fb = pick_bucket(max(count, 1), cfg.frame_buckets)
-        codes = pad_to(np.clip(codes_np, 0, vcfg.vq_codes - 1).astype(np.int64), fb)
-        z = sovits.latent(
-            char.sovits_params, vcfg, host_to_device(codes[None], dev),
-            host_to_device(np.array([count]), dev), text_b, t_len, ge, ge_mrte,
-            noise_scale, noise=noise[None])
-        F = 2 * fb
-        # one window width per frame bucket (one vocode graph), placed
-        # inside the latent's frames with the halo on both sides of the
-        # piece where the frames allow
-        win = min(chunk + 2 * halo, F)
-        jobs = []
-        while frontier - emitted >= (1 if done else chunk):
-            start = emitted
-            w = min(chunk, frontier - start)
-            s0 = min(max(start - halo, 0), F - win)
-            valid = torch.tensor([min(max(2 * count - s0, 0), win)], device=dev)
-            a = sovits.vocode(char.sovits_params, vcfg, z[:, s0:s0 + win], ge, valid)
-            a = a[0, (start - s0) * hop:(start - s0 + w) * hop]
-            jobs.append(start_host_copy(_to_pcm16(a) if pcm16 else a))
-            emitted += w
-        for copy in jobs:
-            piece = finish_host_copy(copy)
-            if ttfa_pending:
-                metrics.observe("ttfa", time.perf_counter() - t_start)
-                ttfa_pending = False
-            yield piece
+        def emit_windows(count, done):
+            """Vocode every safe window [emitted, frontier) from a fresh prefix
+            latent (the request's noise table), then read them in order."""
+            nonlocal emitted, ttfa_pending
+            codes_np = np.concatenate(toks_host)[:count]
+            if done:
+                codes_np = finalize_semantic_tokens(codes_np[None], np.array([count]),
+                                                    tcfg.eos_id)[0]
+                count = len(codes_np)
+                frontier = 2 * count
+            else:
+                frontier = 2 * max(count - lookahead, 0)
+            if frontier - emitted < (1 if done else chunk):
+                return
+            fb = pick_bucket(max(count, 1), cfg.frame_buckets)
+            codes = pad_to(np.clip(codes_np, 0, vcfg.vq_codes - 1).astype(np.int64), fb)
+            z = sovits.latent(
+                char.sovits_params, vcfg, host_to_device(codes[None], dev),
+                host_to_device(np.array([count]), dev), text_b, t_len, ge, ge_mrte,
+                noise_scale, noise=noise[None])
+            F = 2 * fb
+            # one window width per frame bucket (one vocode graph), placed
+            # inside the latent's frames with the halo on both sides of the
+            # piece where the frames allow
+            win = min(chunk + 2 * halo, F)
+            jobs = []
+            while frontier - emitted >= (1 if done else chunk):
+                start = emitted
+                w = min(chunk, frontier - start)
+                s0 = min(max(start - halo, 0), F - win)
+                valid = torch.tensor([min(max(2 * count - s0, 0), win)], device=dev)
+                a = sovits.vocode(char.sovits_params, vcfg, z[:, s0:s0 + win], ge, valid)
+                a = a[0, (start - s0) * hop:(start - s0 + w) * hop]
+                jobs.append(start_host_copy(_to_pcm16(a) if pcm16 else a))
+                emitted += w
+            for copy in jobs:
+                piece = finish_host_copy(copy)
+                if ttfa_pending:
+                    metrics.observe("ttfa", time.perf_counter() - t_start)
+                    ttfa_pending = False
+                yield piece
 
-    seg_idx = 2
-    while not done and pending is not None:
-        state, _, copy = pending
-        pending = None
-        # dispatch segment k+1 before reading segment k
-        if (seg_idx + 1) * W <= ring:
-            pending = segment(state)
-        seg_np, done, count = read(copy)
-        toks_host.append(seg_np)
-        yield from emit_windows(count, done)
-        seg_idx += 1
+        seg_idx = 2
+        while not done and pending is not None:
+            state, _, copy = pending
+            pending = None
+            # dispatch segment k+1 before reading segment k
+            if (seg_idx + 1) * W <= ring:
+                pending = segment(state)
+            seg_np, done, count = read(copy)
+            toks_host.append(seg_np)
+            yield from emit_windows(count, done)
+            seg_idx += 1
 
-    # final flush (also covers a head that emitted everything)
-    yield from emit_windows(count, True)
-    metrics.incr("utterances")
-    metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
-    metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
+        # final flush (also covers a head that emitted everything)
+        yield from emit_windows(count, True)
+        metrics.incr("utterances")
+        metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
+        metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
+    finally:
+        if state.persistent:
+            engine.offer_slot_state(char, _stream_state_key(char, ring, sx, sp), state)
 
 
 def stream_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
-    """Warmup thunks for the segmented stream: the prefill at the stream
-    geometry (with and without BERT features), a capture of its segment
-    graph (per top-p flag), and captures of its SoVITS programs: the
-    stream head's latent at every text bucket and its first window, and
-    the emitter's prefix latent at every (frame, text) bucket and its
-    window over each. Returns thunks for ``engine._run_compile_units``."""
+    """Warmup thunks for the segmented stream: captures of the join
+    program's variants at the stream geometry, and of the insert program
+    and the segment graph (per top-p flag) on a persistent stream state
+    that it leaves for the next stream (``TTSEngine.offer_slot_state``),
+    and of its SoVITS programs: the stream head's latent at every text
+    bucket and its first window, and the emitter's prefix latent at every
+    (frame, text) bucket and its window over each. Returns thunks for
+    ``engine._run_compile_units``."""
+    from .slot_batcher import join_warmup_units, warmup_join
+
     cfg, tcfg = engine.cfg, char.t2s_cfg
     W, ring, sx, sp = stream_geometry(cfg, tcfg)
     params = char.t2s_params
     dev = char.device
-    units = []
-
-    def gen():
-        return torch.Generator(device=dev).manual_seed(0)
-
-    def prefill(bert):
-        samp = rows_from_config(SamplingConfig(), 1)
-        return slots_mod.prefill_join(
-            params, tcfg, phones=torch.zeros((1, sx), dtype=torch.int64, device=dev),
-            bert=bert, x_len=torch.ones((1,), dtype=torch.int64, device=dev),
-            prompts=torch.zeros((1, sp), dtype=torch.int64, device=dev),
-            p_len=torch.ones((1,), dtype=torch.int64, device=dev),
-            samp=SamplingRows(*(host_to_device(a, dev) for a in samp)), generator=gen(),
-            any_top_p=False), samp
-
-    for bert in (None, torch.zeros((1, sx, tcfg.bert_dim), device=dev)):
-        units.append(functools.partial(prefill, bert))
+    units = join_warmup_units(char, sx, sp)
 
     def segment(top_p):
-        state = slots_mod.init_slots(tcfg, 1, sx, sp, ring,
-                                     dtype=params["audio_embed"].dtype, device=dev,
-                                     tp_devices=shard_devices(params))
-        (ctx_k, ctx_v, tok0, hist), samp = prefill(None)
-        slots_mod.insert_slot(state, 0, ctx_k, ctx_v, tok0, hist, 1, 1, 0, W,
-                              SamplingRows(*(a[0] for a in samp)))
+        state = take_stream_state(engine, char)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        warmup_join(char, state, sx, sp, W, gen)
         state.top_p_host[0] = 0.5 if top_p else 1.0
-        slots_mod.decode_segment(params, state, tcfg, W, sx, sp, ring, generator=gen())
+        slots_mod.decode_segment(params, state, tcfg, W, sx, sp, ring, generator=gen)
+        engine.offer_slot_state(char, _stream_state_key(char, ring, sx, sp), state)
 
     if len(shard_devices(params)) == 1:
         units += [functools.partial(segment, top_p) for top_p in (False, True)]

@@ -343,7 +343,9 @@ TINY_VITS = SoVITSConfig(
     win_length=64)
 
 
-def _sweep_case(kv_int8):
+def _sweep_case(kv_int8, language="Japanese"):
+    # a lookahead of 1: a slot stream's speculative first piece (4 + 1
+    # codes) fits a join segment of 4 steps
     cfg = RuntimeConfig(phoneme_buckets=(16, 32), prompt_buckets=(16,),
                         frame_buckets=(32, 64), step_caps=(32,), batch_buckets=(1, 2, 4),
                         slot_batch=4, slot_steps=8, slot_join_steps=4, slot_ring=32,
@@ -351,31 +353,81 @@ def _sweep_case(kv_int8):
                         slot_ctx_windows=(16,), slot_ring_windows=(16,),
                         slot_windowed_kv=True, slot_kv_int8=kv_int8,
                         stream_seg_steps=8, vocode_chunk=16, vocode_halo=4,
-                        stream_first_chunk=8, stream_chunk=16, slot_first_piece=8)
+                        stream_first_chunk=8, stream_chunk=16, slot_first_piece=8,
+                        stream_lookahead=1)
     eng = TTSEngine(cfg)
-    char = make_random_character(t2s_cfg=TINY_T2S, sovits_cfg=TINY_VITS,
+    char = make_random_character(language=language, t2s_cfg=TINY_T2S, sovits_cfg=TINY_VITS,
                                  dtype=torch.float32, device="cpu", seed=3)
     return eng, char, _reference(char)
 
 
+ZH_TEXTS = ("你好世界。", "今天天气很好，我们一起去北京。")
+
+
+@pytest.fixture
+def tiny_roberta(tmp_path):
+    """A tiny RoBERTa (3 layers, d1024) on the CPU in the port's model
+    manager, its BERT hook installed; removed after the test."""
+    from genie_tts_tpu_torch.config import RobertaConfig
+    from genie_tts_tpu_torch.frontend import dispatcher
+    from genie_tts_tpu_torch.frontend.g2p_zh import chinese_to_phones
+    from genie_tts_tpu_torch.frontend.wordpiece import WordPieceTokenizer, bert_layout
+    from genie_tts_tpu_torch.models import roberta
+    from genie_tts_tpu_torch.runtime.model_manager import model_manager
+
+    rcfg = RobertaConfig(vocab_size=64, embed_dim=1024, num_layers=3, num_heads=2,
+                         ffn_dim=32, max_position=64)
+    params = roberta.init_params(torch.Generator().manual_seed(5), rcfg, torch.float32)
+    vocab = {"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3, "[MASK]": 4}
+    for c in sorted({c for t in ZH_TEXTS for c in chinese_to_phones(t)[0]}):
+        vocab[c] = len(vocab)
+    (tmp_path / "tokenizer.json").write_text(json.dumps(bert_layout(vocab)), "utf-8")
+    model_manager.set_roberta(params, rcfg, WordPieceTokenizer.from_file(
+        tmp_path / "tokenizer.json"))
+    try:
+        yield params
+    finally:
+        model_manager._roberta.pop(torch.device("cpu"), None)
+        dispatcher.set_bert_feature_fn(None)
+
+
 @pytest.mark.parametrize("kv_int8", [False, True], ids=["exact_windows", "int8_kernel"])
-def test_sweep_covers_every_serving_key(kv_int8):
-    """After ``warmup(char, ref, sweep=True)``: solo ``tts`` with and
-    without top-p, batches of two and three (the window batcher's B=2 and
-    B=4) with and without top-p, slot requests with and without top-p, a
+def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
+    """After ``warmup(char, ref, sweep=True)`` of a Chinese character: solo
+    ``tts`` with and without top-p, batches of two and three (the window
+    batcher's B=2 and B=4) with and without top-p, slot requests with and
+    without top-p, a slot-joined stream (its speculative first piece), a
     segmented stream, and a fused stream head with and without top-p, at
     the character's cap and at a cap of 12, take keys and variants the
-    sweep prepared (no miss, no new variant); the sweep prepared every
-    segment graph of the slot geometry on the state the slot machine
-    then takes."""
-    eng, char, ref = _sweep_case(kv_int8)
+    sweep prepared (no miss, no new variant), the joins included (the
+    prefill, insert, release and speculative-codes programs), and so does
+    the BERT hook's RoBERTa at each text's token bucket; the sweep
+    prepared every segment, insert and release graph of the slot geometry
+    on the state the slot machine then takes, and the stream's on the
+    state the segmented stream takes."""
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+
+    eng, char, ref = _sweep_case(kv_int8, language="Chinese")
     n = eng.warmup(char, ref, sweep=True)
     cache = graphs.cache_for(char.t2s_params)
     keys = cache.keys()
     programs = cache.programs()
-    segs = [k for k in keys if k[0] == "segment" and k[-1] is not None]
+    segs = [k for k in keys if k[0] == "segment" and k[1] == eng.cfg.slot_batch]
     combos = 1 if kv_int8 else 2            # full read, and (16, 16)
     assert len(segs) == 2 * combos * 2      # widths 8 and 4, top-p flag
+    stream_segs = [k for k in keys if k[0] == "segment" and k[1] == 1]
+    assert len(stream_segs) == 2 and None not in {k[-1] for k in stream_segs}
+    assert {(k, v) for k, v in programs if k[0] == "join"} == {
+        (("join", 24, 16, torch.float32), (bert, top_p))
+        for bert in (False, True) for top_p in (False, True)}
+    states = {k[-1] for k in segs + stream_segs}
+    assert {k[-1] for k in keys if k[0] in ("insert", "release")} == states
+    assert sum(k[0] == "insert" for k in keys) == 2          # slot and stream states
+    # rows 1, 2 and 4 x widths 8 and 4: 5 codes claimed, within either
+    assert len([k for k in keys if k[0] == "spec_codes"]) == 3 * 2
+    rcache = graphs.cache_for(tiny_roberta)
+    assert rcache.family and sorted(rcache.keys()) == [("roberta", T)
+                                                       for T in (32, 64, 128, 256)]
     gens = [k for k in keys if k[0] == "generate"]
     assert len(gens) == 3 * 2               # B 1/2/4 x phoneme buckets
     assert {(k, v) for k, v in programs if k[0] == "generate"} == {
@@ -415,6 +467,11 @@ def test_sweep_covers_every_serving_key(kv_int8):
     assert cache.stats["hits"] > 0
     assert cache.stats["misses"] == 0, cache.keys()
     assert cache.stats["variants"] == 0 and cache.programs() == programs
+    rcache.reset_stats()
+    for text in ZH_TEXTS:
+        assert np.abs(get_phones_and_bert(text, "zh")[1]).sum() > 0
+    assert rcache.stats["hits"] == len(ZH_TEXTS)
+    assert rcache.stats["misses"] == rcache.stats["variants"] == 0
     # the SoVITS programs of every route: solo, the window batcher, the
     # slot finisher and window pump, and both stream routes
     assert vcache.stats["hits"] > 0
@@ -429,7 +486,8 @@ def test_slot_machines_own_their_state():
     leaves the machine's (its leaves and its ring head) as they were."""
     eng, char, ref = _sweep_case(True)
     eng.warmup(char, ref, sweep=True)
-    swept = {k[-1] for k in graphs.cache_for(char.t2s_params).keys() if k[0] == "segment"}
+    swept = {k[-1] for k in graphs.cache_for(char.t2s_params).keys()
+             if k[0] == "segment" and k[1] == eng.cfg.slot_batch}
     a, b = SlotBatcher(eng, char, pcm16=True), SlotBatcher(eng, char, pcm16=True)
     short = np.arange(1, 7, dtype=np.int32)
     bert = np.zeros((len(short), TINY_T2S.bert_dim), np.float32)

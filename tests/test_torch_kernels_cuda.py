@@ -598,3 +598,83 @@ def test_capture_beside_replay_at_one_cache_length(cuda):
     # each decode captures its prefill program, a 16-step block and the
     # one-step tail
     assert cache.stats["captures"] - captures0 == 3 * len(others)
+
+
+@pytest.mark.cuda
+def test_join_graphs_replay_equal_eager_on_the_card(cuda):
+    """The slot join on its captured graphs (the prefill program, then the
+    insert into slot 2 of a persistent int8 state, then a release) gives
+    the eager programs' tok0, histogram, context columns and every state
+    leaf, twice in a row (a capture, then a replay)."""
+    import dataclasses
+
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise, rows_from_config
+    from genie_tts_tpu_torch.runtime import graphs
+
+    cfg = T2SConfig(num_layers=2)
+    params = t2s.quantize_params(t2s.init_params(cuda, cfg, dtype=torch.bfloat16))
+    cache = graphs.cache_for(params)
+    Sx, Sp, ring = 32, 64, 64
+    samp = rows_from_config(SamplingConfig(top_p=0.8), 1)
+    samp_dev = type(samp)(*(torch.as_tensor(a, device="cuda") for a in samp))
+    base = slots.init_slots(cfg, 4, Sx, Sp, ring, torch.bfloat16, kv_int8=True, device="cuda")
+    states = {"graph": dataclasses.replace(slots.clone_state(base), persistent=True),
+              "eager": dataclasses.replace(slots.clone_state(base), persistent=True)}
+    for rep in range(2):
+        phones = torch.randint(1, cfg.phoneme_vocab, (1, Sx), generator=cuda, device="cuda")
+        prompts = torch.randint(0, 1024, (1, Sp), generator=cuda, device="cuda")
+        bert = torch.randn((1, Sx, cfg.bert_dim), generator=cuda, device="cuda")
+        noise = gumbel_noise((1, cfg.semantic_vocab), cuda, "cuda")
+        outs = {}
+        for name, st in states.items():
+            cache.eager = name == "eager"
+            try:
+                with torch.inference_mode():
+                    outs[name] = slots.prefill_join(
+                        params, cfg, phones, bert, torch.tensor([20 + rep], device="cuda"),
+                        prompts, torch.tensor([40 + rep], device="cuda"), samp_dev,
+                        noise=noise)
+                    # the same context columns into both: the insert compared alone
+                    slots.insert_slot(st, 2, *outs["graph"], 20 + rep, 40 + rep, 4, ring,
+                                      type(samp)(*(a[0] for a in samp)), params=params)
+                    slots.release_slot(st, 1, params=params)
+                torch.cuda.synchronize()
+            finally:
+                cache.eager = False
+        (gk, gv, gt, gh), (ek, ev, et, eh) = outs["graph"], outs["eager"]
+        assert torch.equal(gt, et) and torch.equal(gh, eh)
+        for a, b in ((gk, ek), (gv, ev)):
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+        for f in dataclasses.fields(base):
+            x = getattr(states["graph"], f.name)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, getattr(states["eager"], f.name)), f.name
+    assert bool(states["graph"].active[2]) and cache.stats["captures"] >= 3
+
+
+@pytest.mark.cuda
+def test_roberta_graph_replays_equal_exact_on_the_card(cuda):
+    """RoBERTa's padded feature program on its captured graph (capture,
+    then replays at two token buckets) gives the exact-length eager
+    route's per-phoneme features in fp32: relative L2 <= 1e-5."""
+    import numpy as np
+
+    from genie_tts_tpu_torch.config import RobertaConfig
+    from genie_tts_tpu_torch.models import roberta
+    from genie_tts_tpu_torch.runtime import graphs
+
+    cfg = RobertaConfig(num_layers=4, vocab_size=512)
+    params = roberta.init_params(cuda, cfg, torch.float32)
+    rng = np.random.default_rng(0)
+    for n in (20, 25, 50):
+        ids = rng.integers(0, cfg.vocab_size, n)
+        reps = rng.integers(1, 4, n - 2)
+        with torch.inference_mode():
+            got = roberta.bucketed_features(params, cfg, ids, np.ones(n, np.int64), reps,
+                                            (32, 64)).cpu()
+            want = roberta.phone_features(params, torch.tensor(ids, device="cuda")[None],
+                                          torch.ones((1, n), device="cuda"),
+                                          torch.tensor(reps, device="cuda"), cfg).cpu()
+        assert got.shape == want.shape == (int(reps.sum()), cfg.embed_dim)
+        assert float((got - want).norm() / want.norm()) <= 1e-5
+    assert graphs.cache_for(params).stats["captures"] == 2
