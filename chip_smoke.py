@@ -97,21 +97,39 @@ Phases, each of which must pass:
 9b. mesh (dp x tp serving, full width): ``make_serving_mesh(2, 2)`` over
    ``cuda:0`` four times (one card: every line of the dp and tp code runs,
    no transfer between cards). ``api.engine`` is swapped for a mesh
-   engine, phase 3's character loads tp-sharded (2 replicas of 2 shards),
-   and in turn, with the kernel counts set to 0 before each and read
-   after: (a) solo ``tts()`` takes the per-layer route, 0 fused and
-   24 x tp x steps flash launches; (b) ``synthesize_batch`` of 4 rows (2
-   per replica), 24 x dp x tp x steps flash launches; (c) 4 concurrent
-   default ``/tts`` through the port's server on the int8 slot route,
-   24 x tp int8 launches per slot step, PCM of more than 1000 distinct
-   values; (d) solo ``tts()`` on a dp-only 2x1 mesh, one fused launch per
-   step. Each prints its wall time and launches beside 1x1's. (e) fp32
-   greedy parity of (a) and (b) at a 64-step cap, 2x2 against 1x1 on the
-   same card: identical codes (else the first step that differs and 1x1's
-   top-2 logit gap there, which must be under 1e-3 of the logits' RMS), and
-   waveforms within relative L2 1e-3 where the codes agree; then the
-   flash kernel at B=1, H=8 and the int8 kernel at H=8 (a shard's heads)
-   against their plain versions, timed beside their bounds.
+   engine on a shorter bucket ladder (batch buckets 1 and 4, frame buckets
+   64-256: depth cut for time), phase 3's character loads tp-sharded (2
+   replicas of 2 shards, each replica's weights its own) and (f)
+   ``engine.warmup(sweep=True)`` captures every replica's graphs: its wall
+   time, and per replica the graphs captured and the pool and buffer MiB
+   by card. Then, warm, with the kernel counts set to 0 before each route
+   and read after: (a) solo ``tts()`` takes the per-layer route as graph
+   replays, 0 fused and 24 x tp x steps flash launches, ms/step beside the
+   eager route's (the caches set ``eager``); (b) ``synthesize_batch`` of 4
+   rows (2 per replica), 24 x dp x tp x steps flash launches; (c) 4
+   concurrent default ``/tts`` through the port's server on the int8 slot
+   route, 24 x tp int8 launches per slot step, PCM of more than 1000
+   distinct values, and a short stream on the idle machine (the segmented
+   stream, first chunk): no miss, no variant and no capture in any
+   replica's T2S or SoVITS cache. (g) The tp route's graphs against its
+   eager run on one noise: ``generate`` at B=1 and B=4 (cap 40: tokens,
+   counts, histogram), a slot segment at occupancy 8 after graph joins
+   (int8, every state leaf and each shard's caches) and a
+   segmented-stream segment: identical, each one's device ms graph and
+   eager. (d) and (h) a dp-only 2x1 mesh, swept: solo ``tts()``, one fused
+   launch per step; a B=4 ``synthesize_batch`` with no miss in replica 1's
+   caches. (e) fp32 greedy parity of 2x2 against 1x1 at a 64-step cap:
+   identical codes (else the first step that differs and 1x1's top-2 logit
+   gap there, which must be under 1e-3 of the logits' RMS), and waveforms
+   within relative L2 1e-3 where the codes agree; then the flash kernel at
+   B=1, H=8 and the int8 kernel at H=8 (a shard's heads) against their
+   plain versions, timed beside their bounds.
+9c. cross-card mesh: (f) and (g) at 1x2 over ``cuda:0`` and ``cuda:1``
+   where the machine has two cards, and at 2x2 over four where it has
+   four; with one card one line says that the cross-card capture did not
+   run, and on how many cards. ``python3 chip_smoke.py --cross-card`` runs
+   the kernels' build, phase 3's character and this phase alone (a
+   machine of several cards).
 10. V2ProPlus (full width): a random V2ProPlus character (gin 1024, the
    full prompt encoder, int8 decode weights, bf16, a 128-step cap, EOS
    pinned) and a random full ERes2NetV2 as ``GENIE_SV_MODEL``, through
@@ -238,8 +256,10 @@ def check(cond, what):
 
 
 def sync(torch):
+    """Wait for every card (a mesh may span several)."""
     if DEV == "cuda":
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def cuda_ms(torch, fn, iters, warmup=3):
@@ -2952,199 +2972,513 @@ def phase_shared_convert(torch, root: Path, card: str):
 
 
 MESH_SENTENCES = SENTENCES[:4]
+MESH_REF_TEXT = "こんにちは、てすとです"
+
+
+MESH_LADDER = dict(batch_buckets=(1, 4), frame_buckets=(64, 128, 256))
+
+
+def _mesh_kernels():
+    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+
+    return {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
+            "fused": fu.fused_decode_step}
+
+
+def _reset_counts(torch):
+    sync(torch)
+    for k in _mesh_kernels().values():
+        k.launches = 0
+
+
+def _counts(torch):
+    sync(torch)
+    return {n: k.launches for n, k in _mesh_kernels().items()}
+
+
+def mesh_memory(eng, char):
+    """Per replica: graphs captured and pool / static-buffer MiB by card, of
+    its T2S and SoVITS caches."""
+    from genie_tts_tpu_torch.runtime import graphs
+
+    out = []
+    for rep in eng._replicas(char):
+        row = {}
+        for fam, params in (("T2S", rep.t2s_params), ("SoVITS", rep.sovits_params)):
+            c = graphs.cache_for(params)
+            pools, bufs = c.bytes_by_device()
+            row[fam] = dict(keys=len(c.keys()), captured=c.stats["captures"],
+                            pool_mib={str(d): round(n / 2 ** 20, 1) for d, n in pools.items()},
+                            buffers_mib={str(d): round(n / 2 ** 20, 1)
+                                         for d, n in bufs.items()})
+        out.append(row)
+    return out
+
+
+def mesh_load(torch, root: Path, name: str, mesh, cfg):
+    """``api.engine`` swapped for a mesh engine over ``mesh`` with ``cfg``,
+    phase 3's character loaded on it as ``name`` (placed by
+    ``shard_character``) and its reference set; returns (character,
+    reference features)."""
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.runtime.engine import TTSEngine
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+
+    api.engine = TTSEngine(cfg, timing=True, mesh=mesh)
+    api._batcher = None
+    t0 = time.perf_counter()
+    api.load_character(name, root / "char", "ja")
+    api.set_reference_audio(name, root / "ref.wav", MESH_REF_TEXT, "ja")
+    c = api.model_manager.get(name)
+    feats = reference_audio_cache.get_features(api.engine, c, str(root / "ref.wav"),
+                                               MESH_REF_TEXT, "Japanese")
+    print(f"[mesh] {mesh.dp}x{mesh.tp} over {[str(d) for row in mesh.devices for d in row]}: "
+          f"'{name}' loaded, placed and its reference set in {time.perf_counter() - t0:.1f} s; "
+          f"{len(c.replicas)} replicas, {len(c.t2s_params.get('layer_shards', [0]))} tp "
+          f"shard(s) each")
+    return c, feats
+
+
+def mesh_unload(name: str) -> None:
+    """``api.unload_character(name)`` (the caller holds the character no
+    more), then wait for its retired slot machine to stop (a process that
+    ends right after an unload would otherwise end while that daemon
+    thread is still inside torch, which aborts it at exit), and check that
+    every replica's graph caches are gone after ``gc.collect()``."""
+    import gc
+    import weakref
+
+    from genie_tts_tpu_torch import api
+
+    gone = [weakref.ref(c) for c in api.engine.graph_caches(api.model_manager.get(name))]
+    sb = api._slot_batchers.get(name)
+    api.unload_character(name)
+    if sb is not None and sb._thread is not None:
+        sb._thread.join(timeout=120)
+        check(not sb._thread.is_alive(), f"{name}'s retired slot machine did not stop")
+    del sb
+    gc.collect()
+    alive = sum(r() is not None for r in gone)
+    check(alive == 0, f"{name}: {alive} of {len(gone)} replica graph caches outlived the unload")
+    print(f"[mesh] '{name}' unloaded: its slot machine stopped, all {len(gone)} graph caches "
+          f"of its replicas freed")
+
+
+def mesh_sweep(torch, name, char, feats, card):
+    """``engine.warmup(char, feats, sweep=True)`` on the mesh: every replica
+    swept; prints the wall time and, per replica, the graphs captured and
+    the pool and static-buffer MiB by card."""
+    from genie_tts_tpu_torch import api
+
+    sync(torch)
+    t0 = time.perf_counter()
+    units = api.engine.warmup(char, feats, sweep=True)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    mem = mesh_memory(api.engine, char)
+    print(f"[mesh] {name}: the sweep ran {units} units over {len(mem)} replicas in {wall:.1f} s; "
+          + "; ".join(f"replica {r}: " + ", ".join(
+              f"{fam} {m['keys']} keys, {m['captured']} graphs, pool MiB "
+              f"{json.dumps(m['pool_mib'])}, buffers MiB {json.dumps(m['buffers_mib'])}"
+              for fam, m in row.items()) for r, row in enumerate(mem)) + f"; {card}")
+    check(all(m["captured"] >= m["keys"] > 0 for row in mem for m in row.values()),
+          f"mesh {name}: a replica's cache holds graphs not captured: {mem}")
+    return dict(units=units, wall_s=wall, replicas=mem)
+
+
+def mesh_serve(torch, root: Path, card: str, name: str, char, feats):
+    """The swept mesh character served warm, the kernel counts set to 0
+    before each route and read after: (a) solo ``tts()`` (graph; then the
+    caches set ``eager`` for the eager ms/step beside it), (b)
+    ``synthesize_batch`` of 4 rows, (c) 4 concurrent default ``/tts`` on the
+    int8 slot route and a short stream on the idle machine (the segmented
+    stream) through the port's server. No miss, no variant and no capture
+    in any replica's T2S or SoVITS cache while (a)-(c) serve."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
+    from genie_tts_tpu_torch.utils.wavio import read_audio
+
+    eng = api.engine
+    mesh = eng.mesh
+    dp, tp, L = mesh.dp, mesh.tp, char.t2s_cfg.num_layers
+    caches = eng.graph_caches(char)
+    for c in caches:
+        c.reset_stats()
+    out = {}
+
+    def solo(wav):
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        api.tts(name, "きょうはいいてんきですね。", save_path=wav)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        c = _counts(torch)
+        st = eng.last_stats
+        audio, _ = read_audio(wav)
+        n = st["codes_len"]
+        check(np.isfinite(audio).all() and len(audio) == 2 * n * 640 > 0,
+              f"mesh {name} tts: a wav of {len(audio)} samples for {n} codes")
+        steps = st["decode_steps"]
+        route = "flash" if tp > 1 else "fused"
+        want = L * tp * steps if tp > 1 else steps
+        check(c[route] == want > 0 and sum(c.values()) == c[route],
+              f"mesh {name} solo tts: launches {c} for {steps} decode steps")
+        return wall, c, steps, st["stages"]["decode"] * 1e3 / steps
+
+    # (a) solo tts(), warm: graph replays only
+    wall, c, steps, ms_step = solo(root / f"{name}_a.wav")
+    print(f"[mesh] {name} (a) solo tts(), warm: {wall * 1e3:.1f} ms wall, {steps} decode steps, "
+          f"{ms_step:.3f} ms/step (graph), launches {json.dumps(c)}")
+    out["a"] = dict(wall_s=wall, steps=steps, launches=c, ms_step=ms_step)
+
+    # (b) synthesize_batch, B = 4: 4 / dp rows per replica
+    rows = [get_phones_and_bert("。" + s, "ja") for s in MESH_SENTENCES]
+    items = [(feats, ph, bert) for ph, bert in rows]
+    st = {}
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    wavs = eng.synthesize_batch(char, items, seed=5, stats=st)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    c = _counts(torch)
+    steps = st["decode_steps"]
+    per_row = eng.batch_rows(4)[1]
+    want = (L * dp * tp * steps if tp > 1 or per_row > 1 else dp * steps)
+    route = "flash" if tp > 1 or per_row > 1 else "fused"
+    check(c[route] == want > 0 and sum(c.values()) == c[route],
+          f"mesh {name} (b) synthesize_batch: launches {c} for {steps} steps")
+    check(all(np.isfinite(w).all() and len(w) > 0 for w in wavs), f"mesh {name} (b): waveforms")
+    print(f"[mesh] {name} (b) synthesize_batch B=4 ({per_row} rows per replica), warm: "
+          f"{wall * 1e3:.1f} ms wall, {steps} decode steps per replica, launches {json.dumps(c)}")
+    out["b"] = dict(wall_s=wall, steps=steps, launches=c)
+
+    # (c) 4 concurrent /tts on the int8 slot route, then a short stream on
+    # the idle machine (the segmented stream), through the server
+    srv = api.start_server(host="127.0.0.1", port=0, block=False)
+    url = f"http://127.0.0.1:{srv.server_address[1]}/tts"
+
+    def post(payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            first = r.read1(1 << 16)
+            t_first = time.perf_counter() - t0
+            body = first + r.read()
+            return r.status, body, t_first, time.perf_counter() - t0
+
+    try:
+        sb = api.get_slot_batcher(char)
+        check(len(sb._state.tp_caches) == tp - 1 and sb._state.k_scale is not None
+              and sb._state.persistent,
+              f"mesh {name} (c): the slot state is not a persistent int8 state per tp shard")
+        results, errors = {}, []
+
+        def client(i):
+            try:
+                results[i] = post({"character_name": name, "text": MESH_SENTENCES[i],
+                                   "split_sentence": False})
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        _reset_counts(torch)
+        s0 = sb.stats["steps"]
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        c = _counts(torch)
+        steps = sb.stats["steps"] - s0
+        check(not errors and len(results) == 4, f"mesh {name} (c): {errors or 'a request hung'}")
+        codes = min(char.t2s_cfg.max_decode_steps, sb.ring)
+        for status, body, _, _ in results.values():
+            levels = np.unique(np.frombuffer(body, "<i2")).size
+            check(status == 200 and len(body) == 2 * 2 * codes * 640 and levels > 1000,
+                  f"mesh {name} (c): HTTP {status}, {len(body)} bytes, {levels} PCM levels")
+        check(c["int8"] == L * tp * steps > 0 and c["flash"] == 0 and c["fused"] == 0,
+              f"mesh {name} (c) slot route: launches {c} for {steps} slot steps")
+        lat = [r[3] for r in results.values()]
+        stream = post({"character_name": name, "text": SENTENCES[4], "split_sentence": False,
+                       "stream": True})
+        check(stream[0] == 200 and len(stream[1]) == 2 * 2 * codes * 640,
+              f"mesh {name} segmented stream: HTTP {stream[0]}, {len(stream[1])} bytes")
+        print(f"[mesh] {name} (c) 4 x /tts on the int8 slot route, warm: latency "
+              + ", ".join(f"{x:.3f}" for x in lat) + f" s, {steps} slot steps, launches "
+              f"{json.dumps(c)} (24 x tp x steps = {L * tp * steps}); a short stream on the "
+              f"idle machine (segmented): first chunk {stream[2]:.3f} s, end {stream[3]:.3f} s")
+        out["c"] = dict(latency_s=lat, steps=steps, launches=c, stream=stream[2:],
+                        live=dict(shape=(sb.n_slots, sb.sx, sb.sp, sb.ring), state=sb._state,
+                                  head=int(sb._state.ring_head)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    stats = [dict(c.stats) for c in caches]
+    print(f"[mesh] {name}: every replica's caches (T2S, SoVITS by replica) while (a)-(c) "
+          f"served: {json.dumps(stats)}")
+    check(all(st["misses"] == st["variants"] == st["captures"] == 0 for st in stats)
+          and all(st["hits"] > 0 for st in stats[:2]),
+          f"mesh {name}: serving after the sweep missed a cache: {stats}")
+
+    # (a) again with every replica's caches set eager: the eager ms/step
+    for c in caches:
+        c.eager = True
+    try:
+        wall_e, c, steps_e, ms_e = solo(root / f"{name}_a_eager.wav")
+    finally:
+        for c_ in caches:
+            c_.eager = False
+    print(f"[mesh] {name} (a) solo tts() ms/step: graph {out['a']['ms_step']:.3f}, eager "
+          f"{ms_e:.3f} ({steps_e} steps, {wall_e * 1e3:.1f} ms wall eager); {card}")
+    out["a"]["eager_ms_step"] = ms_e
+    return out
+
+
+def tp_graph_vs_eager(torch, char, card: str, name: str):
+    """(g) The tp route's graphs against its eager run on one noise, on a
+    sharded character: ``generate`` at B=1 and B=4 (cap 40: tokens, counts
+    and the repetition histogram), one slot segment at occupancy 8 after
+    graph joins (int8 KV, the kernel route: tokens and every state leaf,
+    each shard's caches included) and one segmented-stream segment (exact
+    KV). Each must be identical; prints each one's device ms (CUDA events
+    around the call, the graph already captured), graph and eager."""
+    import dataclasses
+
+    from genie_tts_tpu_torch.config import RuntimeConfig
+    from genie_tts_tpu_torch.models import slots, t2s
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, SamplingRows, gumbel_noise
+    from genie_tts_tpu_torch.runtime.stream import stream_geometry
+
+    cfg, p = char.t2s_cfg, char.t2s_params
+    devs = t2s.shard_devices(p)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    out = {}
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sync(torch)
+        start.record()
+        r = fn()
+        end.record()
+        sync(torch)
+        return r, start.elapsed_time(end)
+
+    Sx, Sp, cap = 64, 128, 40
+    for B in (1, 4):
+        phones = torch.randint(1, cfg.phoneme_vocab, (B, Sx), generator=g, device=DEV)
+        bert = torch.randn((B, Sx, cfg.bert_dim), generator=g, device=DEV)
+        prompts = torch.randint(0, 1024, (B, Sp), generator=g, device=DEV)
+        x_len = torch.tensor([40, 64, 23, 51][:B], device=DEV)
+        p_len = torch.tensor([100, 128, 77, 90][:B], device=DEV)
+        noise = gumbel_noise((cap, B, cfg.semantic_vocab), g, DEV)
+        graph, _ = t2s.decode_graph(p, cfg, B, Sx, Sp, Sx + Sp + cap, cap, p["audio_embed"].dtype)
+
+        def run(eager):
+            with torch.inference_mode():
+                r = t2s.generate(p, cfg, SamplingConfig(), None, (phones, bert), x_len, prompts,
+                                 p_len, max_steps=cap, cache_len=Sx + Sp + cap, min_steps=cap,
+                                 noise=noise, eager=eager)
+            return r.tokens.clone(), r.counts.clone(), graph.static.hist.clone(), r.steps
+
+        res = {}
+        for route in ("graph", "eager", "graph", "eager"):     # the first graph run captures
+            _reset_counts(torch)
+            r, ms = timed(lambda: run(route == "eager"))
+            res.setdefault(route, []).append((r, ms, _counts(torch)["flash"]))
+        (rg, _, ng), (re_, _, ne) = res["graph"][-1], res["eager"][-1]
+        same = all(torch.equal(a, b) for a, b in zip(rg[:3], re_[:3])) and rg[3] == re_[3] == cap
+        check(same and ng == ne == cfg.num_layers * len(devs) * (cap - 1),
+              f"mesh {name} (g) generate B={B}: graph vs eager tokens, counts or histogram "
+              f"differ, or launches {ng} / {ne}")
+        ms_g, ms_e = res["graph"][-1][1], res["eager"][-1][1]
+        print(f"[mesh] {name} (g) generate B={B}, cap {cap}: graph vs eager tokens, counts and "
+              f"histogram identical; device ms (CUDA events, prefill + {cap - 1} steps): graph "
+              f"{ms_g:.1f} ({ms_g / cap:.3f} a step), eager {ms_e:.1f} ({ms_e / cap:.3f}); "
+              f"flash launches {ng} (24 x tp x steps)")
+        out[f"generate_B{B}"] = dict(graph_ms=ms_g, eager_ms=ms_e)
+        if B == 1:
+            # one graph replay under torch.profiler: kernels a step and the
+            # sum of their device times against the wall of the call
+            ms, busy, n = profiled(torch, lambda: run(False))
+            if busy is not None:
+                print(f"[mesh] {name} (g) generate B=1 graph under torch.profiler: {ms:.1f} ms, "
+                      f"kernels {n} ({n / cap:.0f} a step), their device time summed "
+                      f"{busy:.1f} ms ({busy / ms:.1%} of the call; the shards' streams may "
+                      f"overlap), {1e3 * busy / n:.2f} us a kernel")
+                out["generate_B1"].update(profiled_ms=ms, busy_ms=busy, kernels=n)
+
+    def join_rows(state, n, sx, sp):
+        """``n`` requests joined into ``state`` through the join and insert
+        graphs (their Gumbel rows from ``g``)."""
+        for s in range(n):
+            ph = torch.zeros((1, sx), dtype=torch.long, device=DEV)
+            ph[0, :40 + 7 * s] = torch.randint(1, cfg.phoneme_vocab, (40 + 7 * s,),
+                                               generator=g, device=DEV)
+            pr = torch.zeros((1, sp), dtype=torch.long, device=DEV)
+            pr[0, :90 + 5 * s] = torch.randint(0, 1024, (90 + 5 * s,), generator=g, device=DEV)
+            samp = SamplingRows(*(torch.tensor([v], device=DEV) for v in (15, 1.0, 1.0, 1.35)))
+            with torch.inference_mode():
+                ck, cv, tok0, hist = slots.prefill_join(
+                    p, cfg, ph, None, torch.tensor([40 + 7 * s], device=DEV), pr,
+                    torch.tensor([90 + 5 * s], device=DEV), samp,
+                    noise=gumbel_noise((1, cfg.semantic_vocab), g, DEV), any_top_p=False)
+                slots.insert_slot(state, s, ck, cv, tok0, hist, 40 + 7 * s, 90 + 5 * s, 0,
+                                  120, SamplingRows(15, 1.0, 1.0, 1.35), params=p)
+
+    def segment_pair(state, W, sx, sp, ring, kernel, what):
+        noise = gumbel_noise((W, state.k_cache.shape[1], cfg.semantic_vocab), g, DEV)
+        res = {}
+        for route in ("graph", "eager", "graph", "eager"):
+            st = slots.clone_state(state)
+            with torch.inference_mode():
+                (_, toks), ms = timed(lambda: slots.decode_segment(
+                    p, st, cfg, W, sx, sp, ring, kv_kernel=kernel, noise=noise,
+                    eager=route == "eager"))
+            res.setdefault(route, []).append((st, toks, ms))
+        (a, ta, ms_g), (b, tb, ms_e) = res["graph"][-1], res["eager"][-1]
+        leaves = [f.name for f in dataclasses.fields(a)
+                  if isinstance(getattr(a, f.name), torch.Tensor)]
+        diff = [n for n in leaves if not torch.equal(getattr(a, n), getattr(b, n))]
+        diff += [f"shard {j + 1} cache {i}" for j, (x, y) in enumerate(zip(a.tp_caches,
+                                                                           b.tp_caches))
+                 for i, (u, v) in enumerate(zip(x, y)) if u is not None and not torch.equal(u, v)]
+        check(torch.equal(ta, tb) and not diff and len(a.tp_caches) == len(devs) - 1,
+              f"mesh {name} (g) {what}: graph vs eager differ: {diff}")
+        print(f"[mesh] {name} (g) {what}: graph vs eager tokens and every state leaf (each "
+              f"shard's caches included) identical; device ms (CUDA events): graph {ms_g:.1f}, "
+              f"eager {ms_e:.1f}")
+        return dict(graph_ms=ms_g, eager_ms=ms_e)
+
+    rcfg = RuntimeConfig()
+    B8, W, sx, sp, ring = 8, 32, 192, 192, 128
+    st = dataclasses.replace(slots.init_slots(cfg, B8, sx, sp, ring, torch.bfloat16,
+                                              kv_int8=True, device=DEV, tp_devices=devs),
+                             persistent=True)
+    join_rows(st, B8, sx, sp)
+    out["slot_segment"] = segment_pair(st, W, sx, sp, ring, True,
+                                       "slot segment, occupancy 8 after graph joins, int8 KV "
+                                       f"(kernel route), W={W}")
+    Ws, ring_s, sx_s, sp_s = stream_geometry(rcfg, cfg)
+    st = dataclasses.replace(slots.init_slots(cfg, 1, sx_s, sp_s, ring_s, torch.bfloat16,
+                                              device=DEV, tp_devices=devs), persistent=True)
+    join_rows(st, 1, sx_s, sp_s)
+    out["stream_segment"] = segment_pair(st, Ws, sx_s, sp_s, ring_s, False,
+                                         f"segmented-stream segment, exact KV, W={Ws}")
+    print(f"[mesh] {name} (g): {card}")
+    return out
 
 
 def phase_mesh(torch, root: Path, card: str, tts1, serve1):
     """dp x tp serving over ``make_serving_mesh(2, 2, ["cuda:0"] * 4)``: one
     card repeated, so every line of the dp and tp code runs on the card with
     no transfer between cards. ``api.engine`` is swapped for a mesh engine
-    (as a test would), phase 3's character loads on it tp-sharded, and each
-    route runs with the kernel counts set to 0 just before it and read just
-    after: (a) solo ``tts()``; (b) ``synthesize_batch`` of 4 rows (the window
-    batcher's route, 2 rows per replica); (c) 4 concurrent default ``/tts``
-    on the int8 slot route through the port's server; (d) solo ``tts()`` on a
-    dp-only 2x1 mesh; (e) fp32 greedy parity of (a) and (b) (a 64-step
-    cap) against 1x1 on the same card, and the kernels at a shard's heads
-    against their plain versions. ``tts1``/``serve1``: the 1x1 results of the tts and serve
-    phases, printed beside the mesh's."""
+    (as a test would) on a shorter bucket ladder (``MESH_LADDER``: depth
+    cut for time), phase 3's character loads on it tp-sharded, and (f) the
+    engine's sweep captures every replica's graphs (wall time, graphs and
+    pool and buffer MiB per replica and card); then, warm, with the kernel
+    counts set to 0 just before each route and read just after: (a) solo
+    ``tts()`` (graph, then eager beside it); (b) ``synthesize_batch`` of 4
+    rows (2 per replica); (c) 4 concurrent default ``/tts`` on the int8
+    slot route through the port's server and a short stream on the idle
+    machine (the segmented stream): no miss, no variant and no capture in
+    any replica's cache. (g) The tp route's graphs against its eager run
+    on one noise (``tp_graph_vs_eager``). (d) and (h) a dp-only 2x1 mesh:
+    swept, solo ``tts()`` on replica 0 takes the fused kernel, and a B=4
+    ``synthesize_batch`` misses nothing in replica 1's caches. (e) fp32
+    greedy parity of 2x2 against 1x1 (a 64-step cap), and the kernels at a
+    shard's heads against their plain versions. (i) the cross-card mesh
+    (``phase_cross_card``). ``tts1``/``serve1``: the 1x1 results of the
+    tts and serve phases, printed beside the mesh's."""
     import copy
     import dataclasses
     import inspect
     import threading
-    import urllib.request
 
-    import numpy as np
     import torch.nn.functional as F
 
     from genie_tts_tpu_torch import api
     from genie_tts_tpu_torch.config import RuntimeConfig
     from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
     from genie_tts_tpu_torch.models import slots, t2s
-    from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
+    from genie_tts_tpu_torch.ops import flash_decode as fl
     from genie_tts_tpu_torch.ops import int8_decode as i8
     from genie_tts_tpu_torch.ops.sampling import SamplingConfig
     from genie_tts_tpu_torch.parallel.mesh import make_serving_mesh
     from genie_tts_tpu_torch.runtime.engine import TTSEngine
-    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
-    from genie_tts_tpu_torch.utils.wavio import read_audio
-
-    kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
-               "fused": fu.fused_decode_step}
-
-    def reset():
-        sync(torch)
-        for k in kernels.values():
-            k.launches = 0
-
-    def counts():
-        sync(torch)
-        return {n: k.launches for n, k in kernels.items()}
 
     dp, tp = 2, 2
-    ref_text = "こんにちは、てすとです"
     prev = (api.engine, api._batcher)
     base = api.model_manager.get("smoke")          # phase 3's 1x1 character
     cfg = base.t2s_cfg
     L = cfg.num_layers
+    ladder = dataclasses.replace(RuntimeConfig(), **MESH_LADDER)
     out = {}
-
-    def load(name, mesh):
-        api.engine = TTSEngine(RuntimeConfig(), timing=True, mesh=mesh)
-        api._batcher = None
-        t0 = time.perf_counter()
-        api.load_character(name, root / "char", "ja")
-        api.set_reference_audio(name, root / "ref.wav", ref_text, "ja")
-        c = api.model_manager.get(name)
-        print(f"[mesh] {mesh.dp}x{mesh.tp}: '{name}' loaded, placed and its reference set "
-              f"in {time.perf_counter() - t0:.1f} s; {len(c.replicas)} replicas, "
-              f"{len(c.t2s_params.get('layer_shards', [0]))} tp shard(s) each")
-        return c
-
-    def solo_tts(name, wav):
-        reset()
-        t0 = time.perf_counter()
-        api.tts(name, "きょうはいいてんきですね。", save_path=wav)
-        sync(torch)
-        wall = time.perf_counter() - t0
-        c = counts()
-        st = api.engine.last_stats
-        audio, _ = read_audio(wav)
-        n = st["codes_len"]
-        check(np.isfinite(audio).all() and len(audio) == 2 * n * 640 > 0,
-              f"mesh tts: a wav of {len(audio)} samples for {n} codes")
-        return wall, c, st
-
     try:
         mesh = make_serving_mesh(dp, tp, devices=[DEV] * 4)
-        char = load("mesh", mesh)
+        char, feats = mesh_load(torch, root, "mesh", mesh, ladder)
         check(len(char.replicas) == dp and all(
             len(r.t2s_params["layer_shards"]) == tp for r in char.replicas),
             "mesh: the character is not placed as 2 replicas of 2 tp shards")
-
-        # (a) solo tts(): the per-layer route over tp shards, no fused launch
-        wall, c, st = solo_tts("mesh", root / "mesh_a.wav")
-        steps = st["decode_steps"]
-        check(c["fused"] == 0 and c["int8"] == 0 and c["flash"] == L * tp * steps > 0,
-              f"mesh (a) solo tts: launches {c} for {steps} decode steps")
+        out["f"] = mesh_sweep(torch, "mesh 2x2", char, feats, card)
+        served = mesh_serve(torch, root, card, "mesh", char, feats)
+        out.update(served)
         one = tts1[2]
-        print(f"[mesh] (a) solo tts() 2x2: {wall * 1e3:.1f} ms wall, {steps} decode steps, "
-              f"launches {json.dumps(c)} (24 x tp x steps = {L * tp * steps}); "
-              f"{st['stages']['decode'] * 1e3 / steps:.3f} ms/step; 1x1 (tts phase, call 2): "
-              f"{one['wall_s'] * 1e3:.1f} ms wall, {one['decode_steps']} steps, fused "
-              f"launches {one['launches']}, "
-              f"{one['stages']['decode'] * 1e3 / one['decode_steps']:.3f} ms/step")
-        out["a"] = dict(wall_s=wall, steps=steps, launches=c)
-
-        # (b) synthesize_batch, B = 4: two rows per replica, flash over the shards
-        feats = reference_audio_cache.get_features(api.engine, char, str(root / "ref.wav"),
-                                                   ref_text, "Japanese")
+        print(f"[mesh] 1x1 beside it (tts phase, call 2): {one['wall_s'] * 1e3:.1f} ms wall, "
+              f"{one['decode_steps']} steps, fused launches {one['launches']}, "
+              f"{one['stages']['decode'] * 1e3 / one['decode_steps']:.3f} ms/step; serve phase "
+              f"slot route latency " + ", ".join(f"{x:.3f}" for x in serve1["slots"]["latency_s"])
+              + f" s, launches {json.dumps(serve1['slots']['launches'])}")
+        live = served["c"]["live"]
         rows = [get_phones_and_bert("。" + s, "ja") for s in MESH_SENTENCES]
         items = [(feats, ph, bert) for ph, bert in rows]
-        res = {}
-        for label, eng, ch in (("2x2", api.engine, char), ("1x1", prev[0], base)):
-            st = {}
-            reset()
-            t0 = time.perf_counter()
-            wavs = eng.synthesize_batch(ch, items, seed=5, stats=st)
-            sync(torch)
-            res[label] = (time.perf_counter() - t0, counts(), st["decode_steps"], wavs)
-        wall, c, steps, wavs = res["2x2"]
-        check(c["flash"] == L * dp * tp * steps > 0 and c["fused"] == 0 and c["int8"] == 0,
-              f"mesh (b) synthesize_batch: launches {c} for {steps} steps")
-        check(all(np.isfinite(w).all() and len(w) > 0 for w in wavs), "mesh (b): waveforms")
-        w1, c1, s1, _ = res["1x1"]
-        print(f"[mesh] (b) synthesize_batch B=4 2x2: {wall * 1e3:.1f} ms wall, {steps} decode "
-              f"steps per replica, launches {json.dumps(c)} (24 x dp x tp x steps = "
-              f"{L * dp * tp * steps}); 1x1: {w1 * 1e3:.1f} ms wall, {s1} steps, launches "
-              f"{json.dumps(c1)}")
-        out["b"] = dict(wall_s=wall, steps=steps, launches=c)
+        out["g"] = tp_graph_vs_eager(torch, char, card, "mesh 2x2")
+        del char
+        mesh_unload("mesh")
 
-        # (c) 4 concurrent default /tts on the int8 slot route, through the server
-        srv = api.start_server(host="127.0.0.1", port=0, block=False)
-        url = f"http://127.0.0.1:{srv.server_address[1]}/tts"
-        try:
-            sb = api.get_slot_batcher(char)
-            check(len(sb._state.tp_caches) == tp - 1 and sb._state.k_scale is not None,
-                  "mesh (c): the slot state is not int8 per tp shard")
-            results, errors = {}, []
-
-            def client(i):
-                body = json.dumps({"character_name": "mesh", "text": MESH_SENTENCES[i],
-                                   "split_sentence": False}).encode()
-                req = urllib.request.Request(url, data=body,
-                                             headers={"Content-Type": "application/json"})
-                t0 = time.perf_counter()
-                try:
-                    with urllib.request.urlopen(req, timeout=300) as r:
-                        results[i] = (r.status, r.read(), time.perf_counter() - t0)
-                except BaseException as e:  # noqa: BLE001 — reported below
-                    errors.append(repr(e))
-
-            reset()
-            s0 = sb.stats["steps"]
-            threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            c = counts()
-            steps = sb.stats["steps"] - s0
-            check(not errors and len(results) == 4, f"mesh (c): {errors or 'a request hung'}")
-            codes = min(cfg.max_decode_steps, sb.ring)
-            for status, body, _ in results.values():
-                levels = np.unique(np.frombuffer(body, "<i2")).size
-                check(status == 200 and len(body) == 2 * 2 * codes * 640 and levels > 1000,
-                      f"mesh (c): HTTP {status}, {len(body)} bytes, {levels} PCM levels")
-            check(c["int8"] == L * tp * steps > 0 and c["flash"] == 0 and c["fused"] == 0,
-                  f"mesh (c) slot route: launches {c} for {steps} slot steps")
-            lat = [r[2] for r in results.values()]
-            one = serve1["slots"]
-            print(f"[mesh] (c) 4 x /tts, int8 slot route 2x2: latency "
-                  + ", ".join(f"{x:.3f}" for x in lat) + f" s, {steps} slot steps, launches "
-                  f"{json.dumps(c)} (24 x tp x steps = {L * tp * steps}); 1x1 (serve phase): "
-                  f"latency " + ", ".join(f"{x:.3f}" for x in one["latency_s"])
-                  + f" s, launches {json.dumps(one['launches'])}")
-            st = sb._state
-            live = dict(shape=(sb.n_slots, sb.sx, sb.sp, sb.ring), state=st,
-                        head=int(st.ring_head))
-            out["c"] = dict(latency_s=lat, steps=steps, launches=c)
-        finally:
-            srv.shutdown()
-            srv.server_close()
-            api.unload_character("mesh")
-
-        # (d) a dp-only 2x1 mesh: solo on replica 0 takes the fused kernel
-        load("mesh21", make_serving_mesh(2, 1, devices=[DEV] * 2))
-        try:
-            wall, c, st = solo_tts("mesh21", root / "mesh_d.wav")
-        finally:
-            api.unload_character("mesh21")
-        steps = st["decode_steps"]
+        # (d) and (h): a dp-only 2x1 mesh, swept (slots and streams off:
+        # depth cut, they run on replica 0 as on 1x1): solo on replica 0
+        # takes the fused kernel, a B=4 batch misses nothing in replica 1
+        ladder21 = dataclasses.replace(ladder, serve_slots=False, stream_segmented=False)
+        c21, f21 = mesh_load(torch, root, "mesh21", make_serving_mesh(2, 1, devices=[DEV] * 2),
+                             ladder21)
+        out["h_sweep"] = mesh_sweep(torch, "mesh 2x1", c21, f21, card)
+        caches = api.engine.graph_caches(c21)
+        for c in caches:
+            c.reset_stats()
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        api.tts("mesh21", "きょうはいいてんきですね。", save_path=root / "mesh_d.wav")
+        sync(torch)
+        wall = time.perf_counter() - t0
+        c = _counts(torch)
+        steps = api.engine.last_stats["decode_steps"]
         check(c["fused"] == steps > 0 and c["flash"] == 0 and c["int8"] == 0,
               f"mesh (d) 2x1 solo tts: launches {c} for {steps} steps")
-        print(f"[mesh] (d) solo tts() 2x1: {wall * 1e3:.1f} ms wall, {steps} decode steps, "
-              f"launches {json.dumps(c)}")
+        print(f"[mesh] (d) solo tts() 2x1, swept: {wall * 1e3:.1f} ms wall, {steps} decode "
+              f"steps, launches {json.dumps(c)}")
         out["d"] = dict(wall_s=wall, steps=steps, launches=c)
+        st = {}
+        t0 = time.perf_counter()
+        api.engine.synthesize_batch(c21, [(f21, ph, bert) for ph, bert in rows], seed=5,
+                                    stats=st)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        stats = [dict(c.stats) for c in caches]
+        print(f"[mesh] (h) 2x1 after the sweep: synthesize_batch B=4 (2 rows per replica) "
+              f"{wall * 1e3:.1f} ms wall; caches (T2S, SoVITS of replica 0, then of replica "
+              f"1): {json.dumps(stats)}")
+        check(all(s["misses"] == s["variants"] == s["captures"] == 0 for s in stats)
+              and all(s["hits"] > 0 for s in stats[2:]),
+              f"mesh (h): the batch missed a replica's cache after the sweep: {stats}")
+        out["h"] = dict(wall_s=wall, stats=stats)
+        del c21, caches
+        mesh_unload("mesh21")
     finally:
         api.engine, api._batcher = prev
 
@@ -3321,6 +3655,48 @@ def phase_mesh(torch, root: Path, card: str, tts1, serve1):
     rows_out["int8"] = dict(max_abs_err=err8, ms=ms8, plain_ms=plain8, bound_ms=bms8,
                             bound_by=by8, library_ms=None)
     out["kernels"] = rows_out
+    return out
+
+
+def phase_cross_card(torch, root: Path, card: str):
+    """(i) The mesh across cards, where the machine has them: (f) and (g)
+    of the mesh phase (the sweep of every replica, warm serving with no
+    miss, the tp route's graphs against its eager run) at 1x2 over
+    ``cuda:0`` and ``cuda:1`` where there are two cards, and at 2x2 over
+    four where there are four: the same graphs, captured with each shard's
+    work on its own card (the partial sums copied between cards inside the
+    capture, each card's memory in the graph's pool there). With one card
+    it prints that the cross-card capture did not run, and on how many
+    cards; nothing runs in its place."""
+    import dataclasses
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.config import RuntimeConfig
+    from genie_tts_tpu_torch.parallel.mesh import make_serving_mesh
+
+    n = torch.cuda.device_count()
+    meshes = [(dp, tp) for dp, tp in ((1, 2), (2, 2)) if dp * tp <= n]
+    if not meshes:
+        print(f"[mesh] (i) the cross-card capture did not run: this machine has {n} card(s), "
+              f"a tp mesh across cards needs 2 or more; {card}")
+        return {"ran": False, "cards": n}
+    ladder = dataclasses.replace(RuntimeConfig(), **MESH_LADDER)
+    prev = (api.engine, api._batcher)
+    out = {"ran": True, "cards": n}
+    try:
+        for dp, tp in meshes:
+            name = f"cross{dp}x{tp}"
+            mesh = make_serving_mesh(dp, tp, devices=[f"cuda:{i}" for i in range(dp * tp)])
+            char, feats = mesh_load(torch, root, name, mesh, ladder)
+            out[name] = dict(f=mesh_sweep(torch, f"mesh {dp}x{tp} across cards", char, feats,
+                                          card),
+                             served=mesh_serve(torch, root, card, name, char, feats),
+                             g=tp_graph_vs_eager(torch, char, card,
+                                                 f"mesh {dp}x{tp} across cards"))
+            del char
+            mesh_unload(name)
+    finally:
+        api.engine, api._batcher = prev
     return out
 
 
@@ -3656,7 +4032,7 @@ def phase_kernel_int8(torch, live, seg_ms, W):
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv) -> int:
     if not (REPO / "genie_tts_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: genie_tts_tpu_torch/ not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -3691,6 +4067,23 @@ def main() -> int:
         print(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if argv[1:] == ["--cross-card"]:
+        # the cross-card mesh alone (a machine with 2 or 4 cards): the
+        # kernels, phase 3's character written, then phase (i)
+        try:
+            timed(phase_build)
+            _, hub, _ = make_character(torch, work, {"max_decode_steps": 128})
+            os.environ["GENIE_HUBERT_DIR"] = str(hub)
+            res = timed(phase_cross_card, torch, work, card)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        check(res["ran"], "--cross-card on a machine with one card")
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(f"{card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     try:
         timed(phase_build)
         char, tts = timed(phase_tts, torch, work)
@@ -3703,6 +4096,7 @@ def main() -> int:
         serve = timed(phase_serve, torch, work, card)
         timed(phase_graphs, torch, work, card)
         timed(phase_mesh, torch, work, card, tts, serve)
+        timed(phase_cross_card, torch, work, card)
         _, clip, sv_path = timed(phase_v2pp, torch, work, card)
         timed(phase_v2pp_slice_check, torch, clip, sv_path)
         timed(phase_zh, torch, work, card)
@@ -3732,7 +4126,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv))
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -99,7 +99,6 @@ def _warmup(args) -> None:
     its first ``/set_reference_audio`` (the JAX package's ``serve
     --warmup`` compiles programs that serve every character)."""
     from genie_tts_tpu_torch import api
-    from genie_tts_tpu_torch.runtime import graphs
     from genie_tts_tpu_torch.runtime.engine import make_random_reference
 
     api.load_character("warmup", args.warmup, args.warmup_lang, device=args.device)
@@ -111,8 +110,7 @@ def _warmup(args) -> None:
     else:
         ref = make_random_reference(char, api.engine)
     n = api.engine.warmup(char, ref, sweep=True)
-    captured = sum(graphs.cache_for(p).stats["captures"]
-                   for p in (char.t2s_params, char.sovits_params))
+    captured = sum(c.stats["captures"] for c in api.engine.graph_caches(char))
     del char
     api.unload_character("warmup")
     api.sweep_on_reference = True

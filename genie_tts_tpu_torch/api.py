@@ -164,7 +164,8 @@ def _release_character(character_name: str) -> None:
     (unloaded or evicted): its slot machine, retired (it finishes the
     requests queued and in flight in it, then exits), and its sweep
     record. Then nothing keeps the character, so its weights, graphs,
-    graph pools and static buffers are freed."""
+    graph pools and static buffers are freed, every dp replica's on a
+    mesh (the replicas live in the character alone)."""
     with _slot_batchers_lock:
         sb = _slot_batchers.pop(character_name, None)
     _swept.pop(character_name, None)

@@ -43,8 +43,12 @@ Under tp (a parameter set from ``parallel/mesh.py::shard_serving_params``)
 the big caches are per shard, ``H/tp`` heads each on its shard's device;
 the small state stays on the first shard's device, and the prefill, the
 windowed read or the ``int8_big_attention`` kernel, the quantization and
-the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``). A
-tp-sharded set runs its join and segments eagerly.
+the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``),
+each in its shard's work (``t2s.on_shard``: a capture stream of its tp
+rank's own while captured), in graphs of the set's cache as a whole set's
+are. Copies into and out of a graph's buffers on another card than the
+lead are ordered with the lead card's stream
+(``runtime/graphs.py::on_device_stream``).
 """
 from __future__ import annotations
 
@@ -171,9 +175,10 @@ def reset_slots(state: SlotState, ring_len: int) -> SlotState:
     """Empty every slot of ``state`` in place: the values of
     :func:`init_slots`."""
     for shard in state.cache_shards:
-        for t in shard:
-            if t is not None:
-                t.zero_()
+        with graphs.on_device_stream(shard[0].device):
+            for t in shard:
+                if t is not None:
+                    t.zero_()
     for t in (state.cur_tok, state.keys_written, state.counts, state.active, state.hist,
               state.x_len, state.p_len, state.min_steps, state.samp_top_k,
               state.ring_head):
@@ -191,17 +196,30 @@ def _tensor_fields(state: SlotState) -> list:
             if isinstance(getattr(state, f.name), torch.Tensor)]
 
 
+def _clone_shard(shard: tuple) -> tuple:
+    with graphs.on_device_stream(shard[0].device):
+        return tuple(None if t is None else t.clone() for t in shard)
+
+
 def clone_state(state: SlotState) -> SlotState:
-    """A copy of a (not tp-sharded) state in buffers of its own."""
+    """A copy of a state in buffers of its own (a tp-sharded one's caches
+    on their shards' devices)."""
     return dataclasses.replace(
         state, **{n: getattr(state, n).clone() for n in _tensor_fields(state)},
+        tp_caches=tuple(_clone_shard(c) for c in state.tp_caches),
         top_p_host=state.top_p_host.copy(), persistent=False)
 
 
 def copy_state(dst: SlotState, src: SlotState) -> None:
-    """Every leaf of ``src`` into ``dst``'s buffers."""
+    """Every leaf of ``src`` into ``dst``'s buffers (every tp shard's
+    caches too)."""
     for n in _tensor_fields(dst):
         getattr(dst, n).copy_(getattr(src, n))
+    for d_shard, s_shard in zip(dst.tp_caches, src.tp_caches, strict=True):
+        with graphs.on_device_stream(d_shard[0].device):
+            for d, s_ in zip(d_shard, s_shard):
+                if d is not None:
+                    d.copy_(s_)
     dst.top_p_host[:] = src.top_p_host
 
 
@@ -269,8 +287,12 @@ def _join(params: t2s.Params, cfg: T2SConfig, b: JoinBuffers, *, with_bert: bool
                       torch.clamp(Sx + pos - b.x_len[0], max=Sx + Sp - 1))
     if not isinstance(k_ctx, tuple):
         k_ctx, v_ctx = (k_ctx,), (v_ctx,)
-    for out, c in zip(b.ctx_k + b.ctx_v, k_ctx + v_ctx, strict=True):
-        out.copy_(c.transpose(-1, -2).index_select(-1, src.to(c.device)))
+    sharded = len(k_ctx) > 1
+    for i, (ok, ov, ck, cv) in enumerate(zip(b.ctx_k, b.ctx_v, k_ctx, v_ctx, strict=True)):
+        with t2s.on_shard(sharded, i, ck.device):
+            at = src.to(ck.device)
+            for out, c in ((ok, ck), (ov, cv)):
+                out.copy_(c.transpose(-1, -2).index_select(-1, at))
     b.hist.zero_()
     prompt_valid = torch.arange(Sp, device=dev)[None, :] < b.p_len[:, None]
     b.hist.scatter_add_(1, b.prompts, prompt_valid.int())
@@ -283,15 +305,13 @@ def _join(params: t2s.Params, cfg: T2SConfig, b: JoinBuffers, *, with_bert: bool
 
 def join_graph(params: t2s.Params, cfg: T2SConfig, sx: int, sp: int):
     """The join program's graph at (Sx, Sp) in the parameter set's cache
-    (its buffers made on a miss), and its programs by variant
-    ``(BERT features given, top-p)``. A tp-sharded set's join runs
-    eagerly, on buffers of its own call (a graph of no cache)."""
-    if t2s.layer_shards(params) is not None:
-        g = graphs.Graph(None, None, _join_buffers(params, cfg, sx, sp))
-    else:
-        g = graphs.cache_for(params).graph(
-            ("join", sx, sp, params["audio_embed"].dtype),
-            lambda: _join_buffers(params, cfg, sx, sp))
+    (its buffers made on a miss: a tp-sharded set's context columns per
+    shard on its device, key ``("join", "tp", Sx, Sp, dtype)``), and its
+    programs by variant ``(BERT features given, top-p)``."""
+    route = ("tp",) if t2s.layer_shards(params) is not None else ()
+    g = graphs.cache_for(params).graph(
+        ("join",) + route + (sx, sp, params["audio_embed"].dtype),
+        lambda: _join_buffers(params, cfg, sx, sp))
     return g, {(bert, top_p): functools.partial(_join, params, cfg, with_bert=bert,
                                                 any_top_p=top_p)
                for bert in (False, True) for top_p in (False, True)}
@@ -343,8 +363,12 @@ def prefill_join(params: t2s.Params, cfg: T2SConfig,
         else:
             b.noise.copy_(noise)
         g.run(progs[variant], variant)
-        ctx_k = tuple(c.clone() for c in b.ctx_k)
-        ctx_v = tuple(c.clone() for c in b.ctx_v)
+        ctx_k, ctx_v = [], []
+        for ck, cv in zip(b.ctx_k, b.ctx_v):
+            with graphs.on_device_stream(ck.device):
+                ctx_k.append(ck.clone())
+                ctx_v.append(cv.clone())
+        ctx_k, ctx_v = tuple(ctx_k), tuple(ctx_v)
         tok0, hist = b.tok0.clone(), b.hist.clone()
     if len(ctx_k) == 1:
         ctx_k, ctx_v = ctx_k[0], ctx_v[0]
@@ -377,17 +401,19 @@ def _insert(bufs: InsertBuffers) -> None:
     st, row = bufs.state, bufs.row
     at = row[:1].long()
     f = row[_ROW_INTS:].view(torch.float32)
-    for ck, cv, (kc, vc, ks_c, vs_c) in zip(bufs.ctx_k, bufs.ctx_v, st.cache_shards,
-                                           strict=True):
-        C = ck.shape[-1]
-        i = at.to(kc.device)
-        if ks_c is not None:
-            ck, ks = quantize_kv_columns(ck)
-            cv, vs = quantize_kv_columns(cv)
-            ks_c.narrow(-1, 0, C).index_copy_(1, i, ks)
-            vs_c.narrow(-1, 0, C).index_copy_(1, i, vs)
-        kc.narrow(-1, 0, C).index_copy_(1, i, ck.to(kc.dtype))
-        vc.narrow(-1, 0, C).index_copy_(1, i, cv.to(vc.dtype))
+    sharded = bool(st.tp_caches)
+    for r, (ck, cv, (kc, vc, ks_c, vs_c)) in enumerate(zip(bufs.ctx_k, bufs.ctx_v,
+                                                          st.cache_shards, strict=True)):
+        with t2s.on_shard(sharded, r, kc.device):
+            C = ck.shape[-1]
+            i = at.to(kc.device)
+            if ks_c is not None:
+                ck, ks = quantize_kv_columns(ck)
+                cv, vs = quantize_kv_columns(cv)
+                ks_c.narrow(-1, 0, C).index_copy_(1, i, ks)
+                vs_c.narrow(-1, 0, C).index_copy_(1, i, vs)
+            kc.narrow(-1, 0, C).index_copy_(1, i, ck.to(kc.dtype))
+            vc.narrow(-1, 0, C).index_copy_(1, i, cv.to(vc.dtype))
     st.hist.index_copy_(0, at, bufs.hist)
     for vec, value in ((st.x_len, row[1:2]), (st.p_len, row[2:3]), (st.min_steps, row[3:4]),
                        (st.max_steps, row[4:5]), (st.samp_top_k, row[5:6]),
@@ -407,12 +433,6 @@ def _geometry_key(state: SlotState) -> tuple:
             id(state) if state.persistent else None)
 
 
-def _eager_state(params, state: SlotState) -> bool:
-    """The state programs of no cache (run on the state itself): no
-    parameter set given, or a tp-sharded one (its join stays eager)."""
-    return params is None or t2s.layer_shards(params) is not None or bool(state.tp_caches)
-
-
 def _insert_buffers(state: SlotState, ctx_k: tuple, ctx_v: tuple) -> InsertBuffers:
     dev = state.hist.device
     return InsertBuffers(state, ctx_k, ctx_v,
@@ -425,7 +445,7 @@ def insert_graph(params: t2s.Params, state: SlotState, ctx_k: tuple, ctx_v: tupl
     this shape and dtype, in the parameter set's cache: on a persistent
     state its own buffers, else a copy that the state is copied into and
     back (one graph serves every slot: the slot index is a buffer)."""
-    if _eager_state(params, state):
+    if params is None:          # no cache: the program runs on the state itself
         return graphs.Graph(None, None, _insert_buffers(state, ctx_k, ctx_v))
     key = ("insert", ctx_k[0].shape[-1], ctx_k[0].dtype) + _geometry_key(state)
     return graphs.cache_for(params).graph(key, lambda: _insert_buffers(
@@ -464,8 +484,8 @@ def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
     The JAX package's ``_insert_jit``: the program :func:`_insert` over
     the buffers of :func:`insert_graph` in the cache of ``params`` (the
     serving paths pass their T2S set; on the card a replay); without
-    ``params``, or for a tp-sharded set, it runs on the state itself. The
-    host mirror ``top_p_host`` is written here."""
+    ``params`` it runs on the state itself. The host mirror
+    ``top_p_host`` is written here."""
     b = int(slot)
     if not isinstance(ctx_k, tuple):
         ctx_k, ctx_v = (ctx_k,), (ctx_v,)
@@ -479,7 +499,8 @@ def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
             copy_state(bufs.state, state)
         for dst, src in zip(bufs.ctx_k + bufs.ctx_v, ctx_k + ctx_v, strict=True):
             if dst is not src:
-                dst.copy_(src)
+                with graphs.on_device_stream(dst.device):
+                    dst.copy_(src)
         bufs.hist.copy_(hist)
         _fill_row(bufs.row, (b, x_len, p_len, min_steps, max_steps, samp.top_k, tok0),
                   (samp.top_p, samp.temperature, samp.repetition_penalty))
@@ -512,7 +533,7 @@ def release_slot(state: SlotState, slot: int,
     memory, a graph in the cache of ``params`` as :func:`insert_slot`'s
     is."""
     dev = state.active.device
-    if _eager_state(params, state):
+    if params is None:          # no cache: the program runs on the state itself
         g = graphs.Graph(None, None, ReleaseBuffers(
             state.active, state.done, torch.zeros(1, dtype=torch.int64, device=dev)))
     else:
@@ -589,8 +610,8 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     it is ``persistent``, else copied in and back. ``eager`` runs it on
     the same buffers without a graph. A tp-sharded ``params`` (with a
     state from ``init_slots(..., tp_devices=t2s.shard_devices(params))``)
-    runs eagerly, each layer over its shards: each reads and merges its own
-    caches of ``H/tp`` heads, on the kernel route with one
+    runs each layer over its shards, in the same graphs: each reads and
+    merges its own caches of ``H/tp`` heads, on the kernel route with one
     ``int8_big_attention`` launch per shard.
     """
     assert ring_len % seg_steps == 0, "segment must not wrap the ring"
@@ -608,11 +629,6 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     prog = functools.partial(_segment, params, cfg, W=W, sx=Sx, sp=Sp, ring_len=ring_len,
                              use_kernel=use_kernel, ctx_win=ctx_win, ring_win=ring_win,
                              any_top_p=any_top_p)
-    if t2s.layer_shards(params) is not None:
-        bufs = SegmentBuffers(state, noise, torch.empty((B, W), dtype=torch.int32,
-                                                        device=dev))
-        prog(bufs)
-        return state, bufs.seg_tok
     key = _segment_key(state, W, Sx, Sp, ring_len, use_kernel, ctx_win, ring_win,
                        any_top_p)
     g = graphs.cache_for(params).graph(key, lambda: SegmentBuffers(
@@ -678,19 +694,22 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
             return (t[..., :Sx + Sp + ring_len],)
         return (t[..., :ctx_win], t.index_select(t.dim() - 1, ring_cols.to(d)))
 
+    shards = t2s.layer_shards(params)
+    sharded = shards is not None
     reads, bufs_kv, step_masks = [], [], []
-    for (kc, vc, ksc, vsc), d in zip(caches, devs):
-        k_buf = torch.zeros(kc.shape[:3] + (Dh, W), dtype=buf_dtype, device=d)
-        bufs_kv.append((k_buf, torch.zeros_like(k_buf)))
-        step_masks.append(buf_masks.to(d))
-        if use_kernel:
-            ctx = tuple(t.to(d) for t in (state.x_len, state.p_len, kw0, head0)) + (
-                Sx, Sp, ring_len)
-            mask_d = None
-        else:
-            ctx = None
-            mask_d = tuple(m.to(d) for m in kv_mask)
-        rk, rv, rks, rvs = (regions(t, d) for t in (kc, vc, ksc, vsc))
+    for j, ((kc, vc, ksc, vsc), d) in enumerate(zip(caches, devs)):
+        with t2s.on_shard(sharded, j, d):
+            k_buf = torch.zeros(kc.shape[:3] + (Dh, W), dtype=buf_dtype, device=d)
+            bufs_kv.append((k_buf, torch.zeros_like(k_buf)))
+            step_masks.append(buf_masks.to(d))
+            if use_kernel:
+                ctx = tuple(t.to(d) for t in (state.x_len, state.p_len, kw0, head0)) + (
+                    Sx, Sp, ring_len)
+                mask_d = None
+            else:
+                ctx = None
+                mask_d = tuple(m.to(d) for m in kv_mask)
+            rk, rv, rks, rvs = (regions(t, d) for t in (kc, vc, ksc, vsc))
         per_layer = []
         for l in range(L):
             kb, vb = tuple(r[l] for r in rk), tuple(r[l] for r in rv)
@@ -702,7 +721,6 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
             per_layer.append(dict(k_big=kb, v_big=vb, kv_mask=mask_d, k_scale=ks,
                                   v_scale=vs, kv_kernel_ctx=ctx))
         reads.append(per_layer)
-    shards = t2s.layer_shards(params)
     if shards is None:
         layers = unstack(params["layers"])
     else:
@@ -726,12 +744,11 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
                     for j, ((kb, vb), bm) in enumerate(zip(bufs_kv, step_masks))]
             if shards is None:
                 h, k_new, v_new = t2s._layer_decode_buffered(lp, h, num_heads=H, **step[0])
-                new = [(k_new, v_new)]
-            else:
-                h, new = layer_decode_buffered_shards(lp, h, step, H)
-            for (kb, vb), (k_new, v_new) in zip(bufs_kv, new):
+                kb, vb = bufs_kv[0]
                 kb[l, ..., i] = k_new
                 vb[l, ..., i] = v_new
+            else:
+                h = layer_decode_buffered_shards(lp, h, step, H, col=i)
         logits = h[:, 0].float() @ predict_w
         # per-row EOS gate: below min_steps EOS is masked out of sampling
         row_step = keys_written + 1
@@ -755,15 +772,16 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
     base = Sx + Sp + head0.long()
     cols = torch.cat([base + torch.arange(W, device=dev),
                       base + ring_len + torch.arange(W, device=dev)])
-    for (kc, vc, ksc, vsc), (k_buf, v_buf), d in zip(caches, bufs_kv, devs):
-        at = cols.to(d)
-        if int8_kv:
-            k_buf, ks = quantize_kv_columns(k_buf)
-            v_buf, vs = quantize_kv_columns(v_buf)
-            ksc.index_copy_(3, at, torch.cat([ks, ks], dim=-1))
-            vsc.index_copy_(3, at, torch.cat([vs, vs], dim=-1))
-        kc.index_copy_(4, at, torch.cat([k_buf, k_buf], dim=-1).to(kc.dtype))
-        vc.index_copy_(4, at, torch.cat([v_buf, v_buf], dim=-1).to(vc.dtype))
+    for j, ((kc, vc, ksc, vsc), (k_buf, v_buf), d) in enumerate(zip(caches, bufs_kv, devs)):
+        with t2s.on_shard(sharded, j, d):
+            at = cols.to(d)
+            if int8_kv:
+                k_buf, ks = quantize_kv_columns(k_buf)
+                v_buf, vs = quantize_kv_columns(v_buf)
+                ksc.index_copy_(3, at, torch.cat([ks, ks], dim=-1))
+                vsc.index_copy_(3, at, torch.cat([vs, vs], dim=-1))
+            kc.index_copy_(4, at, torch.cat([k_buf, k_buf], dim=-1).to(kc.dtype))
+            vc.index_copy_(4, at, torch.cat([v_buf, v_buf], dim=-1).to(vc.dtype))
     for leaf, value in ((state.cur_tok, cur_tok), (state.keys_written, keys_written),
                         (state.counts, counts), (state.done, done), (state.hist, hist)):
         leaf.copy_(value)

@@ -27,11 +27,13 @@ whose read-only big cache may hold int8 codes (``ops/int8_decode.py``).
 A tp-sharded parameter set (``parallel/mesh.py::shard_serving_params``:
 the layers split over a replica's devices, under ``layer_shards``) takes
 the per-layer route at every B, each shard over its ``H/tp`` heads with
-a cache of its own (``parallel/tp.py``); the fused kernel holds all the
-layers whole, so it serves whole parameters only.
+a cache of its own on its device (``parallel/tp.py``), in graphs of its
+own cache as the whole set's are; the fused kernel holds all the layers
+whole, so it serves whole parameters only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -359,6 +361,16 @@ def shard_devices(params: Params) -> list:
     return [s["qkv"]["w"].device for s in shards]
 
 
+def on_shard(sharded: bool, rank: int, dev):
+    """``parallel/tp.py::shard_work`` of tp rank ``rank`` on ``dev`` for
+    the work of a tp-sharded set or state, nothing for a whole one."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from ..parallel.tp import shard_work
+
+    return shard_work(rank, dev)
+
+
 def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor,
             prompts: torch.Tensor, p_len: torch.Tensor, cache_len: int, caches=None
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -383,13 +395,20 @@ def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor
     shards = layer_shards(params)
     devs = shard_devices(params)
     if caches is None:
-        k_cache = tuple(torch.zeros((L, B, H // len(devs), cache_len, Dh), dtype=h.dtype,
-                                    device=d) for d in devs)
-        v_cache = tuple(torch.zeros_like(k) for k in k_cache)
+        k_cache, v_cache = [], []
+        for i, d in enumerate(devs):
+            with on_shard(shards is not None, i, d):
+                k_cache.append(torch.zeros((L, B, H // len(devs), cache_len, Dh),
+                                           dtype=h.dtype, device=d))
+                v_cache.append(torch.zeros_like(k_cache[-1]))
+        k_cache, v_cache = tuple(k_cache), tuple(v_cache)
     else:
         k_cache, v_cache = (c if isinstance(c, tuple) else (c,) for c in caches)
-        for c in k_cache + v_cache:          # nothing of an earlier call stays
-            c.narrow(-2, T, c.shape[-2] - T).zero_()
+        for i, (kc, vc) in enumerate(zip(k_cache, v_cache)):
+            # nothing of an earlier call stays
+            with on_shard(shards is not None, i, devs[i]):
+                for c in (kc, vc):
+                    c.narrow(-2, T, c.shape[-2] - T).zero_()
 
     def write(cache, l, kv):
         if cache.dim() == 3:                 # [L, S, D]: [1, H, T, Dh] -> [T, D]
@@ -405,12 +424,16 @@ def prefill(params: Params, cfg: T2SConfig, x: torch.Tensor, x_len: torch.Tensor
     else:
         from ..parallel.tp import layer_prefill_shards
 
-        masks = [mask.to(d) for d in devs]
+        masks = []
+        for i, d in enumerate(devs):
+            with on_shard(shards is not None, i, d):
+                masks.append(mask.to(d))
         for l, lps in enumerate(zip(*(unstack(s) for s in shards))):
             h, kv = layer_prefill_shards(lps, h, masks, H)
             for i, (k, v) in enumerate(kv):
-                write(k_cache[i], l, k)
-                write(v_cache[i], l, v)
+                with on_shard(shards is not None, i, devs[i]):
+                    write(k_cache[i], l, k)
+                    write(v_cache[i], l, v)
     last_idx = Sx + p_len - 1                                 # [B]
     h_last = h[torch.arange(B, device=h.device), last_idx]   # [B, D]
     logits = h_last.float() @ params["predict"]["w"].float()
@@ -466,7 +489,7 @@ def _decode_buffers(cfg: T2SConfig, B: int, Sx: int, Sp: int, cache_len: int,
     """Zeroed buffers of a geometry (lengths 1, so a capture's warm-up run
     sees a row with something to attend to); ``packed``: the fused
     kernel's packing (B = 1), else None. ``devices``: a tp-sharded set's
-    devices, a cache on each (the eager tp route)."""
+    devices, a cache of ``H/tp`` heads on each."""
     L, H, Dh, D, V = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.embed_dim, cfg.semantic_vocab
     S = cache_len
 
@@ -579,7 +602,10 @@ def _decode_block(params: Params, cfg: T2SConfig, b: DecodeBuffers, *, n_steps: 
                 for l, lp in enumerate(layers):
                     hb = _layer_decode(lp, hb, b.k_cache[l], b.v_cache[l], row, kv_mask, H)
             else:
-                masks = [kv_mask.to(d) for d in devs]
+                masks = []
+                for i, d in enumerate(devs):
+                    with on_shard(shards is not None, i, d):
+                        masks.append(kv_mask.to(d))
                 for l, lps in enumerate(shard_layers):
                     hb = layer_decode_shards(lps, hb, [k[l] for k in b.k_cache],
                                              [v[l] for v in b.v_cache], row, masks, H)
@@ -609,11 +635,15 @@ def _decode_block(params: Params, cfg: T2SConfig, b: DecodeBuffers, *, n_steps: 
 DECODE_BLOCKS = (DONE_READ_EVERY, 1)
 
 
-def _generate_key(B, Sx, Sp, cache_len, max_steps, dtype):
-    """The static geometry a decode graph of :func:`generate` is keyed on.
-    Its programs are variants of one graph on one set of buffers
-    (``Graph.run``): ("prefill", embed flag, top-p flag) and (block
-    length in :data:`DECODE_BLOCKS`, top-p flag)."""
+def _generate_key(B, Sx, Sp, cache_len, max_steps, dtype, tp=1):
+    """The static geometry a decode graph of :func:`generate` is keyed on:
+    the route ("fused" for B = 1 on whole parameters, "flash" for B > 1,
+    "tp" with the tp degree appended for a tp-sharded set). Its programs
+    are variants of one graph on one set of buffers (``Graph.run``):
+    ("prefill", embed flag, top-p flag) and (block length in
+    :data:`DECODE_BLOCKS`, top-p flag)."""
+    if tp > 1:
+        return ("generate", "tp", B, Sx, Sp, cache_len, max_steps, dtype, tp)
     return ("generate", "fused" if B == 1 else "flash", B, Sx, Sp, cache_len,
             max_steps, dtype)
 
@@ -622,17 +652,20 @@ def decode_graph(params: Params, cfg: T2SConfig, B: int, Sx: int, Sp: int,
                  cache_len: int, max_steps: int, dtype):
     """The graph of :func:`generate` at this geometry, from the parameter
     set's cache (its buffers made on a miss), and the fused kernel's
-    packing for B = 1 (made once per parameter set and prepared for
-    ``cache_len`` before any capture)."""
+    packing for B = 1 on whole parameters (made once per parameter set
+    and prepared for ``cache_len`` before any capture). A tp-sharded
+    set's buffers hold a cache per shard on its device
+    (:func:`shard_devices`), the rest on the lead device."""
     cache = graphs.cache_for(params)
     dev = params["audio_embed"].device
+    devs = shard_devices(params)
     packed = None
-    if B == 1:
+    if B == 1 and len(devs) == 1:
         packed = cache.shared("packed", lambda: pack_decode_params(params))
         prepare_fused(packed, cache_len, cfg.num_heads, dev)
-    g = cache.graph(_generate_key(B, Sx, Sp, cache_len, max_steps, dtype),
+    g = cache.graph(_generate_key(B, Sx, Sp, cache_len, max_steps, dtype, tp=len(devs)),
                     lambda: _decode_buffers(cfg, B, Sx, Sp, cache_len, max_steps,
-                                            packed, dtype, dev))
+                                            packed, dtype, dev, devices=devs))
     return g, packed
 
 
@@ -682,24 +715,17 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     Routes: B = 1 on whole parameters runs the fused all-layer kernel; B >
     1 the per-layer route with the flash kernel; a tp-sharded parameter
     set (every B) the per-layer route over its shards' ``H/tp`` heads
-    (``parallel/tp.py::layer_decode_shards``), eagerly, on buffers of its
-    own call. Logits, sampling and the token history stay on the device
-    of ``x``.
+    (``parallel/tp.py::layer_decode_shards``), each shard's cache on its
+    device, in the same graphs (key route "tp"). Logits, sampling and the
+    token history stay on the device of ``x``.
     """
     ms_dyn = max_steps if max_steps_dyn is None else min(int(max_steps_dyn), max_steps)
     embed = isinstance(x, (tuple, list))
     B, Sx = x[0].shape if embed else x.shape[:2]
     Sp = prompts.shape[1]
-    dev = x_len.device
     dtype = params["audio_embed"].dtype
     any_top_p = scfg.top_p < 1.0
-    if layer_shards(params) is not None:
-        # per-shard caches of this call: a graph of no cache, run eagerly
-        g, packed = graphs.Graph(None, None, _decode_buffers(
-            cfg, B, Sx, Sp, cache_len, max_steps, None, dtype, dev,
-            devices=shard_devices(params))), None
-    else:
-        g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps, dtype)
+    g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps, dtype)
     with g.lock:
         b = g.static
         if embed:

@@ -121,20 +121,22 @@ def make_serving_mesh(dp: int = 1, tp: int = 1, devices=None) -> ServingMesh:
                                      for r in range(dp)))
 
 
-def place_tree(tree, device):
+def place_tree(tree, device, copy: bool = False):
     """``tree`` (or a tensor) with every leaf on ``device``: the tree itself
-    when it is there already (its derived caches kept), else a copy."""
+    when it is there already (its derived caches kept) and ``copy`` is
+    not set, else a copy."""
     dev = indexed_device(device)
     if isinstance(tree, torch.Tensor):
-        return tree.to(dev)
+        return tree.to(dev, copy=copy)
     flat = tree_paths(tree)
-    if all(x.device == dev for x in flat.values()):
+    if not copy and all(x.device == dev for x in flat.values()):
         return tree
-    return unflatten_tree({p: x.to(dev) for p, x in flat.items()})
+    return unflatten_tree({p: x.to(dev, copy=copy) for p, x in flat.items()})
 
 
-def shard_serving_params(params, devices):
-    """One replica's T2S parameters over its tp ``devices``.
+def shard_serving_params(params, devices, copy: bool = False):
+    """One replica's T2S parameters over its tp ``devices`` (``copy``: in
+    tensors of its own, even where a leaf is on its device already).
 
     ``tp == 1``: the tree on ``devices[0]``. ``tp > 1``: the leaves outside
     ``layers`` on ``devices[0]``, and under ``layer_shards`` one stacked
@@ -146,9 +148,9 @@ def shard_serving_params(params, devices):
     something else."""
     devices = [indexed_device(d) for d in devices]
     if len(devices) == 1:
-        return place_tree(params, devices[0])
+        return place_tree(params, devices[0], copy)
     tp = len(devices)
-    out = {k: place_tree(v, devices[0])
+    out = {k: place_tree(v, devices[0], copy)
            for k, v in params.items() if k != "layers" and not k.startswith("_")}
     layers = tree_paths(params["layers"])
     out["layer_shards"] = [

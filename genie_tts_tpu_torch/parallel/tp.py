@@ -21,7 +21,11 @@ tp column: :func:`layer_prefill_shards`, :func:`layer_decode_shards` and
 :func:`layer_decode_buffered_shards`. The activation is copied to each
 shard's device, each shard computes its heads and ffn columns, and the
 row-parallel partial sums are copied to the first shard's device and
-added there in rank order, so results do not depend on timing.
+added there in rank order, so results do not depend on timing. Each
+shard's work is queued in :func:`shard_work`: inside a CUDA-graph capture
+(``runtime/graphs.py``) on a capture stream of its tp rank's own, forked
+from the lead card's stream where the work begins and joined back where
+the partial sums are added, so one graph per dp row records every shard.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from ..models import t2s
 from ..models.t2s import _merge_heads, _split_heads
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.layers import attention, layer_norm, linear, matmul
+from ..runtime import graphs
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -100,6 +105,26 @@ def on_device(dev: torch.device):
     return contextlib.nullcontext()
 
 
+@contextlib.contextmanager
+def shard_work(rank: int, dev: torch.device):
+    """Queue tp rank ``rank``'s work on its device ``dev``. In a capture
+    (and its warm-up run) it runs on the rank's capture stream
+    (``graphs.shard_stream``), which first waits for the current stream
+    (the lead card's) and which that stream waits for on exit: the fork
+    and the join of the shard's work. Otherwise ``dev`` is made current
+    (:func:`on_device`) and the work runs on its current stream."""
+    s = graphs.shard_stream(rank, dev)
+    if s is None:
+        with on_device(dev):
+            yield
+        return
+    lead = torch.cuda.current_stream()
+    s.wait_stream(lead)
+    with torch.cuda.stream(s):
+        yield
+    lead.wait_stream(s)
+
+
 def _row_partial(p, x: torch.Tensor) -> torch.Tensor:
     """A row-parallel shard's partial product, without the bias (added once
     after the sum). Int8 weights carry a per-output-channel scale that every
@@ -107,38 +132,40 @@ def _row_partial(p, x: torch.Tensor) -> torch.Tensor:
     return linear({k: v for k, v in p.items() if k != "b"}, x)
 
 
-def _reduce(parts, lead: torch.device) -> torch.Tensor:
-    """The sum of the shards' partials on ``lead``, added in rank order."""
-    out = parts[0].to(lead)
+def _reduce(parts) -> torch.Tensor:
+    """The sum of the shards' partials (each copied to the lead device by
+    its shard), added in rank order."""
+    out = parts[0]
     for x in parts[1:]:
-        out = out + x.to(lead)
+        out = out + x
     return out
 
 
 def _megatron_layer(lps, h: torch.Tensor, num_heads: int, attend):
     """One post-LN decoder layer over tp shards ``lps`` (a layer's tree per
     shard). ``attend(i, q, k, v)`` -> (attention output [B, H/tp, T, Dh],
-    what the caller keeps of shard ``i``'s k/v), on shard ``i``'s device.
-    Returns (hidden on h's device, [kept per shard])."""
+    what the caller keeps of shard ``i``'s k/v), on shard ``i``'s device,
+    in its :func:`shard_work`. Returns (hidden on h's device, [kept per
+    shard])."""
     lead = h.device
     heads = num_heads // len(lps)
     parts, kept = [], []
     for i, lp in enumerate(lps):
         dev = lp["qkv"]["w"].device
-        with on_device(dev):
+        with shard_work(i, dev):
             q, k, v = linear(lp["qkv"], h.to(dev)).chunk(3, dim=-1)
             att, kv = attend(i, *(_split_heads(t, heads) for t in (q, k, v)))
-            parts.append(_row_partial(lp["out"], _merge_heads(att)))
+            parts.append(_row_partial(lp["out"], _merge_heads(att)).to(lead))
             kept.append(kv)
     lp0 = lps[0]
-    h = layer_norm(lp0["norm1"], h + (_reduce(parts, lead) + lp0["out"]["b"]))
+    h = layer_norm(lp0["norm1"], h + (_reduce(parts) + lp0["out"]["b"]))
     parts = []
-    for lp in lps:
+    for i, lp in enumerate(lps):
         dev = lp["qkv"]["w"].device
-        with on_device(dev):
-            parts.append(_row_partial(lp["ffn2"],
-                                      torch.relu(linear(lp["ffn1"], h.to(dev)))))
-    h = layer_norm(lp0["norm2"], h + (_reduce(parts, lead) + lp0["ffn2"]["b"]))
+        with shard_work(i, dev):
+            parts.append(_row_partial(lp["ffn2"], torch.relu(linear(lp["ffn1"], h.to(dev))))
+                         .to(lead))
+    h = layer_norm(lp0["norm2"], h + (_reduce(parts) + lp0["ffn2"]["b"]))
     return h, kept
 
 
@@ -170,17 +197,21 @@ def layer_decode_shards(lps, h: torch.Tensor, k_caches, v_caches, pos,
     return _megatron_layer(lps, h, num_heads, attend)[0]
 
 
-def layer_decode_buffered_shards(lps, h: torch.Tensor, reads, num_heads: int):
+def layer_decode_buffered_shards(lps, h: torch.Tensor, reads, num_heads: int,
+                                 col: int) -> torch.Tensor:
     """``models/t2s.py::_layer_decode_buffered`` over tp shards: ``reads[i]``
     holds shard ``i``'s keyword arguments of
     ``t2s.buffered_attention`` (its big-cache regions and scales of
     ``H/tp`` heads, its write buffer, the masks and the int8 kernel's
     segment context on its device), so the windowed read and the
-    ``int8_big_attention`` kernel run per shard. Returns (hidden, [(k_new,
-    v_new)] per shard, each [B, H/tp, Dh])."""
+    ``int8_big_attention`` kernel run per shard. Each shard writes its new
+    K/V column into column ``col`` of its write buffer ([B, H/tp, Dh, W])
+    in its own work. Returns the hidden state."""
     def attend(i, q, k, v):
         k_new, v_new = k[:, :, 0], v[:, :, 0]
         att = t2s.buffered_attention(q, k_new, v_new, **reads[i])
-        return att, (k_new, v_new)
+        reads[i]["k_buf"][..., col] = k_new
+        reads[i]["v_buf"][..., col] = v_new
+        return att, None
 
-    return _megatron_layer(lps, h, num_heads, attend)
+    return _megatron_layer(lps, h, num_heads, attend)[0]

@@ -16,11 +16,13 @@ codes it decoded: the batched codes -> waveform finisher
 
 Serving over a device mesh (``TTSEngine(mesh=make_serving_mesh(dp, tp))``,
 ``parallel/mesh.py``): ``replicate_character`` / ``shard_character`` give a
-character one replica per dp row, its T2S layers split over the row's tp
+character one replica per dp row (each past the first in weights of its
+own, so in graphs of its own), its T2S layers split over the row's tp
 devices by ``shard_character``. ``synthesize_batch`` runs each dp row's
 block of the batch on its replica, from a pool of dp threads; every other
 path runs on replica 0, whose trees are the character's own fields, so a
-path that knows no mesh is unchanged (and tp-sharded where tp > 1).
+path that knows no mesh is unchanged (and tp-sharded where tp > 1). The
+warmup sweep captures every replica's graphs for what its row reaches.
 
 Lengths are padded to the same bucket ladders as the JAX package, so both
 packages see the same shapes (and the same masks) for a given input.
@@ -310,16 +312,19 @@ class TTSEngine:
             raise ValueError(f"tp={mesh.tp} does not split the T2S decoder's "
                              f"{tcfg.num_heads} heads and ffn_dim {tcfg.ffn_dim}")
         reps = []
-        for row in mesh.devices:
-            lead = row[0]
+        for r, row in enumerate(mesh.devices):
+            # every replica past the first holds weights of its own, on a
+            # mesh that repeats a card too: its graphs (which read weights
+            # by address) are its own, as on a mesh of distinct cards
+            lead, own = row[0], r > 0
             reps.append(dataclasses.replace(
                 char, device=lead, replicas=None, placement=(mesh, shard),
                 t2s_params=shard_serving_params(char.t2s_params,
-                                                row if shard else row[:1]),
-                sovits_params=place_tree(char.sovits_params, lead),
+                                                row if shard else row[:1], copy=own),
+                sovits_params=place_tree(char.sovits_params, lead, own),
                 prompt_encoder_params=(
                     None if char.prompt_encoder_params is None
-                    else place_tree(char.prompt_encoder_params, lead))))
+                    else place_tree(char.prompt_encoder_params, lead, own))))
         r0 = reps[0]
         char.t2s_params, char.sovits_params = r0.t2s_params, r0.sovits_params
         char.prompt_encoder_params, char.device = r0.prompt_encoder_params, r0.device
@@ -335,6 +340,21 @@ class TTSEngine:
                              f"engine's mesh: call shard_character (or "
                              f"replicate_character) first")
         return char.replicas
+
+    def batch_rows(self, B: int) -> Tuple[int, int]:
+        """(padded batch, rows per dp row) of a window batch of ``B`` rows:
+        ``B`` padded to a ``batch_buckets`` size, then to a multiple of dp,
+        and split evenly over the dp rows (:meth:`synthesize_batch`)."""
+        dp = self._dp_size
+        B_pad = max(pick_bucket(B, self.cfg.batch_buckets), B)
+        B_pad = -(-B_pad // dp) * dp
+        return B_pad, B_pad // dp
+
+    def graph_caches(self, char: CharacterModel) -> list:
+        """The graph caches of every replica of ``char`` (each replica's
+        T2S and SoVITS sets: a graph reads its weights by address)."""
+        return [graphs.cache_for(p) for rep in self._replicas(char)
+                for p in (rep.t2s_params, rep.sovits_params)]
 
     def _rows_map(self, fn, reps: List[CharacterModel]) -> list:
         """``fn(r)`` for each dp row ``r``, each with its replica's device
@@ -801,8 +821,7 @@ class TTSEngine:
             seed = self._next_seed()
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         B = len(items)
-        B_pad = max(pick_bucket(B, self.cfg.batch_buckets), B)
-        B_pad = -(-B_pad // dp) * dp
+        B_pad, n = self.batch_rows(B)
         items = list(items) + [items[0]] * (B_pad - B)
         phones_rows = [np.concatenate([r.phones, tp]).astype(np.int64)
                        for r, tp, _ in items]
@@ -829,7 +848,6 @@ class TTSEngine:
         text_b = np.stack([pad_to(np.asarray(tp, np.int64), t_bucket) for _, tp, _ in items])
         ge_b = np.stack([r.ge for r, _, _ in items]).astype(np.float32)
         gm_b = np.stack([r.ge_mrte for r, _, _ in items]).astype(np.float32)
-        n = B_pad // dp
         blocks = [slice(r * n, (r + 1) * n) for r in range(dp)]
         gumbel = gumbel_noise((cap, B_pad, tcfg.semantic_vocab), gen, dev)
         row_stats = [{} for _ in reps]
@@ -906,11 +924,19 @@ class TTSEngine:
         (:func:`stream_warmup_units`), and for a Chinese or hybrid
         character RoBERTa's feature program at every token bucket, once
         per device (``model_manager.roberta_warmup_units``; a character
-        swept later finds them captured). On the CPU nothing is captured:
-        the keys, buffers and variants are recorded. Returns the number of units run; the caches' ``stats``
-        (``graphs.cache_for(char.t2s_params)`` and
-        ``graphs.cache_for(char.sovits_params)``) count the graphs
-        captured.
+        swept later finds them captured). A tp-sharded character's T2S
+        programs are captured as a whole one's (route "tp").
+
+        On a mesh every dp replica is swept for what its dp row can
+        reach (each replica's graphs read its own weights): replica 0
+        everything above, and the window batcher's per-row decode and
+        finisher programs at the rows per dp row of every batch bucket
+        (:meth:`batch_rows`, as :meth:`synthesize_batch` splits a batch);
+        replicas 1 and up those per-row programs alone (every other path
+        runs on replica 0). On the CPU nothing is captured: the keys,
+        buffers and variants are recorded. Returns the number of units
+        run; the caches' ``stats`` (:meth:`graph_caches`) count the
+        graphs captured.
 
         A captured graph reads the weights of the character it was
         captured for, so the sweep warms ``char`` alone (the kernels it
@@ -920,37 +946,43 @@ class TTSEngine:
             bert = np.zeros((8, char.t2s_cfg.bert_dim), np.float32)
             self.synthesize_utterance(char, ref, phones, bert, seed=0)
             return 1
-        tcfg = char.t2s_cfg
-        params = char.t2s_params
-        p_bucket = pick_bucket(len(ref.prompt_tokens), self.cfg.prompt_buckets)
-        cap = pick_bucket(tcfg.max_decode_steps, self.cfg.step_caps)
-        dtype = params["audio_embed"].dtype
-        units = []
+        cfg, tcfg = self.cfg, char.t2s_cfg
+        reps = self._replicas(char)
+        p_bucket = pick_bucket(len(ref.prompt_tokens), cfg.prompt_buckets)
+        cap = pick_bucket(tcfg.max_decode_steps, cfg.step_caps)
+        # the rows a dp row decodes and vocodes of each window batch bucket
+        rows = ({self.batch_rows(b)[1] for b in cfg.batch_buckets}
+                if cfg.serve_batching else set())
 
-        def decode(B, xb):
+        def decode(params, B, xb):
             # every program of the geometry's graph captured on its zeroed
             # buffers (on the CPU: its key and variants recorded)
             g, packed = t2s.decode_graph(params, tcfg, B, xb, p_bucket, xb + p_bucket + cap,
-                                         cap, dtype)
+                                         cap, params["audio_embed"].dtype)
             with g.lock:
                 for variant, fn in t2s.generate_programs(params, tcfg, xb, p_bucket,
                                                          packed).items():
                     g.prepare(fn, variant)
 
-        if t2s.layer_shards(params) is None:
-            batch = [1] + ([b for b in self.cfg.batch_buckets if b > 1]
-                           if self.cfg.serve_batching else [])
-            for B in batch:
-                for xb in self.cfg.phoneme_buckets:
-                    units.append(functools.partial(decode, B, xb))
+        units = []
+        for r, rep in enumerate(reps):
+            batch = set(rows)
+            if r == 0:
+                batch |= {1} | ({b for b in cfg.batch_buckets if b > 1}
+                                if cfg.serve_batching else set())
+            for B in sorted(batch):
+                for xb in cfg.phoneme_buckets:
+                    units.append(functools.partial(decode, rep.t2s_params, B, xb))
         units += self.solo_warmup_units(char)
-        if self.cfg.serve_batching:
-            units += self.finisher_warmup_units(char)
-        if self.cfg.serve_slots:
+        if cfg.serve_batching:
+            units += self.finisher_warmup_units(char, b_buckets=set(cfg.batch_buckets) | rows)
+            for rep in reps[1:]:
+                units += self.finisher_warmup_units(rep, b_buckets=rows)
+        if cfg.serve_slots:
             from .slot_batcher import slot_warmup_units
 
             units.extend(slot_warmup_units(self, char))
-        if self.cfg.stream_segmented:
+        if cfg.stream_segmented:
             from .stream import stream_warmup_units
 
             units.extend(stream_warmup_units(self, char))
@@ -960,9 +992,11 @@ class TTSEngine:
             units.extend(model_manager.roberta_warmup_units(char.device))
         with metrics.timer("warmup_sweep"):
             n = self._run_compile_units(units)
-        logger.info("warmup sweep ran %d units, %d + %d graphs captured (T2S + SoVITS)", n,
-                    graphs.cache_for(params).stats["captures"],
-                    graphs.cache_for(char.sovits_params).stats["captures"])
+        caches = self.graph_caches(char)
+        logger.info("warmup sweep ran %d units over %d replica(s), %d + %d graphs captured "
+                    "(T2S + SoVITS)", n, len(reps),
+                    sum(c.stats["captures"] for c in caches[0::2]),
+                    sum(c.stats["captures"] for c in caches[1::2]))
         return n
 
     def chunk_widths(self, F: int) -> set:
@@ -989,19 +1023,22 @@ class TTSEngine:
                     (1, min(chunk + 2 * halo, F))}
         return sovits_warmup_units(char, latents, vocodes)
 
-    def finisher_warmup_units(self, char: CharacterModel, t_buckets=None) -> list:
+    def finisher_warmup_units(self, char: CharacterModel, t_buckets=None,
+                              b_buckets=None) -> list:
         """Warmup thunks for the batched codes -> waveform tails
         (:meth:`vocode_codes_dispatch`, and :meth:`synthesize_batch`'s
         finish): a capture of the latent program at every (batch, frame,
         text) bucket they can hit, and of the vocode program at every
         window of the chunked HiFi-GAN at every batch bucket.
         ``t_buckets`` narrows the text ladder (the slot batcher pins one
-        text bucket)."""
+        text bucket); ``b_buckets`` replaces the batch ladder (a dp row's
+        rows, :meth:`batch_rows`)."""
         cfg = self.cfg
         t_buckets = tuple(t_buckets or cfg.phoneme_buckets)
-        latents = {(b, fb, tb) for b in cfg.batch_buckets for fb in cfg.frame_buckets
+        b_buckets = sorted(cfg.batch_buckets if b_buckets is None else b_buckets)
+        latents = {(b, fb, tb) for b in b_buckets for fb in cfg.frame_buckets
                    for tb in t_buckets}
-        vocodes = {(b, w) for b in cfg.batch_buckets for fb in cfg.frame_buckets
+        vocodes = {(b, w) for b in b_buckets for fb in cfg.frame_buckets
                    for w in self.chunk_widths(2 * fb)}
         return sovits_warmup_units(char, latents, vocodes)
 

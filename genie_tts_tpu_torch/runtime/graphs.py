@@ -23,7 +23,14 @@ captured once per geometry as a CUDA graph and then replayed:
 
 A capture first runs the program once on the device's capture stream
 (lazy work: kernel builds, library handles, convolution plans), puts the
-buffers back as they were, then captures it on that stream. Each graph of a T2S set (a decode geometry)
+buffers back as they were, then captures it on that stream. A program
+over tp shards (``parallel/tp.py``) forks each shard's work onto a capture
+stream of that tp rank's own (:func:`shard_stream`) and joins it back at
+each reduction, in the warm-up run and in the capture: one graph per dp
+row, replayed on the row's lead device. Its buffers and shards may span
+several cards: the capture's memory on each card other than the lead
+comes from a pool of the graph's own on that card, held as long as the
+graph. Each graph of a T2S set (a decode geometry)
 captures its programs in a private memory pool, which its variants share
 (its lock runs them one at a time), so graphs that different threads
 replay at once never share memory. A SoVITS set's graphs (the latent and vocode
@@ -44,6 +51,7 @@ program runs eagerly on the same buffers, with the same keys and counts.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import weakref
@@ -61,6 +69,52 @@ _capture_lock = threading.Lock()
 # them, so captures that share a pool (a graph's variants, a family) must
 # share one stream
 _capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+# the capture stream of each tp rank on its device (:func:`shard_stream`)
+_shard_streams: Dict[tuple, "torch.cuda.Stream"] = {}
+# set on the capturing thread for a warm-up run and a capture
+_capturing = threading.local()
+
+
+def shard_stream(rank: int, dev: torch.device) -> "Optional[torch.cuda.Stream]":
+    """The capture stream of tp rank ``rank`` on ``dev`` while this thread
+    runs a capture (or its warm-up run) and ``dev`` is a card; None
+    otherwise (the shard's work then runs on the device's current
+    stream). One per rank, not one per device: on a mesh that repeats a
+    card, the shards' work still forks and joins."""
+    if dev.type != "cuda" or not getattr(_capturing, "on", False):
+        return None
+    key = (dev, rank)
+    s = _shard_streams.get(key)
+    if s is None:
+        s = _shard_streams[key] = torch.cuda.Stream(dev)
+    return s
+
+
+@contextlib.contextmanager
+def _capturing_on():
+    _capturing.on = True
+    try:
+        yield
+    finally:
+        _capturing.on = False
+
+
+@contextlib.contextmanager
+def on_device_stream(dev: torch.device):
+    """Make ``dev`` current, its work ordered with the current stream of
+    the card that was current: ``dev``'s current stream waits for it on
+    entry, and it waits for ``dev``'s on exit. The copies into and out of
+    a graph's buffers on another card than the lead go through this (a
+    replay runs on the lead card's current stream). Nothing on the CPU or
+    on the current card."""
+    if dev.type != "cuda" or dev == torch.device("cuda", torch.cuda.current_device()):
+        yield
+        return
+    here, there = torch.cuda.current_stream(), torch.cuda.current_stream(dev)
+    there.wait_stream(here)
+    with torch.cuda.device(dev):
+        yield
+    here.wait_stream(there)
 
 
 def tensors_of(obj) -> List[torch.Tensor]:
@@ -104,15 +158,25 @@ class Graph:
         self.lock = (cache.family_lock if cache is not None and cache.family
                      else threading.Lock())
         self._cache = cache
-        # variant -> (CUDA graph, kernel launches per replay, pool bytes),
-        # or None on the CPU (nothing to capture)
+        # variant -> (CUDA graph, kernel launches per replay, {device: pool
+        # bytes}), or None on the CPU (nothing to capture)
         self._graphs: Dict[Hashable, Optional[tuple]] = {}
         self._pool = None        # the memory pool of this graph's captures
+        # its pools on the cards other than the lead, by device
+        self._device_pools: Dict[torch.device, object] = {}
+
+    def pool_bytes_by_device(self) -> Dict[torch.device, int]:
+        """Card memory the captures reserved for their pools, by card."""
+        out: Dict[torch.device, int] = {}
+        for g in self._graphs.values():
+            for d, n in (g[2] if g is not None else {}).items():
+                out[d] = out.get(d, 0) + n
+        return out
 
     @property
     def pool_bytes(self) -> int:
         """Card memory the captures reserved for their pools."""
-        return sum(g[2] for g in self._graphs.values() if g is not None)
+        return sum(self.pool_bytes_by_device().values())
 
     @property
     def variants(self) -> list:
@@ -146,38 +210,56 @@ class Graph:
     def _capture(self, fn: Callable) -> tuple:
         bufs = tensors_of(self.static)
         dev = bufs[0].device
+        devs = list(dict.fromkeys(t.device for t in bufs if t.is_cuda))
+        others = [d for d in devs if d != dev]
         with _capture_lock, torch.cuda.device(dev):
-            main = torch.cuda.current_stream(dev)
             side = _capture_streams.get(dev)
             if side is None:
                 side = _capture_streams[dev] = torch.cuda.Stream(dev)
             saved = [t.clone() for t in bufs]
-            side.wait_stream(main)
+            for d in devs:
+                torch.cuda.synchronize(d)
             # the warm-up run: what is built or allocated once (kernels,
             # cuBLAS handles) happens here, outside the capture; its
             # launches are not counted. It writes only this graph's
             # buffers, so it may run beside other threads' replays.
-            with torch.cuda.stream(side), _build.recording():
+            with torch.cuda.stream(side), _build.recording(), _capturing_on():
                 fn(self.static)
-            main.wait_stream(side)
+            # every card's share of the run done before the buffers are put
+            # back (a buffer on another card is restored on its stream there)
+            for d in devs:
+                torch.cuda.synchronize(d)
             for t, s in zip(bufs, saved):
                 t.copy_(s)
             del saved
-            torch.cuda.synchronize(dev)
-            before = torch.cuda.memory_reserved(dev)
+            for d in devs:
+                torch.cuda.synchronize(d)
+            before = {d: torch.cuda.memory_reserved(d) for d in devs}
             graph = torch.cuda.CUDAGraph()
             pool = self._cache.pool() if self._cache.family else self._pool
             # capture_begin / capture_end, not torch.cuda.graph: its entry
             # collects garbage and empties the allocator's cache, which
             # costs a sweep time and hides the pool's growth from the count
-            with _build.recording() as rec, torch.cuda.stream(side):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    fn(self.static)
-                finally:
-                    graph.capture_end()
+            with contextlib.ExitStack() as routed:
+                # the capture_begin pool serves the lead card only: this
+                # thread's allocations on every other card go to the
+                # graph's pool there
+                for d in others:
+                    mp = self._device_pools.get(d)
+                    if mp is None:
+                        with torch.cuda.device(d):
+                            mp = self._device_pools[d] = torch.cuda.MemPool()
+                    routed.enter_context(torch.cuda.use_mem_pool(mp, d))
+                with (_build.recording() as rec, torch.cuda.stream(side),
+                      _capturing_on()):
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        fn(self.static)
+                    finally:
+                        graph.capture_end()
             self._pool = graph.pool()
-            return graph, dict(rec), max(torch.cuda.memory_reserved(dev) - before, 0)
+            grown = {d: max(torch.cuda.memory_reserved(d) - n, 0) for d, n in before.items()}
+            return graph, dict(rec), grown
 
 
 class GraphCache:
@@ -259,9 +341,21 @@ class GraphCache:
     def buffer_bytes(self) -> int:
         """Bytes of the graphs' static buffers (a persistent slot state's
         once)."""
+        return sum(self.bytes_by_device()[1].values())
+
+    def bytes_by_device(self) -> tuple:
+        """({device: pool bytes}, {device: static buffer bytes}) of the
+        set's graphs (a persistent slot state's buffers once)."""
+        pools: Dict[torch.device, int] = {}
+        bufs: Dict[torch.device, int] = {}
         with self._lock:
             seen = {id(t): t for g in self._graphs.values() for t in tensors_of(g.static)}
-        return sum(t.numel() * t.element_size() for t in seen.values())
+            for g in self._graphs.values():
+                for d, n in g.pool_bytes_by_device().items():
+                    pools[d] = pools.get(d, 0) + n
+        for t in seen.values():
+            bufs[t.device] = bufs.get(t.device, 0) + t.numel() * t.element_size()
+        return pools, bufs
 
     def clear(self) -> None:
         """Let go of every graph and shared object: the parameter set is
@@ -282,12 +376,16 @@ _caches_lock = threading.RLock()   # the drop callback may run inside cache_for
 
 def cache_for(params) -> GraphCache:
     """The graph cache of a parameter set, found by one of its tensors
-    and dropped with it: a T2S set's by ``audio_embed``; a SoVITS set's by
-    ``quantizer_embed`` and a RoBERTa set's by ``word_embed``, each a
-    family (one pool, one lock)."""
+    and dropped with it: a T2S set's by ``audio_embed`` (a tp-sharded
+    set's by its first shard's qkv weight, its own: its other leaves may
+    be the whole set's); a SoVITS set's by ``quantizer_embed`` and a
+    RoBERTa set's by ``word_embed``, each a family (one pool, one
+    lock)."""
     name = next(n for n in ("audio_embed", "quantizer_embed", "word_embed") if n in params)
     family = name != "audio_embed"
     t = params[name]
+    if "layer_shards" in params:
+        t = params["layer_shards"][0]["qkv"]["w"]
     k = id(t)
     with _caches_lock:
         hit = _caches.get(k)

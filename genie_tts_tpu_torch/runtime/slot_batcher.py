@@ -49,8 +49,8 @@ width, read windows and top-p flag, captured on that state
 release (``slots.insert_slot`` / ``release_slot``, the slot index in
 device memory), as the JAX package's ``_prefill_jit``, ``_insert_jit``
 and ``_release_jit``; a streaming row's speculative codes are the graph
-of :func:`spec_codes` (``_spec_codes_jit``). A tp-sharded character
-joins and decodes eagerly. The host keeps a mirror of the ring head.
+of :func:`spec_codes` (``_spec_codes_jit``), a tp-sharded character's
+too. The host keeps a mirror of the ring head.
 :func:`slot_warmup_units` captures every one of these programs the
 scheduler can reach, on a state it then leaves for the character's next
 slot machine, and the finisher's and window pump's SoVITS programs,
@@ -144,16 +144,12 @@ def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotSt
     """An empty slot machine state of the character at the engine's slot
     geometry, for the caller alone: a persistent one
     (``TTSEngine.take_slot_state``: the buffers its segment graphs replay
-    on), or a new one for a tp-sharded character (which decodes
-    eagerly)."""
+    on; a tp-sharded character's holds its caches per shard)."""
     cfg, tcfg = engine.cfg, char.t2s_cfg
     B, _, ring, sx, sp = slot_geometry(cfg, tcfg)
     params = char.t2s_params
     kw = dict(dtype=params["audio_embed"].dtype, kv_int8=cfg.slot_kv_int8,
-              device=char.device)
-    if len(shard_devices(params)) > 1:
-        return slots_mod.init_slots(tcfg, B, sx, sp, ring, tp_devices=shard_devices(params),
-                                    **kw)
+              device=char.device, tp_devices=shard_devices(params))
     state = engine.take_slot_state(char, _state_key(engine, char),
                                    lambda: slots_mod.init_slots(tcfg, B, sx, sp, ring, **kw))
     return slots_mod.reset_slots(state, ring)
@@ -161,12 +157,8 @@ def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotSt
 
 def join_warmup_units(char: CharacterModel, sx: int, sp: int) -> list:
     """Warmup thunks capturing the join program (``slots.prefill_join``)
-    at (Sx, Sp): each variant, with and without BERT features and top-p
-    (a tp-sharded character's join runs eagerly: none)."""
-    params = char.t2s_params
-    if len(shard_devices(params)) > 1:
-        return []
-    g, progs = slots_mod.join_graph(params, char.t2s_cfg, sx, sp)
+    at (Sx, Sp): each variant, with and without BERT features and top-p."""
+    g, progs = slots_mod.join_graph(char.t2s_params, char.t2s_cfg, sx, sp)
 
     def capture(variant):
         with g.lock:
@@ -224,21 +216,20 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
         engine.offer_slot_state(char, _state_key(engine, char),
                                 slots_mod.reset_slots(state, ring))
 
-    if len(shard_devices(params)) == 1:
-        for cw, rw in seg_window_combos(cfg, sx, sp, ring):
+    for cw, rw in seg_window_combos(cfg, sx, sp, ring):
+        for w in seg_widths(cfg, ring):
+            for top_p in (False, True):
+                units.append(functools.partial(segment, w, cw, rw, top_p))
+    spec = spec_geometry(cfg)
+    if spec is not None:
+        count, fb = spec
+        rows = sorted({max(pick_bucket(r, cfg.batch_buckets), r) for r in range(1, B + 1)})
+        for r in rows:
             for w in seg_widths(cfg, ring):
-                for top_p in (False, True):
-                    units.append(functools.partial(segment, w, cw, rw, top_p))
-        spec = spec_geometry(cfg)
-        if spec is not None:
-            count, fb = spec
-            rows = sorted({max(pick_bucket(r, cfg.batch_buckets), r) for r in range(1, B + 1)})
-            for r in rows:
-                for w in seg_widths(cfg, ring):
-                    if w >= count - 1:     # _spec_first_pieces' own guard
-                        units.append(functools.partial(
-                            _prepare_spec, params, r, B, w, fb, count,
-                            char.sovits_cfg.vq_codes))
+                if w >= count - 1:     # _spec_first_pieces' own guard
+                    units.append(functools.partial(
+                        _prepare_spec, params, r, B, w, fb, count,
+                        char.sovits_cfg.vq_codes))
     # window-pump programs: streaming rows pump per row even without the
     # machine-wide flag, so a server must have them warm
     units.extend(engine.window_warmup_units(char, wins=pump_windows(cfg),

@@ -30,8 +30,8 @@ segment replay the graphs captured on it (``models/slots.py``), as each
 prefix latent and window vocode replays a SoVITS program
 (``models/sovits.py``; one window width per frame bucket);
 :func:`stream_warmup_units` captures them ahead of traffic. A tp-sharded
-character's machine holds its caches per shard (``models/slots.py``),
-joins and decodes eagerly and gives the same chunks.
+character's machine holds its caches per shard (``models/slots.py``), in
+the same graphs, and gives the same chunks.
 """
 from __future__ import annotations
 
@@ -75,15 +75,13 @@ def take_stream_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.Slot
     """An empty solo machine state at the stream geometry for one
     request: a persistent one (``TTSEngine.take_slot_state``: one a sweep
     or an earlier stream left, its graphs captured on it; the caller
-    offers it back), or a new one per request for a tp-sharded character
-    (which joins and decodes eagerly)."""
+    offers it back; a tp-sharded character's holds its caches per
+    shard)."""
     tcfg = char.t2s_cfg
     _, ring, sx, sp = stream_geometry(engine.cfg, tcfg)
     params = char.t2s_params
-    kw = dict(dtype=params["audio_embed"].dtype, device=char.device)
-    if len(shard_devices(params)) > 1:
-        return slots_mod.init_slots(tcfg, 1, sx, sp, ring,
-                                    tp_devices=shard_devices(params), **kw)
+    kw = dict(dtype=params["audio_embed"].dtype, device=char.device,
+              tp_devices=shard_devices(params))
     state = engine.take_slot_state(char, _stream_state_key(char, ring, sx, sp),
                                    lambda: slots_mod.init_slots(tcfg, 1, sx, sp, ring, **kw))
     return slots_mod.reset_slots(state, ring)
@@ -272,8 +270,7 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
         metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
         metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
     finally:
-        if state.persistent:
-            engine.offer_slot_state(char, _stream_state_key(char, ring, sx, sp), state)
+        engine.offer_slot_state(char, _stream_state_key(char, ring, sx, sp), state)
 
 
 def stream_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
@@ -301,8 +298,7 @@ def stream_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
         slots_mod.decode_segment(params, state, tcfg, W, sx, sp, ring, generator=gen)
         engine.offer_slot_state(char, _stream_state_key(char, ring, sx, sp), state)
 
-    if len(shard_devices(params)) == 1:
-        units += [functools.partial(segment, top_p) for top_p in (False, True)]
+    units += [functools.partial(segment, top_p) for top_p in (False, True)]
     head_cb = pick_bucket(W + 1, cfg.frame_buckets)
     win = cfg.stream_chunk + 2 * cfg.vocode_halo
     latents = ({(1, head_cb, tb) for tb in cfg.phoneme_buckets}
