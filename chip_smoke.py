@@ -58,23 +58,32 @@ Phases, each of which must pass:
 9a. graphs (every decode, prefill and SoVITS stage above runs as CUDA-graph
    replays, captured on first use): with ``serve --warmup``'s flag
    (``api.sweep_on_reference``), phase 3's character loaded as ``graphs``
-   and then as ``graphs2`` through the server, each swept at its
-   ``/set_reference_audio`` (``graphs`` on the full bucket ladder,
-   ``graphs2`` on a shorter one: depth cut for time) (units, graphs
-   captured, client wall time, pool and static-buffer memory, the T2S and
-   SoVITS families apart); solo ``tts()`` after the sweep (its stage split,
-   and its embed, prefill, decode, latent and vocode as replays only: no
-   miss, no capture); per character 4 concurrent ``/tts`` (int8 slot
+   through the server and swept at its ``/set_reference_audio`` (units,
+   graphs captured, client wall time, pool and static-buffer memory, the
+   T2S and SoVITS families apart); solo ``tts()`` after the sweep (its
+   stage split, and its embed, prefill, decode, latent and vocode as
+   replays only: no miss, no capture); 4 concurrent ``/tts`` (int8 slot
    route), a short stream (segmented) and a long one (fused head) with no
    miss, no new variant and no capture in either cache, then a short
    stream sent while 3 default ``/tts`` occupy the slot machine (the
    slot-joined stream: its join and speculative codes replayed), with the
-   ``slot_join`` timer of the 4 requests; for ``graphs`` the
-   long stream again and top-p 0.8 requests; then the character cache cut
-   to 1 evicts ``graphs2`` and ``memory_reserved`` after ``gc`` and
-   ``empty_cache`` must fall by at least its pools, and the first
-   ``/tts`` after it reloads ``graphs2``, waits for its sweep and is
-   timed. Graph vs eager on the
+   ``slot_join`` timer of the 4 requests; the long stream again and top-p
+   0.8 requests. Then ``graphs2``, a second random character of the same
+   configuration (other weights), loaded after the sweep: its
+   ``/set_reference_audio`` runs 0 sweep units and captures nothing (its
+   wall time beside the sweep's, the ``memory_reserved`` it adds beside
+   its weights), and the same routes serve it with no miss and no capture.
+   The two interleaved (A, B, A): B=1 fused and B=4 flash ``generate`` and
+   slot segments at occupancy 8 on two persistent int8 states in turn,
+   each character's codes identical to its own eager run on one noise and
+   the two characters' codes different; 2 ``/tts`` of each at once on
+   their slot machines (no miss, no capture; ``binds``, ``bind_bytes``);
+   a bind's device ms by CUDA events and the bank's MiB per family. The
+   character cache cut to 1 evicts ``graphs2``: ``memory_allocated`` must
+   fall by at least its weights and its slot machine's state, the
+   configuration's graph keys stay, and the first ``/tts`` after it
+   reloads ``graphs2`` with 0 sweep units and no miss (timed). Graph vs
+   eager on the
    same noise: the prefill program and decode of B=1 fused and B=4 flash
    ``generate`` at a 40-step cap (codes identical, and identical to the
    embedded-input route), five B=1 decodes captured while another thread
@@ -116,7 +125,11 @@ Phases, each of which must pass:
    counts, histogram), a slot segment at occupancy 8 after graph joins
    (int8, every state leaf and each shard's caches) and a
    segmented-stream segment: identical, each one's device ms graph and
-   eager. (d) and (h) a dp-only 2x1 mesh, swept: solo ``tts()``, one fused
+   eager. A second 2x2 character of the configuration (other weights)
+   then loads on the swept engine: its sweep runs 0 units, and a solo
+   ``tts()`` and a ``/tts`` serve it with no capture and no miss in any
+   replica's cache; each unload frees every replica's weights and keeps
+   the configurations' caches. (d) and (h) a dp-only 2x1 mesh, swept: solo ``tts()``, one fused
    launch per step; a B=4 ``synthesize_batch`` with no miss in replica 1's
    caches. (e) fp32 greedy parity of 2x2 against 1x1 at a 64-step cap:
    identical codes (else the first step that differs and 1x1's top-2 logit
@@ -422,6 +435,42 @@ def make_character(torch, root: Path, tcfg_over):
         + 0.02 * rng.standard_normal(t.size)
     write_wav(root / "ref.wav", ref.astype(np.float32), 32000)
     return char, hub, root / "ref.wav"
+
+
+def make_second_character(torch, root: Path) -> Path:
+    """Another random character of phase 3's configuration, with other
+    weights (seed 1), written as phase 3's is (once); returns its dir."""
+    from genie_tts_tpu_torch.config import T2SConfig
+    from genie_tts_tpu_torch.convert.io import save_character_config, save_params
+    from genie_tts_tpu_torch.runtime.engine import make_random_character
+
+    d = root / "char2"
+    if not d.exists():
+        tcfg_over = {"max_decode_steps": 128}
+        rc = make_random_character(t2s_cfg=T2SConfig(**tcfg_over), eos_boost=0.0, seed=1,
+                                   device=DEV)
+        d.mkdir(parents=True)
+        save_params(rc.t2s_params, d / "t2s.safetensors")
+        save_params(rc.sovits_params, d / "vits.safetensors")
+        save_character_config(d / "config.json", version="v2", language="ja",
+                              extra={"t2s": tcfg_over})
+    return d
+
+
+def tree_bytes(*trees) -> int:
+    """Bytes of the device storages the tensors of parameter trees hold
+    (each storage once; the fused packing included)."""
+    from genie_tts_tpu_torch.runtime import graphs
+
+    seen = {}
+    for tree in trees:
+        if tree is None:
+            continue
+        for _, t in graphs.tree_leaves(tree):
+            if hasattr(t, "untyped_storage") and t.is_cuda:
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 def phase_tts(torch, root: Path):
@@ -1799,17 +1848,20 @@ def phase_graphs(torch, root: Path, card: str):
     """The sentence programs as captured CUDA graphs (``runtime/graphs.py``).
 
     (1) ``serve --warmup``'s semantics: phase 3's character loaded as
-    ``graphs`` and as ``graphs2`` through the port's server, each swept
-    at its first /set_reference_audio (units, graphs captured, wall time,
-    pool and buffer memory, the T2S and SoVITS families apart); solo
-    ``tts()`` (stage split, nothing captured), and per character 4
-    concurrent /tts (the int8 slot route), one short stream (the segmented
-    stream, idle machine) and one long stream (the fused head); for
-    ``graphs`` the long stream again and top-p 0.8 requests: no miss, no
-    new variant, no capture. Then the character cache cut to 1 evicts
-    ``graphs2``: ``memory_reserved`` falls by at least its pools; the
-    first /tts after it reloads ``graphs2`` and waits for its sweep
-    (timed beside the first sweep). (2)
+    ``graphs`` through the port's server and swept at its first
+    /set_reference_audio (units, graphs captured, wall time, pool and
+    buffer memory, the T2S and SoVITS families apart); solo ``tts()``
+    (stage split, nothing captured), 4 concurrent /tts (the int8 slot
+    route), one short stream (the segmented stream, idle machine) and one
+    long stream (the fused head), the long stream again and top-p 0.8
+    requests: no miss, no new variant, no capture. ``graphs2``, another
+    random character of the configuration, loaded after: 0 sweep units,
+    nothing captured, served by the same routes with no miss; the two
+    interleaved (graph vs eager codes, each its own) and at once; a
+    bind's device ms. Then the character cache cut to 1 evicts
+    ``graphs2``: ``memory_allocated`` falls by at least its weights and
+    state, the graphs stay, and the first /tts after it reloads
+    ``graphs2`` with no sweep. (2)
     Graph vs eager on the same noise: codes identical for B=1 fused and
     B=4 flash ``generate`` with a 40-step cap (the prefill program, then
     blocks of 16, 16 and 7), one slot segment at occupancy 8 from the
@@ -1930,17 +1982,17 @@ def phase_graphs(torch, root: Path, card: str):
         sync(torch)
         wall = time.perf_counter() - t0
         char = api.model_manager.get(name)
-        check(units_of.get(name) and api._swept[name][0]() is char,
+        check(units_of.get(name) and units_of[name][0] > 0,
               f"{name} was not swept at its /set_reference_audio")
         fam = {}
         for fname, c in caches_of(char).items():
             keys = c.keys()
-            fam[fname] = dict(keys=len(keys), captured=c.stats["captures"],
+            fam[fname] = dict(keys=len(keys), captured=captured_programs(c),
                               pool_mib=mb(c.pool_bytes()), buffers_mib=mb(c.buffer_bytes()),
                               by_kind={kind: sum(k[0] == kind for k in keys)
                                        for kind in sorted({k[0] for k in keys})})
-            check(c.stats["captures"] >= len(keys) > 0,
-                  f"{name} {fname}: {c.stats['captures']} graphs for {len(keys)} keys")
+            check(fam[fname]["captured"] >= len(keys) > 0,
+                  f"{name} {fname}: {fam[fname]['captured']} graphs for {len(keys)} keys")
         total = sum(f["pool_mib"] + f["buffers_mib"] for f in fam.values())
         split = {k: round(v, 2) for k, v in split_of["last"].items()}
         print(f"[graphs] {name} ({ladder}): swept at its /set_reference_audio: "
@@ -1999,7 +2051,7 @@ def phase_graphs(torch, root: Path, card: str):
                   and np.unique(np.frombuffer(body, "<i2")).size > 1000,
                   f"graphs serving {name}: HTTP {status}, {len(body)} bytes")
         stats = {n: dict(c.stats) for n, c in cs.items()}
-        print(f"[graphs] {name} served after its sweep: 4 x /tts latency "
+        print(f"[graphs] {name} served warm (its configuration swept): 4 x /tts latency "
               + ", ".join(f"{r[3]:.3f}" for r in tts4) + f" s (slot_join timer, host clock: "
               f"{json.dumps(joins)}); short stream (segmented) first chunk "
               f"{short[2]:.3f} s, end {short[3]:.3f} s; long stream (fused head) first chunk "
@@ -2072,79 +2124,209 @@ def phase_graphs(torch, root: Path, card: str):
         print(f"[graphs] top-p 0.8 and the long stream again: caches {json.dumps(stats)}")
         check(all(st["misses"] == st["variants"] == st["captures"] == 0 and st["hits"] > 0
                   for st in stats.values()), f"serving after the sweep missed the cache: {stats}")
-        # the second character on a shorter bucket ladder (batch buckets 1
-        # and 4, frame buckets 64-256: every key its routes below reach):
-        # depth cut, not width, to keep the run inside its time limit
-        full_cfg = api.engine.cfg
-        short_cfg = dataclasses.replace(full_cfg, batch_buckets=(1, 4),
-                                        frame_buckets=(64, 128, 256))
-        api.engine.cfg = short_cfg
-        try:
-            sweep2 = load_swept("graphs2", "a shorter ladder: batch buckets (1, 4), frame "
-                                           "buckets (64, 128, 256), depth cut for time")
-            served2 = serve_routes("graphs2")
-        finally:
-            api.engine.cfg = full_cfg
+        # ---- the second character: another random character of this
+        # configuration (other weights), loaded after the sweep: its
+        # /set_reference_audio sweeps nothing and captures nothing, and it
+        # binds the configuration's graphs as "graphs" does
+        char2_dir = make_second_character(torch, root)
+        for c in (cache, vcache):
+            c.reset_stats()
+        gc.collect()
+        sync(torch)
+        mem0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        for path, payload in (
+                ("/load_character", {"character_name": "graphs2", "model_dir": str(char2_dir),
+                                     "language": "ja"}),
+                ("/set_reference_audio", {"character_name": "graphs2",
+                                          "audio_path": str(root / "ref.wav"),
+                                          "audio_text": ref_text, "language": "ja"})):
+            check(post(path, payload)[0] == 200, f"graphs {path} (graphs2)")
+        sync(torch)
+        wall2 = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_reserved()
+        char2 = api.model_manager.get("graphs2")
+        weights2 = tree_bytes(char2.t2s_params, char2.sovits_params)
+        ref_stats = {n: dict(c.stats) for n, c in caches_of(char2).items()}
+        check(caches_of(char2) == caches_of(char) and not any(units_of.get("graphs2", []))
+              and all(st["misses"] == st["captures"] == 0 for st in ref_stats.values()),
+              f"graphs2's /set_reference_audio swept: units {units_of.get('graphs2')}, "
+              f"caches {ref_stats}")
+        print(f"[graphs] graphs2 (another random character of the configuration, other "
+              f"weights) loaded after the sweep: load + reference {wall2:.2f} s (client "
+              f"clock), {sum(units_of.get('graphs2', []))} sweep units, 0 graphs captured (caches "
+              f"{json.dumps(ref_stats)}), beside graphs's load + reference + sweep "
+              f"{sweep['wall_s']:.1f} s; memory_reserved +{mb(mem1 - mem0):.1f} MiB (its "
+              f"weights {mb(weights2):.1f} MiB), beside the {sweep['gib']:.2f} GiB of graphs "
+              f"graphs's sweep made (a character's sweep cost 6.33 GiB before: PERF.md); {card}")
+        served2 = serve_routes("graphs2")
+
+        # interleaved A, B, A: each character's codes identical to its own
+        # eager run on one noise, the two characters' codes different
+        # (B=1 fused: the bank's packing and tiles rebound; B=4 flash)
+        tcfg = char.t2s_cfg
+        gi = torch.Generator(device=DEV).manual_seed(11)
+        Sx_i, Sp_i, cap_i = 64, 256, 40
+        inter = {}
+        for B in (1, 4):
+            phones_i = torch.randint(1, tcfg.phoneme_vocab, (B, Sx_i), generator=gi, device=DEV)
+            bert_i = torch.randn((B, Sx_i, tcfg.bert_dim), generator=gi, device=DEV)
+            prompts_i = torch.randint(0, 1024, (B, Sp_i), generator=gi, device=DEV)
+            lens_i = (torch.tensor([40, 64, 23, 51][:B], device=DEV),
+                      torch.tensor([132, 256, 77, 190][:B], device=DEV))
+            noise_i = gumbel_noise((cap_i, B, tcfg.semantic_vocab), gi, DEV)
+
+            def codes_of(c, eager):
+                with torch.inference_mode():
+                    r = t2s.generate(c.t2s_params, tcfg, SamplingConfig(), None,
+                                     (phones_i, bert_i), lens_i[0], prompts_i, lens_i[1],
+                                     max_steps=cap_i, cache_len=Sx_i + Sp_i + cap_i,
+                                     min_steps=cap_i, noise=noise_i, eager=eager)
+                return r.tokens.cpu()
+
+            got = [codes_of(c, False) for c in (char, char2, char)]
+            eager_ab = [codes_of(c, True) for c in (char, char2)]
+            ok = (torch.equal(got[0], eager_ab[0]) and torch.equal(got[2], eager_ab[0])
+                  and torch.equal(got[1], eager_ab[1]) and not torch.equal(got[0], got[1]))
+            inter[f"generate B={B}"] = ok
+            check(ok, f"interleaved generate B={B}: graph codes not each character's own")
+        # slot segments on two persistent int8 states at occupancy 8, one
+        # per character, interleaved A, B, A, B (the resident state
+        # switching at every segment), against each one's eager run
+        Bs, Ws, sxs, sps, rings = 8, 32, 192, 192, 512
+        fph = get_phones_and_bert("。" + SENTENCES[0], "ja")[0]
+        bases = []
+        for c in (char, char2):
+            sph = np.concatenate([feats.phones, fph])
+            ctx_c, samp_c = _slot_rows(torch, c, feats, sph, sxs, sps)
+            with torch.inference_mode():
+                st = slots.init_slots(tcfg, Bs, sxs, sps, rings, torch.bfloat16, kv_int8=True,
+                                      device=DEV)
+                for b in range(Bs):
+                    slots.insert_slot(st, b, *ctx_c, len(sph), len(feats.prompt_tokens),
+                                      rings, rings, samp_c)
+            bases.append(st)
+        seg_noise = [gumbel_noise((Ws, Bs, tcfg.semantic_vocab), gi, DEV) for _ in range(2)]
+        graph_st = [dataclasses.replace(slots.clone_state(b), persistent=True) for b in bases]
+        eager_st = [slots.clone_state(b) for b in bases]
+        toks = {("graph", 0): [], ("graph", 1): [], ("eager", 0): [], ("eager", 1): []}
+        with torch.inference_mode():
+            for k in range(2):
+                for i, c in enumerate((char, char2)):
+                    toks["graph", i].append(slots.decode_segment(
+                        c.t2s_params, graph_st[i], tcfg, Ws, sxs, sps, rings, kv_kernel=True,
+                        noise=seg_noise[k])[1].cpu())
+            for i, c in enumerate((char, char2)):
+                for k in range(2):
+                    toks["eager", i].append(slots.decode_segment(
+                        c.t2s_params, eager_st[i], tcfg, Ws, sxs, sps, rings, kv_kernel=True,
+                        noise=seg_noise[k], eager=True)[1].cpu())
+        ok = (all(torch.equal(a_, b_) for i in range(2)
+                  for a_, b_ in zip(toks["graph", i], toks["eager", i]))
+              and not torch.equal(toks["graph", 0][0], toks["graph", 1][0]))
+        inter["slot segments, int8 kernel, occupancy 8"] = ok
+        check(ok, "interleaved slot segments: graph codes not each character's own")
+        del graph_st, eager_st, bases
+        # concurrent: 2 /tts of each character at once, each on its slot
+        # machine (the resident state and the banks switching between them)
+        for c in (cache, vcache):
+            c.reset_stats()
+        both = concurrent(lambda i: post("/tts", {
+            "character_name": ("graphs", "graphs2")[i % 2], "text": SENTENCES[i],
+            "split_sentence": False}), 4)
+        for status, body, _, _ in both:
+            check(status == 200 and len(body) == 2 * 2 * codes * 640
+                  and np.unique(np.frombuffer(body, "<i2")).size > 1000,
+                  f"graphs and graphs2 at once: HTTP {status}, {len(body)} bytes")
+        both_stats = {n: dict(c.stats) for n, c in (("T2S", cache), ("SoVITS", vcache))}
+        check(all(st["misses"] == st["variants"] == st["captures"] == 0
+                  for st in both_stats.values()),
+              f"graphs and graphs2 at once missed a cache: {both_stats}")
+        # a bind's device time: the other character resident, then this
+        # one's tensors copied in (CUDA events around the bind alone)
+        bind_ms = {}
+        for fam, c, pa, pb in (("T2S", cache, char.t2s_params, char2.t2s_params),
+                               ("SoVITS", vcache, char.sovits_params, char2.sovits_params)):
+            times = []
+            for _ in range(3):
+                with c.bind(pb):
+                    pass
+                sync(torch)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                with c.bind(pa):
+                    pass
+                e1.record()
+                sync(torch)
+                times.append(e0.elapsed_time(e1))
+            bind_ms[fam] = dict(ms=times, bank_mib=mb(c.bank_bytes()))
+        state_switches = {str(k): v.residency.switches for k, v in cache._objects.items()
+                          if k[0] == "slot_state"}
+        print(f"[graphs] graphs and graphs2 interleaved (A, B, A) and at once: "
+              f"{json.dumps(inter)}; 2 x /tts each at once: latency "
+              + ", ".join(f"{r[3]:.3f}" for r in both) + f" s; caches while both served "
+              f"(binds and bind_bytes among them) {json.dumps(both_stats)}; bank MiB and a "
+              f"bind's device ms (CUDA events, the "
+              f"other character resident): {json.dumps(bind_ms)}; resident slot state "
+              f"switches by geometry {json.dumps(state_switches)}; {card}")
         # eviction: the character cache cut to 1 keeps the most recent
-        # character ("graphs"); "graphs2" is evicted, its slot machine
-        # stopped, and nothing else holds it, so its graphs, pools and
-        # static buffers are freed
+        # character ("graphs"); "graphs2" is evicted and its slot machine
+        # comes to rest: its weights and its machine's state are freed, the
+        # configuration's graphs stay
         sb2 = api._slot_batchers.get("graphs2")
-        c2 = caches_of(api.model_manager.get("graphs2"))
-        pools2 = sum(c.pool_bytes() for c in c2.values())
-        bufs2 = sum(c.buffer_bytes() for c in c2.values())
-        del c2
+        st2 = getattr(sb2._state, "_own", sb2._state) if sb2 is not None else None
+        states2 = sum(t.numel() * t.element_size() for t in graphs.tensors_of(st2)
+                      if t.is_cuda) if st2 is not None else 0
+        del st2, char2
         keep = [api.model_manager.get(n) for n in ("smoke", "slots")]
         gc.collect()
         sync(torch)
         torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved()
+        before = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+        keys_before = len(cache.keys()) + len(vcache.keys())
         api.model_manager._cache.capacity = 1
         api.model_manager.register(api.model_manager.get("graphs"))
-        check("graphs2" not in api.model_manager._cache and "graphs2" not in api._swept,
-              "graphs2 was not evicted")
+        check("graphs2" not in api.model_manager._cache, "graphs2 was not evicted")
         if sb2 is not None:
-            sb2._thread.join(timeout=60)
-            check(not sb2._thread.is_alive(), "graphs2's slot machine did not stop")
+            check(sb2.join(60), "graphs2's slot machine did not come to rest")
         del sb2
         gc.collect()
         sync(torch)
         torch.cuda.empty_cache()
-        after = torch.cuda.memory_reserved()
+        after = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
         api.model_manager._cache.capacity = cap_prev + 2
         for c in keep:                     # phase 3's and phase 6's characters stay loaded
             api.model_manager.register(c)
         del keep
-        print(f"[graphs] max_cached_characters=1 evicted graphs2: memory_reserved "
-              f"{mb(before):.1f} -> {mb(after):.1f} MiB after gc and empty_cache, "
-              f"{mb(before - after):.1f} MiB released; its graphs held pools "
-              f"{mb(pools2):.1f} MiB and static buffers {mb(bufs2):.1f} MiB; {card}")
-        check(before - after >= pools2, "evicting graphs2 did not release its graph pools")
-        # the first request after the eviction reloads graphs2 and waits
-        # for its sweep (at the same shorter ladder) before it is served
-        api.engine.cfg = short_cfg
-        try:
-            status, body, _, reload_s = post("/tts", {"character_name": "graphs2",
-                                                      "text": SENTENCES[0],
-                                                      "split_sentence": False})
-        finally:
-            api.engine.cfg = full_cfg
-        re2 = api.model_manager.get("graphs2")
+        freed = before[1] - after[1]
+        print(f"[graphs] max_cached_characters=1 evicted graphs2: memory_allocated "
+              f"{mb(before[1]):.1f} -> {mb(after[1]):.1f} MiB ({mb(freed):.1f} MiB freed), "
+              f"memory_reserved {mb(before[0]):.1f} -> {mb(after[0]):.1f} MiB after gc and "
+              f"empty_cache; its weights {mb(weights2):.1f} MiB and its slot machine's state "
+              f"{mb(states2):.1f} MiB; the configuration's {keys_before} graph keys kept; {card}")
+        check(freed >= weights2 + states2 and len(cache.keys()) + len(vcache.keys())
+              == keys_before, "evicting graphs2 did not free its weights and state")
+        # the first request after the eviction reloads graphs2: no sweep
+        for c in (cache, vcache):
+            c.reset_stats()
+        status, body, _, reload_s = post("/tts", {"character_name": "graphs2",
+                                                  "text": SENTENCES[0],
+                                                  "split_sentence": False})
+        reload_stats = {n: dict(c.stats) for n, c in (("T2S", cache), ("SoVITS", vcache))}
         check(status == 200 and len(body) == 2 * 2 * codes * 640
-              and len(units_of["graphs2"]) == 2 and api._swept["graphs2"][0]() is re2,
+              and not any(units_of.get("graphs2", []))
+              and all(st["misses"] == st["captures"] == 0 for st in reload_stats.values()),
               f"graphs2's request after its eviction: HTTP {status}, sweeps "
-              f"{units_of['graphs2']}")
-        del re2
-        split = {k: round(v, 2) for k, v in split_of["last"].items()}
-        print(f"[graphs] the first /tts after the eviction reloads graphs2 and waits for its "
-              f"sweep: {reload_s:.1f} s (client clock; the sweep {units_of['graphs2'][-1]} "
-              f"units, by kind, s: {json.dumps(split)}), beside its first load + reference "
-              f"+ sweep {sweep2['wall_s']:.1f} s; {card}")
+              f"{units_of.get('graphs2')}, caches {reload_stats}")
+        print(f"[graphs] the first /tts after the eviction reloads graphs2 (0 sweep units, "
+              f"caches {json.dumps(reload_stats)}): {reload_s:.2f} s (client clock), beside "
+              f"its first load + reference {wall2:.2f} s; {card}")
         api.unload_character("graphs2")
-        out["sweep"] = dict(graphs=sweep, graphs2=sweep2, solo_s=solo_s,
+        out["sweep"] = dict(graphs=sweep, graphs2_s=wall2, graphs2_mib=mb(mem1 - mem0),
+                            weights2_mib=mb(weights2), solo_s=solo_s,
                             solo_stages_ms=solo_stages, served=served, served2=served2,
-                            evicted_mib=mb(before - after), pools2_mib=mb(pools2),
-                            reload_s=reload_s)
+                            interleaved=inter, bind_ms=bind_ms, freed_mib=mb(freed),
+                            states2_mib=mb(states2), reload_s=reload_s)
 
         # ---- (2) graph vs eager, the same noise: identical codes
         cfg = char.t2s_cfg
@@ -2347,14 +2529,16 @@ def phase_graphs(torch, root: Path, card: str):
         xb = pick_bucket(len(feats.phones) + len(text), eng.cfg.phoneme_buckets)
         pb = pick_bucket(len(feats.prompt_tokens), eng.cfg.prompt_buckets)
         cap = pick_bucket(char.t2s_cfg.max_decode_steps, eng.cfg.step_caps)
-        g1, packed = t2s.decode_graph(char.t2s_params, char.t2s_cfg, 1, xb, pb, xb + pb + cap,
-                                      cap, char.t2s_params["audio_embed"].dtype)
         variant = ("prefill", True, False)
-        pre = t2s.generate_programs(char.t2s_params, char.t2s_cfg, xb, pb, packed)[variant]
 
         def prefill_once():
-            with g1.lock:
-                g1.run(pre, variant)
+            # with the character bound (its own set when the cache is eager)
+            with cache.bind(char.t2s_params) as bp:
+                g1, packed = t2s.decode_graph(bp, char.t2s_cfg, 1, xb, pb, xb + pb + cap,
+                                              cap, bp["audio_embed"].dtype)
+                pre = t2s.generate_programs(bp, char.t2s_cfg, xb, pb, packed)[variant]
+                with g1.lock:
+                    g1.run(pre, variant)
 
         timed_stages = {f"prefill program B=1 (text {xb}, prompt {pb})": prefill_once}
         timed_stages.update(stages)
@@ -2997,9 +3181,19 @@ def _counts(torch):
     return {n: k.launches for n, k in _mesh_kernels().items()}
 
 
+def captured_programs(cache) -> int:
+    """The (key, variant) programs of a graph cache that hold a captured
+    CUDA graph, whenever they were captured (a configuration's cache may
+    have been filled before its stats were last reset)."""
+    return sum(entry is not None for g in cache._graphs.values()
+               for entry in g._graphs.values())
+
+
 def mesh_memory(eng, char):
     """Per replica: graphs captured and pool / static-buffer MiB by card, of
-    its T2S and SoVITS caches."""
+    its T2S and SoVITS caches (replica 0's SoVITS configuration is a 1x1
+    character's on the same card: its graphs may have been captured by an
+    earlier phase)."""
     from genie_tts_tpu_torch.runtime import graphs
 
     out = []
@@ -3008,7 +3202,7 @@ def mesh_memory(eng, char):
         for fam, params in (("T2S", rep.t2s_params), ("SoVITS", rep.sovits_params)):
             c = graphs.cache_for(params)
             pools, bufs = c.bytes_by_device()
-            row[fam] = dict(keys=len(c.keys()), captured=c.stats["captures"],
+            row[fam] = dict(keys=len(c.keys()), captured=captured_programs(c),
                             pool_mib={str(d): round(n / 2 ** 20, 1) for d, n in pools.items()},
                             buffers_mib={str(d): round(n / 2 ** 20, 1)
                                          for d, n in bufs.items()})
@@ -3042,27 +3236,93 @@ def mesh_load(torch, root: Path, name: str, mesh, cfg):
 
 def mesh_unload(name: str) -> None:
     """``api.unload_character(name)`` (the caller holds the character no
-    more), then wait for its retired slot machine to stop (a process that
-    ends right after an unload would otherwise end while that daemon
-    thread is still inside torch, which aborts it at exit), and check that
-    every replica's graph caches are gone after ``gc.collect()``."""
+    more; the unload waits for its retired slot machine to come to rest,
+    so the process may end right after it), then check that every
+    replica's weights are freed after ``gc.collect()`` while the graph
+    caches of its configurations stay."""
     import gc
     import weakref
 
     from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.runtime import graphs
 
-    gone = [weakref.ref(c) for c in api.engine.graph_caches(api.model_manager.get(name))]
-    sb = api._slot_batchers.get(name)
+    char = api.model_manager.get(name)
+    gone = [weakref.ref(graphs._anchor(params)) for rep in api.engine._replicas(char)
+            for params in (rep.t2s_params, rep.sovits_params)]
+    caches = api.engine.graph_caches(char)
+    del char
     api.unload_character(name)
-    if sb is not None and sb._thread is not None:
-        sb._thread.join(timeout=120)
-        check(not sb._thread.is_alive(), f"{name}'s retired slot machine did not stop")
-    del sb
     gc.collect()
     alive = sum(r() is not None for r in gone)
-    check(alive == 0, f"{name}: {alive} of {len(gone)} replica graph caches outlived the unload")
-    print(f"[mesh] '{name}' unloaded: its slot machine stopped, all {len(gone)} graph caches "
-          f"of its replicas freed")
+    check(alive == 0, f"{name}: {alive} of {len(gone)} replica weight sets outlived the unload")
+    check(all(c.keys() for c in caches), f"{name}: a configuration's graphs went with it")
+    print(f"[mesh] '{name}' unloaded: its slot machine at rest, the weights of all "
+          f"{len(caches) // 2} replicas freed, the {len(caches)} graph caches of their "
+          f"configurations kept")
+
+
+def mesh_second(torch, root: Path, card: str, first: str) -> dict:
+    """A second character of the mesh character ``first``'s configuration
+    (other weights: ``make_second_character``) loaded on the swept mesh
+    engine: its sweep runs 0 units, and one solo ``tts()`` and one
+    ``/tts`` (the int8 slot route) serve it with no capture and no miss in
+    any replica's cache."""
+    import urllib.request
+
+    import numpy as np
+
+    from genie_tts_tpu_torch import api
+    from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
+    from genie_tts_tpu_torch.utils.wavio import read_audio
+
+    d = make_second_character(torch, root)
+    t0 = time.perf_counter()
+    api.load_character("mesh2", d, "ja")
+    api.set_reference_audio("mesh2", root / "ref.wav", MESH_REF_TEXT, "ja")
+    c2 = api.model_manager.get("mesh2")
+    feats2 = reference_audio_cache.get_features(api.engine, c2, str(root / "ref.wav"),
+                                                MESH_REF_TEXT, "Japanese")
+    units = api.engine.warmup(c2, feats2, sweep=True)
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    caches = api.engine.graph_caches(c2)
+    check(units == 0 and caches == api.engine.graph_caches(api.model_manager.get(first)),
+          f"mesh2: the sweep ran {units} units or its caches are not {first}'s")
+    for c in caches:
+        c.reset_stats()
+    t0 = time.perf_counter()
+    api.tts("mesh2", "きょうはいいてんきですね。", save_path=root / "mesh2_tts.wav")
+    sync(torch)
+    solo_s = time.perf_counter() - t0
+    audio, _ = read_audio(root / "mesh2_tts.wav")
+    srv = api.start_server(host="127.0.0.1", port=0, block=False)
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/tts",
+            data=json.dumps({"character_name": "mesh2", "text": MESH_SENTENCES[0],
+                             "split_sentence": False}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, body = r.status, r.read()
+        tts_s = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    stats = [dict(c.stats) for c in caches]
+    codes = min(c2.t2s_cfg.max_decode_steps, api.get_slot_batcher(c2).ring)
+    print(f"[mesh] mesh2 (a second 2x2 character of the configuration, other weights): load, "
+          f"reference and sweep {load_s:.2f} s ({units} units); solo tts() {solo_s * 1e3:.1f} ms "
+          f"wall, /tts {tts_s:.3f} s (HTTP {status}, {len(body)} bytes); every replica's "
+          f"caches {json.dumps(stats)}; {card}")
+    check(status == 200 and len(body) == 2 * 2 * codes * 640 and len(audio) > 0
+          and bool(np.isfinite(audio).all()), f"mesh2: HTTP {status}, {len(body)} bytes")
+    check(all(st["misses"] == st["variants"] == st["captures"] == 0 for st in stats)
+          and all(st["hits"] > 0 for st in stats[:2]),
+          f"mesh2: serving a second character of the configuration missed: {stats}")
+    del c2
+    mesh_unload("mesh2")
+    return dict(units=units, load_s=load_s, solo_s=solo_s, tts_s=tts_s, stats=stats)
 
 
 def mesh_sweep(torch, name, char, feats, card):
@@ -3438,6 +3698,7 @@ def phase_mesh(torch, root: Path, card: str, tts1, serve1):
         rows = [get_phones_and_bert("。" + s, "ja") for s in MESH_SENTENCES]
         items = [(feats, ph, bert) for ph, bert in rows]
         out["g"] = tp_graph_vs_eager(torch, char, card, "mesh 2x2")
+        out["second"] = mesh_second(torch, root, card, "mesh")
         del char
         mesh_unload("mesh")
 

@@ -92,12 +92,14 @@ def main(argv=None) -> int:
 
 def _warmup(args) -> None:
     """Load the ``--warmup`` character as ``warmup``, run the engine's
-    warmup sweep on it (the kernels it builds and the plans it makes
-    serve every character) and unload it (its graphs go with it), then
-    set ``api.sweep_on_reference``: a captured graph reads its
-    character's weights, so every character the server loads is swept at
-    its first ``/set_reference_audio`` (the JAX package's ``serve
-    --warmup`` compiles programs that serve every character)."""
+    warmup sweep on it and unload it, then set
+    ``api.sweep_on_reference``. The graphs are its configuration's
+    (``runtime/graphs.py``: they read a bank that each character binds),
+    so they stay and serve every later character of that configuration
+    warm, as the JAX package's ``serve --warmup`` compiles programs that
+    serve every character; a character of another configuration (or a
+    clip at another prompt bucket) is swept at its first
+    ``/set_reference_audio``."""
     from genie_tts_tpu_torch import api
     from genie_tts_tpu_torch.runtime.engine import make_random_reference
 
@@ -114,8 +116,8 @@ def _warmup(args) -> None:
     del char
     api.unload_character("warmup")
     api.sweep_on_reference = True
-    print(f"warmup: captured {captured} graphs ({n} units); every character is swept "
-          f"at its first /set_reference_audio")
+    print(f"warmup: captured {captured} graphs ({n} units); they serve every character "
+          f"of this configuration")
 
 
 if __name__ == "__main__":

@@ -22,15 +22,23 @@ this one process: the module's engine is built on that serving mesh and
 shard_character``: a replica per dp row, the T2S decoder tp-sharded over
 the row's cards). With fewer cards than ``dp * tp`` the import raises.
 
-A captured graph reads its character's weights (``runtime/graphs.py``),
-so warmth is per character: ``serve --warmup`` sets ``sweep_on_reference``,
-and every character is then swept (``engine.warmup(char, ref,
-sweep=True)``) at its first ``set_reference_audio``, for each new prompt
-bucket of a later clip, and again after an eviction reloads it (the
-request that reloads it waits for that sweep). An evicted or unloaded
-character's slot machine is retired (it finishes the requests it holds,
-then exits) and its sweep record dropped, so its weights and graphs go
-with it: graph memory is bounded by ``max_cached_characters``.
+Warmth belongs to a configuration, as in the JAX package (its jitted
+programs take the weights as an argument): the captured graphs are the
+configuration's and read its bank, which each character binds
+(``runtime/graphs.py``). ``serve --warmup`` sweeps the warmup character
+(``engine.warmup(char, ref, sweep=True)``) and sets
+``sweep_on_reference``; a character is then swept at its
+``set_reference_audio`` only when its configuration has not been swept
+at that clip's prompt bucket (``engine.swept``), so every later
+character of a swept configuration, a reload after an eviction
+included, runs 0 sweep units and captures nothing. An evicted or
+unloaded character's slot machine is retired (it finishes the requests
+it holds, then exits), so its weights and states go with it; the
+configuration's graphs, bank and resident states stay, as the JAX jit
+caches do. ``unload_character`` waits for the machine to stop, and
+every machine is joined before the interpreter ends
+(:func:`_join_slot_machines`), so a process may exit right after an
+unload or an eviction.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import asyncio
 import logging
 import os
 import threading
+import time
 import weakref
 from os import PathLike
 from typing import AsyncIterator, Dict, Optional, Union
@@ -49,7 +58,6 @@ from .config import RuntimeConfig, indexed_device, resolve_device
 from .frontend.dispatcher import get_phones_and_bert
 from .frontend.language import MONOLINGUAL, normalize_language, require_supported
 from .ops.sampling import SamplingConfig
-from .runtime.buckets import pick_bucket
 from .runtime.engine import TTSEngine
 from .runtime.model_manager import model_manager
 from .runtime.reference_audio import reference_audio_cache
@@ -84,11 +92,9 @@ engine = TTSEngine(RuntimeConfig(), mesh=_serving_mesh())
 
 # character -> reference-audio config
 _reference_audios: Dict[str, dict] = {}
-# set by ``serve --warmup``: sweep every character before its first request
+# set by ``serve --warmup``: sweep every configuration not swept yet before
+# a character of it serves (``engine.swept`` records the swept ones)
 sweep_on_reference = False
-# character name -> (a weak reference to the character object swept, the
-# prompt buckets swept); a reload after an eviction is another object
-_swept: Dict[str, tuple] = {}
 _sweep_lock = threading.Lock()
 # device -> (the HuBERT params it closes over, forward)
 _hubert_fns: Dict[torch.device, tuple] = {}
@@ -154,23 +160,58 @@ def load_character(character_name: str, model_dir: Union[str, PathLike],
         engine.shard_character(char)
 
 
+# how long an unload, and the interpreter's end, wait for slot machines
+_JOIN_S = 60.0
+
+
 def unload_character(character_name: str) -> None:
+    """Unload a character: its weights go, and its slot machine finishes
+    the requests it holds and stops; this waits up to ``_JOIN_S`` seconds
+    for that, so a process may end right after it."""
     model_manager.remove_character(character_name)
-    _release_character(character_name)
+    sb = _release_character(character_name)
+    if sb is not None:
+        sb.join(_JOIN_S)
 
 
-def _release_character(character_name: str) -> None:
+def _release_character(character_name: str):
     """Let go of what the API holds for a character that left the cache
     (unloaded or evicted): its slot machine, retired (it finishes the
-    requests queued and in flight in it, then exits), and its sweep
-    record. Then nothing keeps the character, so its weights, graphs,
-    graph pools and static buffers are freed, every dp replica's on a
-    mesh (the replicas live in the character alone)."""
+    requests queued and in flight in it, then exits; joined at exit by
+    :func:`_join_slot_machines`), which is returned. Then nothing keeps
+    the character, so its weights and its machine's state are freed,
+    every dp replica's on a mesh; the graphs of its configuration stay
+    for the next character."""
     with _slot_batchers_lock:
         sb = _slot_batchers.pop(character_name, None)
-    _swept.pop(character_name, None)
     if sb is not None:
         sb.retire()
+        _retired.add(sb)
+    return sb
+
+
+# retired slot machines not yet stopped (their loops drain on daemon threads)
+_retired: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _join_slot_machines() -> None:
+    """Let every slot machine finish what it holds and stop, waiting up to
+    ``_JOIN_S`` seconds in all: a process that ended while a machine's
+    daemon thread was still inside torch would abort at exit. Run when
+    the interpreter ends, before the thread pools the machines hand work
+    to shut down."""
+    with _slot_batchers_lock:
+        machines = list(_slot_batchers.values()) + list(_retired)
+    deadline = time.monotonic() + _JOIN_S
+    for sb in machines:
+        sb.retire()
+        sb.join(max(deadline - time.monotonic(), 0.0))
+
+
+# ``threading._register_atexit``: run before the interpreter joins its
+# threads and shuts the thread pools down (a plain ``atexit`` handler runs
+# after that, when a draining machine could no longer vocode)
+threading._register_atexit(_join_slot_machines)
 
 
 model_manager.on_evict = _release_character
@@ -211,38 +252,23 @@ def set_reference_audio(character_name: str, audio_path: Union[str, PathLike],
 
 
 def _sweep(char, feats, always: bool = False) -> int:
-    """The warmup sweep of ``char`` at the prompt bucket of ``feats``,
-    unless this character object was swept there already; only with
+    """The warmup sweep of ``char``'s configuration at the prompt bucket of
+    ``feats`` (``engine.warmup(..., sweep=True)``, which runs 0 units for
+    a configuration and bucket swept already); only with
     ``sweep_on_reference`` set (``serve --warmup``) or ``always``.
     Returns the units run (0: nothing to do)."""
-    if not (always or sweep_on_reference):
-        return 0
-    bucket = pick_bucket(len(feats.prompt_tokens), engine.cfg.prompt_buckets)
-
-    def swept():
-        ref, buckets = _swept.get(char.name, (None, ()))
-        return ref is not None and ref() is char and bucket in buckets
-
-    if swept():
+    if not (always or sweep_on_reference) or not engine.needs_sweep(char, feats):
         return 0
     with _sweep_lock:                 # one sweep at a time: a capture syncs the card
-        if swept():
-            return 0
-        n = engine.warmup(char, feats, sweep=True)
-        ref, buckets = _swept.get(char.name, (None, frozenset()))
-        if ref is None or ref() is not char:      # a reload after an eviction
-            buckets = frozenset()
-        _swept[char.name] = (weakref.ref(char), buckets | {bucket})
-        return n
+        return engine.warmup(char, feats, sweep=True)
 
 
 def warmup_character(character_name: str) -> int:
     """The warmup sweep (``engine.warmup(char, ref, sweep=True)``) for a
-    loaded character with its reference clip set: every graph its
-    requests can reach is captured before they arrive. A captured graph
-    reads its character's weights, so each character is swept on its own.
-    Returns the units run (0 when it was swept at this clip's prompt
-    bucket already)."""
+    loaded character with its reference clip set: every graph the
+    requests of its configuration can reach is captured before they
+    arrive. Returns the units run (0 when the configuration was swept at
+    this clip's prompt bucket already)."""
     char = model_manager.get(character_name)
     if char is None:
         raise ValueError(f"character {character_name!r} is not loaded")
@@ -328,7 +354,7 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
     if char is None:
         raise ValueError(f"Character '{character_name}' is not loaded")
     feats = _reference_features(char, _reference_audios[character_name])
-    _sweep(char, feats)          # a reload after an eviction is swept again
+    _sweep(char, feats)          # a configuration not swept yet at this bucket
 
     def synth(sentence: str) -> Optional[np.ndarray]:
         # a leading 。 guards against the model swallowing the first phrase

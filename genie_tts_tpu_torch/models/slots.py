@@ -27,10 +27,15 @@ windowed read gathers its ring window at the device head, the int8
 kernel reads the head from device memory, and the merge writes at it. A
 caller that reads ``done`` or ``counts`` of one segment after the next
 one was dispatched copies them first (the schedulers enqueue one copy
-right behind each segment). A state made ``persistent`` (a slot
-batcher's or a segmented stream's, ``TTSEngine.take_slot_state``) is the
-graph's own buffers; any other state is copied into the graph's buffers
-and back around a replay.
+right behind each segment). The graphs of a geometry are the
+configuration's (they read its bank: ``runtime/graphs.py``) and replay on
+its RESIDENT state (:class:`StateHome`), which holds one owner's state at
+a time: a state made ``persistent`` (a slot batcher's or a segmented
+stream's, ``TTSEngine.take_slot_state``) stays resident until another
+owner takes its place, and is copied back then (so one machine pays no
+copy); any other state is copied in and back around each use. Its leaves
+are the resident buffers while it is resident; a caller that reads them
+while other owners may run reads them in :func:`holding`.
 
 A request joins through three more programs, the JAX package's jitted
 join (``runtime/slot_batcher.py:90-131`` there): :func:`prefill_join`
@@ -52,6 +57,7 @@ lead are ordered with the lead card's stream
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -210,9 +216,9 @@ def clone_state(state: SlotState) -> SlotState:
         top_p_host=state.top_p_host.copy(), persistent=False)
 
 
-def copy_state(dst: SlotState, src: SlotState) -> None:
+def copy_state(dst: SlotState, src: SlotState, host: bool = True) -> None:
     """Every leaf of ``src`` into ``dst``'s buffers (every tp shard's
-    caches too)."""
+    caches too; ``host``: the host mirror too)."""
     for n in _tensor_fields(dst):
         getattr(dst, n).copy_(getattr(src, n))
     for d_shard, s_shard in zip(dst.tp_caches, src.tp_caches, strict=True):
@@ -220,7 +226,75 @@ def copy_state(dst: SlotState, src: SlotState) -> None:
             for d, s_ in zip(d_shard, s_shard):
                 if d is not None:
                     d.copy_(s_)
-    dst.top_p_host[:] = src.top_p_host
+    if host:
+        dst.top_p_host[:] = src.top_p_host
+
+
+def _point(state: SlotState, src: SlotState) -> None:
+    """Make ``state``'s leaves ``src``'s tensors (its host mirror stays)."""
+    for n in _tensor_fields(src):
+        setattr(state, n, getattr(src, n))
+    state.tp_caches = src.tp_caches
+
+
+class StateHome:
+    """The RESIDENT slot state of one configuration and slot geometry: the
+    buffers its segment, insert and release graphs replay on, holding one
+    owner's state at a time (``graphs.Residency``). A persistent state (a
+    slot machine's or a segmented stream's) is copied in when it is not
+    resident and its leaves then ARE the resident buffers, until another
+    owner takes its place: its contents are copied back and its leaves are
+    its own again. So copies cost nothing while one owner runs. Any other
+    state is copied in and back around each use."""
+
+    def __init__(self, template: SlotState):
+        self.state = clone_state(template)
+        self.residency = graphs.Residency(template.hist.device, self._load, self._save)
+
+    def _load(self, state: SlotState) -> None:
+        if state.persistent:
+            state._own = dataclasses.replace(state)      # its buffers while it is here
+            copy_state(self.state, state._own, host=False)
+            _point(state, self.state)
+        else:
+            copy_state(self.state, state, host=False)
+
+    def _save(self, state: SlotState) -> None:
+        if state.persistent:
+            copy_state(state._own, self.state, host=False)
+            _point(state, state._own)
+            del state._own
+        else:
+            copy_state(state, self.state, host=False)
+
+
+def _geometry_key(state: SlotState) -> tuple:
+    """A slot state's static geometry (its shard devices included)."""
+    return (tuple(state.k_cache.shape), state.k_cache.dtype, state.k_scale is not None,
+            tuple(c[0].device for c in state.cache_shards))
+
+
+def _home(params: t2s.Params, state: SlotState) -> StateHome:
+    return graphs.cache_for(params).shared(("slot_state",) + _geometry_key(state),
+                                           lambda: StateHome(state))
+
+
+@contextlib.contextmanager
+def holding(params: Optional[t2s.Params], state: SlotState):
+    """Hold ``state`` resident in its geometry's :class:`StateHome` in the
+    cache of ``params`` while the block lasts, and yield the state to
+    read and run programs on: a persistent ``state`` itself (its leaves
+    are the resident buffers now), else the resident buffers with
+    ``state``'s host mirror (copied back to ``state`` when the block
+    ends). ``state`` itself without ``params``. A caller that reads a
+    state's leaves while other owners may run reads them here."""
+    if params is None:
+        yield state
+        return
+    home = _home(params, state)
+    with home.residency.hold(state, transient=not state.persistent):
+        yield (state if state.persistent
+               else dataclasses.replace(home.state, top_p_host=state.top_p_host))
 
 
 @dataclasses.dataclass
@@ -304,10 +378,12 @@ def _join(params: t2s.Params, cfg: T2SConfig, b: JoinBuffers, *, with_bert: bool
 
 
 def join_graph(params: t2s.Params, cfg: T2SConfig, sx: int, sp: int):
-    """The join program's graph at (Sx, Sp) in the parameter set's cache
+    """The join program's graph at (Sx, Sp) in the configuration's cache
     (its buffers made on a miss: a tp-sharded set's context columns per
     shard on its device, key ``("join", "tp", Sx, Sp, dtype)``), and its
-    programs by variant ``(BERT features given, top-p)``."""
+    programs by variant ``(BERT features given, top-p)`` over ``params``:
+    the bank of a bound set (``GraphCache.bind``), or for an eager run the
+    set itself."""
     route = ("tp",) if t2s.layer_shards(params) is not None else ()
     g = graphs.cache_for(params).graph(
         ("join",) + route + (sx, sp, params["audio_embed"].dtype),
@@ -341,35 +417,36 @@ def prefill_join(params: t2s.Params, cfg: T2SConfig,
 
     The JAX package's ``_prefill_jit``: the program :func:`_join` over the
     static buffers of :func:`join_graph` (on the card a replay of the CUDA
-    graph of its variant), held from the inputs' copy in to the outputs'
-    copies out."""
+    graph of its variant) with ``params`` bound, held from the inputs'
+    copy in to the outputs' copies out."""
     Sx, Sp = phones.shape[1], prompts.shape[1]
     if any_top_p is None:
         any_top_p = bool((torch.as_tensor(samp.top_p) < 1.0).any())
-    g, progs = join_graph(params, cfg, Sx, Sp)
     variant = (bert is not None, bool(any_top_p))
-    with g.lock:
-        b = g.static
-        b.phones.copy_(phones)
-        if bert is not None:
-            b.bert.copy_(bert)
-        b.x_len.copy_(x_len)
-        b.prompts.copy_(prompts)
-        b.p_len.copy_(p_len)
-        for buf, value in zip(b.samp, samp):
-            buf.copy_(torch.as_tensor(value).reshape(1))
-        if noise is None:
-            gumbel_noise_(b.noise, generator)
-        else:
-            b.noise.copy_(noise)
-        g.run(progs[variant], variant)
-        ctx_k, ctx_v = [], []
-        for ck, cv in zip(b.ctx_k, b.ctx_v):
-            with graphs.on_device_stream(ck.device):
-                ctx_k.append(ck.clone())
-                ctx_v.append(cv.clone())
-        ctx_k, ctx_v = tuple(ctx_k), tuple(ctx_v)
-        tok0, hist = b.tok0.clone(), b.hist.clone()
+    with graphs.cache_for(params).bind(params) as params:
+        g, progs = join_graph(params, cfg, Sx, Sp)
+        with g.lock:
+            b = g.static
+            b.phones.copy_(phones)
+            if bert is not None:
+                b.bert.copy_(bert)
+            b.x_len.copy_(x_len)
+            b.prompts.copy_(prompts)
+            b.p_len.copy_(p_len)
+            for buf, value in zip(b.samp, samp):
+                buf.copy_(torch.as_tensor(value).reshape(1))
+            if noise is None:
+                gumbel_noise_(b.noise, generator)
+            else:
+                b.noise.copy_(noise)
+            g.run(progs[variant], variant)
+            ctx_k, ctx_v = [], []
+            for ck, cv in zip(b.ctx_k, b.ctx_v):
+                with graphs.on_device_stream(ck.device):
+                    ctx_k.append(ck.clone())
+                    ctx_v.append(cv.clone())
+            ctx_k, ctx_v = tuple(ctx_k), tuple(ctx_v)
+            tok0, hist = b.tok0.clone(), b.hist.clone()
     if len(ctx_k) == 1:
         ctx_k, ctx_v = ctx_k[0], ctx_v[0]
     return ctx_k, ctx_v, tok0, hist
@@ -426,13 +503,6 @@ def _insert(bufs: InsertBuffers) -> None:
     st.active.index_fill_(0, at, True)
 
 
-def _geometry_key(state: SlotState) -> tuple:
-    """A slot state's static geometry; a persistent state's programs are
-    its own (they replay on its buffers)."""
-    return (tuple(state.k_cache.shape), state.k_cache.dtype, state.k_scale is not None,
-            id(state) if state.persistent else None)
-
-
 def _insert_buffers(state: SlotState, ctx_k: tuple, ctx_v: tuple) -> InsertBuffers:
     dev = state.hist.device
     return InsertBuffers(state, ctx_k, ctx_v,
@@ -441,16 +511,17 @@ def _insert_buffers(state: SlotState, ctx_k: tuple, ctx_v: tuple) -> InsertBuffe
 
 
 def insert_graph(params: t2s.Params, state: SlotState, ctx_k: tuple, ctx_v: tuple):
-    """The insert program's graph for ``state`` and context columns of
-    this shape and dtype, in the parameter set's cache: on a persistent
-    state its own buffers, else a copy that the state is copied into and
-    back (one graph serves every slot: the slot index is a buffer)."""
+    """The insert program's graph for the geometry of ``state`` and context
+    columns of this shape and dtype, in the configuration's cache, on the
+    geometry's resident state (:class:`StateHome`; one graph serves every
+    slot: the slot index is a buffer). Without ``params`` the buffers of
+    one call, on ``state``."""
     if params is None:          # no cache: the program runs on the state itself
         return graphs.Graph(None, None, _insert_buffers(state, ctx_k, ctx_v))
     key = ("insert", ctx_k[0].shape[-1], ctx_k[0].dtype) + _geometry_key(state)
     return graphs.cache_for(params).graph(key, lambda: _insert_buffers(
-        state if state.persistent else clone_state(state),
-        tuple(map(torch.zeros_like, ctx_k)), tuple(map(torch.zeros_like, ctx_v))))
+        _home(params, state).state, tuple(map(torch.zeros_like, ctx_k)),
+        tuple(map(torch.zeros_like, ctx_v))))
 
 
 def _fill_row(row: torch.Tensor, ints, floats) -> None:
@@ -483,38 +554,35 @@ def insert_slot(state: SlotState, slot: int, ctx_k: torch.Tensor,
 
     The JAX package's ``_insert_jit``: the program :func:`_insert` over
     the buffers of :func:`insert_graph` in the cache of ``params`` (the
-    serving paths pass their T2S set; on the card a replay); without
-    ``params`` it runs on the state itself. The host mirror
-    ``top_p_host`` is written here."""
+    serving paths pass their T2S set; on the card a replay), on the
+    resident state holding ``state`` (:func:`holding`); without ``params``
+    it runs on the state itself. The host mirror ``top_p_host`` is
+    written here."""
     b = int(slot)
     if not isinstance(ctx_k, tuple):
         ctx_k, ctx_v = (ctx_k,), (ctx_v,)
     top_p = samp.top_p
     state.top_p_host[b] = (float(top_p.reshape(-1)[0]) if isinstance(top_p, torch.Tensor)
                            else np.asarray(top_p).reshape(-1)[0].item())
-    g = insert_graph(params, state, ctx_k, ctx_v)
-    with g.lock:
-        bufs = g.static
-        if bufs.state is not state:
-            copy_state(bufs.state, state)
-        for dst, src in zip(bufs.ctx_k + bufs.ctx_v, ctx_k + ctx_v, strict=True):
-            if dst is not src:
-                with graphs.on_device_stream(dst.device):
-                    dst.copy_(src)
-        bufs.hist.copy_(hist)
-        _fill_row(bufs.row, (b, x_len, p_len, min_steps, max_steps, samp.top_k, tok0),
-                  (samp.top_p, samp.temperature, samp.repetition_penalty))
-        g.run(_insert)
-        if bufs.state is not state:
-            copy_state(state, bufs.state)
+    with holding(params, state):
+        g = insert_graph(params, state, ctx_k, ctx_v)
+        with g.lock:
+            bufs = g.static
+            for dst, src in zip(bufs.ctx_k + bufs.ctx_v, ctx_k + ctx_v, strict=True):
+                if dst is not src:
+                    with graphs.on_device_stream(dst.device):
+                        dst.copy_(src)
+            bufs.hist.copy_(hist)
+            _fill_row(bufs.row, (b, x_len, p_len, min_steps, max_steps, samp.top_k, tok0),
+                      (samp.top_p, samp.temperature, samp.repetition_penalty))
+            g.run(_insert)
     return state
 
 
 @dataclasses.dataclass
 class ReleaseBuffers:
-    """The static buffers of the release program: the state's ``active``
-    and ``done`` flags (a persistent state's own) and the slot [1]
-    int64."""
+    """The static buffers of the release program: the resident state's
+    ``active`` and ``done`` flags and the slot [1] int64."""
     active: torch.Tensor
     done: torch.Tensor
     slot: torch.Tensor
@@ -530,28 +598,22 @@ def release_slot(state: SlotState, slot: int,
     """Free a harvested slot in place (its cache columns are garbage
     behind masks). Returns ``state``. The JAX package's ``_release_jit``:
     a program over the state's two flags with the slot index in device
-    memory, a graph in the cache of ``params`` as :func:`insert_slot`'s
-    is."""
+    memory, a graph in the cache of ``params`` on the resident state, as
+    :func:`insert_slot`'s is."""
     dev = state.active.device
-    if params is None:          # no cache: the program runs on the state itself
-        g = graphs.Graph(None, None, ReleaseBuffers(
-            state.active, state.done, torch.zeros(1, dtype=torch.int64, device=dev)))
-    else:
-        g = graphs.cache_for(params).graph(
-            ("release",) + _geometry_key(state),
-            lambda: ReleaseBuffers(*((state.active, state.done) if state.persistent
-                                     else (state.active.clone(), state.done.clone())),
-                                   torch.zeros(1, dtype=torch.int64, device=dev)))
-    with g.lock:
-        bufs = g.static
-        bufs.slot.fill_(int(slot))
-        if bufs.active is not state.active:
-            bufs.active.copy_(state.active)
-            bufs.done.copy_(state.done)
-        g.run(_release)
-        if bufs.active is not state.active:
-            state.active.copy_(bufs.active)
-            state.done.copy_(bufs.done)
+    with holding(params, state):
+        if params is None:          # no cache: the program runs on the state itself
+            g = graphs.Graph(None, None, ReleaseBuffers(
+                state.active, state.done, torch.zeros(1, dtype=torch.int64, device=dev)))
+        else:
+            home = _home(params, state).state
+            g = graphs.cache_for(params).graph(
+                ("release",) + _geometry_key(state),
+                lambda: ReleaseBuffers(home.active, home.done,
+                                       torch.zeros(1, dtype=torch.int64, device=dev)))
+        with g.lock:
+            g.static.slot.fill_(int(slot))
+            g.run(_release)
     return state
 
 
@@ -566,12 +628,11 @@ class SegmentBuffers:
 
 def _segment_key(state: SlotState, W: int, sx: int, sp: int, ring_len: int,
                  use_kernel: bool, ctx_win: int, ring_win: int, any_top_p: bool):
-    """The static geometry a segment graph is keyed on; a persistent
-    state's graphs are its own (they replay on its buffers)."""
+    """The static geometry a segment graph is keyed on (it replays on the
+    resident state of that geometry, whichever state it holds)."""
     B = state.k_cache.shape[1]
     return ("segment", B, sx, sp, ring_len, W, use_kernel, ctx_win, ring_win,
-            bool(any_top_p), state.k_scale is not None, state.k_cache.dtype,
-            id(state) if state.persistent else None)
+            bool(any_top_p), state.k_scale is not None, state.k_cache.dtype)
 
 
 def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
@@ -605,10 +666,14 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     (the default) reads the whole context or ring.
 
     The segment runs as :func:`_segment` over static buffers: the graph of
-    its geometry in the parameter set's cache (``runtime/graphs.py``; on
-    the card a replay of a captured CUDA graph), on ``state`` itself when
-    it is ``persistent``, else copied in and back. ``eager`` runs it on
-    the same buffers without a graph. A tp-sharded ``params`` (with a
+    its geometry in the configuration's cache (``runtime/graphs.py``; on
+    the card a replay of a captured CUDA graph) with ``params`` bound, on
+    the resident state of the geometry holding ``state`` (:func:`holding`:
+    a persistent state stays there until another owner takes its place,
+    any other is copied in and back). ``eager`` runs it on the same
+    buffers without a graph, on ``params`` itself. A caller that reads a
+    persistent state's leaves after the segment reads them in
+    :func:`holding`. A tp-sharded ``params`` (with a
     state from ``init_slots(..., tp_devices=t2s.shard_devices(params))``)
     runs each layer over its shards, in the same graphs: each reads and
     merges its own caches of ``H/tp`` heads, on the kernel route with one
@@ -626,23 +691,21 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     if noise is None:
         noise = gumbel_noise((W, B, cfg.semantic_vocab), generator, dev)
     noise = torch.as_tensor(noise, device=dev)
-    prog = functools.partial(_segment, params, cfg, W=W, sx=Sx, sp=Sp, ring_len=ring_len,
-                             use_kernel=use_kernel, ctx_win=ctx_win, ring_win=ring_win,
-                             any_top_p=any_top_p)
     key = _segment_key(state, W, Sx, Sp, ring_len, use_kernel, ctx_win, ring_win,
                        any_top_p)
-    g = graphs.cache_for(params).graph(key, lambda: SegmentBuffers(
-        state if state.persistent else clone_state(state), torch.zeros_like(noise),
-        torch.zeros((B, W), dtype=torch.int32, device=dev)))
-    with g.lock:
-        b = g.static
-        if b.state is not state:
-            copy_state(b.state, state)
-        b.noise.copy_(noise)
-        g.run(prog, eager=eager)
-        if b.state is not state:
-            copy_state(state, b.state)
-        seg_tok = b.seg_tok.clone()
+    cache = graphs.cache_for(params)
+    # the state first, then the bank, then the graph's lock (everywhere)
+    with holding(params, state), cache.bind(params, eager) as p:
+        g = cache.graph(key, lambda: SegmentBuffers(
+            _home(params, state).state, torch.zeros_like(noise),
+            torch.zeros((B, W), dtype=torch.int32, device=dev)))
+        with g.lock:
+            b = g.static
+            b.noise.copy_(noise)
+            g.run(functools.partial(_segment, p, cfg, W=W, sx=Sx, sp=Sp, ring_len=ring_len,
+                                    use_kernel=use_kernel, ctx_win=ctx_win,
+                                    ring_win=ring_win, any_top_p=any_top_p), eager=eager)
+            seg_tok = b.seg_tok.clone()
     return state, seg_tok
 
 

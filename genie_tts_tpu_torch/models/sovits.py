@@ -19,8 +19,10 @@ whole synthesizer computes in fp32.
 
 The serving routes run the latent and the vocode as programs over static
 buffers (:func:`latent`, :func:`vocode`, :func:`vocode_frames_chunked`),
-captured as CUDA graphs per geometry (``runtime/graphs.py``; a parameter
-set's graphs are one family: one pool, one lock): the counterpart of the
+captured as CUDA graphs per geometry (``runtime/graphs.py``; a
+configuration's graphs are one family: one pool, one lock, and they read
+the configuration's bank, which a caller binds before the family lock):
+the counterpart of the
 JAX engine's jitted ``_latent``, ``_vocode``, ``_latent_rows`` and
 ``_vocode_window_rows``. The flow noise is an input of the latent
 program, drawn in place from the request's generator outside it.
@@ -405,12 +407,14 @@ def vocode_frames_chunked(params: Params, cfg: SoVITSConfig, z: torch.Tensor,
     if F_ <= chunk + 2 * halo:
         return vocode(params, cfg, z, ge, frames_valid)
     out = torch.zeros((B, F_ * hop), dtype=torch.float32, device=z.device)
-    for start, s0, s1, n in chunk_windows(F_, chunk, halo):
-        if bound is not None and start >= bound:
-            break
-        valid = torch.clamp(frames_valid - s0, 0, s1 - s0)
-        a = vocode(params, cfg, z[:, s0:s1], ge, valid)
-        out[:, start * hop:(start + n) * hop] = a[:, (start - s0) * hop:(start - s0 + n) * hop]
+    with graphs.cache_for(params).bind(params) as params:     # once for every window
+        for start, s0, s1, n in chunk_windows(F_, chunk, halo):
+            if bound is not None and start >= bound:
+                break
+            valid = torch.clamp(frames_valid - s0, 0, s1 - s0)
+            a = vocode(params, cfg, z[:, s0:s1], ge, valid)
+            out[:, start * hop:(start + n) * hop] = a[:, (start - s0) * hop:
+                                                      (start - s0 + n) * hop]
     return out
 
 
@@ -465,8 +469,10 @@ def _vocode_program(params: Params, cfg: SoVITSConfig, b: VocodeBuffers) -> None
 
 
 def latent_graph(params: Params, cfg: SoVITSConfig, B: int, Ts: int, Tt: int):
-    """The graph of the latent program at (B, Ts, Tt), from the parameter
-    set's cache (its buffers made on a miss), and the program."""
+    """The graph of the latent program at (B, Ts, Tt), from the
+    configuration's cache (its buffers made on a miss), and the program
+    over ``params``: the bank of a bound set (``GraphCache.bind``), or for
+    an eager run the set itself."""
     dev, dt = params["quantizer_embed"].device, params["quantizer_embed"].dtype
 
     def make():
@@ -500,12 +506,16 @@ def vocode_graph(params: Params, cfg: SoVITSConfig, B: int, W: int):
     return g, functools.partial(_vocode_program, params, cfg)
 
 
-def prepare(graph_and_program) -> None:
-    """Capture a program of :func:`latent_graph` / :func:`vocode_graph`
-    (a warmup unit; on the CPU its key and buffers are made)."""
-    g, fn = graph_and_program
-    with g.lock:
-        g.prepare(fn)
+def prepare(params: Params, cfg: SoVITSConfig, stage: str, key: tuple) -> None:
+    """Capture the latent (``stage`` "latent", ``key`` (B, Ts, Tt)) or
+    vocode ("vocode", (B, W)) program of the configuration of ``params``
+    with the set bound (a warmup unit; on the CPU its key and buffers are
+    made)."""
+    make = latent_graph if stage == "latent" else vocode_graph
+    with graphs.cache_for(params).bind(params) as params:
+        g, fn = make(params, cfg, *key)
+        with g.lock:
+            g.prepare(fn)
 
 
 def latent(params: Params, cfg: SoVITSConfig, codes: torch.Tensor,
@@ -519,22 +529,24 @@ def latent(params: Params, cfg: SoVITSConfig, codes: torch.Tensor,
     :func:`synthesize_latent_rows` does), else drawn in place from
     ``generator``. Returns z [B, 2*Ts, C] (the caller's copy)."""
     B, Ts = codes.shape
-    g, fn = latent_graph(params, cfg, B, Ts, text_ids.shape[1])
-    with g.lock:
-        b = g.static
-        b.codes.copy_(codes)
-        b.codes_len.copy_(codes_len)
-        b.text.copy_(text_ids)
-        b.text_len.copy_(text_len)
-        b.ge.copy_(ge)
-        b.ge_mrte.copy_(ge_mrte)
-        b.noise_scale.fill_(noise_scale)
-        if noise is None:
-            b.noise.normal_(generator=generator)
-        else:
-            b.noise.copy_(noise[:, :2 * Ts])
-        g.run(fn)
-        return b.z.clone()
+    # the bank first, then the family lock (everywhere: no deadlock)
+    with graphs.cache_for(params).bind(params) as params:
+        g, fn = latent_graph(params, cfg, B, Ts, text_ids.shape[1])
+        with g.lock:
+            b = g.static
+            b.codes.copy_(codes)
+            b.codes_len.copy_(codes_len)
+            b.text.copy_(text_ids)
+            b.text_len.copy_(text_len)
+            b.ge.copy_(ge)
+            b.ge_mrte.copy_(ge_mrte)
+            b.noise_scale.fill_(noise_scale)
+            if noise is None:
+                b.noise.normal_(generator=generator)
+            else:
+                b.noise.copy_(noise[:, :2 * Ts])
+            g.run(fn)
+            return b.z.clone()
 
 
 def vocode(params: Params, cfg: SoVITSConfig, z: torch.Tensor, ge: torch.Tensor,
@@ -543,14 +555,15 @@ def vocode(params: Params, cfg: SoVITSConfig, z: torch.Tensor, ge: torch.Tensor,
     geometry (a graph replay on the card). Returns [B, W*hop] (the
     caller's copy)."""
     B, W, _ = z.shape
-    g, fn = vocode_graph(params, cfg, B, W)
-    with g.lock:
-        b = g.static
-        b.z.copy_(z)
-        b.ge.copy_(ge)
-        b.valid.copy_(frames_valid)
-        g.run(fn)
-        return b.audio.clone()
+    with graphs.cache_for(params).bind(params) as params:
+        g, fn = vocode_graph(params, cfg, B, W)
+        with g.lock:
+            b = g.static
+            b.z.copy_(z)
+            b.ge.copy_(ge)
+            b.valid.copy_(frames_valid)
+            g.run(fn)
+            return b.audio.clone()
 
 
 def vocode_rows(params: Params, cfg: SoVITSConfig, z: torch.Tensor, ge: torch.Tensor,

@@ -44,7 +44,7 @@ import torch
 
 from ..config import T2SConfig
 from ..ops.flash_decode import flash_decode_attention
-from ..ops.fused_decode import fused_decode_step, pack_decode_params
+from ..ops.fused_decode import fused_decode_step
 from ..ops.fused_decode import prepare as prepare_fused
 from ..ops.fused_decode import step_buffers as fused_step_buffers
 from ..ops.int8_decode import int8_big_attention
@@ -650,18 +650,21 @@ def _generate_key(B, Sx, Sp, cache_len, max_steps, dtype, tp=1):
 
 def decode_graph(params: Params, cfg: T2SConfig, B: int, Sx: int, Sp: int,
                  cache_len: int, max_steps: int, dtype):
-    """The graph of :func:`generate` at this geometry, from the parameter
-    set's cache (its buffers made on a miss), and the fused kernel's
-    packing for B = 1 on whole parameters (made once per parameter set
-    and prepared for ``cache_len`` before any capture). A tp-sharded
-    set's buffers hold a cache per shard on its device
-    (:func:`shard_devices`), the rest on the lead device."""
+    """The graph of :func:`generate` at this geometry, from the
+    configuration's cache (its buffers made on a miss), and the fused
+    kernel's packing for B = 1 on whole parameters (``params["_packed"]``,
+    made once per set by ``graphs.cache_for``; prepared for ``cache_len``
+    before any capture). ``params``: the bank of a bound set
+    (``GraphCache.bind``), whose programs every character's replays
+    share, or for an eager run the set itself. A tp-sharded set's buffers
+    hold a cache per shard on its device (:func:`shard_devices`), the rest
+    on the lead device."""
     cache = graphs.cache_for(params)
     dev = params["audio_embed"].device
     devs = shard_devices(params)
     packed = None
     if B == 1 and len(devs) == 1:
-        packed = cache.shared("packed", lambda: pack_decode_params(params))
+        packed = params["_packed"]
         prepare_fused(packed, cache_len, cfg.num_heads, dev)
     g = cache.graph(_generate_key(B, Sx, Sp, cache_len, max_steps, dtype, tp=len(devs)),
                     lambda: _decode_buffers(cfg, B, Sx, Sp, cache_len, max_steps,
@@ -700,9 +703,10 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     in place from ``generator`` when not given); ``max_steps_dyn``: an
     optional per-call cap <= max_steps.
 
-    Everything runs over the static buffers of the geometry's graph
-    (``runtime/graphs.py``), held from the inputs' copy in to the
-    outputs' copy out: the prefill program (:func:`_prefill_block`:
+    Everything runs over the static buffers of the geometry's graph in
+    the configuration's cache (``runtime/graphs.py``), on its bank with
+    ``params`` bound, held from the inputs' copy in to the outputs' copy
+    out: the prefill program (:func:`_prefill_block`:
     embedding, prefill into the graph's caches, histogram, first token)
     once, then the decode in blocks of ``DONE_READ_EVERY`` steps of
     :func:`_decode_block` (the last one, where the per-call cap is
@@ -710,7 +714,7 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     a captured CUDA graph (a variant per program and top-p flag, so
     every cap replays the same ones); the host reads ``done`` and the
     step counter once per block. ``eager`` runs the same programs on the
-    same buffers without a graph.
+    same buffers without a graph, on ``params`` itself.
 
     Routes: B = 1 on whole parameters runs the fused all-layer kernel; B >
     1 the per-layer route with the flash kernel; a tp-sharded parameter
@@ -725,44 +729,45 @@ def generate(params: Params, cfg: T2SConfig, scfg: SamplingConfig,
     Sp = prompts.shape[1]
     dtype = params["audio_embed"].dtype
     any_top_p = scfg.top_p < 1.0
-    g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps, dtype)
-    with g.lock:
-        b = g.static
-        if embed:
-            b.phones.copy_(x[0])
-            b.bert.copy_(x[1])
-        else:
-            b.x.copy_(x)
-        b.prompts.copy_(prompts)
-        b.x_len.copy_(x_len)
-        b.p_len.copy_(p_len)
-        if noise is None:
-            gumbel_noise_(b.noise, generator)
-        else:
-            b.noise.copy_(noise)
-        b.min_steps.fill_(int(min_steps))
-        b.ms_dyn.fill_(ms_dyn)
-        b.top_k.fill_(scfg.top_k)
-        b.top_p.fill_(scfg.top_p)
-        b.temperature.fill_(scfg.temperature)
-        b.repetition_penalty.fill_(scfg.repetition_penalty)
-        g.run(functools.partial(_prefill_block, params, cfg, Sx=Sx, Sp=Sp, embed=embed,
-                                any_top_p=any_top_p),
-              variant=("prefill", embed, any_top_p), eager=eager)
-        step = 1
-        while step < ms_dyn:
-            # a block of DONE_READ_EVERY steps, or as many single steps as
-            # are left before the cap (no step past it runs)
-            n = min(DONE_READ_EVERY, ms_dyn - step)
-            for w in [n] if n == DONE_READ_EVERY else [1] * n:
-                g.run(functools.partial(_decode_block, params, cfg, n_steps=w, Sx=Sx,
-                                        Sp=Sp, any_top_p=any_top_p, packed=packed),
-                      variant=(w, any_top_p), eager=eager)
-            # the host reads `done` and the step counter once per block
-            all_done, step = torch.stack([b.done.all().long(), b.step]).tolist()
-            if all_done:
-                break
-        tokens, counts = b.tokens.clone(), b.counts.clone()
+    with graphs.cache_for(params).bind(params, eager) as params:
+        g, packed = decode_graph(params, cfg, B, Sx, Sp, cache_len, max_steps, dtype)
+        with g.lock:
+            b = g.static
+            if embed:
+                b.phones.copy_(x[0])
+                b.bert.copy_(x[1])
+            else:
+                b.x.copy_(x)
+            b.prompts.copy_(prompts)
+            b.x_len.copy_(x_len)
+            b.p_len.copy_(p_len)
+            if noise is None:
+                gumbel_noise_(b.noise, generator)
+            else:
+                b.noise.copy_(noise)
+            b.min_steps.fill_(int(min_steps))
+            b.ms_dyn.fill_(ms_dyn)
+            b.top_k.fill_(scfg.top_k)
+            b.top_p.fill_(scfg.top_p)
+            b.temperature.fill_(scfg.temperature)
+            b.repetition_penalty.fill_(scfg.repetition_penalty)
+            g.run(functools.partial(_prefill_block, params, cfg, Sx=Sx, Sp=Sp, embed=embed,
+                                    any_top_p=any_top_p),
+                  variant=("prefill", embed, any_top_p), eager=eager)
+            step = 1
+            while step < ms_dyn:
+                # a block of DONE_READ_EVERY steps, or as many single steps as
+                # are left before the cap (no step past it runs)
+                n = min(DONE_READ_EVERY, ms_dyn - step)
+                for w in [n] if n == DONE_READ_EVERY else [1] * n:
+                    g.run(functools.partial(_decode_block, params, cfg, n_steps=w, Sx=Sx,
+                                            Sp=Sp, any_top_p=any_top_p, packed=packed),
+                          variant=(w, any_top_p), eager=eager)
+                # the host reads `done` and the step counter once per block
+                all_done, step = torch.stack([b.done.all().long(), b.step]).tolist()
+                if all_done:
+                    break
+            tokens, counts = b.tokens.clone(), b.counts.clone()
     return GenerateResult(tokens=tokens, counts=counts, steps=int(step))
 
 

@@ -9,7 +9,9 @@ generate`` runs every B=1 decode step through it.
 Weights are packed once per character by :func:`pack_decode_params`
 (views of the stacked layer weights; small vectors in fp32), and
 :func:`prepare` adds to the packing, for a cache length, the kernel's
-per-block tiled copy of the weights (:func:`_prepared`, read-only). A
+per-block tiled copy of the weights (:func:`_prepared`, read-only; the
+decode graphs prepare a configuration's bank, and :func:`refresh` redoes
+its tiles in place when another character is bound). A
 caller that launches inside a CUDA graph (``runtime/graphs.py``) also
 owns the launch's output row and scratch (:func:`step_buffers`), so that
 a launch allocates nothing and copies nothing from the host, and no two
@@ -207,6 +209,21 @@ def _prepared(stacked, dev: torch.device, S: int, num_heads: int) -> dict:
                               for phase, (wname, tname) in enumerate(_TILES)]}
             stacked["_prep"][key] = prep
     return prep
+
+
+def refresh(stacked) -> None:
+    """Re-gather every tiled copy :func:`prepare` made in ``stacked``, in
+    place, from its weights: after they were overwritten (a graph cache's
+    bank, bound to another character: ``runtime/graphs.py``). Captured
+    launches read the tiles by address, so they stay where they are."""
+    for (index, S, num_heads), prep in stacked.get("_prep", {}).items():
+        dims = _dims(stacked, S, num_heads)
+        wbytes = stacked["wqkv"].element_size()
+        for phase, ((wname, _), tile) in enumerate(zip(_TILES, prep["tiles"])):
+            idx = _tile_idx[(index, *dims[1:5], wbytes, phase)]
+            L = tile.shape[0]
+            torch.index_select(stacked[wname].view(torch.uint8).reshape(L, -1, 16), 1, idx,
+                               out=tile.view(L, -1, 16))
 
 
 def prepare(stacked, S: int, num_heads: int, device) -> None:

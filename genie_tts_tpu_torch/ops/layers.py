@@ -100,6 +100,29 @@ def _conv_transpose_weight(params, dtype: torch.dtype) -> torch.Tensor:
     return wt
 
 
+# the layouts the derived caches hold, from the stored weight: a 1-D conv's
+# [width, in/groups, out] and a 2-D conv's HWIO (``models/eres2net.py``)
+_DERIVED = {("_wt", 3): (2, 1, 0), ("_wtt", 3): (1, 2, 0), ("_wt", 4): (3, 2, 0, 1)}
+
+
+def refresh_derived(tree) -> None:
+    """Redo, in place, every conv layout cached in ``tree`` (the per-layer
+    views of :func:`unstack` included) from its weight: after the weights
+    were overwritten, as a graph cache's bank is when another character
+    binds it (``runtime/graphs.py``)."""
+    if isinstance(tree, dict):
+        w = tree.get("w")
+        for name in ("_wt", "_wtt"):
+            wt = tree.get(name)
+            if wt is not None:
+                wt.copy_(w.permute(*_DERIVED[(name, w.dim())]))
+        for v in tree.values():
+            refresh_derived(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            refresh_derived(v)
+
+
 def conv1d_ncw(params, x: torch.Tensor, stride: int = 1, padding: int = 0,
                dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """1D conv in channel-major layout: [B, C_in, T] -> [B, C_out, T']."""

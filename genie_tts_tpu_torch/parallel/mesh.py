@@ -18,8 +18,10 @@ collectives. The port has two meshes:
   (``runtime/engine.py::TTSEngine.shard_character``), whose T2S layers
   are split over the row's tp devices (:func:`shard_serving_params`); the
   tp reductions are device copies and adds in rank order onto the row's
-  first device (``parallel/tp.py``). The server, its batchers and its
-  streams stay one host program.
+  first device (``parallel/tp.py``). A replica past the first is marked
+  with its row (``_dp_row``), so it has a configuration, a bank and
+  graphs of its own (``runtime/graphs.py``): the rows decode at once.
+  The server, its batchers and its streams stay one host program.
 """
 from __future__ import annotations
 

@@ -26,6 +26,10 @@ shard's work is queued in :func:`shard_work`: inside a CUDA-graph capture
 (``runtime/graphs.py``) on a capture stream of its tp rank's own, forked
 from the lead card's stream where the work begins and joined back where
 the partial sums are added, so one graph per dp row records every shard.
+A tp set's graphs read its configuration's bank (``runtime/graphs.py``),
+a copy of the set made shard by shard on the shards' devices, so a
+second character of the configuration binds them: its shards are copied
+into the bank's, each on its card.
 """
 from __future__ import annotations
 

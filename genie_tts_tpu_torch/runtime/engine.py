@@ -17,7 +17,8 @@ codes it decoded: the batched codes -> waveform finisher
 Serving over a device mesh (``TTSEngine(mesh=make_serving_mesh(dp, tp))``,
 ``parallel/mesh.py``): ``replicate_character`` / ``shard_character`` give a
 character one replica per dp row (each past the first in weights of its
-own, so in graphs of its own), its T2S layers split over the row's tp
+own, marked with its row, so in graphs and a bank of its own), its T2S
+layers split over the row's tp
 devices by ``shard_character``. ``synthesize_batch`` runs each dp row's
 block of the batch on its replica, from a pool of dp threads; every other
 path runs on replica 0, whose trees are the character's own fields, so a
@@ -38,7 +39,6 @@ import functools
 import logging
 import threading
 import time
-import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -233,25 +233,27 @@ class TTSEngine:
         self._lock = threading.Lock()
         self._rng = np.random.default_rng(0)
         self._pool: Optional[ThreadPoolExecutor] = None
-        self._slot_states: Dict[tuple, tuple] = {}
+        self._slot_states: Dict[tuple, list] = {}
+        # (configuration, prompt bucket) pairs swept (:meth:`sweep_key`)
+        self.swept: set = set()
 
     def _next_seed(self) -> int:
         with self._lock:
             return int(self._rng.integers(0, 2 ** 31 - 1))
 
     def take_slot_state(self, char: CharacterModel, key: tuple, factory):
-        """A persistent slot state of ``char`` at the slot geometry ``key``
-        for the caller alone: one a warmup sweep or an earlier user left
-        (:meth:`offer_slot_state`; its graphs are captured on its
-        buffers), else a new one from ``factory()``. A slot machine keeps
-        the state it takes for as long as it lives, a segmented stream
-        for one request, so no two users ever decode in one state; a
-        sweep while every state of the key is taken captures on a new
-        one."""
-        k = (id(char), key)
+        """A persistent slot state of ``char``'s configuration at the slot
+        geometry ``key`` for the caller alone: one a warmup sweep or an
+        earlier user left (:meth:`offer_slot_state`), else a new one from
+        ``factory()``. A slot machine keeps the state it takes for as long
+        as it lives, a segmented stream for one request, so no two users
+        ever decode in one state; the graphs of the geometry replay on the
+        configuration's resident state, which holds one user's at a time
+        (``models/slots.py``)."""
+        k = (graphs.cache_for(char.t2s_params), key)
         with self._lock:
-            hit = self._slot_states.get(k)
-            state = hit[1].pop() if hit is not None and hit[0]() is char and hit[1] else None
+            pool = self._slot_states.get(k)
+            state = pool.pop() if pool else None
         if state is not None:
             return state
         with torch.inference_mode(False):     # updated in place in any mode
@@ -259,20 +261,13 @@ class TTSEngine:
 
     def offer_slot_state(self, char: CharacterModel, key: tuple, state) -> None:
         """Leave ``state`` (not in use) for a later :meth:`take_slot_state`
-        of ``char`` at ``key``; the states left are dropped with their
-        character."""
-        k = (id(char), key)
-
-        def drop(ref, k=k):      # no lock: a collection may run while it is held
-            if self._slot_states.get(k, (None,))[0] is ref:
-                self._slot_states.pop(k, None)
-
+        of a character of ``char``'s configuration at ``key``; the pools
+        live as long as the engine."""
+        k = (graphs.cache_for(char.t2s_params), key)
         with self._lock:
-            hit = self._slot_states.get(k)
-            if hit is None or hit[0]() is not char:
-                hit = self._slot_states[k] = (weakref.ref(char, drop), [])
-            if not any(s is state for s in hit[1]):
-                hit[1].append(state)
+            pool = self._slot_states.setdefault(k, [])
+            if not any(s is state for s in pool):
+                pool.append(state)
 
     # -- serving over a mesh ----------------------------------------------
 
@@ -314,17 +309,21 @@ class TTSEngine:
         reps = []
         for r, row in enumerate(mesh.devices):
             # every replica past the first holds weights of its own, on a
-            # mesh that repeats a card too: its graphs (which read weights
-            # by address) are its own, as on a mesh of distinct cards
+            # mesh that repeats a card too, and is marked with its row: the
+            # rows decode at once, so each has graphs and a bank of its own
+            # (``runtime/graphs.py::signature``), as on distinct cards
             lead, own = row[0], r > 0
-            reps.append(dataclasses.replace(
+            rep = dataclasses.replace(
                 char, device=lead, replicas=None, placement=(mesh, shard),
                 t2s_params=shard_serving_params(char.t2s_params,
                                                 row if shard else row[:1], copy=own),
                 sovits_params=place_tree(char.sovits_params, lead, own),
                 prompt_encoder_params=(
                     None if char.prompt_encoder_params is None
-                    else place_tree(char.prompt_encoder_params, lead, own))))
+                    else place_tree(char.prompt_encoder_params, lead, own)))
+            if own:
+                rep.t2s_params[graphs.DP_ROW] = rep.sovits_params[graphs.DP_ROW] = r
+            reps.append(rep)
         r0 = reps[0]
         char.t2s_params, char.sovits_params = r0.t2s_params, r0.sovits_params
         char.prompt_encoder_params, char.device = r0.prompt_encoder_params, r0.device
@@ -351,8 +350,9 @@ class TTSEngine:
         return B_pad, B_pad // dp
 
     def graph_caches(self, char: CharacterModel) -> list:
-        """The graph caches of every replica of ``char`` (each replica's
-        T2S and SoVITS sets: a graph reads its weights by address)."""
+        """The graph caches of every replica of ``char``: each replica's
+        T2S and SoVITS configurations (``runtime/graphs.py``), shared by
+        every character of the same configuration."""
         return [graphs.cache_for(p) for rep in self._replicas(char)
                 for p in (rep.t2s_params, rep.sovits_params)]
 
@@ -938,15 +938,23 @@ class TTSEngine:
         run; the caches' ``stats`` (:meth:`graph_caches`) count the
         graphs captured.
 
-        A captured graph reads the weights of the character it was
-        captured for, so the sweep warms ``char`` alone (the kernels it
-        builds and the plans it makes serve every character)."""
+        The graphs are the configuration's (``runtime/graphs.py``: they
+        read its bank, which every character of it binds), so a sweep
+        warms every character of ``char``'s configuration at this prompt
+        bucket, as the JAX package's one compile serves every character:
+        a sweep of a configuration and bucket swept already
+        (:meth:`sweep_key`, recorded in ``swept``) runs 0 units (RoBERTa's
+        programs are swept once per device)."""
         if not sweep:
             phones = np.zeros(8, np.int32)
             bert = np.zeros((8, char.t2s_cfg.bert_dim), np.float32)
             self.synthesize_utterance(char, ref, phones, bert, seed=0)
             return 1
         cfg, tcfg = self.cfg, char.t2s_cfg
+        if not self.needs_sweep(char, ref):
+            return 0
+        key = self.sweep_key(char, ref)
+        roberta = self._roberta_key(char)
         reps = self._replicas(char)
         p_bucket = pick_bucket(len(ref.prompt_tokens), cfg.prompt_buckets)
         cap = pick_bucket(tcfg.max_decode_steps, cfg.step_caps)
@@ -956,48 +964,76 @@ class TTSEngine:
 
         def decode(params, B, xb):
             # every program of the geometry's graph captured on its zeroed
-            # buffers (on the CPU: its key and variants recorded)
-            g, packed = t2s.decode_graph(params, tcfg, B, xb, p_bucket, xb + p_bucket + cap,
-                                         cap, params["audio_embed"].dtype)
-            with g.lock:
-                for variant, fn in t2s.generate_programs(params, tcfg, xb, p_bucket,
-                                                         packed).items():
-                    g.prepare(fn, variant)
+            # buffers, with the set bound (on the CPU: its key and variants
+            # recorded)
+            with graphs.cache_for(params).bind(params) as params:
+                g, packed = t2s.decode_graph(params, tcfg, B, xb, p_bucket,
+                                             xb + p_bucket + cap, cap,
+                                             params["audio_embed"].dtype)
+                with g.lock:
+                    for variant, fn in t2s.generate_programs(params, tcfg, xb, p_bucket,
+                                                             packed).items():
+                        g.prepare(fn, variant)
 
         units = []
-        for r, rep in enumerate(reps):
-            batch = set(rows)
-            if r == 0:
-                batch |= {1} | ({b for b in cfg.batch_buckets if b > 1}
-                                if cfg.serve_batching else set())
-            for B in sorted(batch):
-                for xb in cfg.phoneme_buckets:
-                    units.append(functools.partial(decode, rep.t2s_params, B, xb))
-        units += self.solo_warmup_units(char)
-        if cfg.serve_batching:
-            units += self.finisher_warmup_units(char, b_buckets=set(cfg.batch_buckets) | rows)
-            for rep in reps[1:]:
-                units += self.finisher_warmup_units(rep, b_buckets=rows)
-        if cfg.serve_slots:
-            from .slot_batcher import slot_warmup_units
+        if key not in self.swept:
+            for r, rep in enumerate(reps):
+                batch = set(rows)
+                if r == 0:
+                    batch |= {1} | ({b for b in cfg.batch_buckets if b > 1}
+                                    if cfg.serve_batching else set())
+                for B in sorted(batch):
+                    for xb in cfg.phoneme_buckets:
+                        units.append(functools.partial(decode, rep.t2s_params, B, xb))
+            units += self.solo_warmup_units(char)
+            if cfg.serve_batching:
+                units += self.finisher_warmup_units(char,
+                                                    b_buckets=set(cfg.batch_buckets) | rows)
+                for rep in reps[1:]:
+                    units += self.finisher_warmup_units(rep, b_buckets=rows)
+            if cfg.serve_slots:
+                from .slot_batcher import slot_warmup_units
 
-            units.extend(slot_warmup_units(self, char))
-        if cfg.stream_segmented:
-            from .stream import stream_warmup_units
+                units.extend(slot_warmup_units(self, char))
+            if cfg.stream_segmented:
+                from .stream import stream_warmup_units
 
-            units.extend(stream_warmup_units(self, char))
-        if "Chinese" in normalize_language(char.language):
+                units.extend(stream_warmup_units(self, char))
+        if roberta is not None and roberta not in self.swept:
             from .model_manager import model_manager
 
             units.extend(model_manager.roberta_warmup_units(char.device))
         with metrics.timer("warmup_sweep"):
             n = self._run_compile_units(units)
+        self.swept |= {key} | ({roberta} if roberta is not None else set())
         caches = self.graph_caches(char)
         logger.info("warmup sweep ran %d units over %d replica(s), %d + %d graphs captured "
                     "(T2S + SoVITS)", n, len(reps),
                     sum(c.stats["captures"] for c in caches[0::2]),
                     sum(c.stats["captures"] for c in caches[1::2]))
         return n
+
+    def sweep_key(self, char: CharacterModel, ref: ReferenceFeatures) -> tuple:
+        """What a sweep of ``char`` at ``ref`` warms: the configuration of
+        each of its replicas (their graph caches), its model configs and
+        the reference's prompt bucket."""
+        return (tuple(self.graph_caches(char)), char.t2s_cfg, char.sovits_cfg,
+                pick_bucket(len(ref.prompt_tokens), self.cfg.prompt_buckets))
+
+    @staticmethod
+    def _roberta_key(char: CharacterModel):
+        """RoBERTa's sweep record on ``char``'s device, or None for a
+        character whose language takes no BERT features."""
+        if "Chinese" not in normalize_language(char.language):
+            return None
+        return ("roberta", char.device)
+
+    def needs_sweep(self, char: CharacterModel, ref: ReferenceFeatures) -> bool:
+        """Whether :meth:`warmup` with ``sweep=True`` has work to do: the
+        configuration and prompt bucket, or RoBERTa's device, not swept."""
+        roberta = self._roberta_key(char)
+        return (self.sweep_key(char, ref) not in self.swept
+                or (roberta is not None and roberta not in self.swept))
 
     def chunk_widths(self, F: int) -> set:
         """The window widths ``sovits.vocode_frames_chunked`` vocodes over
@@ -1065,15 +1101,8 @@ def sovits_warmup_units(char: CharacterModel, latents, vocodes) -> list:
     ``vocodes`` (``models/sovits.py``; on the CPU the keys and buffers
     are made)."""
     p, v = char.sovits_params, char.sovits_cfg
-
-    def latent(key):
-        sovits.prepare(sovits.latent_graph(p, v, *key))
-
-    def vocode(key):
-        sovits.prepare(sovits.vocode_graph(p, v, *key))
-
-    return ([functools.partial(latent, k) for k in sorted(latents)]
-            + [functools.partial(vocode, k) for k in sorted(vocodes)])
+    return ([functools.partial(sovits.prepare, p, v, "latent", k) for k in sorted(latents)]
+            + [functools.partial(sovits.prepare, p, v, "vocode", k) for k in sorted(vocodes)])
 
 
 # ---------------------------------------------------------------------------

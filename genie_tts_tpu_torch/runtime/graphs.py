@@ -15,11 +15,27 @@ captured once per geometry as a CUDA graph and then replayed:
   into the buffers, calls :meth:`Graph.run` (a capture on the first run,
   a replay after) as often as it needs, and copies the outputs out
   before it lets go of the lock.
-* :class:`GraphCache` keys the graphs of ONE parameter set (a captured
-  graph reads its weights by address) on their static geometry, and
-  counts hits, misses, variants and captures; :func:`cache_for` finds a
-  parameter set's cache. ``runtime/engine.py::TTSEngine.warmup(..., sweep=True)``
-  captures every key that serving can reach before traffic arrives.
+* :class:`GraphCache` keys the graphs of ONE configuration on their static
+  geometry, and counts hits, misses, variants and captures;
+  :func:`cache_for` finds a parameter set's cache by its configuration
+  signature (:func:`signature`: the family kind and each leaf's path,
+  shape, dtype and device, and a dp replica's row), so every character of
+  a configuration shares one cache, as every character shares the JAX
+  package's jitted programs (they take ``params`` as an argument). A
+  captured graph reads its weights by address, so the cache owns a BANK:
+  static tensors shaped like one parameter set (made from the first set
+  that asks), which a caller binds (:meth:`GraphCache.bind`) before it
+  runs a program: the set's tensors are copied in when the bank holds
+  another set. ``runtime/engine.py::TTSEngine.warmup(..., sweep=True)``
+  captures every key that serving can reach before traffic arrives, for
+  every character of the configuration. Caches live as long as the
+  process, as the JAX package's jit caches do (:func:`clear_caches` is
+  ``jax.clear_caches``).
+* :class:`Residency` is the turn-taking behind a bank, and behind a slot
+  geometry's resident state (``models/slots.py``): one owner's contents
+  at a time; a switch waits, on the device, for every replay of the
+  resident owner (an event recorded when each hold ends) and the next
+  replay waits for the switch's copies.
 
 A capture first runs the program once on the device's capture stream
 (lazy work: kernel builds, library handles, convolution plans), puts the
@@ -47,7 +63,8 @@ The kernel wrappers' launches made while capturing go to the graph's
 record and are added to the wrappers' counts on every replay
 (``ops/_build.py``), so a count is the number of kernel executions. A capture that fails raises;
 nothing falls back to running eagerly. On the CPU there is no graph: the
-program runs eagerly on the same buffers, with the same keys and counts.
+program runs eagerly on the same buffers and the same bank, with the same
+keys, counts and binds.
 """
 from __future__ import annotations
 
@@ -262,11 +279,216 @@ class Graph:
             return graph, dict(rec), grown
 
 
+class Residency:
+    """Static buffers that owners take turns in: a graph cache's bank of
+    weights (:meth:`GraphCache.bind`), a slot geometry's resident state
+    (``models/slots.py``).
+
+    :meth:`hold` makes an owner resident and keeps it so until the hold
+    ends. Holds of the resident owner go straight through, any number at
+    once; a thread's holds nest. Another owner waits until no hold is
+    left (and holds of the resident owner that arrive meanwhile wait
+    behind it, so no owner starves), then SWITCHES: its current stream on
+    ``device`` waits for the event recorded at the end of every hold since
+    the last switch (so no replay of the resident owner is still queued
+    on the card when its buffers are overwritten), ``save(old key)``
+    copies the buffers back to the owner leaving (when ``save`` is given
+    and that owner lives), ``load(data)`` copies the new owner in, and an
+    event recorded after the copies is waited for by every later hold's
+    stream. ``transient``: an owner whose copy lives only for the hold
+    (copied in at its start and back at its end, exclusive meanwhile).
+    ``switches`` counts the switches. A thread that holds one owner and
+    asks for another raises (it would wait for itself)."""
+
+    def __init__(self, device, load: Callable, save: Optional[Callable] = None):
+        self.device = torch.device(device)
+        self._load, self._save = load, save
+        self._cv = threading.Condition()
+        self._owner = None          # a weak reference to the resident owner's key
+        self._holds = 0
+        self._exclusive = False     # a transient owner is in
+        self._wanted: list = []     # keys of the owners waiting to switch in
+        self._tls = threading.local()
+        self._done: Dict[object, object] = {}   # stream -> event after its last hold
+        self._ready = None          # event after the last switch's copies
+        self.switches = 0
+
+    def _resident(self, key) -> bool:
+        return self._owner is not None and self._owner() is key
+
+    def _switch(self, key, data) -> None:
+        on_card = self.device.type == "cuda"
+        if on_card:
+            cur = torch.cuda.current_stream(self.device)
+            for ev in self._done.values():
+                cur.wait_event(ev)
+            self._done.clear()
+        old = self._owner() if self._owner is not None else None
+        self._owner = None
+        if old is not None and self._save is not None:
+            self._save(old)
+        self._load(data)
+        self._owner = weakref.ref(key)
+        self.switches += 1
+        if on_card:
+            self._ready = torch.cuda.Event()
+            self._ready.record(cur)
+
+    @contextlib.contextmanager
+    def hold(self, key, data=None, transient: bool = False):
+        """Hold ``key``'s owner resident (``data``: what ``load`` copies
+        in; the key by default)."""
+        held = getattr(self._tls, "key", None)
+        if held is not None:
+            if held is not key:
+                raise RuntimeError("a thread that holds one owner's buffers asked for "
+                                   "another's: it would wait for itself")
+            yield
+            return
+        data = key if data is None else data
+        with self._cv:
+            queued = False
+            try:
+                while True:
+                    resident = not transient and self._resident(key)
+                    if (resident and not self._exclusive
+                            and all(k is key for k in self._wanted)):
+                        break
+                    if self._holds == 0 and not resident:
+                        self._switch(key, data)
+                        self._exclusive = transient
+                        break
+                    # (resident with no hold left but others waiting: they
+                    # go first, and wake this thread when they are done)
+                    if not queued:
+                        self._wanted.append(key)
+                        queued = True
+                    self._cv.wait()
+            finally:
+                if queued:
+                    del self._wanted[next(i for i, k in enumerate(self._wanted) if k is key)]
+            self._holds += 1
+            ready = self._ready
+        self._tls.key = key
+        try:
+            if ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(ready)
+            yield
+        finally:
+            self._tls.key = None
+            with self._cv:
+                try:
+                    if transient:
+                        self._owner, self._exclusive = None, False
+                        self._save(key)
+                    if self.device.type == "cuda":
+                        ev = torch.cuda.Event()
+                        stream = torch.cuda.current_stream(self.device)
+                        ev.record(stream)
+                        self._done[stream] = ev
+                finally:
+                    self._holds -= 1
+                    self._cv.notify_all()
+
+
+# derived trees of a parameter set that programs read and a bank carries
+# (the fused kernel's packing, ``models/t2s.py``); every other key that
+# starts with '_' is a cache the bank makes for itself (``ops/layers.py``)
+BANKED = ("_packed",)
+# a dp replica's row (``runtime/engine.py::TTSEngine._place``), part of its
+# configuration: replicas decode at once, each on a bank of its own
+DP_ROW = "_dp_row"
+
+
+def tree_leaves(params) -> list:
+    """(path, leaf) of every leaf of a parameter set, sorted by path: its
+    tensors and those under :data:`BANKED`; other '_' keys are skipped."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                k = str(k)
+                if not k.startswith("_") or k in BANKED:
+                    walk(v, f"{path}{k}/")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}{i}/")
+        else:
+            out.append((path[:-1], node))
+
+    walk(params, "")
+    out.sort(key=lambda e: e[0])
+    return out
+
+
+def _alias(t: torch.Tensor) -> tuple:
+    return (t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape), t.stride(),
+            t.dtype, t.device)
+
+
+def _kind(params) -> str:
+    return next(k for n, k in (("audio_embed", "t2s"), ("quantizer_embed", "sovits"),
+                               ("word_embed", "roberta")) if n in params)
+
+
+def signature(params) -> tuple:
+    """A parameter set's configuration: the family kind, each leaf's path,
+    shape, dtype and device (:func:`tree_leaves`; a tp set's shards name
+    their devices), which earlier leaf each one aliases, and a dp
+    replica's row. Sets of one signature share a :class:`GraphCache`."""
+    seen: Dict[tuple, int] = {}
+    leaves = []
+    for i, (path, x) in enumerate(tree_leaves(params)):
+        if isinstance(x, torch.Tensor):
+            a = _alias(x)
+            leaves.append((path, tuple(x.shape), x.dtype, x.device, seen.setdefault(a, i)))
+        else:
+            leaves.append((path, repr(x)))
+    return (_kind(params), tuple(leaves), params.get(DP_ROW, 0))
+
+
+def _anchor(params) -> torch.Tensor:
+    """The tensor that identifies a parameter set: a T2S set's
+    ``audio_embed`` (a tp-sharded set's first shard's qkv weight, its own:
+    its other leaves may be the whole set's), a SoVITS set's
+    ``quantizer_embed``, a RoBERTa set's ``word_embed``."""
+    if "layer_shards" in params:
+        return params["layer_shards"][0]["qkv"]["w"]
+    return params[next(n for n in ("audio_embed", "quantizer_embed", "word_embed")
+                       if n in params)]
+
+
+def _clone_tree(node, seen: dict):
+    """A copy of a parameter tree in tensors of its own (aliases kept),
+    without the derived caches :func:`tree_leaves` skips."""
+    if isinstance(node, torch.Tensor):
+        a = _alias(node)
+        if a not in seen:
+            seen[a] = node.detach().clone()
+        return seen[a]
+    if isinstance(node, dict):
+        return {k: _clone_tree(v, seen) for k, v in node.items()
+                if not str(k).startswith("_") or k in BANKED or k == DP_ROW}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_clone_tree(v, seen) for v in node)
+    return node
+
+
 class GraphCache:
-    """The graphs of one parameter set, keyed on static geometry (route,
+    """The graphs of one configuration, keyed on static geometry (route,
     B, Sx, Sp, cache length, step cap, W, read windows, top-p flag,
-    dtype; the SoVITS stage, B and frame, text or window widths), and the
-    objects they share (the fused kernel's packing).
+    dtype; the SoVITS stage, B and frame, text or window widths), the
+    objects they share (a slot geometry's resident state), and the BANK
+    they read their weights from.
+
+    ``bank``: static tensors shaped like the configuration's parameter
+    sets (a copy of the first set's), read by every captured program;
+    None for a cache whose programs read their one set itself (RoBERTa's,
+    one per device). :meth:`bind` puts a set's tensors in it.
+    ``after_bind``: functions of the bank run after a bind copied a set in
+    (they redo what the bank derived from its weights: the conv layouts,
+    the fused kernel's tiles).
 
     ``family``: the graphs form one family (a SoVITS set's): one memory
     pool, made at the first capture, and one lock, ``family_lock``.
@@ -274,12 +496,15 @@ class GraphCache:
     ``stats``: ``hits`` and ``misses`` count lookups of a key (a miss
     makes the graph's buffers; the capture follows on its first run),
     ``variants`` the (key, variant) programs prepared (on any device),
-    ``captures`` the graphs captured on the card.
+    ``captures`` the graphs captured on the card; with a bank, ``binds``
+    the binds that copied a set into it and ``bind_bytes`` the bytes they
+    copied.
 
-    ``eager``: run every program of the set without a graph (a
-    comparison's baseline; serving never sets it)."""
+    ``eager``: run every program of the configuration without a graph,
+    on the caller's own set (a comparison's baseline; serving never sets
+    it)."""
 
-    def __init__(self, family: bool = False):
+    def __init__(self, family: bool = False, bank_from=None):
         self._graphs: Dict[Hashable, Graph] = {}
         self._objects: Dict[Hashable, object] = {}
         self._lock = threading.RLock()     # a factory may ask for a shared object
@@ -288,6 +513,64 @@ class GraphCache:
         self.family = family
         self.family_lock = threading.Lock() if family else None
         self._pool = None
+        self.bank = None
+        self.after_bind: List[Callable] = []
+        if bank_from is not None:
+            self.stats.update(binds=0, bind_bytes=0)
+            with torch.inference_mode(False), torch.no_grad():
+                self.bank = _clone_tree(bank_from, {})
+            if "_packed" in self.bank:
+                self.bank["_packed"]["_from"] = self.bank["layers"]
+            leaves = tree_leaves(self.bank)
+            sig = signature(self.bank)[1]
+            # the leaves a bind copies: tensors, each storage view once
+            self._copied = [i for i, ((_, x), e) in enumerate(zip(leaves, sig))
+                            if isinstance(x, torch.Tensor) and e[4] == i]
+            self._bank_leaves = [leaves[i][1] for i in self._copied]
+            self._residency = Residency(_anchor(self.bank).device, self._load)
+            # the bank holds the first set: no copy until another binds
+            self._residency._owner = weakref.ref(_anchor(bank_from))
+
+    def bank_bytes(self) -> int:
+        """Bytes of the bank's tensors (0 without a bank)."""
+        if self.bank is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in self._bank_leaves)
+
+    def _load(self, params) -> None:
+        leaves = tree_leaves(params)
+        src = [leaves[i][1] for i in self._copied]
+        groups: Dict[torch.device, tuple] = {}
+        for d, s_ in zip(self._bank_leaves, src):
+            dst, srcs = groups.setdefault(d.device, ([], []))
+            dst.append(d)
+            srcs.append(s_)
+        # in inference mode: what the bank derived may be inference tensors
+        with torch.inference_mode():
+            for dev, (dst, srcs) in groups.items():
+                with on_device_stream(dev):
+                    torch._foreach_copy_(dst, srcs)
+            for fn in self.after_bind:
+                fn(self.bank)
+        with self._lock:
+            self.stats["binds"] += 1
+            self.stats["bind_bytes"] += self.bank_bytes()
+
+    @contextlib.contextmanager
+    def bind(self, params, eager: bool = False):
+        """The parameter tree a program of this configuration reads for
+        ``params``: the bank, holding ``params`` (copied in when the bank
+        held another set; see :class:`Residency`) until the block ends.
+        ``params`` itself when ``eager`` or the cache is eager (the
+        programs then run without a graph, on the caller's set), when it
+        is the bank, and for a cache without a bank."""
+        if eager or self.eager or self.bank is None or params is self.bank:
+            yield params
+            return
+        if cache_for(params) is not self:
+            raise ValueError("bind: the parameter set is of another configuration")
+        with self._residency.hold(_anchor(params), params):
+            yield self.bank
 
     def pool(self):
         """The family's memory pool handle (None: each capture's own)."""
@@ -310,7 +593,7 @@ class GraphCache:
             return g
 
     def shared(self, name: Hashable, factory: Callable[[], object]):
-        """The object ``name`` of this parameter set, made once by
+        """The object ``name`` of this configuration, made once by
         ``factory()``."""
         with self._lock:
             obj = self._objects.get(name)
@@ -339,13 +622,13 @@ class GraphCache:
             return sum(g.pool_bytes for g in self._graphs.values())
 
     def buffer_bytes(self) -> int:
-        """Bytes of the graphs' static buffers (a persistent slot state's
+        """Bytes of the graphs' static buffers (a resident slot state's
         once)."""
         return sum(self.bytes_by_device()[1].values())
 
     def bytes_by_device(self) -> tuple:
         """({device: pool bytes}, {device: static buffer bytes}) of the
-        set's graphs (a persistent slot state's buffers once)."""
+        configuration's graphs (a resident slot state's buffers once)."""
         pools: Dict[torch.device, int] = {}
         bufs: Dict[torch.device, int] = {}
         with self._lock:
@@ -358,9 +641,9 @@ class GraphCache:
         return pools, bufs
 
     def clear(self) -> None:
-        """Let go of every graph and shared object: the parameter set is
-        gone, and a graph refers back to its cache, so the cycle would
-        otherwise wait for the next collection to free the pools."""
+        """Let go of every graph and shared object (a graph refers back to
+        its cache, so the cycle would otherwise wait for the next
+        collection to free the pools)."""
         self._graphs.clear()
         self._objects.clear()
 
@@ -370,36 +653,100 @@ class GraphCache:
                 self.stats[k] = 0
 
 
-_caches: Dict[int, tuple] = {}
-_caches_lock = threading.RLock()   # the drop callback may run inside cache_for
+# configuration signature -> its cache
+_caches: Dict[tuple, GraphCache] = {}
+# (id of a set's dict, id of its anchor tensor) -> (a weak reference to the
+# anchor, the ids of the dict's entries, its cache): a set seen before is
+# found without computing its signature again
+_known: Dict[tuple, tuple] = {}
+_caches_lock = threading.RLock()   # a drop callback may run inside cache_for
+
+
+def _entries(params) -> tuple:
+    return tuple((k, id(v)) for k, v in params.items())
+
+
+def _remember(params, cache: GraphCache, owned: bool = False) -> None:
+    """Find ``cache`` for ``params`` while its anchor lives; ``owned``: the
+    cache is the set's own (RoBERTa's), let go of with it."""
+    anchor = _anchor(params)
+    k = (id(params), id(anchor))
+
+    def drop(ref, k=k):
+        with _caches_lock:
+            if _known.get(k, (None,))[0] is not ref:
+                return
+            del _known[k]
+        if owned:
+            cache.clear()
+
+    _known[k] = (weakref.ref(anchor, drop), _entries(params), cache)
+
+
+def _found(params) -> Optional[GraphCache]:
+    anchor = _anchor(params)
+    hit = _known.get((id(params), id(anchor)))
+    if hit is not None and hit[0]() is anchor and hit[1] == _entries(params):
+        return hit[2]
+    return None
+
+
+def _new_cache(params, kind: str) -> GraphCache:
+    """The cache of a new configuration, its bank made from ``params``; a
+    bind redoes the conv layouts the bank derived, and for a T2S set the
+    fused kernel's tiles."""
+    from ..ops import fused_decode
+    from ..ops.layers import refresh_derived
+
+    cache = GraphCache(family=kind == "sovits", bank_from=params)
+    cache.after_bind.append(refresh_derived)
+    if kind == "t2s" and "_packed" in cache.bank:
+        cache.after_bind.append(lambda bank: fused_decode.refresh(bank["_packed"]))
+    return cache
 
 
 def cache_for(params) -> GraphCache:
-    """The graph cache of a parameter set, found by one of its tensors
-    and dropped with it: a T2S set's by ``audio_embed`` (a tp-sharded
-    set's by its first shard's qkv weight, its own: its other leaves may
-    be the whole set's); a SoVITS set's by ``quantizer_embed`` and a
-    RoBERTa set's by ``word_embed``, each a family (one pool, one
-    lock)."""
-    name = next(n for n in ("audio_embed", "quantizer_embed", "word_embed") if n in params)
-    family = name != "audio_embed"
-    t = params[name]
-    if "layer_shards" in params:
-        t = params["layer_shards"][0]["qkv"]["w"]
-    k = id(t)
+    """The graph cache of a parameter set's configuration (:func:`signature`),
+    made with its bank at the first set that asks and kept for the
+    process. A whole T2S set gets the fused kernel's packing under
+    ``_packed`` first (once per set, and again for a copy of the set with
+    other layers: ``ops/fused_decode.py::pack_decode_params``; the bank
+    carries it). A SoVITS set's cache is a
+    family (one pool, one lock). A RoBERTa set's cache (one set per
+    device, shared by every character) is found by its ``word_embed``,
+    dropped with it, and has no bank: its programs read the set."""
     with _caches_lock:
-        hit = _caches.get(k)
-        if hit is not None and hit[0]() is t:
-            return hit[1]
-        cache = GraphCache(family)
+        hit = _found(params)
+        if hit is not None:
+            return hit
+        kind = _kind(params)
+        if kind == "roberta":
+            cache = GraphCache(family=True)
+            _remember(params, cache, owned=True)
+            return cache
+        if kind == "t2s" and "layers" in params and (
+                params.get("_packed", {}).get("_from") is not params["layers"]):
+            from ..ops.fused_decode import pack_decode_params
 
-        def drop(_ref, k=k):
-            with _caches_lock:
-                cur = _caches.get(k)
-                if cur is None or cur[0] is not _ref:
-                    return
-                del _caches[k]
-            cur[1].clear()
-
-        _caches[k] = (weakref.ref(t, drop), cache)
+            with torch.inference_mode(False), torch.no_grad():
+                params["_packed"] = pack_decode_params(params)
+            params["_packed"]["_from"] = params["layers"]
+        sig = signature(params)
+        cache = _caches.get(sig)
+        if cache is None:
+            cache = _caches[sig] = _new_cache(params, kind)
+            _remember(cache.bank, cache)
+        _remember(params, cache)
         return cache
+
+
+def clear_caches() -> None:
+    """Forget every configuration's cache (``jax.clear_caches``): the next
+    :func:`cache_for` makes a new one, with a new bank. A RoBERTa set's
+    cache stays: it is the set's own."""
+    with _caches_lock:
+        for c in _caches.values():
+            c.clear()
+        _caches.clear()
+        for k in [k for k, v in _known.items() if v[2].bank is not None]:
+            del _known[k]

@@ -5,9 +5,10 @@ validation (a V2ProPlus character also needs its prompt encoder),
 ``config.json`` hyperparameter overrides (a V2ProPlus character's
 synthesizer defaults to ``gin_channels=1024``), int8 decode weights at
 load (``RuntimeConfig.t2s_int8``), an LRU of loaded characters with reload
-after eviction (an evicted character is dropped, and with it its captured
-graphs: ``runtime/graphs.py``; ``on_evict`` is told, so the API lets go
-of what it holds for it), and the lazy shared models: HuBERT, and RoBERTa with the
+after eviction (an evicted character is dropped, and with it its weights;
+the captured graphs are its configuration's and stay for the next
+character of it: ``runtime/graphs.py``; ``on_evict`` is told, so the API
+lets go of what it holds for it), and the lazy shared models: HuBERT, and RoBERTa with the
 Chinese BERT-feature hook it installs into the G2P dispatcher. Both are
 kept per device, so a second character on the same card loads neither
 again.
@@ -84,7 +85,7 @@ class ModelManager:
         self._cache: LRUCache[str, CharacterModel] = LRUCache(
             self.cfg.max_cached_characters, on_evict=self._evicted)
         # called with a character's name when the LRU evicts it: what it
-        # lets go of would keep the character (its weights and graphs) alive
+        # lets go of would keep the character (its weights and states) alive
         self.on_evict: Optional[Callable[[str], None]] = None
         # name -> (model_dir, language, device, dtype) for reload after evict
         self._registry: Dict[str, Tuple] = {}

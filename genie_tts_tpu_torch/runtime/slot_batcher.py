@@ -41,10 +41,12 @@ replica's T2S is tp-sharded, so are its slot caches
 (``models/slots.py``), and the scheduling is the same.
 
 The machine owns its persistent slot state for as long as it lives
-(``TTSEngine.take_slot_state``: the one a warmup sweep left, else a new
-one), updated in place; each segment is a replay of the CUDA graph of its
-width, read windows and top-p flag, captured on that state
-(``runtime/graphs.py``), and so is each join: the prefill program
+(``TTSEngine.take_slot_state``: the one a warmup sweep of its
+configuration left, else a new one), updated in place; each segment is a
+replay of the CUDA graph of its width, read windows and top-p flag, in
+the configuration's cache (``runtime/graphs.py``: on its bank, with the
+character bound, and on its resident state, holding this machine's:
+``models/slots.py::holding``), and so is each join: the prefill program
 (``slots.prefill_join``), the insert and, when the row is harvested, the
 release (``slots.insert_slot`` / ``release_slot``, the slot index in
 device memory), as the JAX package's ``_prefill_jit``, ``_insert_jit``
@@ -52,12 +54,14 @@ and ``_release_jit``; a streaming row's speculative codes are the graph
 of :func:`spec_codes` (``_spec_codes_jit``), a tp-sharded character's
 too. The host keeps a mirror of the ring head.
 :func:`slot_warmup_units` captures every one of these programs the
-scheduler can reach, on a state it then leaves for the character's next
-slot machine, and the finisher's and window pump's SoVITS programs,
+scheduler can reach, on a state it then leaves for the configuration's
+next slot machine, and the finisher's and window pump's SoVITS programs,
 ahead of traffic (``TTSEngine.warmup(..., sweep=True)``).
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import functools
 import logging
 import queue
@@ -141,10 +145,11 @@ def _state_key(engine: TTSEngine, char: CharacterModel) -> tuple:
 
 
 def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotState:
-    """An empty slot machine state of the character at the engine's slot
-    geometry, for the caller alone: a persistent one
-    (``TTSEngine.take_slot_state``: the buffers its segment graphs replay
-    on; a tp-sharded character's holds its caches per shard)."""
+    """An empty slot machine state of the character's configuration at the
+    engine's slot geometry, for the caller alone: a persistent one
+    (``TTSEngine.take_slot_state``: resident in the buffers its graphs
+    replay on while it runs, ``models/slots.py::holding``; a tp-sharded
+    character's holds its caches per shard)."""
     cfg, tcfg = engine.cfg, char.t2s_cfg
     B, _, ring, sx, sp = slot_geometry(cfg, tcfg)
     params = char.t2s_params
@@ -152,26 +157,32 @@ def take_slot_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotSt
               device=char.device, tp_devices=shard_devices(params))
     state = engine.take_slot_state(char, _state_key(engine, char),
                                    lambda: slots_mod.init_slots(tcfg, B, sx, sp, ring, **kw))
-    return slots_mod.reset_slots(state, ring)
+    with slots_mod.holding(params, state) as st:
+        slots_mod.reset_slots(st, ring)
+    return state
 
 
 def join_warmup_units(char: CharacterModel, sx: int, sp: int) -> list:
     """Warmup thunks capturing the join program (``slots.prefill_join``)
-    at (Sx, Sp): each variant, with and without BERT features and top-p."""
-    g, progs = slots_mod.join_graph(char.t2s_params, char.t2s_cfg, sx, sp)
+    at (Sx, Sp): each variant, with and without BERT features and top-p,
+    with the character's set bound."""
+    params = char.t2s_params
 
     def capture(variant):
-        with g.lock:
-            g.prepare(progs[variant], variant)
+        with graphs.cache_for(params).bind(params) as p:
+            g, progs = slots_mod.join_graph(p, char.t2s_cfg, sx, sp)
+            with g.lock:
+                g.prepare(progs[variant], variant)
 
-    return [functools.partial(capture, v) for v in progs]
+    return [functools.partial(capture, (bert, top_p))
+            for bert in (False, True) for top_p in (False, True)]
 
 
 def warmup_join(char: CharacterModel, state: slots_mod.SlotState, sx: int, sp: int,
                 max_steps: int, generator: torch.Generator) -> None:
     """A warmup row: a one-phoneme, one-prompt request joined into slot 0
-    of ``state`` through the join graphs (the insert's captured on
-    ``state`` at its first join)."""
+    of ``state`` through the join graphs (the insert's captured at the
+    geometry's first join)."""
     params, tcfg, dev = char.t2s_params, char.t2s_cfg, char.device
     samp = rows_from_config(SamplingConfig(), 1)
     ctx_k, ctx_v, tok0, hist = slots_mod.prefill_join(
@@ -190,8 +201,8 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     program's variants (:func:`join_warmup_units`), of every segment
     graph the scheduler can dispatch (each width of :func:`seg_widths` x
     each read-window pair of :func:`seg_window_combos` x the top-p flag)
-    and of the insert and release programs on a persistent slot state
-    that it leaves for the character's next slot machine
+    and of the insert and release programs, on a persistent slot state
+    that it leaves for the configuration's next slot machine
     (``TTSEngine.offer_slot_state``), of the speculative first piece's
     codes at every row bucket and width (:func:`spec_codes`), and of the
     window pump's and the finisher's SoVITS programs
@@ -205,7 +216,7 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
 
     def segment(w, cw, rw, top_p):
         # a row joined, decoded and released (the insert and release graphs
-        # captured on the state at the first unit)
+        # captured at the first unit)
         state = take_slot_state(engine, char)
         warmup_join(char, state, sx, sp, w, torch.Generator(device=dev).manual_seed(0))
         state.top_p_host[0] = 0.5 if top_p else 1.0
@@ -213,8 +224,9 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
                                  kv_kernel=cfg.slot_kv_int8, ctx_win=cw, ring_win=rw,
                                  generator=torch.Generator(device=dev).manual_seed(0))
         slots_mod.release_slot(state, 0, params=params)
-        engine.offer_slot_state(char, _state_key(engine, char),
-                                slots_mod.reset_slots(state, ring))
+        with slots_mod.holding(params, state) as st:
+            slots_mod.reset_slots(st, ring)
+        engine.offer_slot_state(char, _state_key(engine, char), state)
 
     for cw, rw in seg_window_combos(cfg, sx, sp, ring):
         for w in seg_widths(cfg, ring):
@@ -431,6 +443,8 @@ class SlotBatcher:
                                              thread_name_prefix="slot-windows")
         # finished rows awaiting the pooled finisher: [req, count, age_in_segments]
         self._finish_pending: List[list] = []
+        # what the loop handed to the workers and :meth:`join` waits for
+        self._work: "collections.deque" = collections.deque(maxlen=256)
 
     # -- public -----------------------------------------------------------
 
@@ -466,6 +480,29 @@ class SlotBatcher:
         the loop again, which exits when that one is done too."""
         with self._lock:
             self._retired = True
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait up to ``timeout`` seconds for a retired (or stopped) machine
+        to come to rest: its loop ended, the vocode work it handed to its
+        workers done and their threads stopped (the machine takes no more
+        requests). Returns whether it did (a process that ends while that
+        work runs inside torch on a daemon thread aborts at exit)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def left():
+            return None if deadline is None else max(deadline - time.monotonic(), 0.0)
+
+        thread = self._thread
+        if thread is not None:
+            thread.join(left())
+            if thread.is_alive():
+                return False
+        if concurrent.futures.wait(list(self._work), left()).not_done:
+            return False
+        # the workers' threads too (they free a job's tensors after it ran)
+        for pool in (self._vocoder, self._winworker):
+            pool.shutdown(wait=True)
+        return True
 
     def fits(self, ref: ReferenceFeatures, phones: np.ndarray) -> bool:
         """Whether a request fits the slot machine's static geometry."""
@@ -715,7 +752,7 @@ class SlotBatcher:
                     _stream_close(req, e)
                     req.done.set()
 
-        self._winworker.submit(fetch)
+        self._work.append(self._winworker.submit(fetch))
 
     def _spec_first_pieces(self, seg_tok: torch.Tensor, seg_w: int) -> None:
         """Speculative first pieces for streaming rows whose FIRST segment
@@ -837,7 +874,7 @@ class SlotBatcher:
                 finally:
                     req.done.set()
 
-        self._winworker.submit(assemble)
+        self._work.append(self._winworker.submit(assemble))
 
     def _flush_finishers_maybe(self, force: bool = False) -> None:
         """Complete finished rows. Pumped rows (streaming consumers, or
@@ -886,7 +923,7 @@ class SlotBatcher:
                 req.error = e
                 req.done.set()
             return
-        self._vocoder.submit(self._complete_fetch, reqs, handle)
+        self._work.append(self._vocoder.submit(self._complete_fetch, reqs, handle))
 
     @torch.inference_mode()
     def _complete_fetch(self, reqs, handle) -> None:
@@ -913,10 +950,17 @@ class SlotBatcher:
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
         seg_fn = self._decode_seg if w == self.W else self._decode_segs[w]
         ctx_win, ring_win = self._pick_windows()
-        with metrics.timer("slot_segment"):
-            self._state, seg_tok = seg_fn(self.char.t2s_params, self._state,
-                                          generator=self._gen, ctx_win=ctx_win,
-                                          ring_win=ring_win)
+        params = self.char.t2s_params
+        # the state held from the segment to the copy of its flags
+        with slots_mod.holding(params, self._state) as st:
+            with metrics.timer("slot_segment"):
+                self._state, seg_tok = seg_fn(params, self._state, generator=self._gen,
+                                              ctx_win=ctx_win, ring_win=ring_win)
+            occupants = list(self._slots)
+            tok0_rows = [r for r in occupants if r is not None and r.tok0_np is None]
+            packed = torch.cat([seg_tok.reshape(-1), st.done.int(), st.counts]
+                               + [r.tok0_dev.reshape(-1) for r in tok0_rows])
+            copy = start_host_copy(packed)
         self._head = (self._head + w) % self.ring
         self.stats["segments"] += 1
         self.stats["steps"] += w
@@ -925,12 +969,7 @@ class SlotBatcher:
         for b, r in enumerate(self._slots):
             if r is not None:              # a row merges at most w keys
                 self._merged[b] = min(self._merged[b] + w, r.max_steps)
-        occupants = list(self._slots)
-        tok0_rows = [r for r in occupants if r is not None and r.tok0_np is None]
-        st = self._state
-        packed = torch.cat([seg_tok.reshape(-1), st.done.int(), st.counts]
-                           + [r.tok0_dev.reshape(-1) for r in tok0_rows])
-        return (start_host_copy(packed), occupants, tok0_rows, w), seg_tok
+        return (copy, occupants, tok0_rows, w), seg_tok
 
     def _fetch_segment(self, pending) -> None:
         copy, occupants, tok0_rows, W = pending
@@ -1060,7 +1099,8 @@ class SlotBatcher:
         self._steps_since_pump = 0
         self._merged = [0] * self.n_slots      # ring keys merged per slot
         self._head = 0                         # host mirror of state.ring_head
-        slots_mod.reset_slots(self._state, self.ring)
+        with slots_mod.holding(self.char.t2s_params, self._state) as st:
+            slots_mod.reset_slots(st, self.ring)
         # one generator on the scheduler thread draws every Gumbel table
         # and every pumped row's noise table
         self._gen = torch.Generator(device=dev).manual_seed(0)

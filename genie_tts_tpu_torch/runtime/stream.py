@@ -23,10 +23,11 @@ bucket, so overlapping frames see the same noise.
 The loop is pipelined one segment deep: segment k's tokens, ``done`` and
 ``counts`` go to pinned host memory behind an event before segment k+1 is
 dispatched (the state is updated in place). A request takes a
-persistent machine state for as long as it lasts (:func:`take_stream_state`:
-the one a sweep or an earlier stream left; concurrent streams take one
-each), and its join (``slots.prefill_join``, ``insert_slot``) and each
-segment replay the graphs captured on it (``models/slots.py``), as each
+persistent machine state of its configuration for as long as it lasts
+(:func:`take_stream_state`: the one a sweep or an earlier stream left;
+concurrent streams take one each), and its join (``slots.prefill_join``,
+``insert_slot``) and each segment replay the configuration's graphs on
+its resident state, holding the request's (``models/slots.py``), as each
 prefix latent and window vocode replays a SoVITS program
 (``models/sovits.py``; one window width per frame bucket);
 :func:`stream_warmup_units` captures them ahead of traffic. A tp-sharded
@@ -72,11 +73,11 @@ def _stream_state_key(char: CharacterModel, ring: int, sx: int, sp: int) -> tupl
 
 
 def take_stream_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.SlotState:
-    """An empty solo machine state at the stream geometry for one
-    request: a persistent one (``TTSEngine.take_slot_state``: one a sweep
-    or an earlier stream left, its graphs captured on it; the caller
-    offers it back; a tp-sharded character's holds its caches per
-    shard)."""
+    """An empty solo machine state of the character's configuration at the
+    stream geometry for one request: a persistent one
+    (``TTSEngine.take_slot_state``: one a sweep or an earlier stream
+    left; the caller offers it back; a tp-sharded character's holds its
+    caches per shard)."""
     tcfg = char.t2s_cfg
     _, ring, sx, sp = stream_geometry(engine.cfg, tcfg)
     params = char.t2s_params
@@ -84,7 +85,9 @@ def take_stream_state(engine: TTSEngine, char: CharacterModel) -> slots_mod.Slot
               tp_devices=shard_devices(params))
     state = engine.take_slot_state(char, _stream_state_key(char, ring, sx, sp),
                                    lambda: slots_mod.init_slots(tcfg, 1, sx, sp, ring, **kw))
-    return slots_mod.reset_slots(state, ring)
+    with slots_mod.holding(params, state) as st:
+        slots_mod.reset_slots(st, ring)
+    return state
 
 
 def noise_table(cfg, vcfg, generator: torch.Generator) -> torch.Tensor:
@@ -177,23 +180,24 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
 
         def segment(state):
             """Dispatch one segment and enqueue its tokens, done and counts
-            for the host."""
-            state, seg_tok = slots_mod.decode_segment(
-                char.t2s_params, state, tcfg, W, sx, sp, ring, generator=gen)
-            copy = start_host_copy(torch.cat([seg_tok.reshape(-1), state.done.int(),
-                                              state.counts]))
-            return state, seg_tok, copy
+            for the host; returns the flags' device copy too."""
+            with slots_mod.holding(char.t2s_params, state) as st:
+                state, seg_tok = slots_mod.decode_segment(
+                    char.t2s_params, state, tcfg, W, sx, sp, ring, generator=gen)
+                flags = torch.cat([st.done.int(), st.counts])
+            copy = start_host_copy(torch.cat([seg_tok.reshape(-1), flags]))
+            return state, seg_tok, copy, flags
 
         def read(copy):
             flat = finish_host_copy(copy)
             return flat[:W], bool(flat[W]), int(flat[W + 1])
 
         # segment 1 + the stream head, all dispatched before any host read
-        state, seg1, copy1 = segment(state)
+        state, seg1, copy1, flags1 = segment(state)
         head_cb = pick_bucket(W + 1, cfg.frame_buckets)
         first_window = 2 * (W + 1)
         head_audio, head_emit = _stream_head(
-            char.sovits_params, noise, tok0, seg1, state.counts, state.done, text_b,
+            char.sovits_params, noise, tok0, seg1, flags1[1:], flags1[:1] != 0, text_b,
             t_len, ge, ge_mrte, noise_scale, vcfg=vcfg, cb=head_cb,
             first_window=first_window, lookahead=lookahead, pcm16=pcm16)
         head = start_host_copy(torch.cat([head_audio.reshape(-1).float(),
@@ -254,7 +258,7 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
 
         seg_idx = 2
         while not done and pending is not None:
-            state, _, copy = pending
+            state, _, copy, _ = pending
             pending = None
             # dispatch segment k+1 before reading segment k
             if (seg_idx + 1) * W <= ring:
@@ -291,7 +295,7 @@ def stream_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     units = join_warmup_units(char, sx, sp)
 
     def segment(top_p):
-        state = take_stream_state(engine, char)
+        state = take_stream_state(engine, char)      # its first take resets it
         gen = torch.Generator(device=dev).manual_seed(0)
         warmup_join(char, state, sx, sp, W, gen)
         state.top_p_host[0] = 0.5 if top_p else 1.0

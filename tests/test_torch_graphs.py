@@ -20,7 +20,7 @@ cache keys. Tiny T2S models, fp32, inputs and Gumbel noise from seeds:
   the int8 kernel route (its plain version) and the exact route's full
   read and each window pair, across a ring wrap that starts mid-ring;
   both on a state copied into the graph's buffers and on a persistent
-  state that is the graph's buffers;
+  state, resident in them (its leaves are the graph's buffers);
 * the step functions and the prefill program read nothing back to the
   host (a dispatch mode fails on ``aten._local_scalar_dense``, which
   ``.item()``, ``bool()`` and ``int()`` of a tensor call);
@@ -30,13 +30,16 @@ cache keys. Tiny T2S models, fp32, inputs and Gumbel noise from seeds:
   without top-p and at caps other than the character's: no miss and no
   new variant while serving, in the decode and in the SoVITS caches; a
   slot machine owns its state (the one the sweep left, else its own),
-  so a second machine or a later sweep never writes it;
-* a server with ``serve --warmup``'s flag sweeps each of two characters
-  at its first ``/set_reference_audio`` and serves it with no miss; a
-  character evicted by the character cache leaves no graph cache behind
-  (``gc.collect()``), and its next request reloads and sweeps it; a
-  request in flight in its slot machine across the eviction finishes
-  with the audio it would have had;
+  and two machines take turns in the resident state, so neither writes
+  the other's, and a second sweep of the configuration runs 0 units;
+* a server with ``serve --warmup``'s flag sweeps the first character of
+  a configuration at its ``/set_reference_audio``, and a second character
+  of that configuration sweeps nothing and serves with no miss; a
+  character evicted by the character cache frees its weights and leaves
+  its configuration's caches (``gc.collect()``), and its next request
+  reloads it with no sweep and no miss; a request in flight in its slot
+  machine across the eviction finishes with the audio it would have
+  had;
 * ``utils/metrics.py::trace`` writes a trace file.
 """
 import dataclasses
@@ -322,6 +325,7 @@ def test_buffers_keep_their_addresses(t2s_params, params):
     pair = Pair(params)
     pair.t = dataclasses.replace(pair.t, persistent=True)
     pair.join(0, _request(0, 5, 3), 24, 24, same_ctx=True)
+    pair.segment()                  # resident: its leaves are the graph's buffers
     seen = []
     for _ in range(2):
         before = [t.data_ptr() for t in graphs.tensors_of(pair.t)]
@@ -356,6 +360,7 @@ def _sweep_case(kv_int8, language="Japanese"):
                         stream_first_chunk=8, stream_chunk=16, slot_first_piece=8,
                         stream_lookahead=1)
     eng = TTSEngine(cfg)
+    graphs.clear_caches()           # the configuration's caches start empty
     char = make_random_character(language=language, t2s_cfg=TINY_T2S, sovits_cfg=TINY_VITS,
                                  dtype=torch.float32, device="cpu", seed=3)
     return eng, char, _reference(char)
@@ -402,9 +407,8 @@ def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
     sweep prepared (no miss, no new variant), the joins included (the
     prefill, insert, release and speculative-codes programs), and so does
     the BERT hook's RoBERTa at each text's token bucket; the sweep
-    prepared every segment, insert and release graph of the slot geometry
-    on the state the slot machine then takes, and the stream's on the
-    state the segmented stream takes."""
+    prepared every segment, insert and release graph of the slot and
+    stream geometries, and left the state the slot machine then takes."""
     from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
 
     eng, char, ref = _sweep_case(kv_int8, language="Chinese")
@@ -416,13 +420,14 @@ def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
     combos = 1 if kv_int8 else 2            # full read, and (16, 16)
     assert len(segs) == 2 * combos * 2      # widths 8 and 4, top-p flag
     stream_segs = [k for k in keys if k[0] == "segment" and k[1] == 1]
-    assert len(stream_segs) == 2 and None not in {k[-1] for k in stream_segs}
+    assert len(stream_segs) == 2
     assert {(k, v) for k, v in programs if k[0] == "join"} == {
         (("join", 24, 16, torch.float32), (bert, top_p))
         for bert in (False, True) for top_p in (False, True)}
-    states = {k[-1] for k in segs + stream_segs}
-    assert {k[-1] for k in keys if k[0] in ("insert", "release")} == states
-    assert sum(k[0] == "insert" for k in keys) == 2          # slot and stream states
+    # one insert graph per geometry (slot and stream), no key per state
+    inserts = [k for k in keys if k[0] == "insert"]
+    assert sorted(k[3][1] for k in inserts) == [1, eng.cfg.slot_batch]
+    assert [k[1][1] for k in keys if k[0] == "release"] == [eng.cfg.slot_batch]
     # rows 1, 2 and 4 x widths 8 and 4: 5 codes claimed, within either
     assert len([k for k in keys if k[0] == "spec_codes"]) == 3 * 2
     rcache = graphs.cache_for(tiny_roberta)
@@ -455,8 +460,9 @@ def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
         for max_steps in (None, 12):            # the fused stream head
             list(eng.synthesize_utterance_stream(char, ref, long, long_bert, seed=1,
                                                  sampling=sampling, max_steps=max_steps))
+    pooled = [st for pool in eng._slot_states.values() for st in pool]
     sb = SlotBatcher(eng, char, pcm16=True)
-    assert {k[-1] for k in segs} == {id(sb._state)}       # the sweep's state
+    assert any(sb._state is st for st in pooled)          # the sweep's state
     try:
         sb.synthesize(ref, short, bert, timeout=120, max_steps=12)
         sb.synthesize(ref, short, bert, timeout=120, max_steps=12, sampling=top_p)
@@ -482,22 +488,25 @@ def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
 def test_slot_machines_own_their_state():
     """The slot machine made after a sweep takes the sweep's state; a
     second machine on the same engine and character gets one of its own;
-    a sweep while the first machine lives captures on a new state and
-    leaves the machine's (its leaves and its ring head) as they were."""
+    the two take turns in the configuration's resident state (the second
+    one's requests move the first one's state out and back), a second
+    sweep of the configuration runs 0 units, and the first machine's
+    state (its leaves and its ring head) stays as its own requests left
+    it."""
     eng, char, ref = _sweep_case(True)
-    eng.warmup(char, ref, sweep=True)
-    swept = {k[-1] for k in graphs.cache_for(char.t2s_params).keys()
-             if k[0] == "segment" and k[1] == eng.cfg.slot_batch}
+    assert eng.warmup(char, ref, sweep=True) > 0
+    pooled = [st for pool in eng._slot_states.values() for st in pool]
     a, b = SlotBatcher(eng, char, pcm16=True), SlotBatcher(eng, char, pcm16=True)
     short = np.arange(1, 7, dtype=np.int32)
     bert = np.zeros((len(short), TINY_T2S.bert_dim), np.float32)
     try:
-        assert {id(a._state)} == swept - {None} and b._state is not a._state
+        assert any(a._state is st for st in pooled) and b._state is not a._state
         a.synthesize(ref, short, bert, timeout=120, max_steps=12)
         b.synthesize(ref, short, bert, timeout=120, max_steps=12)
         before = tslots.clone_state(a._state)
         assert int(a._state.ring_head) == a._head != 0
-        eng.warmup(char, ref, sweep=True)
+        assert eng.warmup(char, ref, sweep=True) == 0
+        b.synthesize(ref, short, bert, timeout=120, max_steps=12)
         for f in dataclasses.fields(before):
             x = getattr(before, f.name)
             if isinstance(x, torch.Tensor):
@@ -563,36 +572,44 @@ def _caches(char):
 
 
 def test_warmup_server_sweeps_each_character_at_its_reference(warm_server):
-    """With ``serve --warmup``'s flag, each of two characters is swept at
-    its first ``/set_reference_audio`` (its decode and SoVITS keys exist
-    before its first request), and a request then captures nothing new;
-    a second reference at a swept prompt bucket does not sweep again."""
+    """With ``serve --warmup``'s flag, the first character of a
+    configuration is swept at its ``/set_reference_audio`` (its decode and
+    SoVITS keys exist before its first request); a second character of
+    the same configuration shares its caches, sweeps nothing (no miss and
+    no new variant at its reference) and serves with no miss and no new
+    variant; a later reference at a swept prompt bucket sweeps nothing."""
     from genie_tts_tpu_torch import api
 
     base, char_dir, ref = warm_server
-    for name in ("w1", "w2"):
-        _load_and_reference(base, name, char_dir, ref)
-        char = api.model_manager.get(name)
-        assert api._swept[name][0]() is char
-        t2s_cache, vcache = _caches(char)
-        assert any(k[0] == "generate" for k in t2s_cache.keys())
-        assert any(k[0] == "latent" for k in vcache.keys())
-        for c in (t2s_cache, vcache):
-            c.reset_stats()
+    _load_and_reference(base, "w1", char_dir, ref)
+    first = api.model_manager.get("w1")
+    assert len(api.engine.swept) == 1
+    t2s_cache, vcache = _caches(first)
+    assert any(k[0] == "generate" for k in t2s_cache.keys())
+    assert any(k[0] == "latent" for k in vcache.keys())
+    for c in (t2s_cache, vcache):
+        c.reset_stats()
+    _load_and_reference(base, "w2", char_dir, ref)
+    second = api.model_manager.get("w2")
+    assert _caches(second) == (t2s_cache, vcache) and second is not first
+    assert len(api.engine.swept) == 1
+    for c in (t2s_cache, vcache):
+        assert c.stats["misses"] == c.stats["variants"] == 0, c.stats
+    for name in ("w2", "w1"):
         status, body = _post(base, "/tts", {"character_name": name, "text": "きょうは。",
                                             "split_sentence": False})
         assert status == 200 and len(body) > 0
-        for c in (t2s_cache, vcache):
-            assert c.stats["hits"] > 0 and c.stats["misses"] == c.stats["variants"] == 0
-    assert api.warmup_character("w1") == 0          # swept at this bucket already
-    assert _caches(api.model_manager.get("w1"))[0].stats["variants"] == 0
+    for c in (t2s_cache, vcache):
+        assert c.stats["hits"] > 0 and c.stats["misses"] == c.stats["variants"] == 0
+        assert c.stats["binds"] > 0          # each character bound the bank in turn
+    assert api.warmup_character("w1") == api.warmup_character("w2") == 0
 
 
 def test_evicted_character_is_released_and_swept_again_at_reload(warm_server, monkeypatch):
-    """A character evicted by the character cache (capacity 1 here) takes
-    its graph caches with it (gone after ``gc.collect()``, its slot
-    machine stopped); its next request reloads it, sweeps the reloaded
-    character first, and misses nothing."""
+    """A character evicted by the character cache (capacity 1 here) frees
+    its weights (gone after ``gc.collect()``, its slot machine stopped)
+    and leaves its configuration's graph caches; its next request reloads
+    it with no sweep (0 units) and misses nothing."""
     import gc
     import weakref
 
@@ -603,35 +620,36 @@ def test_evicted_character_is_released_and_swept_again_at_reload(warm_server, mo
     assert _post(base, "/tts", {"character_name": "w1", "text": "きょうは。",
                                 "split_sentence": False})[0] == 200
     old = api.model_manager.get("w1")
-    gone = [weakref.ref(x) for x in (old, *_caches(old))]
+    gone = [weakref.ref(x) for x in (old, old.t2s_params["audio_embed"])]
+    caches = _caches(old)
     sb = api._slot_batchers["w1"]
     del old
     monkeypatch.setattr(api.model_manager._cache, "capacity", 1)
     _load_and_reference(base, "w2", char_dir, ref)        # evicts w1
-    assert "w1" not in api._slot_batchers and "w1" not in api._swept
+    assert "w1" not in api._slot_batchers
     sb._thread.join(timeout=60)
     assert not sb._thread.is_alive()
     del sb
     gc.collect()
     assert all(r() is None for r in gone), [r() is None for r in gone]
+    swept = set(api.engine.swept)
+    for c in caches:
+        assert c.keys()
+        c.reset_stats()
     assert _post(base, "/tts", {"character_name": "w1", "text": "きょうは。",
                                 "split_sentence": False})[0] == 200    # reloads w1
     new = api.model_manager.get("w1")
-    assert api._swept["w1"][0]() is new
-    t2s_cache, vcache = _caches(new)
-    for c in (t2s_cache, vcache):
-        c.reset_stats()
-    assert _post(base, "/tts", {"character_name": "w1", "text": "きょうは。",
-                                "split_sentence": False})[0] == 200
-    for c in (t2s_cache, vcache):
-        assert c.stats["hits"] > 0 and c.stats["misses"] == 0
+    assert _caches(new) == caches and api.engine.swept == swept
+    for c in caches:
+        assert c.stats["hits"] > 0 and c.stats["misses"] == c.stats["variants"] == 0
 
 
 def test_request_in_flight_across_an_eviction_finishes(warm_server, monkeypatch):
     """A request decoding in its character's slot machine when another
     load evicts the character finishes with the audio it would have had:
     the evicted machine drains (its queue and slots), then exits, and the
-    character's graph caches are gone after ``gc.collect()``."""
+    character is gone after ``gc.collect()`` while its configuration's
+    graph caches stay."""
     import gc
     import weakref
 
@@ -663,7 +681,8 @@ def test_request_in_flight_across_an_eviction_finishes(warm_server, monkeypatch)
     client.start()
     assert entered.wait(120)             # the request sits in a slot
     old = api.model_manager.get("w1")
-    gone = [weakref.ref(x) for x in (old, *_caches(old))]
+    gone = [weakref.ref(old)]
+    caches = _caches(old)
     del old
     monkeypatch.setattr(api.model_manager._cache, "capacity", 1)
     assert _post(base, "/load_character", {"character_name": "w2", "model_dir": str(char_dir),
@@ -679,6 +698,7 @@ def test_request_in_flight_across_an_eviction_finishes(warm_server, monkeypatch)
     del sb, dispatch, held
     gc.collect()
     assert all(r() is None for r in gone), [r() is None for r in gone]
+    assert all(c.keys() for c in caches)
 
 
 def test_trace_writes_a_trace_file(tmp_path):

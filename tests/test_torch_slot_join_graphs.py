@@ -16,8 +16,8 @@ by JAX:
   geometry: tok0 and the histogram identical, the compacted context
   columns within 1e-5;
 * the insert graph against ``_insert_jit`` into slots 2 and 1, in bf16
-  and int8 KV modes, on a persistent state (the graph's own buffers) and
-  on one copied in and back: every leaf (integers, bf16 and int8 values
+  and int8 KV modes, on a persistent state (resident in the graph's
+  buffers) and on one copied in and back: every leaf (integers, bf16 and int8 values
   exactly; fp32 scales within 1e-5, as tests/test_torch_slots.py holds
   the JAX package's compiled quantizer);
 * ``release_slot`` and ``spec_codes`` against ``_release_jit`` and
@@ -156,8 +156,7 @@ def test_insert_matches_jax(params, mode, binding):
     j, t = _insert_both(params, j, t, 1, 1, 4, 24)
     assert_leaves_equal(j, t)
     keys = [k for k in graphs.cache_for(tp).keys() if k[0] == "insert"]
-    want = id(t) if binding == "persistent" else None
-    assert any(k[-1] == want and k[-2] == (mode == "int8") for k in keys)
+    assert any(k[-2] == (mode == "int8") for k in keys)
 
 
 @pytest.mark.parametrize("binding", ["persistent", "copied"])
@@ -210,11 +209,13 @@ def test_join_programs_read_nothing_back(params, program):
                                                   kv_int8=True), persistent=True)
     if program == "insert":
         ctx = torch.randn((KW["num_layers"], 1, KW["num_heads"], 8, SX + SP))
-        g = tslots.insert_graph(tp, state, (ctx,), (ctx,))
-        with g.lock:
-            tslots._fill_row(g.static.row, (2, 5, 3, 0, 9, 15, 7), (0.8, 1.0, 1.35))
-            with _NoHostReads():
-                tslots._insert(g.static)
+        with tslots.holding(tp, state):         # its leaves: the graph's buffers
+            g = tslots.insert_graph(tp, state, (ctx,), (ctx,))
+            assert g.static.state.active is state.active
+            with g.lock:
+                tslots._fill_row(g.static.row, (2, 5, 3, 0, 9, 15, 7), (0.8, 1.0, 1.35))
+                with _NoHostReads():
+                    tslots._insert(g.static)
         assert state.active.tolist() == [False, False, True, False]
         assert state.max_steps[2] == 9 and state.cur_tok[2] == 7
     elif program == "release":
