@@ -1,0 +1,13 @@
+"""step_mfu.solo: Model FLOPs of the requests completed in the window over the window times 989 TFLOP/s (bf16)."""
+from perfbench.harness.readers import step_mfu
+
+LAYER = "model step (T2S, SoVITS, RoBERTa)"
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "host_clock"
+MOVES = "audio_s_per_s.solo"
+WORKLOADS = ["ja-v2.solo"]
+
+
+def read(records):
+    return step_mfu(records)
