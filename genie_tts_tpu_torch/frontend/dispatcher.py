@@ -14,6 +14,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.metrics import metrics
 from .language import CHINESE, ENGLISH, HYBRID, JAPANESE, normalize_language
 
 BERT_DIM = 1024
@@ -46,23 +47,29 @@ def set_bert_feature_fn(fn: Optional[Callable]) -> None:
 
 
 def _phones_pure(text: str, language: str) -> Tuple[List[int], np.ndarray]:
+    """One language's text -> (ids, bert). Spans: ``frontend_g2p`` around
+    the G2P, ``frontend_bert`` (also a timer) around the RoBERTa hook."""
     if language == JAPANESE:
         from .g2p_ja import japanese_to_phones
 
-        ids = japanese_to_phones(text)
+        with metrics.span("frontend_g2p"):
+            ids = japanese_to_phones(text)
         return ids, np.zeros((len(ids), BERT_DIM), np.float32)
     if language == ENGLISH:
         from .g2p_en import english_to_phones
 
-        ids = english_to_phones(text)
+        with metrics.span("frontend_g2p"):
+            ids = english_to_phones(text)
         return ids, np.zeros((len(ids), BERT_DIM), np.float32)
     if language == CHINESE:
         from .g2p_zh import chinese_to_phones
 
-        norm_text, _, ids, word2ph = chinese_to_phones(text)
+        with metrics.span("frontend_g2p"):
+            norm_text, _, ids, word2ph = chinese_to_phones(text)
         fn = _bert_feature_fn
         if fn is not None:
-            bert = fn(norm_text, word2ph).astype(np.float32)
+            with metrics.timer("frontend_bert"):
+                bert = fn(norm_text, word2ph).astype(np.float32)
             if bert.shape[0] != len(ids):  # defensive: fall back to zeros
                 bert = np.zeros((len(ids), BERT_DIM), np.float32)
         else:

@@ -144,7 +144,7 @@ class ContinuousBatcher:
         """One batch through the engine, its results (or its error) to its
         waiters. Its locals, which reach the batch's character, end here:
         the idle loop keeps no character alive."""
-        metrics.observe("batch_size", len(batch))
+        metrics.gauge("batch_size", len(batch))
         try:
             st: dict = {}
             outs = self.engine.synthesize_batch(

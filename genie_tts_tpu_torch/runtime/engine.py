@@ -135,7 +135,9 @@ def finish_host_copy(handle) -> np.ndarray:
 
 class _Stages:
     """Wall time of the pipeline's stages; with ``on``, each mark waits for
-    the device first, so a stage's time is its own."""
+    the device first (span ``stage_sync``), so a stage's time is its own.
+    While metrics record, each stage is a span ``solo_<stage>`` on the
+    calling thread, whether or not ``on``."""
 
     def __init__(self, on: bool, device: torch.device):
         self.on, self.device = on, device
@@ -143,12 +145,16 @@ class _Stages:
         self._t = time.perf_counter()
 
     def mark(self, name: str) -> None:
-        if not self.on:
+        if not (self.on or metrics.recording):
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self.on and self.device.type == "cuda":
+            with metrics.span("stage_sync"):
+                torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.times[name] = self.times.get(name, 0.0) + now - self._t
+        if self.on:
+            self.times[name] = self.times.get(name, 0.0) + now - self._t
+        if metrics.recording:
+            metrics.span_on_thread("solo_" + name, self._t, now)
         self._t = now
 
 
@@ -165,10 +171,13 @@ def _t2s_and_vocode(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
     skips the windows past the decode's step counter, which the host
     read."""
     stats = {} if stats is None else stats
-    codes, codes_len = t2s.generate_e2e(
-        t2s_params, tcfg, scfg, generator, phones, bert, x_len, prompts, p_len,
-        max_steps=max_steps, cache_len=cache_len, min_steps=min_steps,
-        max_steps_dyn=max_steps_dyn, stats=stats)
+    with metrics.device_span("solo_decode_device", phones.device) as span:
+        codes, codes_len = t2s.generate_e2e(
+            t2s_params, tcfg, scfg, generator, phones, bert, x_len, prompts, p_len,
+            max_steps=max_steps, cache_len=cache_len, min_steps=min_steps,
+            max_steps_dyn=max_steps_dyn, stats=stats)
+        if metrics.recording:
+            span.set(steps=stats["decode_steps"])
     if stages is not None:
         stages.mark("decode")
     codes = _fit_codes(codes, codes_bucket or max_steps)
@@ -495,10 +504,13 @@ class TTSEngine:
             n_codes = int(codes_len[0])
             out = audio[0, :2 * n_codes * vcfg.hop_length].cpu().numpy()
         else:
-            codes, codes_len = t2s.generate_e2e(
-                char.t2s_params, tcfg, scfg, gen, max_steps=cap,
-                cache_len=cache_pre + cap, min_steps=min_steps,
-                max_steps_dyn=max_steps, stats=stats, **args)
+            with metrics.device_span("solo_decode_device", dev) as span:
+                codes, codes_len = t2s.generate_e2e(
+                    char.t2s_params, tcfg, scfg, gen, max_steps=cap,
+                    cache_len=cache_pre + cap, min_steps=min_steps,
+                    max_steps_dyn=max_steps, stats=stats, **args)
+                if metrics.recording:
+                    span.set(steps=stats["decode_steps"])
             stages.mark("decode")
             n_codes = int(codes_len[0])
             if n_codes == 0:
@@ -749,7 +761,7 @@ class TTSEngine:
             yield finish_host_copy(copy)
         metrics.incr("utterances")
         metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
-        metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
+        metrics.gauge("audio_seconds", emitted * hop / vcfg.sample_rate)
 
     # -- several utterances --------------------------------------------------
 

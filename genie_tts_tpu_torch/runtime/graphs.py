@@ -77,6 +77,7 @@ from typing import Callable, Dict, Hashable, List, Optional
 import torch
 
 from ..ops import _build
+from ..utils.metrics import metrics
 
 # one capture at a time: a capture synchronizes the card and swaps the
 # allocator's pool for its stream
@@ -209,7 +210,11 @@ class Graph:
         if variant in self._graphs:
             return
         on_card = self._on_card()
-        self._graphs[variant] = self._capture(fn) if on_card else None
+        if on_card:
+            with metrics.span("graph_capture", key=repr(self.key), variant=repr(variant)):
+                self._graphs[variant] = self._capture(fn)
+        else:
+            self._graphs[variant] = None
         self._cache._prepared(self, on_card)
 
     def run(self, fn: Callable, variant: Hashable = None, eager: bool = False) -> None:
@@ -569,8 +574,14 @@ class GraphCache:
             return
         if cache_for(params) is not self:
             raise ValueError("bind: the parameter set is of another configuration")
-        with self._residency.hold(_anchor(params), params):
+        hold = self._residency.hold(_anchor(params), params)
+        # the wait for the resident set's holds and the copy of a switch
+        with metrics.span("graph_bind"):
+            hold.__enter__()
+        try:
             yield self.bank
+        finally:
+            hold.__exit__(None, None, None)
 
     def pool(self):
         """The family's memory pool handle (None: each capture's own)."""

@@ -332,6 +332,15 @@ def spec_codes(tok0s, seg_tok: torch.Tensor, slots: torch.Tensor, *, fb: int,
         return b.codes.clone()
 
 
+def _phase(name: str, req: "_Request", t0: float, t1: float) -> None:
+    """A request's phase from ``t0`` to ``t1`` (perf_counter): a sample of
+    timer ``name`` and, while recording, a span on the requests track
+    (``req``: the request's ``id``, shared by its phases)."""
+    metrics.observe(name, t1 - t0)
+    if metrics.recording:
+        metrics.span_at(name, t0, t1, req=id(req))
+
+
 def _stream_close(req: "_Request", err: Optional[BaseException] = None) -> None:
     """End a streaming consumer: an exception propagates, None ends."""
     if req.stream_q is not None:
@@ -364,10 +373,13 @@ class _Request:
     # streaming consumer: pieces are pushed here as their copies land;
     # None ends the stream, an exception propagates
     stream_q: Optional[queue.Queue] = None
-    # time-to-first-audio stamps (perf_counter), observed as ttfa_* timers
+    # time-to-first-audio stamps (perf_counter), observed as ttfa_* timers;
+    # t_submit and t_harvest (the row finished decoding) also bound the
+    # slot_queue and slot_finish phases of every request
     t_submit: float = 0.0
     t_join: float = 0.0
     t_first_dispatch: float = 0.0
+    t_harvest: float = 0.0
 
 
 class SlotBatcher:
@@ -519,7 +531,7 @@ class SlotBatcher:
         max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
         req = _Request(ref, np.asarray(phones, np.int32), bert,
                        min_steps=min(min_steps, max_steps), max_steps=max_steps,
-                       sampling=sampling)
+                       sampling=sampling, t_submit=time.perf_counter())
         self._submit(req)
         if not req.done.wait(timeout):
             # the scheduler drops it from the queue or releases its slot
@@ -610,7 +622,11 @@ class SlotBatcher:
         free = [i for i, r in enumerate(self._slots) if r is None]
         while free:
             try:
-                req = self._q.get(timeout=0.2) if block else self._q.get_nowait()
+                if block:
+                    with metrics.span("slot_wait"):
+                        req = self._q.get(timeout=0.2)
+                else:
+                    req = self._q.get_nowait()
             except queue.Empty:
                 return
             block = False
@@ -626,6 +642,7 @@ class SlotBatcher:
                 free.insert(0, b)
 
     def _insert_request(self, b: int, req: _Request) -> None:
+        _phase("slot_queue", req, req.t_submit, time.perf_counter())
         ref, phones = req.ref, req.phones
         dev = self.char.device
         packed = np.concatenate([ref.phones, phones]).astype(np.int64)
@@ -680,11 +697,13 @@ class SlotBatcher:
             req.count_seen = int(counts[b])
             if done[b]:
                 req.harvested = True
+                req.t_harvest = time.perf_counter()
                 if self._slots[b] is req:
                     self._slots[b] = None
                     self._merged[b] = 0
-                self._state = slots_mod.release_slot(self._state, b,
-                                                     params=self.char.t2s_params)
+                with metrics.span("slot_release"):
+                    self._state = slots_mod.release_slot(self._state, b,
+                                                         params=self.char.t2s_params)
                 self._finish_pending.append([req, int(counts[b]), 0])
 
     # -- window pump -------------------------------------------------------
@@ -866,6 +885,7 @@ class SlotBatcher:
                     audio = np.concatenate(parts) if parts else np.zeros(0, dtype)
                     req.result = audio[:total]
                     metrics.incr("slot_utterances")
+                    _phase("slot_finish", req, req.t_harvest, time.perf_counter())
                     _stream_close(req)
                 except BaseException as e:  # noqa: BLE001
                     logger.exception("window assembly failed")
@@ -915,8 +935,9 @@ class SlotBatcher:
                                                  np.array([count]),
                                                  self.char.t2s_cfg.eos_id)[0]
                 items.append((req.ref, req.phones, codes))
-            handle = self.engine.vocode_codes_dispatch(
-                self.char, items, t_buckets=self._t_buckets, pcm16=self.pcm16)
+            with metrics.span("slot_vocode_dispatch"):
+                handle = self.engine.vocode_codes_dispatch(
+                    self.char, items, t_buckets=self._t_buckets, pcm16=self.pcm16)
         except BaseException as e:  # noqa: BLE001 — surface to the waiters
             logger.exception("slot vocode dispatch failed")
             for req in reqs:
@@ -932,6 +953,9 @@ class SlotBatcher:
             for req, audio in zip(reqs, self.engine.vocode_codes_fetch(handle)):
                 req.result = audio
             metrics.incr("slot_utterances", len(reqs))
+            t = time.perf_counter()
+            for req in reqs:
+                _phase("slot_finish", req, req.t_harvest, t)
         except BaseException as e:  # noqa: BLE001 — surface to the waiters
             logger.exception("slot request completion failed")
             for req in reqs:
@@ -953,7 +977,10 @@ class SlotBatcher:
         params = self.char.t2s_params
         # the state held from the segment to the copy of its flags
         with slots_mod.holding(params, self._state) as st:
-            with metrics.timer("slot_segment"):
+            with (metrics.device_span("slot_segment_device", self.char.device) as dspan,
+                  metrics.timer("slot_segment")):
+                if metrics.recording:
+                    dspan.set(steps=w)
                 self._state, seg_tok = seg_fn(params, self._state, generator=self._gen,
                                               ctx_win=ctx_win, ring_win=ring_win)
             occupants = list(self._slots)

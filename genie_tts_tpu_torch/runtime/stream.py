@@ -272,7 +272,7 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
         yield from emit_windows(count, True)
         metrics.incr("utterances")
         metrics.observe("synthesize_utterance", time.perf_counter() - t_start)
-        metrics.observe("audio_seconds", emitted * hop / vcfg.sample_rate)
+        metrics.gauge("audio_seconds", emitted * hop / vcfg.sample_rate)
     finally:
         engine.offer_slot_state(char, _stream_state_key(char, ring, sx, sp), state)
 

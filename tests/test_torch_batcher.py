@@ -126,7 +126,7 @@ def test_window_batcher_coalesces(setup):
         t.join(timeout=180)
     b.stop()
     assert not errors and len(outs) == 3
-    assert max(metrics._stats["batch_size"].samples) >= 2
+    assert max(metrics._gauges["batch_size"].samples) >= 2
     assert b.stats["rows"] == 3 and b.stats["batches"] < 3
     for a in outs.values():
         assert a.dtype == np.float32 and len(a) > 0 and np.isfinite(a).all()
