@@ -32,10 +32,11 @@ Phases, each of which must pass:
    state.
 7. slot serving in the bf16 KV mode (the JAX package's default): 2
    requests through ``SlotBatcher.synthesize``; the int8 kernel must not
-   launch, and segments must read windowed KV (``windowed_segments``).
-   Then greedy fp32 slot codes on the card with the windows the
-   scheduler picks vs the full read (identical), and a 32-step segment at
-   occupancy 8, bf16 KV, with windows (256, 256) vs the full 896-column
+   launch, no segment reads windows, and the exact caches' slot attention
+   kernel must launch 24 times per decode step. Then greedy fp32 slot
+   codes on the card (the kernel) vs the CPU's plain route with the
+   windows the scheduler picks and with the full read (identical), and a
+   32-step segment at occupancy 8, bf16 KV, over the full 896-column
    read (CUDA events, and the device's busy time under torch.profiler).
 8. slot slice check: greedy fp32 slot-machine codes with the int8 KV cache
    on the card (through the kernel) vs the CPU (plain version).
@@ -87,8 +88,8 @@ Phases, each of which must pass:
    same noise: the prefill program and decode of B=1 fused and B=4 flash
    ``generate`` at a 40-step cap (codes identical, and identical to the
    embedded-input route), five B=1 decodes captured while another thread
-   replays a sixth, a slot segment at occupancy 8 (int8 and each window
-   pair, every state leaf equal), a stream segment, the slot join
+   replays a sixth, a slot segment at occupancy 8 (int8 and exact KV,
+   every state leaf equal), a stream segment, the slot join
    (``prefill_join`` with BERT rows, then ``insert_slot`` into slot 3 of an
    int8 state at occupancy 8: tok0 and the histogram identical, the
    context columns' max abs difference within one bf16 step, then the
@@ -217,6 +218,12 @@ Phases, each of which must pass:
    share, bytes, bound and the SDPA yardstick) and with nothing visible
    (the floor every launch pays), and split into spans from its clock64
    stamps (int8_decode.phase_cycles); the partial ring is its kernels row.
+   The exact caches' slot attention is held to its plain version in bf16
+   and fp32 at the serving geometry (B=8, H=16, S=896, W=32), at B=1 and
+   at a shard's 8 heads, and timed at the same three visibility levels,
+   at buffer columns 0, 16 and 31, and with nothing visible; the partial
+   ring is its kernels row. ``python3 chip_smoke.py --slot-attention``
+   runs the build and this kernel's part alone (~20 s).
 
 The last two lines are the ``kernels`` JSON and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -248,6 +255,9 @@ FUSED = {"name": "fused_decode_step", "route": "cuda",
 INT8 = {"name": "int8_big_attention", "route": "cuda",
         "source": "genie_tts_tpu_torch/csrc/int8_decode.cu",
         "replaces": "genie_tts_tpu/ops/int8_decode.py:140"}
+SLOT = {"name": "slot_attention", "route": "cuda",
+        "source": "genie_tts_tpu_torch/csrc/slot_attention.cu",
+        "replaces": "none (the JAX package's exact-KV slot route is XLA ops)"}
 
 # ten Japanese sentences for the slot-serving clients
 SENTENCES = (
@@ -735,13 +745,15 @@ def phase_slots(torch, root: Path):
 
 
 def phase_slots_bf16(torch, char, feats, phones):
-    """The bf16 KV mode of the slot machine (the JAX package's default)."""
+    """The bf16 KV mode of the slot machine (the JAX package's default):
+    on the card its attention is the exact caches' kernel."""
     import threading
 
     import numpy as np
 
     from genie_tts_tpu_torch.config import RuntimeConfig
     from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.ops import slot_attention as sa
     from genie_tts_tpu_torch.runtime.engine import TTSEngine
     from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher
 
@@ -751,6 +763,7 @@ def phase_slots_bf16(torch, char, feats, phones):
     bert = np.zeros((len(text), char.t2s_cfg.bert_dim), np.float32)
     out = {}
     i8.int8_big_attention.launches = 0
+    sa.slot_attention.launches = 0
     t0 = time.perf_counter()
     threads = [threading.Thread(target=lambda i=i: out.__setitem__(
         i, sb.synthesize(feats, text, bert, timeout=600, max_steps=64))) for i in range(2)]
@@ -764,13 +777,14 @@ def phase_slots_bf16(torch, char, feats, phones):
     for a in out.values():
         check(a.dtype == np.int16 and len(a) == 2 * 64 * 640, f"bf16 slot audio {len(a)}")
     check(i8.int8_big_attention.launches == 0, "the bf16 slot mode launched the int8 kernel")
-    check(sb.windowed_kv and sb.stats["windowed_segments"] > 0,
-          f"the bf16 slot mode read no windows: {sb.stats}")
+    launches = sa.slot_attention.launches
+    check(sb.attn_kernel == 1
+          and launches == char.t2s_cfg.num_layers * sb.stats["steps"] > 0,
+          f"the bf16 slot mode's attention: {launches} slot_attention launches, {sb.stats}")
     print(f"[slots bf16] 2 requests of 64 steps in {wall:.3f} s, {sb.stats['segments']} "
-          f"segments ({sb.stats['windowed_segments']} with windowed KV reads), no int8 "
-          f"launches")
-    windowed_slice_check(torch, char)
-    return window_timing(torch, char, feats, phones)
+          f"segments, {launches} slot_attention launches (24 a step), no int8 launches")
+    exact_slice_check(torch, char)
+    return dict(segment_timing(torch, char, feats, phones), launches=launches)
 
 
 def _slot_rows(torch, char, feats, phones, sx, sp):
@@ -794,16 +808,13 @@ def _slot_rows(torch, char, feats, phones, sx, sp):
     return ctx, SamplingRows(*(a[0] for a in samp))
 
 
-def windowed_slice_check(torch, char):
-    """Greedy fp32 slot codes on the card, exact KV: windows picked by the
-    scheduler's ``_pick_windows`` from the same bookkeeping (context ladder
-    48/80, ring ladder 16/32, so the last segments fall back to the full
-    read) against the full read on every segment. They must be identical."""
-    import types
-
+def exact_slice_check(torch, char):
+    """Greedy fp32 slot codes with exact KV, two rows joining a segment
+    apart: the card (the slot attention kernel over the first ring copy)
+    vs the kernel's plain version on the CPU. Both must be identical."""
     from genie_tts_tpu_torch.models import slots
+    from genie_tts_tpu_torch.ops import slot_attention as sa
     from genie_tts_tpu_torch.ops.sampling import SamplingConfig, rows_from_config
-    from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher
 
     cfg = char.t2s_cfg
     Sx, Sp, ring, W, V, steps = 32, 64, 64, 8, cfg.semantic_vocab, 40
@@ -812,51 +823,45 @@ def windowed_slice_check(torch, char):
     prompts = torch.randint(0, 1024, (2, Sp), generator=g)
     x_len, p_len = [27, 12], [50, 33]
     samp = rows_from_config(SamplingConfig(top_k=1), 1)
-    p = to_device(torch, fp32_params(torch, char), DEV)
-    toks, picked = {}, []
-    for windowed in (True, False):
-        book = types.SimpleNamespace(windowed_kv=windowed, _slots=[None, None], _merged=[0, 0],
-                                     _ctx_ladder=(48, 80), _ring_ladder=(16, 32))
+    params = fp32_params(torch, char)
+    toks = {}
+    for run, dev in (("card", DEV), ("cpu", "cpu")):
+        p = to_device(torch, params, dev)
         streams = [[], []]
+        before = sa.slot_attention.launches
         with torch.inference_mode():
-            st = slots.init_slots(cfg, 2, Sx, Sp, ring, torch.float32, device=DEV)
-            zeros = torch.zeros((W, 2, V), device=DEV)
+            st = slots.init_slots(cfg, 2, Sx, Sp, ring, torch.float32, device=dev)
+            zeros = torch.zeros((W, 2, V), device=dev)
             for seg in range(6):
                 if seg < 2:                      # row 0 joins, then row 1 a segment later
                     b = seg
                     k, v, tok0, hist = slots.prefill_join(
-                        p, cfg, phones[b:b + 1].to(DEV), None,
-                        torch.tensor([x_len[b]], device=DEV), prompts[b:b + 1].to(DEV),
-                        torch.tensor([p_len[b]], device=DEV), samp,
-                        noise=torch.zeros((1, V), device=DEV))
+                        p, cfg, phones[b:b + 1].to(dev), None,
+                        torch.tensor([x_len[b]], device=dev), prompts[b:b + 1].to(dev),
+                        torch.tensor([p_len[b]], device=dev), samp,
+                        noise=torch.zeros((1, V), device=dev))
                     st = slots.insert_slot(st, b, k, v, tok0, hist, x_len[b], p_len[b], steps,
                                            steps, type(samp)(*(a[0] for a in samp)))
                     streams[b].append(int(tok0[0]))
-                    book._slots[b] = types.SimpleNamespace(ctx_cols=x_len[b] + p_len[b])
-                cw, rw = SlotBatcher._pick_windows(book)
-                if windowed:
-                    picked.append((cw, rw))
-                st, seg_tok = slots.decode_segment(p, st, cfg, W, Sx, Sp, ring, noise=zeros,
-                                                   ctx_win=cw, ring_win=rw)
-                for b in range(2):
-                    if book._slots[b] is not None:
-                        book._merged[b] = min(book._merged[b] + W, steps)
+                st, seg_tok = slots.decode_segment(p, st, cfg, W, Sx, Sp, ring, noise=zeros)
                 for r in range(min(seg + 1, 2)):
                     streams[r].extend(seg_tok[r].tolist())
-        toks[windowed] = streams
-    print(f"[windowed slice] greedy fp32 slot codes on the card, exact KV: windows "
-          f"{picked} vs the full read: {'identical' if toks[True] == toks[False] else 'DIFFER'} "
-          f"({len(toks[True][0])} + {len(toks[True][1])} tokens)")
-    check(toks[True] == toks[False], "windowed and full-read slot codes differ on the card")
-    check((None, None) in picked and any(w != (None, None) for w in picked),
-          f"windowed slice check picked {picked}")
+        toks[run] = streams
+        if dev == DEV:
+            check(sa.slot_attention.launches - before == cfg.num_layers * 6 * W,
+                  "the card's exact slot machine did not run the slot attention kernel")
+    same = toks["cpu"] == toks["card"]
+    print(f"[exact slice] greedy fp32 slot codes, exact KV: card (slot attention kernel) vs "
+          f"CPU (its plain version): {'identical' if same else 'DIFFER'} "
+          f"({len(toks['card'][0])} + {len(toks['card'][1])} tokens)")
+    check(same, "card and CPU exact-KV slot codes differ")
 
 
-def window_timing(torch, char, feats, phones):
+def segment_timing(torch, char, feats, phones):
     """A 32-step segment with 8 rows occupied, bf16 KV at the default slot
-    geometry (Sx=Sp=192, ring 512: 896 columns a row): windows (256, 256)
-    against the full read, alternated, by CUDA events; then one 8-step
-    segment of each under torch.profiler for the device's busy time (a
+    geometry (Sx=Sp=192, ring 512: 896 columns a row) through the slot
+    attention kernel, by CUDA events; then one 8-step segment under
+    torch.profiler for the device's busy time and launches a step (a
     32-step one takes the profiler about a minute to digest)."""
     import dataclasses
 
@@ -868,12 +873,9 @@ def window_timing(torch, char, feats, phones):
     cfg = char.t2s_cfg
     B, W, sx, sp, ring = 8, 32, 192, 192, 512
     ctx_cols = len(phones) + len(feats.prompt_tokens)
-    check(ctx_cols <= 256, f"timing rows have {ctx_cols} context columns")
     (k, v, tok0, hist), samp = _slot_rows(torch, char, feats, phones, sx, sp)
     gen = torch.Generator(device=DEV).manual_seed(8)
-    variants = (("windows (256, 256)", 256, 256), ("full read", None, None))
-    times = {name: [] for name, _, _ in variants}
-    busy = {}
+    times = []
     with torch.inference_mode():
         # persistent: the segment graphs replay on it, with no copy in or out
         state = dataclasses.replace(
@@ -882,44 +884,36 @@ def window_timing(torch, char, feats, phones):
             state = slots.insert_slot(state, b, k, v, tok0, hist, len(phones),
                                       len(feats.prompt_tokens), ring, ring, samp)
 
-        def segment(cw, rw, w=W):
+        def segment(w=W):
             nonlocal state
             state, _ = slots.decode_segment(char.t2s_params, state, cfg, w, sx, sp, ring,
-                                            generator=gen, ctx_win=cw, ring_win=rw)
+                                            generator=gen)
 
-        for _ in range(3):
-            for name, cw, rw in variants:
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                segment(cw, rw)
-                e1.record()
-                sync(torch)
-                times[name].append(e0.elapsed_time(e1))
-        for name, cw, rw in variants:
-            segment(cw, rw, 8)                  # the 8-step graph's capture, not profiled
+        for _ in range(4):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            segment()
+            e1.record()
             sync(torch)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                segment(cw, rw, 8)
-                sync(torch)
-            busy[name] = sum(getattr(a, "self_device_time_total", None)
-                             or getattr(a, "self_cuda_time_total", 0.0)
-                             for a in prof.key_averages()
-                             if a.device_type == DeviceType.CUDA) / 1e3
-    check(bool(state.active.all()) and not bool(state.done.any())
-          and int(state.keys_written.max()) <= 256 - 8, "occupancy 8 and covered rows in the timing")
-    L, H, Dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
-    col_bytes = 2 * L * B * H * Dh * 2                  # K and V, bf16, all layers and rows
-    out = {}
-    for name, cw, rw in variants:
-        cols = (cw or sx + sp) + (rw or ring)
-        out[name] = {"ms": times[name], "device_busy_ms_per_step": busy[name] / 8,
-                     "mb_per_step": cols * col_bytes / 1e6}
-        print(f"[window timing] {name}: {cols} columns a row ({cols * col_bytes / 1e6:.1f} MB "
-              f"of KV read per step), 32-step segment at occupancy 8: "
-              + ", ".join(f"{m:.3f}" for m in times[name])
-              + f" ms (CUDA events); device busy {busy[name]:.3f} ms in one profiled 8-step "
-              f"segment ({busy[name] / 8:.3f} ms a step)")
-    return out
+            times.append(e0.elapsed_time(e1))
+        segment(8)                              # the 8-step graph's capture, not profiled
+        sync(torch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            segment(8)
+            sync(torch)
+        acts = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+        busy = sum(getattr(a, "self_device_time_total", None)
+                   or getattr(a, "self_cuda_time_total", 0.0) for a in acts) / 1e3
+        n_kern = sum(a.count for a in acts)
+    check(bool(state.active.all()) and not bool(state.done.any()),
+          "occupancy 8 in the timing")
+    print(f"[segment timing] exact bf16 KV, {ctx_cols} context columns a row, 32-step segment "
+          f"at occupancy 8 through the slot attention kernel: "
+          + ", ".join(f"{m:.3f}" for m in times)
+          + f" ms (CUDA events, {times[-1] / W:.3f} ms a step in the last); device busy "
+          f"{busy:.3f} ms in one profiled 8-step segment ({busy / 8:.3f} ms a step, "
+          f"{n_kern / 8:.0f} device ops a step)")
+    return {"ms": times, "device_busy_ms_per_step": busy / 8, "ops_per_step": n_kern / 8}
 
 
 def phase_slot_slice_check(torch, char):
@@ -1081,7 +1075,7 @@ def phase_v2pp(torch, root: Path, card: str):
     # the int8 slot route: 2 concurrent requests
     synth, _ = api._make_synth_fn("pp", use_batcher=True)
     sb = api.get_slot_batcher(char)
-    check(sb.cfg.slot_kv_int8 and not sb.windowed_kv, "V2ProPlus slot route: int8 KV kernel")
+    check(sb.cfg.slot_kv_int8 and not sb.attn_kernel, "V2ProPlus slot route: int8 KV kernel")
     res, errors = {}, []
 
     def client(i):
@@ -1452,7 +1446,7 @@ def phase_zh(torch, root: Path, card: str):
     # the /tts route: 2 concurrent Chinese requests on the int8 slot machine
     synth, _ = api._make_synth_fn("zh", use_batcher=True)
     sb = api.get_slot_batcher(char)
-    check(sb.cfg.slot_kv_int8 and not sb.windowed_kv, "zh slot route: int8 KV kernel")
+    check(sb.cfg.slot_kv_int8 and not sb.attn_kernel, "zh slot route: int8 KV kernel")
     res, errors = {}, []
 
     def client(i):
@@ -1865,8 +1859,8 @@ def phase_graphs(torch, root: Path, card: str):
     Graph vs eager on the same noise: codes identical for B=1 fused and
     B=4 flash ``generate`` with a 40-step cap (the prefill program, then
     blocks of 16, 16 and 7), one slot segment at occupancy 8 from the
-    same state on the int8 kernel route and on each window pair of the
-    exact route (every state leaf equal), one stream segment; five B=1
+    same state on the int8 kernel route and on the exact caches' slot
+    attention kernel (every state leaf equal), one stream segment; five B=1
     decodes of one cache length captured while another thread replays a
     sixth, every decode's codes the eager route's; the SoVITS stages
     within 1e-5 (fp32). (3) Times, each beside its eager counterpart in
@@ -1884,7 +1878,6 @@ def phase_graphs(torch, root: Path, card: str):
     import numpy as np
 
     from genie_tts_tpu_torch import api
-    from genie_tts_tpu_torch.config import RuntimeConfig
     from genie_tts_tpu_torch.frontend.dispatcher import get_phones_and_bert
     from genie_tts_tpu_torch.models import slots, t2s
     from genie_tts_tpu_torch.ops import flash_decode as fl, fused_decode as fu
@@ -1893,7 +1886,6 @@ def phase_graphs(torch, root: Path, card: str):
     from genie_tts_tpu_torch.runtime import graphs, stream
     from genie_tts_tpu_torch.runtime.reference_audio import reference_audio_cache
     from genie_tts_tpu_torch.runtime.buckets import pick_bucket
-    from genie_tts_tpu_torch.runtime.slot_batcher import seg_window_combos
     from genie_tts_tpu_torch.utils.metrics import metrics
 
     kernels = {"int8": i8.int8_big_attention, "flash": fl.flash_decode_attention,
@@ -2419,15 +2411,15 @@ def phase_graphs(torch, root: Path, card: str):
         check(not bad and captured == 3 * len(others) and len(runs) > 1
               and not any(t.is_alive() for t in threads), "capture beside replay")
 
-        def segment_pair(state, W, sx, sp, ring, kernel, cw, rw, what):
+        def segment_pair(state, W, sx, sp, ring, kernel, what):
             """One segment from copies of ``state``: graph and eager."""
             noise = gumbel_noise((W, state.k_cache.shape[1], cfg.semantic_vocab), g, DEV)
             a, b = slots.clone_state(state), slots.clone_state(state)
             with torch.inference_mode():
                 a, ta = slots.decode_segment(p, a, cfg, W, sx, sp, ring, kv_kernel=kernel,
-                                             noise=noise, ctx_win=cw, ring_win=rw)
+                                             noise=noise)
                 b, tb = slots.decode_segment(p, b, cfg, W, sx, sp, ring, kv_kernel=kernel,
-                                             noise=noise, ctx_win=cw, ring_win=rw, eager=True)
+                                             noise=noise, eager=True)
             sync(torch)
             leaves = [f.name for f in dataclasses.fields(a)
                       if isinstance(getattr(a, f.name), torch.Tensor)]
@@ -2445,28 +2437,24 @@ def phase_graphs(torch, root: Path, card: str):
             "。" + SENTENCES[0], "ja")[0]])
         B8, W, sx, sp, ring = 8, 32, 192, 192, 512
         ctx, samp = _slot_rows(torch, slot_char, sfeats, sphones, sx, sp)
-        rcfg = RuntimeConfig(slot_kv_int8=False, slot_windowed_kv=True)
         p = slot_char.t2s_params
         cfg = scfg_s
-        for kv_int8, combos in ((True, [(None, None)]),
-                                (False, seg_window_combos(rcfg, sx, sp, ring))):
+        for kv_int8 in (True, False):
             with torch.inference_mode():
                 st = slots.init_slots(cfg, B8, sx, sp, ring, torch.bfloat16, kv_int8=kv_int8,
                                       device=DEV)
                 for b in range(B8):
                     slots.insert_slot(st, b, *ctx, len(sphones), len(sfeats.prompt_tokens),
                                       ring, ring, samp)
-            for cw, rw in combos:
-                segment_pair(st, W, sx, sp, ring, kv_int8, cw, rw,
-                             f"slot segment, occupancy 8, "
-                             + ("int8 kernel route" if kv_int8 else f"exact KV, windows "
-                                                                    f"({cw}, {rw})"))
+            segment_pair(st, W, sx, sp, ring, kv_int8,
+                         "slot segment, occupancy 8, "
+                         + ("int8 kernel route" if kv_int8 else "exact KV, slot attention kernel"))
         Ws, rings, ssx, ssp = stream.stream_geometry(api.engine.cfg, cfg)
         with torch.inference_mode():
             st1 = slots.init_slots(cfg, 1, ssx, ssp, rings, torch.bfloat16, device=DEV)
             slots.insert_slot(st1, 0, *ctx, len(sphones), len(sfeats.prompt_tokens), rings,
                               rings, samp)
-        segment_pair(st1, Ws, ssx, ssp, rings, False, None, None, "stream segment (B=1)")
+        segment_pair(st1, Ws, ssx, ssp, rings, False, "stream segment (B=1)")
         out["join"] = join_pair(torch, slot_char, sfeats, sphones, g, card)
 
         # the SoVITS programs, graph vs eager (the character's SoVITS cache
@@ -4291,6 +4279,126 @@ def phase_kernel_int8(torch, live, seg_ms, W):
                 bound_by=t["by"], library_ms=None)
 
 
+def phase_kernel_slot(torch, seg_ms=None, W=32):
+    """slot_attention vs its plain version at the 8-slot serving geometry
+    (B=8, H=16, Dh=32, S=896 read out of the slot state's [.., 1408]
+    caches, a 32-column write buffer) in bf16 and fp32, at B=1 and on a tp
+    shard's 8 heads, then device times per launch by CUDA-graph replay over
+    24 layers' caches (more than the 50 MB L2), beside the plain version,
+    the bound (the visible columns' bytes at 3.35 TB/s) and a yardstick."""
+    import torch.nn.functional as F
+
+    from genie_tts_tpu_torch.models import t2s
+    from genie_tts_tpu_torch.ops import int8_decode as i8
+    from genie_tts_tpu_torch.ops import slot_attention as sa
+
+    H, Dh, L = 16, 32, 24
+    sx = sp = 192
+    ring = 512
+    S = sx + sp + ring
+    geom = dict(sx=sx, sp=sp, ring=ring)
+    g = torch.Generator(device=DEV).manual_seed(9)
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=DEV)
+
+    def layer(B, Hs, dt):
+        """One layer's exact caches (the doubled ring, sliced to the first
+        copy) and write buffer."""
+        k, v = (torch.randn((B, Hs, Dh, S + ring), generator=g, device=DEV).to(dt)
+                for _ in range(2))
+        kb, vb = (torch.randn((B, Hs, Dh, W), generator=g, device=DEV).to(dt)
+                  for _ in range(2))
+        return k[..., :S], v[..., :S], kb, vb
+
+    def qkv(B, Hs, dt):
+        x = torch.randn((B, 1, 3 * Hs * Dh), generator=g, device=DEV).to(dt)
+        return tuple(t2s._split_heads(t, Hs)[:, :, 0] for t in x.chunk(3, dim=-1))
+
+    x_len = [40, 191, 23, 120, 64, 100, 12, 150]
+    p_len = [130, 1, 192, 77, 128, 150, 60, 42]
+    cases = {   # name: (x_len, p_len, keys_written, ring_head, buffer column)
+        "partial ring": (x_len, p_len, [256, 300, 200, 400, 128, 256, 350, 180], 416, 17),
+        "wrapped ring": (x_len, p_len, [512, 400, 300, 200, 150, 120, 101, 450], 96, 31),
+        "fully visible": ([sx] * 8, [sp] * 8, [ring] * 8, 416, 0),
+        "empty row": (x_len[:3] + [0] + x_len[4:], p_len[:3] + [0] + p_len[4:],
+                      [64, 128, 200, 0, 17, 256, 32, 1], 288, 0),
+    }
+    worst = 0.0
+    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for B, Hs, names in ((8, H, list(cases)), (1, H, ["partial ring"]),
+                             (8, H // 2, ["wrapped ring"])):
+            for name in names:
+                xl, pl, kw, head, col = cases[name]
+                sc = (i32(xl[:B]), i32(pl[:B]), i32(kw[:B]), i32([head]))
+                q, kn, vn = qkv(B, Hs, dt)
+                kc, vc, kb, vb = layer(B, Hs, dt)
+                bufs = (kb.clone(), vb.clone())
+                out = sa.slot_attention(q, kn, vn, kc, vc, kb, vb, col, *sc, **geom)
+                ref = sa.slot_attention_plain(q, kn, vn, kc, vc, *bufs, col, *sc, **geom)
+                sync(torch)
+                err = float((out.float() - ref.float()).abs().max())
+                worst = max(worst, err) if dt == torch.bfloat16 else worst
+                print(f"[kernel] slot_attention {str(dt)[6:]} B={B} H={Hs} {name} (buffer "
+                      f"column {col}): max |kernel - plain| {err:.3e} (tolerance {tol})")
+                check(err <= tol and torch.equal(kb, bufs[0]) and torch.equal(vb, bufs[1]),
+                      f"slot_attention {dt} B={B} H={Hs} {name}")
+
+    # times, bf16 at B=8: one call per layer's caches, captured and replayed
+    B, dt = 8, torch.bfloat16
+    q, kn, vn = qkv(B, H, dt)
+    caches = [layer(B, H, dt) for _ in range(L)]
+    timed = {}
+    for name in ("partial ring", "wrapped ring", "fully visible"):
+        xl, pl, kw, head, col = cases[name]
+        sc = (i32(xl), i32(pl), i32(kw), i32([head]))
+        n_vis = int(i8.visibility(S, *sc[:3], head, **geom).sum())
+        ms = graph_ms(torch, [lambda c=c: sa.slot_attention(q, kn, vn, *c, col, *sc, **geom)
+                              for c in caches])
+        # visible K and V columns and the buffer's, q, k_new, v_new, the
+        # output and the written column, once each
+        moved = 2 * (H * (n_vis + B * col) * 2 * Dh + B * H * Dh * 6)
+        bms, by = bound(moved, 4 * Dh * H * (n_vis + B * (col + 1)), "float32")
+        print(f"[kernel] slot_attention {name}: {n_vis / (B * S):.1%} of columns visible, "
+              f"{moved / 1e6:.3f} MB, bound {bms:.5f} ms ({by}); kernel {ms:.4f} ms "
+              f"(CUDA graph, {bms / ms:.1%} of the bound's rate)")
+        timed[name] = dict(sc=sc, col=col, ms=ms, bms=bms, by=by)
+    # the buffer's share: the same visibility at the first, a middle and
+    # the last buffer column
+    for name in ("partial ring", "fully visible"):
+        sc = timed[name]["sc"]
+        by_col = [graph_ms(torch, [lambda c=c: sa.slot_attention(q, kn, vn, *c, col, *sc, **geom)
+                                   for c in caches]) for col in (0, W // 2, W - 1)]
+        print(f"[kernel] slot_attention {name} at buffer columns 0, {W // 2}, {W - 1}: "
+              + ", ".join(f"{ms:.4f}" for ms in by_col) + " ms (CUDA graph)")
+    # the floor that every launch pays: no cache column visible and no
+    # buffer column, only the step's own
+    none = (i32([0] * B), i32([0] * B), i32([0] * B), i32([416]))
+    floor_ms = graph_ms(torch, [lambda c=c: sa.slot_attention(q, kn, vn, *c, 0, *none, **geom)
+                                for c in caches])
+    print(f"[kernel] slot_attention nothing visible (the floor of a launch): kernel "
+          f"{floor_ms:.4f} ms (CUDA graph)")
+    t = timed["partial ring"]
+    sc, col = t["sc"], t["col"]
+    plain_ms = graph_ms(torch, [lambda c=c: sa.slot_attention_plain(q, kn, vn, *c, col, *sc,
+                                                                     **geom) for c in caches])
+    # yardstick only (not the same function): SDPA over the visible big-cache
+    # columns, caches pre-transposed to [B,H,S,Dh]
+    vis = i8.visibility(S, *sc[:3], int(sc[3]), **geom)[:, None, None, :]
+    tr = [(c[0].transpose(2, 3).contiguous(), c[1].transpose(2, 3).contiguous())
+          for c in caches]
+    sdpa_ms = graph_ms(torch, [lambda d=d: F.scaled_dot_product_attention(
+        q[:, :, None], *d, attn_mask=vis) for d in tr])
+    share = ("" if seg_ms is None
+             else f" = {L * W * t['ms'] / seg_ms:.2%} of the {seg_ms:.3f} ms segment")
+    print(f"[kernel] slot_attention B={B} H={H} Dh={Dh} S={S} W={W} partial ring: device "
+          f"time per launch (CUDA graph) kernel {t['ms']:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"bound {t['bms']:.5f} ms ({t['by']}); library: none (yardstick SDPA over the big "
+          f"cache alone {sdpa_ms:.4f} ms); {L} launches a step{share}")
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=plain_ms, bound_ms=t["bms"],
+                bound_by=t["by"], library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv) -> int:
@@ -4328,6 +4436,13 @@ def main(argv) -> int:
         print(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if argv[1:] == ["--slot-attention"]:
+        # the exact caches' slot attention kernel alone: build, compare, time
+        timed(phase_build)
+        timed(phase_kernel_slot, torch)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(f"{card}")
+        return 0
     if argv[1:] == ["--cross-card"]:
         # the cross-card mesh alone (a machine with 2 or 4 cards): the
         # kernels, phase 3's character written, then phase (i)
@@ -4352,7 +4467,7 @@ def main(argv) -> int:
         timed(phase_slice_check, torch, char)
         check(tts[2]["cache_len"] == b4["S"], "main-path cache lengths differ")
         sl = timed(phase_slots, torch, work)
-        timed(phase_slots_bf16, torch, sl["char"], sl["feats"], sl["phones"])
+        bf16 = timed(phase_slots_bf16, torch, sl["char"], sl["feats"], sl["phones"])
         timed(phase_slot_slice_check, torch, sl["char"])
         serve = timed(phase_serve, torch, work, card)
         timed(phase_graphs, torch, work, card)
@@ -4365,6 +4480,7 @@ def main(argv) -> int:
         timed(phase_shared_convert, torch, work, card)
         res = timed(phase_kernels, torch, char, b4["S"], b4)
         res8 = timed(phase_kernel_int8, torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
+        res_slot = timed(phase_kernel_slot, torch, bf16["ms"][-1], sl["sb"].W)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4375,6 +4491,7 @@ def main(argv) -> int:
         {**FLASH, "launches": b4["launches"], **res["flash", torch.bfloat16]},
         {**FUSED, "launches": tts[2]["launches"], **res["fused", "int8"]},
         {**INT8, "launches": sl["launches"], **res8},
+        {**SLOT, "launches": bf16["launches"], **res_slot},
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"{card}")

@@ -135,15 +135,11 @@ class RuntimeConfig:
     # at once when the machine idles or starves
     slot_finisher_batch: int = 4
     slot_finisher_wait_segs: int = 2
-    # windowed KV reads on the exact-KV route: each segment's attention
-    # reads only the first ctx window >= every row's x_len+p_len context
-    # columns and the last ring window >= every row's ring writes (the
-    # smallest ladder entries that cover the occupied rows), else the
-    # whole cache. GENIE_SLOT_WINDOWED_KV=0 keeps the full read.
-    slot_ctx_windows: Tuple[int, ...] = (256,)
-    slot_ring_windows: Tuple[int, ...] = (256, 384)
-    slot_windowed_kv: bool = dataclasses.field(
-        default_factory=lambda: _env_flag("GENIE_SLOT_WINDOWED_KV", "1"))
+    # no effect: the slot machine reads its big caches in place on every
+    # device (exact caches through ops/slot_attention.py, int8 ones through
+    # ops/int8_decode.py), so it has no read windows to turn on; the field
+    # stays so that configurations which name it still load
+    slot_windowed_kv: bool = False
     # int8 KV cache for the slot machine (models/slots.py kv_int8): the big
     # caches hold int8 codes + per-column fp32 scales, and the big-cache
     # attention runs through ops/int8_decode.py. GENIE_SLOT_KV_INT8=1 opts

@@ -23,9 +23,8 @@ ring head included: an int32 on the device, as in the reference, advanced
 by the segment itself. Every leaf is updated IN PLACE (at insert,
 release and each segment), so a segment is a program over static buffers
 that a CUDA graph captures once per geometry (``runtime/graphs.py``): the
-windowed read gathers its ring window at the device head, the int8
-kernel reads the head from device memory, and the merge writes at it. A
-caller that reads ``done`` or ``counts`` of one segment after the next
+attention reads the head from device memory, and the merge writes at it.
+A caller that reads ``done`` or ``counts`` of one segment after the next
 one was dispatched copies them first (the schedulers enqueue one copy
 right behind each segment). The graphs of a geometry are the
 configuration's (they read its bank: ``runtime/graphs.py``) and replay on
@@ -47,11 +46,10 @@ values read from device memory, so one graph serves every slot).
 Under tp (a parameter set from ``parallel/mesh.py::shard_serving_params``)
 the big caches are per shard, ``H/tp`` heads each on its shard's device;
 the small state stays on the first shard's device, and the prefill, the
-windowed read or the ``int8_big_attention`` kernel, the quantization and
-the merges run per shard (``parallel/tp.py::layer_decode_buffered_shards``),
-each in its shard's work (``t2s.on_shard``: a capture stream of its tp
-rank's own while captured), in graphs of the set's cache as a whole set's
-are. Copies into and out of a graph's buffers on another card than the
+attention, the quantization and the merges run per shard
+(``parallel/tp.py::layer_decode_buffered_shards``), each in its shard's
+work (``t2s.on_shard``: a capture stream of its tp rank's own while
+captured), in graphs of the set's cache as a whole set's are. Copies into and out of a graph's buffers on another card than the
 lead are ordered with the lead card's stream
 (``runtime/graphs.py::on_device_stream``).
 """
@@ -66,6 +64,7 @@ import numpy as np
 import torch
 
 from ..config import T2SConfig
+from ..ops.int8_decode import visibility
 from ..ops.layers import sine_position_table, unstack
 from ..ops.sampling import SamplingRows, gumbel_noise, gumbel_noise_, sample_token_rows
 from ..runtime import graphs
@@ -83,7 +82,9 @@ class SlotState:
     * ``[Sx+Sp, Sx+Sp+ring)``: the decode ring in ring-index order;
     * ``[Sx+Sp+ring, Sx+Sp+2*ring)``: a second copy of the ring, written
       at ``head+ring`` by the same merge, so the last ``ring_len`` writes
-      form one contiguous window ending at ``head+ring``.
+      form one contiguous window ending at ``head+ring`` (the JAX
+      package's windowed read reads it; the port's attention reads the
+      first copy, and keeps the JAX layout leaf for leaf).
     """
     k_cache: torch.Tensor             # [L,B,H,Dh,S]
     v_cache: torch.Tensor
@@ -627,19 +628,18 @@ class SegmentBuffers:
 
 
 def _segment_key(state: SlotState, W: int, sx: int, sp: int, ring_len: int,
-                 use_kernel: bool, ctx_win: int, ring_win: int, any_top_p: bool):
+                 use_kernel: bool, any_top_p: bool):
     """The static geometry a segment graph is keyed on (it replays on the
     resident state of that geometry, whichever state it holds)."""
     B = state.k_cache.shape[1]
-    return ("segment", B, sx, sp, ring_len, W, use_kernel, ctx_win, ring_win,
-            bool(any_top_p), state.k_scale is not None, state.k_cache.dtype)
+    return ("segment", B, sx, sp, ring_len, W, use_kernel, bool(any_top_p),
+            state.k_scale is not None, state.k_cache.dtype)
 
 
 def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
                    seg_steps: int, sx: int, sp: int, ring_len: int,
                    kv_kernel: bool = False, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   ctx_win: Optional[int] = None, ring_win: Optional[int] = None,
                    eager: bool = False) -> Tuple[SlotState, torch.Tensor]:
     """Advance every occupied slot ``seg_steps`` decode steps.
 
@@ -653,17 +653,14 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     head, twice (at ``head`` and ``head+ring``), quantized per column in
     int8 mode.
 
-    Two read routes for the big cache: ``kv_kernel`` with int8 caches
-    reads the first ring copy ``[0, Sx+Sp+ring)`` through the
-    ``int8_big_attention`` kernel, which recomputes visibility from the
-    segment-frozen ``x_len``/``p_len``/``keys_written``/``ring_head``, and
-    ignores the windows; otherwise the windowed read: the first ``ctx_win``
-    context columns and the last ``ring_win`` ring writes, a window that
-    ends at ``Sx+Sp+head+ring`` in the doubled ring (window column j holds
-    the write of age ``ring_win-1-j``), gathered once per segment at the
-    device head, with masks. The caller guarantees that every active row
-    fits (``x_len+p_len <= ctx_win``, ``keys_written <= ring_win``); None
-    (the default) reads the whole context or ring.
+    The attention reads the first ring copy ``[0, Sx+Sp+ring)`` of the big
+    cache in place, its visible columns recomputed from the segment-frozen
+    ``x_len``/``p_len``/``keys_written``/``ring_head``: exact caches through
+    ``slot_attention`` (``ops/slot_attention.py``: one launch a layer for
+    the whole attention and the buffer column's write; its plain version
+    on CPU tensors); int8 caches through ``int8_big_attention``
+    (``ops/int8_decode.py``) with ``kv_kernel``, else through the dequantized
+    read masked by ``int8_decode.visibility``.
 
     The segment runs as :func:`_segment` over static buffers: the graph of
     its geometry in the configuration's cache (``runtime/graphs.py``; on
@@ -676,23 +673,20 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
     :func:`holding`. A tp-sharded ``params`` (with a
     state from ``init_slots(..., tp_devices=t2s.shard_devices(params))``)
     runs each layer over its shards, in the same graphs: each reads and
-    merges its own caches of ``H/tp`` heads, on the kernel route with one
-    ``int8_big_attention`` launch per shard.
+    merges its own caches of ``H/tp`` heads, on the kernel routes with one
+    launch a layer per shard.
     """
     assert ring_len % seg_steps == 0, "segment must not wrap the ring"
     W = seg_steps
     B = state.k_cache.shape[1]
     dev = state.k_cache.device
     Sx, Sp = sx, sp
-    ctx_win = min(ctx_win or Sx + Sp, Sx + Sp)
-    ring_win = min(ring_win or ring_len, ring_len)
-    use_kernel = state.k_scale is not None and kv_kernel
+    use_kernel = state.k_scale is None or bool(kv_kernel)
     any_top_p = bool((state.top_p_host < 1.0).any())
     if noise is None:
         noise = gumbel_noise((W, B, cfg.semantic_vocab), generator, dev)
     noise = torch.as_tensor(noise, device=dev)
-    key = _segment_key(state, W, Sx, Sp, ring_len, use_kernel, ctx_win, ring_win,
-                       any_top_p)
+    key = _segment_key(state, W, Sx, Sp, ring_len, use_kernel, any_top_p)
     cache = graphs.cache_for(params)
     # the state first, then the bank, then the graph's lock (everywhere)
     with holding(params, state), cache.bind(params, eager) as p:
@@ -703,15 +697,15 @@ def decode_segment(params: t2s.Params, state: SlotState, cfg: T2SConfig,
             b = g.static
             b.noise.copy_(noise)
             g.run(functools.partial(_segment, p, cfg, W=W, sx=Sx, sp=Sp, ring_len=ring_len,
-                                    use_kernel=use_kernel, ctx_win=ctx_win,
-                                    ring_win=ring_win, any_top_p=any_top_p), eager=eager)
+                                    use_kernel=use_kernel, any_top_p=any_top_p),
+                  eager=eager)
             seg_tok = b.seg_tok.clone()
     return state, seg_tok
 
 
 def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int,
-             sx: int, sp: int, ring_len: int, use_kernel: bool, ctx_win: int,
-             ring_win: int, any_top_p: bool) -> None:
+             sx: int, sp: int, ring_len: int, use_kernel: bool,
+             any_top_p: bool) -> None:
     """The program of :func:`decode_segment` over ``bufs``: every value
     that changes from segment to segment is read from the state's device
     leaves (the ring head included) and written back in place."""
@@ -732,31 +726,15 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
     head0 = state.ring_head.clone()
     kw0 = state.keys_written.clone()
 
-    if use_kernel:
-        kv_mask = None
-    else:
-        # the ring window ends at the last write, head+ring in the doubled ring
-        w1 = Sx + Sp + ring_len + head0.long()
-        ring_cols = w1 - ring_win + torch.arange(ring_win, device=dev)
-        ctx_len = state.x_len + state.p_len
-        win_age = ring_win - 1 - torch.arange(ring_win, device=dev)[None, :]
-        kv_mask = (torch.arange(ctx_win, device=dev)[None, :] < ctx_len[:, None],
-                   win_age < kw0[:, None])
+    S_read = Sx + Sp + ring_len
     buf_masks = torch.arange(W, device=dev)[None, :] < torch.arange(W, device=dev)[:, None]
 
     # per shard, the keyword arguments of t2s.buffered_attention for each
-    # layer (buffer column and its mask filled in per step): the big-cache
-    # regions (one region on the kernel route, which recomputes visibility
-    # from the segment-frozen lengths; the context window and the ring
-    # window, gathered once here at the device head, with masks otherwise)
-    # and the segment's write buffer [L,B,H/tp,Dh,W]
-    def regions(t, d):
-        if t is None:
-            return None
-        if use_kernel:
-            return (t[..., :Sx + Sp + ring_len],)
-        return (t[..., :ctx_win], t.index_select(t.dim() - 1, ring_cols.to(d)))
-
+    # layer (buffer column and its mask filled in per step): the first ring
+    # copy of the big caches [L,B,H/tp,Dh,S_read], the segment-frozen
+    # lengths the kernels recompute visibility from (the visibility mask
+    # on the int8 masked read) and the segment's write buffer
+    # [L,B,H/tp,Dh,W]
     shards = t2s.layer_shards(params)
     sharded = shards is not None
     reads, bufs_kv, step_masks = [], [], []
@@ -765,24 +743,18 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
             k_buf = torch.zeros(kc.shape[:3] + (Dh, W), dtype=buf_dtype, device=d)
             bufs_kv.append((k_buf, torch.zeros_like(k_buf)))
             step_masks.append(buf_masks.to(d))
-            if use_kernel:
-                ctx = tuple(t.to(d) for t in (state.x_len, state.p_len, kw0, head0)) + (
-                    Sx, Sp, ring_len)
-                mask_d = None
-            else:
-                ctx = None
-                mask_d = tuple(m.to(d) for m in kv_mask)
-            rk, rv, rks, rvs = (regions(t, d) for t in (kc, vc, ksc, vsc))
+            frozen = tuple(t.to(d) for t in (state.x_len, state.p_len, kw0, head0))
+            ctx = frozen + (Sx, Sp, ring_len) if use_kernel else None
+            mask_d = None if use_kernel else visibility(S_read, *frozen, sx=Sx, sp=Sp,
+                                                        ring=ring_len)
         per_layer = []
         for l in range(L):
-            kb, vb = tuple(r[l] for r in rk), tuple(r[l] for r in rv)
             ks = vs = None
             if int8_kv:
-                ks, vs = tuple(r[l] for r in rks), tuple(r[l] for r in rvs)
-            if use_kernel:
-                kb, vb, ks, vs = kb[0], vb[0], ks[0], vs[0]
-            per_layer.append(dict(k_big=kb, v_big=vb, kv_mask=mask_d, k_scale=ks,
-                                  v_scale=vs, kv_kernel_ctx=ctx))
+                ks, vs = ksc[l, ..., :S_read], vsc[l, ..., :S_read]
+            per_layer.append(dict(k_big=kc[l, ..., :S_read], v_big=vc[l, ..., :S_read],
+                                  kv_mask=mask_d, k_scale=ks, v_scale=vs,
+                                  kv_kernel_ctx=ctx))
         reads.append(per_layer)
     if shards is None:
         layers = unstack(params["layers"])
@@ -803,15 +775,12 @@ def _segment(params: t2s.Params, cfg: T2SConfig, bufs: SegmentBuffers, *, W: int
         pos_emb = pe_full[(state.p_len + keys_written).long()]
         h = (emb + (alpha * pos_emb).to(emb.dtype))[:, None]
         for l, lp in enumerate(layers):
-            step = [dict(reads[j][l], k_buf=kb[l], v_buf=vb[l], buf_mask=bm[i])
+            step = [dict(reads[j][l], k_buf=kb[l], v_buf=vb[l], buf_mask=bm[i], col=i)
                     for j, ((kb, vb), bm) in enumerate(zip(bufs_kv, step_masks))]
             if shards is None:
-                h, k_new, v_new = t2s._layer_decode_buffered(lp, h, num_heads=H, **step[0])
-                kb, vb = bufs_kv[0]
-                kb[l, ..., i] = k_new
-                vb[l, ..., i] = v_new
+                h = t2s._layer_decode_buffered(lp, h, num_heads=H, **step[0])[0]
             else:
-                h = layer_decode_buffered_shards(lp, h, step, H, col=i)
+                h = layer_decode_buffered_shards(lp, h, step, H)
         logits = h[:, 0].float() @ predict_w
         # per-row EOS gate: below min_steps EOS is masked out of sampling
         row_step = keys_written + 1

@@ -22,7 +22,8 @@ steps over static buffers (:func:`_decode_block`), which the card replays
 as captured CUDA graphs: the counterpart of the JAX package's one
 compiled ``lax.while_loop``. The slot machine
 (``models/slots.py``) decodes through :func:`_layer_decode_buffered`,
-whose read-only big cache may hold int8 codes (``ops/int8_decode.py``).
+whose read-only big cache may hold int8 codes (``ops/int8_decode.py``);
+on the card its exact caches are read by ``ops/slot_attention.py``.
 
 A tp-sharded parameter set (``parallel/mesh.py::shard_serving_params``:
 the layers split over a replica's devices, under ``layer_shards``) takes
@@ -48,6 +49,7 @@ from ..ops.fused_decode import fused_decode_step
 from ..ops.fused_decode import prepare as prepare_fused
 from ..ops.fused_decode import step_buffers as fused_step_buffers
 from ..ops.int8_decode import int8_big_attention
+from ..ops.slot_attention import slot_attention
 from ..ops.layers import (attention, layer_norm, linear, sine_position_table,
                           unstack)
 from ..ops.sampling import (SamplingConfig, SamplingRows, gumbel_noise_,
@@ -220,29 +222,31 @@ def _layer_decode(lp: Params, h: torch.Tensor, k_cache: torch.Tensor,
 def _layer_decode_buffered(lp: Params, h: torch.Tensor, k_big, v_big,
                            k_buf: torch.Tensor, v_buf: torch.Tensor,
                            buf_mask: torch.Tensor, kv_mask, num_heads: int,
-                           k_scale=None, v_scale=None, kv_kernel_ctx=None):
+                           k_scale=None, v_scale=None, kv_kernel_ctx=None, col=None):
     """One-token decode layer against a read-only big cache + write buffer
     (the slot machine's route, ``models/slots.py::decode_segment``).
 
-    h [B,1,D]; big caches kv-major [B,H,Dh,S] (one region, or a tuple of
-    regions with a tuple of [B,S] masks); the segment's own columns in
-    k_buf/v_buf [B,H,Dh,W] with buf_mask [W]. Attention is one softmax over
-    [big | buffer | self]. Returns (h, k_new [B,H,Dh], v_new [B,H,Dh]); the
-    caller stacks the new columns into the buffer.
+    h [B,1,D]; big caches kv-major [B,H,Dh,S] with kv_mask [B,S]; the
+    segment's own columns in k_buf/v_buf [B,H,Dh,W] with buf_mask [W].
+    Attention is one softmax over [big | buffer | self]. Returns (h, k_new [B,H,Dh], v_new [B,H,Dh]);
+    with ``col`` the new columns are also written into buffer column
+    ``col`` (:func:`buffered_attention`).
 
     ``k_scale``/``v_scale`` [B,H,S]: per-column fp32 scales when the big
     caches hold int8 codes. ``kv_kernel_ctx`` = (x_len, p_len,
     keys_written, ring_head, sx, sp, ring), all segment-frozen: the
-    big-cache attention then runs through ``ops/int8_decode.py`` (which
-    recomputes visibility from these and returns flash partials), merged
-    with the exact buffer and self columns in one log-sum-exp step."""
+    big-cache attention then recomputes visibility from these over the
+    first ring copy (``kv_mask`` unused): through ``ops/int8_decode.py``
+    for int8 codes (flash partials, merged with the exact buffer and self
+    columns in one log-sum-exp step), through ``ops/slot_attention.py``
+    for exact caches (the whole attention, ``buf_mask`` unused)."""
     q, k_new, v_new = linear(lp["qkv"], h).chunk(3, dim=-1)
     q = _split_heads(q, num_heads)                           # [B,H,1,Dh]
     k_new = _split_heads(k_new, num_heads)[:, :, 0]          # [B,H,Dh]
     v_new = _split_heads(v_new, num_heads)[:, :, 0]
     att = buffered_attention(q, k_new, v_new, k_big, v_big, k_buf, v_buf, buf_mask,
                              kv_mask, k_scale=k_scale, v_scale=v_scale,
-                             kv_kernel_ctx=kv_kernel_ctx)
+                             kv_kernel_ctx=kv_kernel_ctx, col=col)
     h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att)))
     ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
     h = layer_norm(lp["norm2"], h + ff)
@@ -252,11 +256,19 @@ def _layer_decode_buffered(lp: Params, h: torch.Tensor, k_big, v_big,
 def buffered_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                        k_big, v_big, k_buf: torch.Tensor, v_buf: torch.Tensor,
                        buf_mask: torch.Tensor, kv_mask, k_scale=None, v_scale=None,
-                       kv_kernel_ctx=None) -> torch.Tensor:
+                       kv_kernel_ctx=None, col=None) -> torch.Tensor:
     """The attention of :func:`_layer_decode_buffered`: q [B,H,1,Dh], the
     step's own k_new/v_new [B,H,Dh], the rest as there. Returns [B,H,1,Dh]
-    in q's dtype. Heads are independent, so a tp shard calls it on its own
-    heads (``parallel/tp.py::layer_decode_buffered_shards``)."""
+    in q's dtype. ``col`` (an int): the step's buffer column, into which
+    k_new/v_new are written (after the read; its ``buf_mask`` entry is
+    False); the exact-cache kernel route takes it in place of ``buf_mask``.
+    Heads are independent, so a tp shard calls it on its own heads
+    (``parallel/tp.py::layer_decode_buffered_shards``)."""
+    if k_scale is None and kv_kernel_ctx is not None:
+        x_len, p_len, keys_written, ring_head, sx, sp, ring = kv_kernel_ctx
+        out = slot_attention(q[:, :, 0], k_new, v_new, k_big, v_big, k_buf, v_buf, col,
+                             x_len, p_len, keys_written, ring_head, sx=sx, sp=sp, ring=ring)
+        return out.view(q.shape[0], 1, q.shape[1], q.shape[-1]).transpose(1, 2)
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf = q[:, :, 0].float()                                  # [B,H,Dh]
@@ -280,42 +292,26 @@ def buffered_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
                  + p_rest[..., W:] * v_new.float())
         att = (att_f / l_tot[..., None]).to(dt)[:, :, None]
     else:
-        # regions concatenate in score space: one softmax over
-        # [regions... | buffer | self]
-        def parts(x, n):
-            return tuple(x) if isinstance(x, (tuple, list)) else (x,) * n
-
-        kb_parts = parts(k_big, 1)
-        vb_parts = parts(v_big, 1)
-        n = len(kb_parts)
-        mask_parts = parts(kv_mask, n)
-        ks_parts, vs_parts = parts(k_scale, n), parts(v_scale, n)
-        s_parts, v_parts = [], []
-        for kb, vb, msk, ks, vs in zip(kb_parts, vb_parts, mask_parts,
-                                       ks_parts, vs_parts):
-            if vs is not None:        # int8 codes: dequantize V in q's dtype
-                vb = vb.to(dt) * vs[:, :, None, :].to(dt)
-            s = torch.einsum("bhd,bhds->bhs", qf, kb.to(dt).float()) * scale
-            if ks is not None:
-                s = s * ks
-            s_parts.append(s.masked_fill(~msk[:, None, :], -1e10))
-            v_parts.append(vb)
+        # one softmax over [big | buffer | self]; int8 codes dequantize V
+        # in q's dtype and fold the K scale into the scores
+        vb = v_big if v_scale is None else v_big.to(dt) * v_scale[:, :, None, :].to(dt)
+        s_big = torch.einsum("bhd,bhds->bhs", qf, k_big.to(dt).float()) * scale
+        if k_scale is not None:
+            s_big = s_big * k_scale
+        s_big = s_big.masked_fill(~kv_mask[:, None, :], -1e10)
         s_buf = torch.einsum("bhd,bhdw->bhw", qf, k_buf.float()) * scale
         s_buf = s_buf.masked_fill(~buf_mask[None, None, :], -1e10)
         s_self = (qf * k_new.float()).sum(-1, keepdim=True) * scale
-        probs = torch.softmax(torch.cat(s_parts + [s_buf, s_self], dim=-1),
+        probs = torch.softmax(torch.cat([s_big, s_buf, s_self], dim=-1),
                               dim=-1).to(dt).float()
-        att = torch.zeros_like(qf).to(dt)
-        off = 0
-        for s, vb in zip(s_parts, v_parts):
-            w = s.shape[-1]
-            att = att + torch.einsum("bhs,bhds->bhd", probs[..., off:off + w],
-                                     vb.float()).to(dt)
-            off += w
-        att = (att
-               + torch.einsum("bhw,bhdw->bhd", probs[..., off:off + W],
+        S = s_big.shape[-1]
+        att = (torch.einsum("bhs,bhds->bhd", probs[..., :S], vb.float()).to(dt)
+               + torch.einsum("bhw,bhdw->bhd", probs[..., S:S + W],
                               v_buf.float()).to(dt)
-               + (probs[..., off + W:] * v_new.float()).to(dt))[:, :, None]
+               + (probs[..., S + W:] * v_new.float()).to(dt))[:, :, None]
+    if col is not None:
+        k_buf[..., col] = k_new
+        v_buf[..., col] = v_new
     return att
 
 

@@ -201,21 +201,15 @@ def layer_decode_shards(lps, h: torch.Tensor, k_caches, v_caches, pos,
     return _megatron_layer(lps, h, num_heads, attend)[0]
 
 
-def layer_decode_buffered_shards(lps, h: torch.Tensor, reads, num_heads: int,
-                                 col: int) -> torch.Tensor:
+def layer_decode_buffered_shards(lps, h: torch.Tensor, reads, num_heads: int) -> torch.Tensor:
     """``models/t2s.py::_layer_decode_buffered`` over tp shards: ``reads[i]``
     holds shard ``i``'s keyword arguments of
-    ``t2s.buffered_attention`` (its big-cache regions and scales of
-    ``H/tp`` heads, its write buffer, the masks and the int8 kernel's
-    segment context on its device), so the windowed read and the
-    ``int8_big_attention`` kernel run per shard. Each shard writes its new
-    K/V column into column ``col`` of its write buffer ([B, H/tp, Dh, W])
-    in its own work. Returns the hidden state."""
+    ``t2s.buffered_attention`` (its big caches and scales of ``H/tp``
+    heads, its write buffer and the step's column in it, the masks and the
+    kernels' segment context on its device), so the attention runs per
+    shard, and each shard writes its new K/V column into its write buffer
+    ([B, H/tp, Dh, W]) in its own work. Returns the hidden state."""
     def attend(i, q, k, v):
-        k_new, v_new = k[:, :, 0], v[:, :, 0]
-        att = t2s.buffered_attention(q, k_new, v_new, **reads[i])
-        reads[i]["k_buf"][..., col] = k_new
-        reads[i]["v_buf"][..., col] = v_new
-        return att, None
+        return t2s.buffered_attention(q, k[:, :, 0], v[:, :, 0], **reads[i]), None
 
     return _megatron_layer(lps, h, num_heads, attend)[0]

@@ -482,7 +482,7 @@ def _clone_tree(node, seen: dict):
 
 class GraphCache:
     """The graphs of one configuration, keyed on static geometry (route,
-    B, Sx, Sp, cache length, step cap, W, read windows, top-p flag,
+    B, Sx, Sp, cache length, step cap, W, top-p flag,
     dtype; the SoVITS stage, B and frame, text or window widths), the
     objects they share (a slot geometry's resident state), and the BANK
     they read their weights from.

@@ -26,13 +26,6 @@ one segment deep: segment k's tokens and flags go to pinned host memory
 Workers only wait for copies and trim: two for the pooled finisher, one
 (in submission order) for window pieces and window completions.
 
-Windowed KV reads (``slot_windowed_kv``, the exact-KV route only): before
-each dispatch the scheduler picks the smallest (ctx, ring) read windows
-of the config's ladders that cover every occupied row, from host
-bookkeeping (each request's context columns, and per slot the ring keys
-merged so far, bumped at dispatch so that the in-flight segment is
-covered), or the full read when a row is past either ladder.
-
 One scheduler serves one character; ``api.get_slot_batcher`` keeps one
 per loaded character, and retires (:meth:`SlotBatcher.retire`) that of a
 character evicted or unloaded: it finishes what it holds, then exits.
@@ -85,18 +78,6 @@ from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, finish_host_c
 from .stream import noise_table
 
 logger = logging.getLogger(__name__)
-
-
-def seg_window_combos(cfg, sx: int, sp: int, ring: int) -> list:
-    """Every (ctx_win, ring_win) pair the scheduler can dispatch: the
-    ladder product plus the full read (None, None). The int8 kernel route
-    (``slot_kv_int8``) reads the first ring copy and takes no windows."""
-    combos = [(None, None)]
-    if cfg.slot_windowed_kv and not cfg.slot_kv_int8:
-        ctx_l = [w for w in cfg.slot_ctx_windows if w < sx + sp]
-        ring_l = [w for w in cfg.slot_ring_windows if w < ring]
-        combos += [(c, r) for c in ctx_l for r in ring_l]
-    return combos
 
 
 def seg_widths(cfg, ring: int) -> "tuple[int, ...]":
@@ -200,7 +181,7 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     """Warmup thunks for every slot-serving program: captures of the join
     program's variants (:func:`join_warmup_units`), of every segment
     graph the scheduler can dispatch (each width of :func:`seg_widths` x
-    each read-window pair of :func:`seg_window_combos` x the top-p flag)
+    the top-p flag)
     and of the insert and release programs, on a persistent slot state
     that it leaves for the configuration's next slot machine
     (``TTSEngine.offer_slot_state``), of the speculative first piece's
@@ -214,24 +195,23 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     dev = char.device
     units = join_warmup_units(char, sx, sp)
 
-    def segment(w, cw, rw, top_p):
+    def segment(w, top_p):
         # a row joined, decoded and released (the insert and release graphs
         # captured at the first unit)
         state = take_slot_state(engine, char)
         warmup_join(char, state, sx, sp, w, torch.Generator(device=dev).manual_seed(0))
         state.top_p_host[0] = 0.5 if top_p else 1.0
         slots_mod.decode_segment(params, state, tcfg, w, sx, sp, ring,
-                                 kv_kernel=cfg.slot_kv_int8, ctx_win=cw, ring_win=rw,
+                                 kv_kernel=cfg.slot_kv_int8,
                                  generator=torch.Generator(device=dev).manual_seed(0))
         slots_mod.release_slot(state, 0, params=params)
         with slots_mod.holding(params, state) as st:
             slots_mod.reset_slots(st, ring)
         engine.offer_slot_state(char, _state_key(engine, char), state)
 
-    for cw, rw in seg_window_combos(cfg, sx, sp, ring):
-        for w in seg_widths(cfg, ring):
-            for top_p in (False, True):
-                units.append(functools.partial(segment, w, cw, rw, top_p))
+    for w in seg_widths(cfg, ring):
+        for top_p in (False, True):
+            units.append(functools.partial(segment, w, top_p))
     spec = spec_geometry(cfg)
     if spec is not None:
         count, fb = spec
@@ -355,7 +335,6 @@ class _Request:
     min_steps: int
     max_steps: int
     sampling: Optional[SamplingConfig] = None
-    ctx_cols: int = 0             # x_len + p_len (compacted context columns)
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
@@ -390,7 +369,7 @@ class SlotBatcher:
 
     ``stats`` counts what the loop dispatched: ``segments``, ``steps``
     (decode steps), ``peak_occupancy``, ``streams`` (streaming requests
-    that joined) and ``windowed_segments`` (segments that read windows)."""
+    that joined)."""
 
     def __init__(self, engine: TTSEngine, char: CharacterModel, pcm16: bool = False):
         self.engine = engine
@@ -409,8 +388,9 @@ class SlotBatcher:
                 f"{self.ring}-step ring (slot_ring={self.cfg.slot_ring}); use one "
                 f"that divides both, or 0")
         self._t_buckets = (_slot_finisher_t_bucket(self.cfg),)
-        # int8 KV caches read through the int8_big_attention kernel (on CPU
-        # tensors its wrapper runs the plain version)
+        # int8 KV caches read through the int8_big_attention kernel, exact
+        # ones through slot_attention (on CPU tensors both wrappers run
+        # their plain versions)
         self._decode_segs = {
             w: functools.partial(slots_mod.decode_segment, cfg=tcfg, seg_steps=w,
                                  sx=self.sx, sp=self.sp, ring_len=self.ring,
@@ -420,11 +400,12 @@ class SlotBatcher:
         # faults through it
         self._decode_seg = self._decode_segs[self.W]
         self.join_W = min(self._decode_segs)       # == W when join steps are off
-        # windowed KV reads: the ladders of (ctx, ring) read windows
-        combos = seg_window_combos(self.cfg, self.sx, self.sp, self.ring)
-        self.windowed_kv = len(combos) > 1
-        self._ctx_ladder = tuple(sorted({c for c, _ in combos if c is not None}))
-        self._ring_ladder = tuple(sorted({r for _, r in combos if r is not None}))
+        # 1 where the route sends every segment's attention through the
+        # slot_attention kernel (exact caches on the card), read by the
+        # slot_attn_kernel gauge; the launches replay inside CUDA graphs,
+        # where no host counter sees them
+        self.attn_kernel = int(not self.cfg.slot_kv_int8
+                               and torch.device(char.device).type == "cuda")
         # the window pump: every row with slot_stream_finisher, else only
         # rows with a streaming consumer
         self.windows = self.cfg.slot_stream_finisher
@@ -436,8 +417,7 @@ class SlotBatcher:
         # a small window of its own for first pieces and short remainders
         self.win_first, self.win_small, self.win = pump_windows(self.cfg)
         self._spec = spec_geometry(self.cfg)     # (count, fb) of a first piece
-        self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0,
-                      "windowed_segments": 0}
+        self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0}
         self._state = take_slot_state(engine, char)     # this machine's alone
         self._reset_state()
         self._slots: List[Optional[_Request]] = [None] * self.n_slots
@@ -593,29 +573,8 @@ class SlotBatcher:
             if req is not None and req.cancelled and not req.harvested:
                 req.harvested = True
                 self._slots[b] = None
-                self._merged[b] = 0
                 self._state = slots_mod.release_slot(self._state, b,
                                                      params=self.char.t2s_params)
-
-    def _pick_windows(self) -> "tuple[Optional[int], Optional[int]]":
-        """The smallest (ctx_win, ring_win) ladder entries covering every
-        occupied slot: ctx >= the largest row x_len+p_len, ring >= the most
-        ring keys merged into a slot (``_merged``, bumped at dispatch, so
-        the segment in flight is covered). The full read (None, None) when
-        either need is past its ladder."""
-        if not self.windowed_kv:
-            return None, None
-        ctx_need = ring_need = 0
-        for b, req in enumerate(self._slots):
-            if req is None:
-                continue
-            ctx_need = max(ctx_need, req.ctx_cols)
-            ring_need = max(ring_need, self._merged[b])
-        ctx_win = next((w for w in self._ctx_ladder if w >= ctx_need), None)
-        ring_win = next((w for w in self._ring_ladder if w >= ring_need), None)
-        if ctx_win is None or ring_win is None:
-            return None, None
-        return ctx_win, ring_win
 
     def _fill_slots(self, block: bool) -> None:
         self._drop_cancelled()
@@ -676,8 +635,6 @@ class SlotBatcher:
         if self.windows or req.stream_q is not None:
             # one flow-noise table for every window of this request
             req.noise = noise_table(self.cfg, self.char.sovits_cfg, self._gen)
-        req.ctx_cols = len(packed) + len(ref.prompt_tokens)
-        self._merged[b] = 0
         self._slots[b] = req
         if req.stream_q is not None:
             self.stats["streams"] += 1
@@ -700,7 +657,6 @@ class SlotBatcher:
                 req.t_harvest = time.perf_counter()
                 if self._slots[b] is req:
                     self._slots[b] = None
-                    self._merged[b] = 0
                 with metrics.span("slot_release"):
                     self._state = slots_mod.release_slot(self._state, b,
                                                          params=self.char.t2s_params)
@@ -971,9 +927,9 @@ class SlotBatcher:
         Returns (the pending fetch, the segment's device tokens)."""
         occ = sum(r is not None for r in self._slots)
         metrics.gauge("slot_occupancy", occ)
+        metrics.gauge("slot_attn_kernel", self.attn_kernel)
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
         seg_fn = self._decode_seg if w == self.W else self._decode_segs[w]
-        ctx_win, ring_win = self._pick_windows()
         params = self.char.t2s_params
         # the state held from the segment to the copy of its flags
         with slots_mod.holding(params, self._state) as st:
@@ -981,8 +937,7 @@ class SlotBatcher:
                   metrics.timer("slot_segment")):
                 if metrics.recording:
                     dspan.set(steps=w)
-                self._state, seg_tok = seg_fn(params, self._state, generator=self._gen,
-                                              ctx_win=ctx_win, ring_win=ring_win)
+                self._state, seg_tok = seg_fn(params, self._state, generator=self._gen)
             occupants = list(self._slots)
             tok0_rows = [r for r in occupants if r is not None and r.tok0_np is None]
             packed = torch.cat([seg_tok.reshape(-1), st.done.int(), st.counts]
@@ -991,11 +946,7 @@ class SlotBatcher:
         self._head = (self._head + w) % self.ring
         self.stats["segments"] += 1
         self.stats["steps"] += w
-        self.stats["windowed_segments"] += ctx_win is not None
         self._steps_since_pump += w
-        for b, r in enumerate(self._slots):
-            if r is not None:              # a row merges at most w keys
-                self._merged[b] = min(self._merged[b] + w, r.max_steps)
         return (copy, occupants, tok0_rows, w), seg_tok
 
     def _fetch_segment(self, pending) -> None:
@@ -1111,7 +1062,6 @@ class SlotBatcher:
                 _stream_close(req, e)
                 req.done.set()
             self._slots[b] = None
-            self._merged[b] = 0
         while True:
             try:
                 req = self._q.get_nowait()
@@ -1124,7 +1074,6 @@ class SlotBatcher:
     def _reset_state(self) -> None:
         dev = self.char.device
         self._steps_since_pump = 0
-        self._merged = [0] * self.n_slots      # ring keys merged per slot
         self._head = 0                         # host mirror of state.ring_head
         with slots_mod.holding(self.char.t2s_params, self._state) as st:
             slots_mod.reset_slots(st, self.ring)

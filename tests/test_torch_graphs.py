@@ -17,8 +17,9 @@ cache keys. Tiny T2S models, fp32, inputs and Gumbel noise from seeds:
 * ``decode_segment`` with the ring head in device memory against the
   JAX package's segment, leaf by leaf and token by token (the harness of
   tests/test_torch_slots.py: integers exactly, floats within 1e-5), on
-  the int8 kernel route (its plain version) and the exact route's full
-  read and each window pair, across a ring wrap that starts mid-ring;
+  the int8 kernel route (its plain version) and on the exact route (the
+  slot attention's plain version) against the JAX package's full read and
+  each of its window pairs, across a ring wrap that starts mid-ring;
   both on a state copied into the graph's buffers and on a persistent
   state, resident in them (its leaves are the graph's buffers);
 * the step functions and the prefill program read nothing back to the
@@ -202,6 +203,8 @@ def test_generate_cap_reached_inside_a_block(t2s_params):
 
 
 def _segment(pair, ctx_win, ring_win, eager=False):
+    """One segment in both packages; the read windows are the JAX
+    package's (the port reads its caches in place)."""
     key = jax.random.PRNGKey(pair.step)
     pair.step += 1
     pair.j, jtok = _jseg(pair.jp, pair.j, key, cfg=pair.jcfg, seg_steps=pair.W,
@@ -210,7 +213,7 @@ def _segment(pair, ctx_win, ring_win, eager=False):
     noise = torch.from_numpy(_noise(key, (pair.W, pair.n, pair.tcfg.semantic_vocab)))
     pair.t, ttok = tslots.decode_segment(
         pair.tp, pair.t, pair.tcfg, pair.W, **pair.geom, kv_kernel=pair.tkernel,
-        ctx_win=ctx_win, ring_win=ring_win, noise=noise, eager=eager)
+        noise=noise, eager=eager)
     return np.asarray(jtok), ttok.numpy()
 
 
@@ -235,8 +238,8 @@ def test_segment_matches_jax_across_a_ring_wrap(params, jax_kernel_interpret, ro
     request that fills the ring then decodes across the wrap (the ring
     window grows with its keys, the scheduler's contract), beside a
     second row. After every segment the state equals the JAX machine's
-    leaf by leaf and the tokens are identical; the ring head is a device
-    int32."""
+    leaf by leaf and the tokens are identical, whichever windows the JAX
+    machine reads; the ring head is a device int32."""
     kv_int8, kv_kernel, ctx_win, ring_win = ROUTES[route]
     pair = Pair(params, kv_int8, kv_kernel)
     if binding == "persistent":
@@ -299,17 +302,16 @@ def test_decode_block_reads_nothing_back(t2s_params, B):
         assert int(g.static.step) == 4
 
 
-@pytest.mark.parametrize("route", ["int8_kernel", "full", "both"])
-def test_segment_reads_nothing_back(params, route):
-    kv_int8, kv_kernel, ctx_win, ring_win = ROUTES[route]
+@pytest.mark.parametrize("kv_int8,kv_kernel", [(True, True), (False, False), (True, False)],
+                         ids=["int8_kernel", "exact", "int8_masked"])
+def test_segment_reads_nothing_back(params, kv_int8, kv_kernel):
     pair = Pair(params, kv_int8, kv_kernel)
     pair.join(0, _request(0, 5, 3), 24, 24, same_ctx=True)
     bufs = tslots.SegmentBuffers(pair.t, torch.zeros((W, 4, TCFG_S.semantic_vocab)),
                                  torch.zeros((4, W), dtype=torch.int32))
     with _NoHostReads():
         tslots._segment(pair.tp, TCFG_S, bufs, W=W, sx=pair.geom["sx"], sp=pair.geom["sp"],
-                        ring_len=RING, use_kernel=kv_kernel, ctx_win=ctx_win or 24,
-                        ring_win=W if ring_win else RING, any_top_p=True)
+                        ring_len=RING, use_kernel=kv_kernel or not kv_int8, any_top_p=True)
     assert int(pair.t.ring_head) == W and int(pair.t.keys_written[0]) == W
 
 
@@ -354,8 +356,7 @@ def _sweep_case(kv_int8, language="Japanese"):
                         frame_buckets=(32, 64), step_caps=(32,), batch_buckets=(1, 2, 4),
                         slot_batch=4, slot_steps=8, slot_join_steps=4, slot_ring=32,
                         slot_phoneme_bucket=24, slot_prompt_bucket=16,
-                        slot_ctx_windows=(16,), slot_ring_windows=(16,),
-                        slot_windowed_kv=True, slot_kv_int8=kv_int8,
+                        slot_kv_int8=kv_int8,
                         stream_seg_steps=8, vocode_chunk=16, vocode_halo=4,
                         stream_first_chunk=8, stream_chunk=16, slot_first_piece=8,
                         stream_lookahead=1)
@@ -396,7 +397,7 @@ def tiny_roberta(tmp_path):
         dispatcher.set_bert_feature_fn(None)
 
 
-@pytest.mark.parametrize("kv_int8", [False, True], ids=["exact_windows", "int8_kernel"])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["exact", "int8_kernel"])
 def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
     """After ``warmup(char, ref, sweep=True)`` of a Chinese character: solo
     ``tts`` with and without top-p, batches of two and three (the window
@@ -417,8 +418,7 @@ def test_sweep_covers_every_serving_key(kv_int8, tiny_roberta):
     keys = cache.keys()
     programs = cache.programs()
     segs = [k for k in keys if k[0] == "segment" and k[1] == eng.cfg.slot_batch]
-    combos = 1 if kv_int8 else 2            # full read, and (16, 16)
-    assert len(segs) == 2 * combos * 2      # widths 8 and 4, top-p flag
+    assert len(segs) == 2 * 2               # widths 8 and 4, top-p flag
     stream_segs = [k for k in keys if k[0] == "segment" and k[1] == 1]
     assert len(stream_segs) == 2
     assert {(k, v) for k, v in programs if k[0] == "join"} == {

@@ -13,7 +13,9 @@ post-LN layers); bf16 adds one output rounding (2^-8 relative) for the
 attention and, for the fused step, bf16 operand roundings that a sum
 order flips (2e-2 absolute at the LayerNorm scale). The int8 slot-cache
 attention runs in fp32 in both versions: relative 1e-4 of each partial's
-largest value, and rows that see nothing exactly.
+largest value, and rows that see nothing exactly. The exact-cache slot
+attention is held to the flash kernel's tolerances (1e-5 fp32, 1e-2
+bf16: the same one output rounding).
 """
 
 import pytest
@@ -27,6 +29,7 @@ from genie_tts_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                   flash_decode_attention_plain)
 from genie_tts_tpu_torch.ops.int8_decode import (int8_big_attention,
                                                  int8_big_attention_plain)
+from genie_tts_tpu_torch.ops.slot_attention import slot_attention, slot_attention_plain
 
 
 @pytest.fixture
@@ -284,6 +287,140 @@ def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                            x_len, p_len, kw, head, **geom)
 
 
+def _slot_attn_case(gen, dtype, B, H, Dh, sx, sp, ring, W, kw, head, col, rows="random"):
+    """Exact caches as the slot state holds them (the doubled ring, sliced
+    to the first copy), a write buffer, q/k_new/v_new as views of one qkv
+    output, and the segment-frozen scalars. rows: "random" lengths;
+    "empty_last": the last row sees nothing of the cache; "full": every
+    context column."""
+    S = sx + sp + ring
+    k_big, v_big = (torch.randn((B, H, Dh, S + ring), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+    k_buf, v_buf = (torch.randn((B, H, Dh, W), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+    qkv = torch.randn((B, 1, 3 * H * Dh), generator=gen, device="cuda").to(dtype)
+    q, kn, vn = (t2s._split_heads(t, H)[:, :, 0] for t in qkv.chunk(3, dim=-1))
+    x_len = torch.randint(0, sx + 1, (B,), generator=gen, device="cuda").int()
+    p_len = torch.randint(0, sp + 1, (B,), generator=gen, device="cuda").int()
+    kws = torch.tensor(kw, dtype=torch.int32, device="cuda")
+    if rows == "empty_last":
+        x_len[-1] = p_len[-1] = kws[-1] = 0
+    elif rows == "full":
+        x_len[:], p_len[:] = sx, sp
+    head = torch.tensor(head, dtype=torch.int32, device="cuda")
+    return (q, kn, vn, k_big[..., :S], v_big[..., :S], k_buf, v_buf, col, x_len, p_len, kws,
+            head), dict(sx=sx, sp=sp, ring=ring)
+
+
+SLOT_ATTN_CASES = {
+    # B, H, Dh, sx, sp, ring, W, keys_written, head, col, rows
+    # narrate's geometry: 8 slots, 384 context + 512 ring columns, W 32
+    "narrate_partial": (8, 16, 32, 192, 192, 512, 32, [64, 128, 200, 300, 17, 256, 0, 1], 320,
+                        17, "random"),
+    "narrate_wrapped": (8, 16, 32, 192, 192, 512, 32, [512, 400, 300, 200, 150, 120, 101, 450],
+                        96, 31, "random"),
+    "narrate_full": (8, 16, 32, 192, 192, 512, 32, [512] * 8, 416, 5, "full"),
+    "narrate_empty_row_col0": (8, 16, 32, 192, 192, 512, 32, [64, 128, 200, 300, 17, 256, 32,
+                                                              1], 288, 0, "empty_last"),
+    "solo_stream_b1": (1, 16, 32, 192, 192, 512, 32, [333], 352, 11, "random"),
+    "tp2_heads": (8, 8, 32, 192, 192, 512, 32, [64, 128, 200, 300, 17, 256, 0, 1], 320, 9,
+                  "random"),
+    "tp4_heads": (8, 4, 32, 192, 192, 512, 16, [512, 400, 300, 200, 150, 120, 101, 450], 96,
+                  15, "random"),
+    "dh64": (3, 2, 64, 32, 64, 96, 8, [5, 96, 0], 50, 3, "empty_last"),
+    # a row pitch of 98 columns, not a multiple of 16 bytes: element loads
+    "unaligned_pitch": (2, 4, 32, 16, 8, 37, 8, [37, 20], 4, 6, "random"),
+    # 16-byte rows, but S = 68 ends inside a bf16 load of 8 columns
+    "vec_ragged_end": (4, 8, 32, 16, 16, 36, 8, [36, 30, 5, 12], 20, 4, "full"),
+    "wrapped_mid_chunk": (4, 8, 32, 20, 13, 96, 16, [80, 96, 50, 37], 37, 12, "random"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("name", sorted(SLOT_ATTN_CASES))
+def test_slot_attention_kernel_matches_plain(cuda, dtype, tol, name):
+    """The exact-cache slot attention against its plain version on the card:
+    the output row, and the step's own column written into the buffer."""
+    *shape, rows = SLOT_ATTN_CASES[name]
+    args, geom = _slot_attn_case(cuda, dtype, *shape, rows=rows)
+    q, kn, vn, kb, vb, k_buf, v_buf, col = args[:8]
+    plain_bufs = (k_buf.clone(), v_buf.clone())
+    before = slot_attention.launches
+    out = slot_attention(*args, **geom)
+    ref = slot_attention_plain(*args[:5], *plain_bufs, *args[7:], **geom)
+    torch.cuda.synchronize()
+    assert slot_attention.launches == before + 1
+    assert out.shape == ref.shape == (q.shape[0], 1, q.shape[1] * q.shape[2])
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(k_buf, plain_bufs[0]) and torch.equal(v_buf, plain_bufs[1])
+    assert torch.equal(k_buf[..., col], kn) and torch.equal(v_buf[..., col], vn)
+
+
+@pytest.mark.cuda
+def test_slot_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args, geom = _slot_attn_case(cuda, torch.bfloat16, 2, 4, 32, 16, 8, 40, 8, [3, 4], 4, 2)
+    q, kn, vn, kb, vb, k_buf, v_buf, col, x_len, p_len, kw, head = args
+    with pytest.raises(TypeError):             # one dtype throughout
+        slot_attention(q.float(), kn, vn, *args[3:], **geom)
+    with pytest.raises(TypeError):             # the kernel reads one int32 ring head
+        slot_attention(*args[:11], head.long(), **geom)
+    with pytest.raises(TypeError):
+        slot_attention(*args[:8], x_len.long(), *args[9:], **geom)
+    with pytest.raises(ValueError):            # S == sx + sp + ring
+        slot_attention(*args, sx=16, sp=8, ring=39)
+    with pytest.raises(ValueError):            # buffer column inside the buffer
+        slot_attention(*args[:7], 8, *args[8:], **geom)
+    with pytest.raises(ValueError):            # heads dense in q
+        slot_attention(q.transpose(1, 2).contiguous().transpose(1, 2), *args[1:], **geom)
+    with pytest.raises(TypeError):             # a dense buffer
+        slot_attention(*args[:5], k_buf[..., :4], v_buf[..., :4], *args[7:], **geom)
+
+
+@pytest.mark.cuda
+def test_exact_slot_segments_on_the_card_match_the_cpus_plain_route(cuda):
+    """Greedy fp32 segments of a tiny character (2 layers at full widths):
+    the card's kernel, captured and eager, gives the tokens of its plain
+    version on the CPU, with one kernel launch a layer a step."""
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, rows_from_config
+
+    cfg = T2SConfig(num_layers=2)
+    cpu = t2s.init_params(torch.Generator().manual_seed(3), cfg, dtype=torch.float32)
+    cpu["audio_embed"] *= 10.0
+    Sx, Sp, ring, W, V = 32, 64, 64, 8, cfg.semantic_vocab
+    g = torch.Generator().manual_seed(4)
+    phones = torch.randint(1, cfg.phoneme_vocab, (3, Sx), generator=g)
+    prompts = torch.randint(0, 1024, (3, Sp), generator=g)
+    x_len, p_len = [27, 12, 32], [50, 33, 9]
+    samp = rows_from_config(SamplingConfig(top_k=1), 1)
+    toks, launches = {}, {}
+    for run in ("cpu", "graph", "eager"):
+        dev = "cpu" if run == "cpu" else "cuda"
+        params = cpu if run == "cpu" else _tree_to(cpu, "cuda")
+        before = slot_attention.launches
+        with torch.inference_mode():
+            st = slots.init_slots(cfg, 3, Sx, Sp, ring, torch.float32, device=dev)
+            out = []
+            for seg in range(6):
+                if seg < 3:                      # a row joins in each of the first segments
+                    k, v, tok0, hist = slots.prefill_join(
+                        params, cfg, phones[seg:seg + 1].to(dev), None,
+                        torch.tensor([x_len[seg]], device=dev), prompts[seg:seg + 1].to(dev),
+                        torch.tensor([p_len[seg]], device=dev), samp,
+                        noise=torch.zeros((1, V), device=dev))
+                    st = slots.insert_slot(st, seg, k, v, tok0, hist, x_len[seg], p_len[seg],
+                                           ring, ring, type(samp)(*(a[0] for a in samp)))
+                st, tok = slots.decode_segment(params, st, cfg, W, Sx, Sp, ring,
+                                               noise=torch.zeros((W, 3, V), device=dev),
+                                               eager=run == "eager")
+                out.append(tok.cpu())
+        torch.cuda.synchronize()
+        toks[run], launches[run] = torch.cat(out, 1), slot_attention.launches - before
+    assert torch.equal(toks["graph"], toks["cpu"]) and torch.equal(toks["eager"], toks["cpu"])
+    assert launches == {"cpu": 0, "graph": 6 * W * cfg.num_layers,
+                        "eager": 6 * W * cfg.num_layers}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seconds", [1.0, 5.3])
 def test_sv_forward_on_the_card_matches_cpu(cuda, seconds):
@@ -312,51 +449,6 @@ def _tree_to(tree, dev):
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
     return tree.to(dev)
-
-
-@pytest.mark.cuda
-def test_windowed_slot_reads_match_full_read_on_the_card(cuda):
-    """The exact-KV slot machine on the card, fp32, 2 layers: segments
-    with windows covering every row give the full read's tokens and state
-    (floats within 1e-5, integers exactly)."""
-    cfg = T2SConfig(num_layers=2)
-    params = _tree_to(t2s.init_params(torch.Generator().manual_seed(3), cfg,
-                                      dtype=torch.float32), "cuda")
-    params["audio_embed"] *= 10.0
-    Sx, Sp, ring, W, V = 32, 64, 64, 8, cfg.semantic_vocab
-    g = torch.Generator().manual_seed(4)
-    phones = torch.randint(1, cfg.phoneme_vocab, (2, Sx), generator=g).cuda()
-    prompts = torch.randint(0, 1024, (2, Sp), generator=g).cuda()
-    x_len, p_len = [27, 12], [50, 33]
-    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, rows_from_config
-
-    samp = rows_from_config(SamplingConfig(top_k=1), 1)
-    states = {}
-    for windows in ((None, None), (80, 48)):
-        with torch.inference_mode():
-            st = slots.init_slots(cfg, 2, Sx, Sp, ring, torch.float32, device="cuda")
-            for b in range(2):
-                k, v, tok0, hist = slots.prefill_join(
-                    params, cfg, phones[b:b + 1], None, torch.tensor([x_len[b]], device="cuda"),
-                    prompts[b:b + 1], torch.tensor([p_len[b]], device="cuda"), samp,
-                    noise=torch.zeros((1, V), device="cuda"))
-                st = slots.insert_slot(st, b, k, v, tok0, hist, x_len[b], p_len[b], 40, 40,
-                                       type(samp)(*(a[0] for a in samp)))
-            toks = []
-            for _ in range(5):
-                st, tok = slots.decode_segment(params, st, cfg, W, Sx, Sp, ring,
-                                               noise=torch.zeros((W, 2, V), device="cuda"),
-                                               ctx_win=windows[0], ring_win=windows[1])
-                toks.append(tok.cpu())
-        states[windows] = (st, torch.cat(toks, 1))
-    (a, ta), (b, tb) = states[(None, None)], states[(80, 48)]
-    assert torch.equal(ta, tb)
-    for name in ("k_cache", "v_cache", "hist", "keys_written", "counts", "done", "cur_tok"):
-        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
-        if x.is_floating_point():
-            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
-        else:
-            assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda
@@ -492,7 +584,7 @@ def test_generate_graph_replays_equal_eager_on_the_card(cuda, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["int8_kernel", "exact_windows"])
+@pytest.mark.parametrize("route", ["int8_kernel", "exact"])
 def test_segment_graph_replays_equal_eager_on_the_card(cuda, route):
     """A slot segment at occupancy 4 on its captured graph (the state
     copied in and back, and a persistent state replayed in place) gives
@@ -505,7 +597,6 @@ def test_segment_graph_replays_equal_eager_on_the_card(cuda, route):
     params = t2s.quantize_params(t2s.init_params(cuda, cfg, dtype=torch.bfloat16))
     Sx, Sp, ring, W, V = 32, 64, 64, 16, cfg.semantic_vocab
     int8 = route == "int8_kernel"
-    win = (None, None) if int8 else (80, 32)
     samp = rows_from_config(SamplingConfig(), 1)
     with torch.inference_mode():
         st = slots.init_slots(cfg, 4, Sx, Sp, ring, torch.bfloat16, kv_int8=int8,
@@ -529,7 +620,6 @@ def test_segment_graph_replays_equal_eager_on_the_card(cuda, route):
             for name, s in runs.items():
                 _, toks[name] = slots.decode_segment(params, s, cfg, W, Sx, Sp, ring,
                                                      kv_kernel=int8, noise=noise,
-                                                     ctx_win=win[0], ring_win=win[1],
                                                      eager=name == "eager")
             torch.cuda.synchronize()
             for name in ("copied", "persistent"):

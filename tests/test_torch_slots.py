@@ -160,7 +160,10 @@ class Pair:
         return np.asarray(jtok), ttok.numpy()
 
 
-def assert_states_equal(j, t):
+def assert_states_equal(j, t, cache_rows=None):
+    """Every leaf equal; ``cache_rows``: compare the caches and scales on
+    these rows only (a free row's cache holds masked garbage, which depends
+    on the columns a machine read)."""
     assert int(j.ring_head) == t.ring_head
     for name in LEAVES:
         jl, tl = getattr(j, name), getattr(t, name)
@@ -168,6 +171,8 @@ def assert_states_equal(j, t):
             assert tl is None, name
             continue
         jl, tl = np.asarray(jl), tl.numpy()
+        if cache_rows is not None and name in LEAVES[:4]:
+            jl, tl = jl[:, cache_rows], tl[:, cache_rows]
         assert jl.shape == tl.shape and jl.dtype == tl.dtype, name
         if jl.dtype.kind == "f":
             np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-5, err_msg=name)

@@ -139,12 +139,15 @@ def _join_and_segment(params, state, req, noise0, seg_noise, kv_kernel):
     return tok0, seg
 
 
-@pytest.mark.parametrize("kv_int8", [False, True], ids=["exact", "int8_kernel"])
-def test_tp_slot_join_and_segment_match_1x1(setup, kv_int8):
+@pytest.mark.parametrize("kv_int8,kv_kernel", [(False, False), (True, True), (True, False)],
+                         ids=["exact", "int8_kernel", "int8_masked"])
+def test_tp_slot_join_and_segment_match_1x1(setup, kv_int8, kv_kernel):
     """The join (``("join", "tp", ...)``), insert and segment graphs of a
     tp set on a persistent state sharded over 2 shards give the 1x1 set's
     first token, segment codes and small state exactly, and its caches
-    shard for shard (fp32 within 1e-5; int8 codes within one step)."""
+    shard for shard (fp32 within 1e-5; int8 codes within one step). The
+    exact caches' attention (``ops/slot_attention.py``, its plain version
+    here), the int8 kernel's and the int8 masked read run per shard."""
     _, char, _, _ = setup
     _, c = _tp_char(char)
     rng = np.random.default_rng(5)
@@ -161,7 +164,7 @@ def test_tp_slot_join_and_segment_match_1x1(setup, kv_int8):
         state = dataclasses.replace(tslots.init_slots(
             TCFG, 4, 16, 16, 32, dtype=torch.float32, kv_int8=kv_int8,
             tp_devices=t2s.shard_devices(params)), persistent=True)
-        tok0, seg = _join_and_segment(params, state, req, noise0, seg_noise, kv_int8)
+        tok0, seg = _join_and_segment(params, state, req, noise0, seg_noise, kv_kernel)
         out[name] = (tok0, seg, state)
         keys = graphs.cache_for(params).keys()
         join = ("join", "tp") if name == "tp" else ("join", 16)
