@@ -1,7 +1,7 @@
 """The entry ``slot``: ``SlotBatcher.synthesize``, the slot machine.
 
-A request joins the character's slot machine (exact-KV windowed decode
-segments over its 8 slots) and waits for its whole audio, which the
+A request joins the character's slot machine (exact-KV decode segments
+over its 8 slots) and waits for its whole audio, which the
 pooled finisher vocodes. The machine draws its flow noise itself, so
 the check compares its tokens and not its audio."""
 from __future__ import annotations

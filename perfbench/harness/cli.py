@@ -188,18 +188,16 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         "metrics": snapshot, "graphs": (graphs_before, graphs_after),
         "batcher": (batcher_before, batcher_after),
         "trace": tracer.result if tracer is not None else None,
-        "sample_rate": system.char.sovits_cfg.sample_rate,
-        "hop": system.char.sovits_cfg.hop_length,
+        "sample_rate": spec.family(cfg["family"]).output_rate(cfg),
         "prompt_len": len(system.ref.prompt_tokens), "ref_phones": n_ref,
         "work": spec.work(cfg["work"]),
     }
-    hop = system.char.sovits_cfg.hop_length
     program = system.derived()
     clip = system.clip
     system.close(keep_graphs)
     del system
     sample = traffic.sample_for_check(sent, int(mix.get("check_requests", 8)), seed)
-    numbers = check.compare(cfg, seed, device, clip, program, sample, ok, hop, control=control)
+    numbers = check.compare(cfg, seed, device, clip, program, sample, ok, control=control)
     control_numbers = numbers.pop("control", None)
     limits = cell.limits
     correct, rows = check.judge(numbers, limits)

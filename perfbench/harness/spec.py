@@ -15,6 +15,11 @@ BENCHMARK = REPO / "BENCHMARK.json"
 READER_KEYS = ("LAYER", "UNIT", "BETTER", "SOURCE", "MOVES", "WORKLOADS")
 # what an entry module (``entries/<name>.py``) provides
 ENTRY_KEYS = ("STAGE_MARKS", "prepare", "instrument", "serve")
+# what a family module (``families/<name>.py``) provides (``families/gpt_sovits_v2.py``'s
+# docstring says what each is)
+FAMILY_KEYS = ("models", "port_init", "init_rule", "character", "sv_fn", "derived", "Check",
+               "output_rate", "samples_per_code", "tiny")
+FAMILIES = ROOT / "families"
 
 
 @dataclass
@@ -42,6 +47,10 @@ def benchmark() -> Dict:
 def config(name: str) -> Dict:
     cfg = load_json(ROOT / "configs" / f"{name}.json")
     cfg.setdefault("name", name)
+    if "family" not in cfg:
+        raise SystemExit(f"configs/{name}.json names no family: give it \"family\", the "
+                         f"module of families/ that makes its weights, builds its system "
+                         f"and checks its output")
     return cfg
 
 
@@ -76,9 +85,10 @@ def cell(name: str, bench: Optional[Dict] = None) -> Cell:
 _MODULES: Dict[Path, object] = {}
 
 
-def _module(kind: str, name: str):
-    """``<kind>/<name>.py`` under ``perfbench/``, loaded once a process."""
-    path = ROOT / kind / f"{name}.py"
+def _module(kind: str, name: str, where: Optional[Path] = None):
+    """``<kind>/<name>.py`` under ``perfbench/`` (or ``<name>.py`` under
+    ``where``), loaded once a process."""
+    path = (where or ROOT / kind) / f"{name}.py"
     if path not in _MODULES:
         if not path.is_file():
             raise SystemExit(f"{kind}/{name}.py is missing")
@@ -116,6 +126,17 @@ def entry(name: str):
     missing = [k for k in ENTRY_KEYS if not hasattr(mod, k)]
     if missing:
         raise SystemExit(f"entries/{name}.py lacks {missing}")
+    return mod
+
+
+def family(name: str):
+    """The module of a model family (``families/<name>.py``, under
+    :data:`FAMILIES`), which a configuration names: the keys of
+    :data:`FAMILY_KEYS`."""
+    mod = _module("families", name, FAMILIES)
+    missing = [k for k in FAMILY_KEYS if not hasattr(mod, k)]
+    if missing:
+        raise SystemExit(f"families/{name}.py lacks {missing}")
     return mod
 
 

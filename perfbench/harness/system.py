@@ -5,10 +5,12 @@ Set-up does what a server does before traffic, through the port's own
 functions: the weights are handed over as a converted checkpoint's trees
 (the decoder's matmuls quantized by the port, ``t2s.quantize_params``,
 as ``load_character`` does), HuBERT and RoBERTa installed with
-``model_manager.set_hubert`` / ``set_roberta``, the SV model through
-``models/sv.py::make_sv_fn``, and the reference clip (a WAV under
-``TMPDIR``) run through the port's reference path
-(``reference_audio_cache.get_features``)."""
+``model_manager.set_hubert`` / ``set_roberta``, and the reference clip (a
+WAV under ``TMPDIR``) run through the port's reference path
+(``reference_audio_cache.get_features``). The configuration's family
+(``families/<family>.py``) names the models, gives the character's
+synthesizer and the reference path's speaker-verification function, and
+reads the speaker conditioning set-up derived."""
 from __future__ import annotations
 
 import tempfile
@@ -19,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from . import weights
+from . import spec, weights
 
 LANGUAGE = {"ja": "Japanese", "zh": "Chinese"}
 SPECIAL_TOKENS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
@@ -31,11 +33,16 @@ def scratch_dir() -> Path:
     return d
 
 
+def clip_rate(cfg: Dict) -> int:
+    """The sample rate of the reference clip: the SoVITS input's."""
+    return int(cfg["sovits"].get("sample_rate", 32000))
+
+
 def reference_clip(cfg: Dict, seed: int) -> np.ndarray:
-    """The configuration's reference recording for ``seed``: int16 at the
-    SoVITS sample rate, a voiced signal (harmonics of a wandering pitch
+    """The configuration's reference recording for ``seed``: int16 at
+    :func:`clip_rate`, a voiced signal (harmonics of a wandering pitch
     under a syllable-rate envelope) with a little noise."""
-    sr = int(cfg["sovits"].get("sample_rate", 32000))
+    sr = clip_rate(cfg)
     n = int(round(float(cfg["reference_clip"]["seconds"]) * sr))
     rng = np.random.default_rng(int(seed) % (2 ** 63))
     t = np.arange(n) / sr
@@ -101,7 +108,7 @@ class System:
                  mark=lambda what: None):
         from genie_tts_tpu_torch.config import (HubertConfig, RobertaConfig, RuntimeConfig,
                                                 T2SConfig)
-        from genie_tts_tpu_torch.models import hubert, sv, t2s
+        from genie_tts_tpu_torch.models import hubert, t2s
         from genie_tts_tpu_torch.runtime.engine import CharacterModel, TTSEngine
         from genie_tts_tpu_torch.runtime.model_manager import model_manager
         from genie_tts_tpu_torch.runtime.reference_audio import ReferenceAudioCache
@@ -110,7 +117,8 @@ class System:
         self.device = torch.device(device)
         self.language = LANGUAGE[cfg["language"]]
         dev = self.device
-        trees = {m: weights.make(m, cfg, seed, dev) for m in weights.models(cfg)}
+        self.family = family = spec.family(cfg["family"])
+        trees = {m: weights.make(m, cfg, seed, dev) for m in family.models(cfg)}
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         mark("weights")
@@ -118,12 +126,9 @@ class System:
         t2s_params = trees["t2s"]
         if rcfg.t2s_int8:
             t2s_params = t2s.quantize_params(t2s_params)
-        vcfg = weights.sovits_config(cfg)
         self.char = CharacterModel(
-            name=cfg["name"], language=self.language, version=vcfg.version,
-            t2s_params=t2s_params, sovits_params=trees["sovits"],
-            t2s_cfg=T2SConfig(**cfg["t2s"]), sovits_cfg=vcfg, device=dev,
-            prompt_encoder_params=trees.get("prompt_encoder"))
+            name=cfg["name"], language=self.language, t2s_params=t2s_params,
+            t2s_cfg=T2SConfig(**cfg["t2s"]), device=dev, **family.character(cfg, trees))
         self.engine = TTSEngine(rcfg, timing=timing)
         hcfg = HubertConfig(**cfg["hubert"])
         model_manager.set_hubert(trees["hubert"], hcfg)
@@ -141,17 +146,11 @@ class System:
             audio = torch.as_tensor(np.asarray(audio_16k, np.float32), device=dev)[None]
             return hubert.apply(hparams, audio, hcfg)[0].float().cpu().numpy()
 
-        sv_fn = None
-        if "sv" in trees:
-            port_sv = sv.make_sv_fn(trees["sv"], dev)
-
-            def sv_fn(audio_16k):
-                self.sv = np.asarray(port_sv(audio_16k), np.float32)
-                return self.sv
-        self.sv = None
+        self.kept = {}          # what the family's SV function gave
+        sv_fn = family.sv_fn(trees, dev, self.kept)
         self.clip = reference_clip(cfg, seed)
         path = scratch_dir() / f"reference-{cfg['name']}.wav"
-        write_wav(path, self.clip, vcfg.sample_rate)
+        write_wav(path, self.clip, clip_rate(cfg))
         cache = ReferenceAudioCache(rcfg)
         self.ref = cache.get_features(
             self.engine, self.char, str(path), cfg["reference_clip"]["text"],
@@ -164,14 +163,10 @@ class System:
 
     def derived(self) -> Dict[str, np.ndarray]:
         """What set-up derived from the reference clip, for the check: the
-        prompt tokens, HuBERT's features, the speaker conditioning and (V2ProPlus)
-        the SV embedding the port's SV model gave."""
-        out = {"prompts": np.asarray(self.ref.prompt_tokens), "ssl": self.ssl,
-               "ge": np.asarray(self.ref.ge, np.float32),
-               "ge_mrte": np.asarray(self.ref.ge_mrte, np.float32)}
-        if self.sv is not None:
-            out["sv"] = self.sv
-        return out
+        prompt tokens, HuBERT's features, and what the family reads (the
+        speaker conditioning)."""
+        return {"prompts": np.asarray(self.ref.prompt_tokens), "ssl": self.ssl,
+                **self.family.derived(self.ref, self.kept)}
 
     # -- the entries the traffic drives ------------------------------------
 

@@ -11,6 +11,8 @@ from perfbench.reference import hubert as ref_hubert, quant, roberta as ref_robe
 from perfbench.reference import sovits as ref_sovits, sv as ref_sv, t2s as ref_t2s
 from perfbench.tests import tiny
 
+sovits_config = spec.family("gpt_sovits_v2").sovits_config
+
 
 def test_the_reference_imports_nothing_of_the_program_or_jax():
     code = ("import sys\n"
@@ -95,8 +97,6 @@ def test_the_synthesizer_is_the_programs(v2, n_codes, pad):
     batch padded past the utterance (its masks keep the pad out)."""
     from genie_tts_tpu_torch.models import sovits
 
-    from perfbench.harness.weights import sovits_config
-
     vcfg = sovits_config(v2)
     p = weights.make("sovits", v2, 8, "cpu")
     g = torch.Generator().manual_seed(2)
@@ -121,8 +121,6 @@ def test_the_synthesizer_is_the_programs(v2, n_codes, pad):
 def test_the_speaker_conditioning_is_the_programs(v2):
     from genie_tts_tpu_torch.models import prompt_encoder, sovits
     from genie_tts_tpu_torch.ops.audio import linear_spectrogram
-
-    from perfbench.harness.weights import sovits_config
 
     s = v2["sovits"]
     audio = torch.randn(4000, generator=torch.Generator().manual_seed(3)) * 0.2

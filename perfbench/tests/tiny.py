@@ -10,32 +10,23 @@ from perfbench.harness import spec
 T2S = {"phoneme_vocab": 732, "semantic_vocab": 1025, "embed_dim": 32, "num_layers": 2,
        "num_heads": 4, "ffn_dim": 64, "bert_dim": 16, "ssl_dim": 24, "eos_id": 1024,
        "max_decode_steps": 64}
-SOVITS = {"spec_channels": 33, "inter_channels": 16, "hidden_channels": 16,
-          "filter_channels": 32, "n_heads": 2, "n_layers": 2, "kernel_size": 3,
-          "mrte_channels": 16, "ssl_dim": 24, "vq_codes": 1024, "vq_dim": 24,
-          "gin_channels": 16, "flow_layers": 2, "wn_layers": 2, "wn_kernel": 5,
-          "upsample_rates": [2, 2, 2], "upsample_kernels": [4, 4, 4], "upsample_initial": 32,
-          "resblock_kernels": [3], "resblock_dilations": [[1, 3]], "n_fft": 64,
-          "hop_length": 8, "win_length": 64, "sv_dim": 20480}
 HUBERT = {"conv_dims": [16] * 7, "embed_dim": 24, "num_layers": 1, "num_heads": 4,
           "ffn_dim": 32, "conv_pos_kernel": 16, "conv_pos_groups": 4}
 ROBERTA = {"vocab_size": 21128, "embed_dim": 16, "num_layers": 4, "num_heads": 2,
            "ffn_dim": 32, "max_position": 512, "feature_layer": -3}
 RUNTIME = {"frame_buckets": [16, 32, 64], "step_caps": [16, 32, 64], "slot_batch": 4,
            "slot_steps": 8, "slot_join_steps": 4, "slot_ring": 32, "vocode_chunk": 16,
-           "vocode_halo": 12, "slot_windowed_kv": False}
-# the halo holds the tiny generator's receptive field (~9 latent frames),
-# as the published halo of 24 holds the published one (~14)
+           "vocode_halo": 12}
+# the halo holds the tiny generator's receptive field (~9 latent frames; the
+# family cuts the synthesizer), as the published halo of 24 holds the
+# published one (~14)
 
 
 def config(name: str) -> dict:
     """A configuration of ``configs/`` cut to the tiny widths above."""
     cfg = copy.deepcopy(spec.config(name))
     cfg["t2s"] = dict(T2S)
-    sov = dict(SOVITS, version=cfg["sovits"]["version"])
-    if sov["version"] == "v2ProPlus":
-        sov["gin_channels"] = 32
-    cfg["sovits"] = sov
+    spec.family(cfg["family"]).tiny(cfg)
     cfg["hubert"] = dict(HUBERT)
     if cfg.get("roberta"):
         cfg["roberta"] = dict(ROBERTA)
