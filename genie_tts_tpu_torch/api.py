@@ -388,6 +388,14 @@ def _make_synth_fn(character_name: str, sampling: Optional[SamplingConfig] = Non
     return synth, synth_stream
 
 
+def sample_rate(character_name: str) -> int:
+    """The rate of a loaded character's audio: 32000, or 48000 for V4."""
+    char = model_manager.get(character_name)
+    if char is None:
+        raise ValueError(f"Character '{character_name}' is not loaded")
+    return char.sample_rate
+
+
 def _prepare_save_path(save_path) -> Optional[str]:
     if not save_path:
         return None
@@ -411,7 +419,8 @@ def tts(character_name: str, text: str, play: bool = False,
     (``play``, where sounddevice is installed) and saved as one wav.
     Concurrent calls take turns; a sentence that fails raises its error.
 
-    Returns the 32 kHz float32 waveform of all sentences."""
+    Returns the float32 waveform of all sentences at the character's rate
+    (32 kHz; a V4 character's 48 kHz: :func:`sample_rate`)."""
     if character_name not in _reference_audios:
         logger.error("Call set_reference_audio first to set the reference audio.")
         return None
@@ -426,7 +435,8 @@ def tts(character_name: str, text: str, play: bool = False,
 
     with _tts_lock:
         tts_session.start_session(collect, play=play, split=split_sentence,
-                                  save_path=_prepare_save_path(save_path))
+                                  save_path=_prepare_save_path(save_path),
+                                  sample_rate=sample_rate(character_name))
         tts_session.feed(text)
         tts_session.end_session()
         tts_session.wait_for_tts_completion()
@@ -453,7 +463,8 @@ async def tts_async(character_name: str, text: str, play: bool = False,
     session = session_registry.create()  # concurrent calls do not interleave
     session.start_session(synth, play=play, split=split_sentence,
                           save_path=_prepare_save_path(save_path),
-                          chunk_callback=chunk_cb, synth_stream_fn=synth_stream)
+                          chunk_callback=chunk_cb, synth_stream_fn=synth_stream,
+                          sample_rate=sample_rate(character_name))
     session.feed(text)
     session.end_session()
     while True:

@@ -74,6 +74,59 @@ class SoVITSConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class V4Config:
+    """GPT-SoVITS V4's mel side (``SynthesizerTrnV3``, ``version="v4"``):
+    the mel-rate bridge and WaveNet after V2's text encoder, the DiT under
+    conditional flow matching, the prompted chunk loop, the prompt mel and
+    the 48 kHz HiFi-GAN (``models/sovits_v4.py``). The text side is the
+    character's ``SoVITSConfig``."""
+    fea_channels: int = 512           # bridge, WaveNet (wns1) and DiT text width
+    wn_layers: int = 8
+    wn_kernel: int = 5
+    frames_per_code: int = 4          # 25 Hz codes -> 100 Hz mel frames
+    dit_dim: int = 1024
+    dit_depth: int = 22
+    dit_heads: int = 16
+    dit_head_dim: int = 64
+    dit_ff_mult: int = 2
+    mel_dim: int = 100
+    text_conv_layers: int = 4
+    text_conv_mult: int = 2
+    conv_pos_kernel: int = 31
+    conv_pos_groups: int = 16
+    freq_embed_dim: int = 256
+    sample_steps: int = 32            # Euler steps (inference_cfg_rate 0)
+    T_ref: int = 500                  # most prompt frames a chunk keeps
+    T_chunk: int = 1000               # prompt + new frames of one chunk
+    # the prompt mel: the 32 kHz clip, Slaney filterbank, log, normalised
+    mel_n_fft: int = 1280
+    mel_hop: int = 320
+    mel_win: int = 1280
+    mel_fmin: float = 0.0
+    mel_fmax: float = 16000.0
+    mel_sample_rate: int = 32000
+    # the vocoder: 100 mel bands at 100 frames/s -> 48 kHz (480 samples a frame)
+    upsample_rates: Tuple[int, ...] = (10, 6, 2, 2, 2)
+    upsample_kernels: Tuple[int, ...] = (20, 12, 4, 4, 4)
+    upsample_initial: int = 512
+    resblock_kernels: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5),) * 3
+    sample_rate: int = 48000
+
+    @property
+    def hop_length(self) -> int:
+        """Output samples a mel frame."""
+        n = 1
+        for u in self.upsample_rates:
+            n *= u
+        return n
+
+    @property
+    def samples_per_code(self) -> int:
+        return self.frames_per_code * self.hop_length
+
+
+@dataclasses.dataclass(frozen=True)
 class HubertConfig:
     """chinese-hubert-base SSL feature extractor."""
     conv_dims: Tuple[int, ...] = (512,) * 7

@@ -316,9 +316,13 @@ def detect_version(pth_path: Union[str, Path]) -> str:
 
 
 def detect_version_from_keys(pth_sd: Dict[str, np.ndarray]) -> Optional[str]:
-    """Key-based detection (robust to file-size variation): V2ProPlus
-    checkpoints carry the speaker-verification projection weights."""
+    """Key-based detection (robust to file-size variation): V4 checkpoints
+    (``SynthesizerTrnV3``) carry the CFM's DiT, the bridge and ``wns1``
+    (and a style encoder too, so they are told first); V2ProPlus ones the
+    speaker-verification projection weights."""
     keys = {k.removeprefix("vq_model.") for k in pth_sd}
+    if any(k.startswith(("cfm.", "bridge.", "wns1.")) for k in keys):
+        return "v4"
     if any(k.startswith(("sv_emb.", "ge_to512.")) for k in keys):
         return "v2ProPlus"
     if any(k.startswith("ref_enc.") for k in keys):
@@ -352,6 +356,11 @@ def convert_character(
         if version is None:
             version = (detect_version_from_keys(pth_sd)
                        or detect_version(pth_path))
+        if version == "v4":
+            raise NotImplementedError(
+                f"{pth_path} is a GPT-SoVITS V4 checkpoint (SynthesizerTrnV3): converting "
+                f"V4 is not supported yet; the port runs V4 characters from weights in "
+                f"its own layout (models/sovits_v4.py)")
         tcfg = t2s_cfg or T2SConfig()
         vcfg = sovits_cfg or SoVITSConfig()
         if sovits_cfg is None and version == "v2ProPlus":

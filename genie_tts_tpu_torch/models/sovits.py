@@ -217,7 +217,9 @@ def hifigan(p, x, ge, cfg: SoVITSConfig, frames_len=None):
 
     ``frames_len`` [B]: valid latent frames per row; positions beyond are
     masked at every stage so biases in the pad region cannot bleed into
-    valid samples."""
+    valid samples. ``ge`` None: no speaker input (V4's vocoder, whose
+    ``cfg`` is a ``V4Config`` with the same upsampling and resblock
+    fields)."""
     B, T, _ = x.shape
     if frames_len is None:
         frames_len = torch.full((B,), T, dtype=torch.int64, device=x.device)
@@ -229,7 +231,9 @@ def hifigan(p, x, ge, cfg: SoVITSConfig, frames_len=None):
     x = x.transpose(1, 2)                          # [B, 192, T]
     mask = make_mask(1)
     x = conv1d_ncw(p["conv_pre"], x, padding=3)
-    x = (x + conv1d_ncw(p["cond"], ge.to(x.dtype))) * mask
+    if ge is not None:
+        x = x + conv1d_ncw(p["cond"], ge.to(x.dtype))
+    x = x * mask
     n_k = len(cfg.resblock_kernels)
     scale = 1
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernels)):
@@ -297,16 +301,25 @@ def quantizer_decode(params, codes: torch.Tensor) -> torch.Tensor:
     return params["quantizer_embed"][codes].repeat_interleave(2, dim=1)
 
 
-def text_encode(params, cfg: SoVITSConfig, ssl_latent, y_mask_t, text_ids,
+def text_hidden(params, cfg: SoVITSConfig, ssl_latent, y_mask_t, text_ids,
                 text_mask_t, ge_mrte):
-    """enc_p: latent+text+speaker -> (m, logs). All [B,T,*]."""
+    """enc_p up to its last encoder: latent+text+speaker -> the hidden
+    [B, Ty, hidden] before the projection to (m, logs) (V4's bridge reads
+    it)."""
     p = params["enc_p"]
     y = conv1d(p["ssl_proj"], ssl_latent * y_mask_t) * y_mask_t
     y = vits_encoder(p["encoder_ssl"], y, y_mask_t, cfg.n_heads)
     t = p["text_embed"][text_ids].to(ssl_latent.dtype)
     t = vits_encoder(p["encoder_text"], t * text_mask_t, text_mask_t, cfg.n_heads)
     y = mrte(p["mrte"], y, y_mask_t, t, text_mask_t, ge_mrte)
-    y = vits_encoder(p["encoder2"], y, y_mask_t, cfg.n_heads)
+    return vits_encoder(p["encoder2"], y, y_mask_t, cfg.n_heads)
+
+
+def text_encode(params, cfg: SoVITSConfig, ssl_latent, y_mask_t, text_ids,
+                text_mask_t, ge_mrte):
+    """enc_p: latent+text+speaker -> (m, logs). All [B,T,*]."""
+    p = params["enc_p"]
+    y = text_hidden(params, cfg, ssl_latent, y_mask_t, text_ids, text_mask_t, ge_mrte)
     stats = conv1d(p["proj"], y) * y_mask_t
     m, logs = stats.chunk(2, dim=-1)
     return m, logs

@@ -1,4 +1,5 @@
-"""Audio signal processing: linear spectrogram, Kaldi fbank, resampling.
+"""Audio signal processing: linear spectrogram, Kaldi fbank, the Slaney
+log-mel of GPT-SoVITS V4's prompt, resampling.
 
 The linear spectrogram matches torch.stft with ``center=False`` after
 reflect padding of (n_fft - hop)/2 on both sides (the GPT-SoVITS
@@ -82,6 +83,58 @@ def kaldi_fbank(audio: torch.Tensor, num_bins: int = 80, sr: int = 16000) -> tor
     power = spec.real ** 2 + spec.imag ** 2
     fb = torch.as_tensor(kaldi_mel_banks(num_bins, n_fft, sr), device=audio.device)
     return torch.log(torch.clamp(power @ fb.T, min=1e-10))
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, math.log(6.4) / 27.0
+    return np.where(f >= min_log_hz,
+                    min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                    f / f_sp)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, math.log(6.4) / 27.0
+    return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                    f_sp * m)
+
+
+def slaney_mel_banks(n_mels: int, n_fft: int, sr: int, fmin: float = 0.0,
+                     fmax: float = 0.0) -> np.ndarray:
+    """librosa's default mel filterbank (Slaney mel scale and area
+    normalisation) [n_mels, n_fft//2+1]; ``fmax`` 0 is ``sr / 2``."""
+    fmax = fmax or sr / 2
+    fft_freqs = np.linspace(0.0, sr / 2, 1 + n_fft // 2)
+    mel_f = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax),
+                                          n_mels + 2))
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels]))[:, None]
+    return weights.astype(np.float32)
+
+
+def log_mel_spectrogram(audio: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                        n_mels: int, sr: int, fmin: float = 0.0,
+                        fmax: float = 0.0) -> torch.Tensor:
+    """GPT-SoVITS's ``mel_spectrogram_torch`` (``center=False``): reflect
+    padding of (n_fft - hop)/2 a side, a periodic Hann window, magnitude
+    ``sqrt(re^2 + im^2 + 1e-9)``, the Slaney filterbank, ``log(clamp(.,
+    1e-5))``. audio [B, S] -> [B, T, n_mels] fp32, T = S // hop."""
+    audio = audio.float()
+    pad = (n_fft - hop) // 2
+    x = F.pad(audio[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop)                    # [B, T, n_fft]
+    frames = frames * hann_window(win_length, device=audio.device)[None, None, :]
+    spec = torch.fft.rfft(frames, dim=-1)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    fb = torch.as_tensor(slaney_mel_banks(n_mels, n_fft, sr, fmin, fmax), device=audio.device)
+    return torch.log(torch.clamp(mag @ fb.T, min=1e-5))
 
 
 def resample_poly(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

@@ -45,9 +45,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import RuntimeConfig, SoVITSConfig, T2SConfig, resolve_device
+from ..config import RuntimeConfig, SoVITSConfig, T2SConfig, V4Config, resolve_device
 from ..frontend.language import normalize_language
-from ..models import sovits, t2s
+from ..models import sovits, sovits_v4, t2s
 from ..ops.audio import linear_spectrogram
 from ..ops.sampling import SamplingConfig, gumbel_noise
 from ..parallel.mesh import place_tree, shard_serving_params
@@ -62,7 +62,10 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass
 class CharacterModel:
     """Loaded weights for one character (t2s + sovits, and the prompt
-    encoder of a V2ProPlus one) on one device.
+    encoder of a V2ProPlus one) on one device. A V4 character's
+    ``sovits_params`` hold its whole synthesizer (V2's text side, the
+    bridge, ``wns1``, the DiT under ``cfm`` and the 48 kHz vocoder under
+    ``dec``) and ``v4_cfg`` its mel side (``models/sovits_v4.py``).
 
     On a serving mesh (``TTSEngine.replicate_character`` /
     ``shard_character``) ``replicas`` holds one CharacterModel per dp row,
@@ -70,7 +73,7 @@ class CharacterModel:
     ``placement`` is (the mesh, whether the T2S layers are tp-sharded)."""
     name: str
     language: str
-    version: str                    # "v2" | "v2ProPlus"
+    version: str                    # "v2" | "v2ProPlus" | "v4"
     t2s_params: Dict
     sovits_params: Dict
     t2s_cfg: T2SConfig
@@ -79,6 +82,12 @@ class CharacterModel:
     prompt_encoder_params: Optional[Dict] = None
     replicas: Optional[List["CharacterModel"]] = None
     placement: Optional[tuple] = None
+    v4_cfg: Optional[V4Config] = None
+
+    @property
+    def sample_rate(self) -> int:
+        """The rate of the audio the character's synthesizer makes."""
+        return self.v4_cfg.sample_rate if self.version == "v4" else self.sovits_cfg.sample_rate
 
 
 @dataclasses.dataclass
@@ -89,6 +98,21 @@ class ReferenceFeatures:
     prompt_tokens: np.ndarray       # [Tp] int32 semantic VQ tokens
     ge: np.ndarray                  # [gin, 1] speaker embedding (flow/dec)
     ge_mrte: np.ndarray             # [512, 1] speaker embedding (MRTE)
+    # V4: the CFM's prompt, on the character's device: the clip's
+    # normalised mel [P, mel_dim] and the prompt codes' mel-rate features
+    # [P, 512], cut to their common length (at most V4Config.T_ref)
+    mel2: Optional[torch.Tensor] = None
+    fea_ref: Optional[torch.Tensor] = None
+
+
+def refuse_v4_stream(char: "CharacterModel") -> None:
+    """Streaming a V4 character is not supported yet: its chunked CFM
+    makes no audio before a whole chunk is sampled."""
+    if char.version == "v4":
+        raise NotImplementedError(
+            f"character '{char.name}' is GPT-SoVITS V4: streaming routes (the segmented "
+            f"stream, the fused stream head, slot streams and the window pump) do not "
+            f"support V4 yet; use the non-streaming routes")
 
 
 def _to_pcm16(audio: torch.Tensor) -> torch.Tensor:
@@ -425,6 +449,41 @@ class TTSEngine:
             torch.as_tensor(np.asarray(sv_emb, np.float32), device=dev)[None])
         return ge[0].float().cpu().numpy(), ge_mrte[0].float().cpu().numpy()
 
+    @torch.inference_mode()
+    def compute_v4_reference(self, char: CharacterModel, audio_32k: np.ndarray,
+                             clip_samples: int, prompt_tokens: np.ndarray,
+                             ref_phones: np.ndarray):
+        """V4 path: (ge [gin, 1], mel2, fea_ref). ``ge`` is V2's style
+        encoder over the first 704 bins of the clip's linear spectrogram;
+        ``mel2`` the prompt mel of the clip's first ``clip_samples``
+        samples (without the appended silence); ``fea_ref`` the prompt
+        codes' ``decode_encp`` with the transcript's phonemes; both cut to
+        their common length (``sovits_v4.prompt_features``).
+
+        Computed once a clip, with cuDNN's convolutions in true float32
+        (TF32 off while it runs, for every thread): ``ge`` conditions every
+        request, and TF32's rounding in the style encoder's convolutions
+        moved it by up to 1.6e-4 (relative) on the card."""
+        cfg, v4 = char.sovits_cfg, char.v4_cfg
+        dev = char.device
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            audio = torch.as_tensor(np.asarray(audio_32k, np.float32), device=dev)[None]
+            spec = linear_spectrogram(audio, n_fft=cfg.n_fft, hop=cfg.hop_length,
+                                      win_length=cfg.win_length)
+            spec = spec[..., :char.sovits_params["ref_enc"]["spectral0"]["w"].shape[0]]
+            ge = sovits.reference_embedding(char.sovits_params, cfg, spec,
+                                            torch.tensor([spec.shape[1]], device=dev)).float()
+            mel = sovits_v4.reference_mel(audio[0, :clip_samples], v4)
+            codes = torch.as_tensor(np.asarray(prompt_tokens, np.int64), device=dev)[None]
+            phones = torch.as_tensor(np.asarray(ref_phones, np.int64), device=dev)[None]
+            fea = sovits_v4.decode_encp(char.sovits_params, cfg, v4, codes,
+                                        torch.tensor([codes.shape[1]], device=dev), phones,
+                                        torch.tensor([phones.shape[1]], device=dev), ge)[0]
+        mel2, fea_ref = sovits_v4.prompt_features(mel, fea.float(), v4)
+        return ge[0].cpu().numpy(), mel2, fea_ref
+
     # -- synthesis --------------------------------------------------------
 
     def _solo_inputs(self, char: CharacterModel, ref: ReferenceFeatures,
@@ -468,9 +527,15 @@ class TTSEngine:
                              fixed_steps: Optional[int] = None,
                              min_steps: int = 0,
                              max_steps: Optional[int] = None,
-                             pcm16: bool = False) -> np.ndarray:
-        """One sentence -> waveform [S] at 32 kHz (float32, or int16 with
-        ``pcm16``).
+                             pcm16: bool = False,
+                             cfm_seed: Optional[int] = None) -> np.ndarray:
+        """One sentence -> waveform [S] at the character's rate (32 kHz;
+        V4 48 kHz), float32, or int16 with ``pcm16``.
+
+        V4 decodes, reads the codes, and runs them through the pooled
+        finisher's tail alone (:meth:`vocode_codes_dispatch`: ``decode_encp``,
+        the chunked CFM with noise from ``cfm_seed``, default ``seed``, and
+        the 48 kHz vocoder).
 
         When the decode cap fits ``solo_fused_max_codes`` (or the length is
         pinned with ``fixed_steps``) the whole cap is vocoded right after
@@ -492,7 +557,8 @@ class TTSEngine:
         min_steps = fixed_steps if fixed_steps is not None else min_steps
         stages.mark("host")
 
-        if fixed_steps is not None or cap <= self.cfg.solo_fused_max_codes:
+        if char.version != "v4" and (fixed_steps is not None
+                                     or cap <= self.cfg.solo_fused_max_codes):
             audio, codes_len = _t2s_and_vocode(
                 char.t2s_params, char.sovits_params, tcfg, vcfg, scfg, gen,
                 noise_scale=noise_scale, max_steps=cap,
@@ -516,16 +582,22 @@ class TTSEngine:
             if n_codes == 0:
                 logger.warning("T2S produced no semantic tokens; returning silence")
                 return np.zeros(0, np.int16 if pcm16 else np.float32)
-            codes = _fit_codes(codes, pick_bucket(n_codes, self.cfg.frame_buckets))
-            z = sovits.latent(char.sovits_params, vcfg, codes, codes_len, *tail.values(),
-                              noise_scale, generator=gen)
-            stages.mark("latent")
-            audio = sovits.vocode_frames_chunked(
-                char.sovits_params, vcfg, z, tail["ge"], 2 * codes_len,
-                chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo, bound=2 * n_codes)
-            stages.mark("vocode")
-            audio = audio[0, :2 * n_codes * vcfg.hop_length]
-            out = (_to_pcm16(audio) if pcm16 else audio).cpu().numpy()
+            if char.version == "v4":
+                out = self.vocode_codes_fetch(self.vocode_codes_dispatch(
+                    char, [(ref, text_phones, codes[0, :n_codes].cpu().numpy())], pcm16=pcm16,
+                    b_buckets=(1,), cfm_seeds=[seed if cfm_seed is None else cfm_seed]))[0]
+                stages.mark("vocode")
+            else:
+                codes = _fit_codes(codes, pick_bucket(n_codes, self.cfg.frame_buckets))
+                z = sovits.latent(char.sovits_params, vcfg, codes, codes_len, *tail.values(),
+                                  noise_scale, generator=gen)
+                stages.mark("latent")
+                audio = sovits.vocode_frames_chunked(
+                    char.sovits_params, vcfg, z, tail["ge"], 2 * codes_len,
+                    chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo, bound=2 * n_codes)
+                stages.mark("vocode")
+                audio = audio[0, :2 * n_codes * vcfg.hop_length]
+                out = (_to_pcm16(audio) if pcm16 else audio).cpu().numpy()
         stages.mark("host")
         self.last_stats = {"codes_len": n_codes, **stats, "stages": stages.times}
         return out if pcm16 else out.astype(np.float32)
@@ -541,16 +613,18 @@ class TTSEngine:
 
     def vocode_codes_batch(self, char: CharacterModel, items, seed: int = 0,
                            noise_scale: float = 0.5, b_buckets=None,
-                           t_buckets=None, pcm16: bool = False, noise=None):
+                           t_buckets=None, pcm16: bool = False, noise=None,
+                           cfm_seeds=None):
         """Batched codes -> waveform tail (dispatch + fetch in one call)."""
         return self.vocode_codes_fetch(self.vocode_codes_dispatch(
             char, items, seed=seed, noise_scale=noise_scale, b_buckets=b_buckets,
-            t_buckets=t_buckets, pcm16=pcm16, noise=noise))
+            t_buckets=t_buckets, pcm16=pcm16, noise=noise, cfm_seeds=cfm_seeds))
 
     @torch.inference_mode()
     def vocode_codes_dispatch(self, char: CharacterModel, items, seed: int = 0,
                               noise_scale: float = 0.5, b_buckets=None,
-                              t_buckets=None, pcm16: bool = False, noise=None):
+                              t_buckets=None, pcm16: bool = False, noise=None,
+                              cfm_seeds=None):
         """Device half of the batched tail: ``items`` = [(ref, text_phones,
         codes)] vocode as ONE batch, padded to ``b_buckets`` (default
         ``batch_buckets``) with copies of the first row, codes to a
@@ -563,14 +637,20 @@ class TTSEngine:
 
         The flow noise is drawn from a generator seeded with ``seed``, or
         given as ``noise`` [len(items), F, 192] (frames beyond a row's
-        codes are masked; F is cut or zero-padded to the frame bucket)."""
+        codes are masked; F is cut or zero-padded to the frame bucket).
+
+        A V4 character's rows take :meth:`_v4_dispatch` instead: each
+        row's CFM noise from its entry of ``cfm_seeds`` (None: a seed of
+        the engine's)."""
         vcfg = char.sovits_cfg
         dev = char.device
         B = len(items)
         lens = np.array([len(c) for (_, _, c) in items], np.int64)
         if B == 0 or int(lens.max()) == 0:
             empty = torch.zeros((B, 0), dtype=torch.int16 if pcm16 else torch.float32)
-            return (empty, None), lens, vcfg.hop_length
+            return (empty, None), lens, 0, None
+        if char.version == "v4":
+            return self._v4_dispatch(char, items, cfm_seeds, b_buckets, t_buckets, pcm16)
         B_pad = max(pick_bucket(B, b_buckets or self.cfg.batch_buckets), B)
         items = list(items) + [items[0]] * (B_pad - B)
         lens = np.concatenate([lens, lens[:1].repeat(B_pad - B)])
@@ -604,14 +684,51 @@ class TTSEngine:
             halo=self.cfg.vocode_halo, bound=2 * int(lens.max()))[:B]
         audio = _to_pcm16(audio) if pcm16 else audio.float()
         metrics.incr("utterances", B)
-        return start_host_copy(audio), lens[:B], vcfg.hop_length
+        return start_host_copy(audio), lens[:B], 2 * vcfg.hop_length, None
+
+    def _v4_dispatch(self, char: CharacterModel, items, cfm_seeds, b_buckets, t_buckets,
+                     pcm16: bool):
+        """V4's batched tail (``sovits_v4.synthesize_rows``): ``decode_encp``
+        over the batch padded as V2's latent is, the chunk loop's CFM
+        launches batched across the rows, the vocoder's windows; the
+        waveform's host copy enqueued behind them."""
+        v4, vcfg = char.v4_cfg, char.sovits_cfg
+        dev = char.device
+        B = len(items)
+        seeds = [s if s is not None else self._next_seed()
+                 for s in (cfm_seeds if cfm_seeds is not None else [None] * B)]
+        B_pad = max(pick_bucket(B, b_buckets or self.cfg.batch_buckets), B)
+        items = list(items) + [items[0]] * (B_pad - B)
+        lens = np.array([len(c) for (_, _, c) in items], np.int64)
+        c_bucket = pick_bucket(int(lens.max()), self.cfg.frame_buckets)
+        lens = np.minimum(lens, c_bucket)
+        codes_b = np.stack([pad_to(np.asarray(c[:c_bucket], np.int64), c_bucket)
+                            for (_, _, c) in items])
+        t_lens = np.array([len(tp) for (_, tp, _) in items], np.int64)
+        t_bucket = pick_bucket(int(t_lens.max()), t_buckets or self.cfg.phoneme_buckets)
+        t_lens = np.minimum(t_lens, t_bucket)
+        text_b = np.stack([pad_to(np.asarray(tp, np.int64), t_bucket) for (_, tp, _) in items])
+        ge = host_to_device(np.stack([r.ge for (r, _, _) in items]).astype(np.float32), dev)
+        events: list = []
+        audio = sovits_v4.synthesize_rows(
+            char.sovits_params, vcfg, v4, host_to_device(codes_b, dev),
+            host_to_device(lens, dev), host_to_device(text_b, dev),
+            host_to_device(t_lens, dev), ge, [(r.fea_ref, r.mel2) for (r, _, _) in items[:B]],
+            seeds, lens[:B], batch_buckets=self.cfg.batch_buckets, chunk=self.cfg.vocode_chunk,
+            halo=self.cfg.vocode_halo, events=events)[:B]
+        audio = _to_pcm16(audio) if pcm16 else audio.float()
+        metrics.incr("utterances", B)
+        return start_host_copy(audio), lens[:B], v4.samples_per_code, events
 
     def vocode_codes_fetch(self, handle):
-        """Host half: wait for the waveform's copy and trim each row to
-        ``2 * codes * hop`` samples. Runs no device work."""
-        copy, lens, hop = handle
+        """Host half: wait for the waveform's copy and trim each row to its
+        codes times the samples a code makes. Runs no device work; a V4
+        batch's CFM launches, done by then, feed the timer ``cfm_device``."""
+        copy, lens, per_code, events = handle
         audio = finish_host_copy(copy)
-        return [audio[i, : 2 * int(lens[i]) * hop] for i in range(len(lens))]
+        for start, end in events or ():
+            metrics.observe("cfm_device", start.elapsed_time(end) * 1e-3)
+        return [audio[i, : int(lens[i]) * per_code] for i in range(len(lens))]
 
     # -- per-row window vocode (the slot batcher's window pump) -----------
 
@@ -704,7 +821,9 @@ class TTSEngine:
         Otherwise the fused head: decode (one fused kernel launch per step)
         + latent + the FIRST small vocode window, then one host read; the
         remaining ``vocode_chunk`` windows are all dispatched before the
-        first of them is read."""
+        first of them is read. A V4 character raises
+        ``NotImplementedError``."""
+        refuse_v4_stream(char)
         if self.cfg.stream_segmented:
             from .stream import fits_stream, synthesize_stream_segments
 
@@ -877,6 +996,16 @@ class TTSEngine:
 
         decoded = self._rows_map(decode, reps)
         lens = np.concatenate([codes_len.cpu().numpy() for _, codes_len in decoded])
+        if char.version == "v4":
+            # the finisher's V4 tail over every row, on replica 0
+            codes = torch.cat([c.to(dev) for c, _ in decoded]).cpu().numpy()
+            rows = [(r, tp, codes[i, :int(lens[i])]) for i, (r, tp, _) in enumerate(items[:B])]
+            if stats is not None:
+                stats.update(row_stats[0])
+                stats["decode_steps"] = max(st["decode_steps"] for st in row_stats)
+            return [a.astype(np.float32) for a in self.vocode_codes_fetch(
+                self.vocode_codes_dispatch(char, rows, cfm_seeds=[int(seed) + i
+                                                                  for i in range(B)]))]
         c_bucket = pick_bucket(int(max(lens.max(), 1)), self.cfg.frame_buckets)
         flow_noise = torch.randn((B_pad, 2 * c_bucket, vcfg.inter_channels),
                                  generator=gen, device=dev, dtype=torch.float32)
@@ -1007,7 +1136,7 @@ class TTSEngine:
                 from .slot_batcher import slot_warmup_units
 
                 units.extend(slot_warmup_units(self, char))
-            if cfg.stream_segmented:
+            if cfg.stream_segmented and char.version != "v4":
                 from .stream import stream_warmup_units
 
                 units.extend(stream_warmup_units(self, char))
@@ -1060,8 +1189,12 @@ class TTSEngine:
         latent over the character's step cap (the fused branch and the
         fused stream head; every frame bucket too when the cap takes the
         staged branch) at every text bucket, the chunked vocode's windows
-        over them, and the fused stream head's first and later windows."""
+        over them, and the fused stream head's first and later windows. A
+        V4 character's: :meth:`v4_warmup_units` for one row at every text
+        bucket."""
         cfg = self.cfg
+        if char.version == "v4":
+            return self.v4_warmup_units(char, b_buckets=(1,), t_buckets=cfg.phoneme_buckets)
         cap = pick_bucket(char.t2s_cfg.max_decode_steps, cfg.step_caps)
         frames = {cap} | (set(cfg.frame_buckets) if cap > cfg.solo_fused_max_codes else set())
         latents = {(1, fb, tb) for fb in frames for tb in cfg.phoneme_buckets}
@@ -1080,10 +1213,12 @@ class TTSEngine:
         window of the chunked HiFi-GAN at every batch bucket.
         ``t_buckets`` narrows the text ladder (the slot batcher pins one
         text bucket); ``b_buckets`` replaces the batch ladder (a dp row's
-        rows, :meth:`batch_rows`)."""
+        rows, :meth:`batch_rows`). A V4 character's: :meth:`v4_warmup_units`."""
         cfg = self.cfg
         t_buckets = tuple(t_buckets or cfg.phoneme_buckets)
         b_buckets = sorted(cfg.batch_buckets if b_buckets is None else b_buckets)
+        if char.version == "v4":
+            return self.v4_warmup_units(char, b_buckets, t_buckets)
         latents = {(b, fb, tb) for b in b_buckets for fb in cfg.frame_buckets
                    for tb in t_buckets}
         vocodes = {(b, w) for b in b_buckets for fb in cfg.frame_buckets
@@ -1094,8 +1229,11 @@ class TTSEngine:
         """Warmup thunks for the slot window pump
         (:meth:`vocode_windows_dispatch`): a capture of the per-row prefix
         latent at every (batch, frame) bucket a window of ``wins`` can
-        take (frame >= win/2) and of the window's vocode there."""
+        take (frame >= win/2) and of the window's vocode there. None for
+        a V4 character (it pumps no windows)."""
         cfg = self.cfg
+        if char.version == "v4":
+            return []
         latents, vocodes = set(), set()
         for b in cfg.batch_buckets:
             for win in wins:
@@ -1105,6 +1243,27 @@ class TTSEngine:
                         latents.add((b, fb, t_bucket))
                         vocodes.add((b, min(win, 2 * fb)))
         return sovits_warmup_units(char, latents, vocodes)
+
+
+    def v4_warmup_units(self, char: CharacterModel, b_buckets, t_buckets) -> list:
+        """Warmup thunks for V4's tail (:meth:`_v4_dispatch`): a capture of
+        ``decode_encp`` at every (batch, frame, text) bucket, of a chunk's
+        CFM loop at every (rows, CFM frame bucket, steps) (rows: the
+        batch buckets), and of the vocoder at every window of the chunked
+        pass at every batch bucket."""
+        cfg, v4 = self.cfg, char.v4_cfg
+        p, vcfg = char.sovits_params, char.sovits_cfg
+        fpc = v4.frames_per_code
+        units = [functools.partial(sovits_v4.prepare, p, v4, "v4_encp", (b, fb, tb), vcfg)
+                 for b in sorted(b_buckets) for fb in cfg.frame_buckets
+                 for tb in sorted(t_buckets)]
+        units += [functools.partial(sovits_v4.prepare, p, v4, "cfm", (r, T, v4.sample_steps),
+                                    vcfg)
+                  for r in sorted(b_buckets) for T in sovits_v4.cfm_buckets(v4)]
+        widths = sorted({w for fb in cfg.frame_buckets for w in self.chunk_widths(fpc * fb)})
+        units += [functools.partial(sovits_v4.prepare, p, v4, "v4_vocode", (b, w), vcfg)
+                  for b in sorted(b_buckets) for w in widths]
+        return units
 
 
 def sovits_warmup_units(char: CharacterModel, latents, vocodes) -> list:
@@ -1125,11 +1284,13 @@ def make_random_character(name: str = "random", language: str = "Japanese",
                           seed: int = 0, t2s_cfg: Optional[T2SConfig] = None,
                           sovits_cfg: Optional[SoVITSConfig] = None,
                           dtype=torch.bfloat16, eos_boost: float = 1.0,
-                          device=None) -> CharacterModel:
+                          device=None, v4_cfg: Optional[V4Config] = None) -> CharacterModel:
     """Random-weight character. A V2ProPlus ``sovits_cfg`` (its
     ``gin_channels`` is the caller's: 1024 at full width) gets a random
     prompt encoder, and its synthesizer no style encoder, as a converted
-    V2ProPlus checkpoint has.
+    V2ProPlus checkpoint has. A V4 ``sovits_cfg`` (``version="v4"``) gets
+    V4's synthesizer (``models/sovits_v4.py::init_params``) at ``v4_cfg``
+    (default: the published widths).
 
     ``eos_boost``: scale on the EOS column of the predict layer; random
     weights give EOS no edge, and 0 pins its logit at 0, well inside a
@@ -1145,8 +1306,13 @@ def make_random_character(name: str = "random", language: str = "Japanese",
     t2s_params = t2s.init_params(gen, tcfg, dtype=dtype)
     if eos_boost != 1.0:
         t2s_params["predict"]["w"][:, tcfg.eos_id] *= eos_boost
-    sovits_params = sovits.init_params(gen, vcfg, dtype=dtype)
     pe_params = None
+    v4 = None
+    if vcfg.version == "v4":
+        v4 = v4_cfg or V4Config()
+        sovits_params = sovits_v4.init_params(gen, vcfg, v4, dtype=dtype)
+    else:
+        sovits_params = sovits.init_params(gen, vcfg, dtype=dtype)
     if vcfg.version == "v2ProPlus":
         del sovits_params["ref_enc"]
         pe_params = prompt_encoder.init_params(gen, vcfg, dtype=dtype,
@@ -1155,7 +1321,7 @@ def make_random_character(name: str = "random", language: str = "Japanese",
     return CharacterModel(
         name=name, language=language, version=vcfg.version,
         t2s_params=t2s_params, sovits_params=sovits_params, t2s_cfg=tcfg,
-        sovits_cfg=vcfg, device=dev, prompt_encoder_params=pe_params)
+        sovits_cfg=vcfg, device=dev, prompt_encoder_params=pe_params, v4_cfg=v4)
 
 
 def make_random_reference(char: CharacterModel, engine: TTSEngine,
@@ -1163,20 +1329,31 @@ def make_random_reference(char: CharacterModel, engine: TTSEngine,
     """Reference features from white-noise audio, stand-in HuBERT features
     at 50 Hz and a random 12-phoneme transcript (warmups and tests); a
     V2ProPlus character's speaker embedding comes from its prompt encoder
-    over the audio and a random SV embedding."""
+    over the audio and a random SV embedding; a V4 character's from its
+    style encoder, with its prompt mel and features
+    (:meth:`TTSEngine.compute_v4_reference`)."""
     rng = np.random.default_rng(seed)
     sr = char.sovits_cfg.sample_rate
     audio_32k = (rng.standard_normal(int(ref_seconds * sr)) * 0.05).astype(np.float32)
     ssl = rng.standard_normal((int(ref_seconds * 50), char.t2s_cfg.ssl_dim)).astype(
         np.float32)
+    n_ref_phones = 12
+    bert = np.zeros((n_ref_phones, char.t2s_cfg.bert_dim), np.float32)
+    if char.version == "v4":
+        phones = rng.integers(1, char.t2s_cfg.phoneme_vocab, n_ref_phones).astype(np.int32)
+        prompts = engine.compute_prompt_tokens(char, ssl)
+        ge, mel2, fea_ref = engine.compute_v4_reference(char, audio_32k, len(audio_32k),
+                                                        prompts, phones)
+        return ReferenceFeatures(phones=phones, bert=bert, prompt_tokens=prompts, ge=ge,
+                                 ge_mrte=ge[: char.sovits_cfg.mrte_channels], mel2=mel2,
+                                 fea_ref=fea_ref)
     if char.version == "v2ProPlus":
         sv_emb = rng.standard_normal(char.sovits_cfg.sv_dim).astype(np.float32)
         ge, ge_mrte = engine.compute_v2pp_speaker_embedding(char, audio_32k, sv_emb)
     else:
         ge = engine.compute_v2_speaker_embedding(char, audio_32k)
         ge_mrte = ge[: char.sovits_cfg.mrte_channels]
-    n_ref_phones = 12
     return ReferenceFeatures(
         phones=rng.integers(1, char.t2s_cfg.phoneme_vocab, n_ref_phones).astype(np.int32),
-        bert=np.zeros((n_ref_phones, char.t2s_cfg.bert_dim), np.float32),
-        prompt_tokens=engine.compute_prompt_tokens(char, ssl), ge=ge, ge_mrte=ge_mrte)
+        bert=bert, prompt_tokens=engine.compute_prompt_tokens(char, ssl), ge=ge,
+        ge_mrte=ge_mrte)

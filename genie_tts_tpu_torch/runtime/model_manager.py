@@ -25,7 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import (HubertConfig, RobertaConfig, RuntimeConfig, SoVITSConfig,
+from ..config import (HubertConfig, RobertaConfig, RuntimeConfig, SoVITSConfig, V4Config,
                       T2SConfig, hubert_dir, indexed_device, resolve_device,
                       resolve_dtype, roberta_dir)
 from ..convert.io import load_character_config, load_params
@@ -53,7 +53,9 @@ def check_model_dir(model_dir) -> Dict:
             f"  - t2s.safetensors   (text-to-semantic GPT weights)\n"
             f"  - vits.safetensors  (SoVITS synthesizer weights)\n"
             f"  - config.json       (version/language metadata)\n"
-            f"  - prompt_encoder.safetensors  (V2ProPlus only)")
+            f"  - prompt_encoder.safetensors  (V2ProPlus only)\n"
+            f"A V4 character's vits.safetensors holds its whole synthesizer (the DiT\n"
+            f"and the 48 kHz vocoder too) and its config.json a \"v4\" section.")
     cfg = load_character_config(path / "config.json")
     if cfg.get("version") == "v2ProPlus":
         missing = [f for f in V2PP_FILES if not (path / f).is_file()]
@@ -109,6 +111,7 @@ class ModelManager:
         cfg = check_model_dir(model_dir)
         version = cfg.get("version", "v2")
         v2pp = version == "v2ProPlus"
+        v4 = version == "v4"
         path = Path(model_dir)
         t2s_params = load_params(path / "t2s.safetensors", dtype, dev)
         if self.cfg.t2s_int8:
@@ -126,7 +129,8 @@ class ModelManager:
                 device=dev,
                 prompt_encoder_params=(
                     load_params(path / "prompt_encoder.safetensors", dtype, dev)
-                    if v2pp else None))
+                    if v2pp else None),
+                v4_cfg=_cfg(V4Config, cfg.get("v4")) if v4 else None)
             self._cache.put(name, model)
             self._registry[name] = (str(model_dir), language, dev, dtype)
             logger.info("loaded character '%s' (%s, %s) on %s", name, version,

@@ -5,8 +5,9 @@ The port of ``genie_tts_tpu/runtime/reference_audio.py``: load a clip at
 resample to 16 kHz, run HuBERT for ``ssl_content`` and phonemize the
 transcript, cached per (path, text). Character-dependent features (VQ
 prompt tokens from the character's codebook; the V2 style embedding, or
-V2ProPlus's prompt-encoder embeddings from the clip's SV embedding) are
-cached per (path, character).
+V2ProPlus's prompt-encoder embeddings from the clip's SV embedding, or
+V4's style embedding with its CFM prompt: the clip's mel and the prompt
+codes' mel-rate features) are cached per (path, character).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ class ReferenceClip:
         audio_32k = resample_poly(audio, sr, 32000)
         silence = np.zeros(int(APPEND_SILENCE_S * 32000), np.float32)
         self.audio_32k = np.concatenate([audio_32k, silence])
+        self.clip_samples = len(audio_32k)       # before the silence
         self.audio_16k = resample_poly(self.audio_32k, 32000, 16000)
 
         self.phones, self.bert = get_phones_and_bert(text, language)
@@ -97,7 +99,12 @@ class ReferenceAudioCache:
                     "SSL features. Put hubert.safetensors under "
                     "GENIE_DATA_DIR/chinese-hubert-base (or GENIE_HUBERT_DIR).")
             prompt_tokens = engine.compute_prompt_tokens(char, clip.ssl_content)
-            if char.version == "v2ProPlus":
+            mel2 = fea_ref = None
+            if char.version == "v4":
+                ge, mel2, fea_ref = engine.compute_v4_reference(
+                    char, clip.audio_32k, clip.clip_samples, prompt_tokens, clip.phones)
+                ge_mrte = ge[: char.sovits_cfg.mrte_channels]
+            elif char.version == "v2ProPlus":
                 if sv_fn is None:
                     raise RuntimeError(
                         "V2ProPlus cloning needs a speaker-verification "
@@ -114,6 +121,8 @@ class ReferenceAudioCache:
                 prompt_tokens=prompt_tokens,
                 ge=ge,
                 ge_mrte=ge_mrte,
+                mel2=mel2,
+                fea_ref=fea_ref,
             )
             self._features.put(key, feats)
             return feats

@@ -61,6 +61,7 @@ class TTSSession:
         self._chunk_cb: Optional[Callable[[Optional[bytes]], None]] = None
         self._synth_stream_fn = None
         self._session_chunks: List[np.ndarray] = []
+        self._sample_rate = SAMPLE_RATE
         self.first_error: Optional[Exception] = None
 
     # -- lifecycle --------------------------------------------------------
@@ -73,11 +74,14 @@ class TTSSession:
         save_path: Optional[str] = None,
         chunk_callback: Optional[Callable[[Optional[bytes]], None]] = None,
         synth_stream_fn: Optional[Callable[[str], "object"]] = None,
+        sample_rate: int = SAMPLE_RATE,
     ) -> None:
         """Begin a synthesis session. ``synth_fn(sentence) -> waveform``.
 
         ``synth_stream_fn(sentence) -> iterator[waveform chunks]`` enables
-        intra-utterance streaming (used when a chunk callback is set)."""
+        intra-utterance streaming (used when a chunk callback is set).
+        ``sample_rate``: the waveforms' rate (a V4 character's is 48 kHz),
+        at which they are saved and played."""
         with self._api_lock:
             self._stop_event.clear()
             self._tts_done.clear()
@@ -89,6 +93,7 @@ class TTSSession:
                 logger.warning("sounddevice unavailable; play=True ignored")
             self._split = split
             self._save_path = save_path
+            self._sample_rate = int(sample_rate)
             self._chunk_cb = chunk_callback
             self._session_chunks = []
             if self._play:
@@ -176,7 +181,7 @@ class TTSSession:
         if self._save_path and self._session_chunks:
             try:
                 write_wav(self._save_path,
-                          np.concatenate(self._session_chunks), SAMPLE_RATE)
+                          np.concatenate(self._session_chunks), self._sample_rate)
                 logger.info("saved %s", self._save_path)
             except Exception:
                 logger.exception("failed saving %s", self._save_path)
@@ -194,7 +199,7 @@ class TTSSession:
         stream = None
         try:
             stream = sounddevice.OutputStream(
-                samplerate=SAMPLE_RATE, channels=1, dtype="float32")
+                samplerate=self._sample_rate, channels=1, dtype="float32")
             stream.start()
             while True:
                 item = self._audio_q.get()

@@ -252,8 +252,14 @@ class GenieHandler(BaseHTTPRequestHandler):
                 first, (ValueError, KeyError, FileNotFoundError)) else 500
             return self._reply(code, {"detail": str(first)})
 
+        from .. import api
+
+        char = api.model_manager.get(payload["character_name"])
         self.send_response(200)
         self.send_header("Content-Type", "audio/wav")
+        if char is not None:
+            # the PCM16 stream's rate: 32000, or 48000 for a V4 character
+            self.send_header("X-Sample-Rate", str(char.sample_rate))
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
 
