@@ -223,7 +223,16 @@ Phases, each of which must pass:
    at a shard's 8 heads, and timed at the same three visibility levels,
    at buffer columns 0, 16 and 31, and with nothing visible; the partial
    ring is its kernels row. ``python3 chip_smoke.py --slot-attention``
-   runs the build and this kernel's part alone (~20 s).
+   runs the build and this kernel's part alone (~20 s). The slot decode
+   layer's int8 linear (``slot_linear``) is held, at its four shapes (qkv,
+   out, ffn1, ffn2) and B = 8, 1 and 12 in bf16 and fp32, against fp32
+   over the dequantized weights beside its plain version (in bf16 no
+   worse than the plain version), then timed per shape by CUDA-graph
+   replay over 24 layers' weights beside the plain version, the int8 cast
+   and ``torch.matmul`` (a yardstick) and its bound, and at one k-step
+   (the floor of a launch); the bf16 slot pass requires 96 of its
+   launches a step. ``python3 chip_smoke.py --slot-linear`` runs the build
+   and this kernel's part alone (~25 s).
 
 The last two lines are the ``kernels`` JSON and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -258,6 +267,9 @@ INT8 = {"name": "int8_big_attention", "route": "cuda",
 SLOT = {"name": "slot_attention", "route": "cuda",
         "source": "genie_tts_tpu_torch/csrc/slot_attention.cu",
         "replaces": "none (the JAX package's exact-KV slot route is XLA ops)"}
+SLOT_LINEAR = {"name": "slot_linear", "route": "cuda",
+               "source": "genie_tts_tpu_torch/csrc/slot_linear.cu",
+               "replaces": "none (the JAX package's slot decode layer's linears are XLA ops)"}
 
 # ten Japanese sentences for the slot-serving clients
 SENTENCES = (
@@ -754,6 +766,7 @@ def phase_slots_bf16(torch, char, feats, phones):
     from genie_tts_tpu_torch.config import RuntimeConfig
     from genie_tts_tpu_torch.ops import int8_decode as i8
     from genie_tts_tpu_torch.ops import slot_attention as sa
+    from genie_tts_tpu_torch.ops import slot_linear as sl
     from genie_tts_tpu_torch.runtime.engine import TTSEngine
     from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher
 
@@ -764,6 +777,7 @@ def phase_slots_bf16(torch, char, feats, phones):
     out = {}
     i8.int8_big_attention.launches = 0
     sa.slot_attention.launches = 0
+    sl.slot_linear.launches = 0
     t0 = time.perf_counter()
     threads = [threading.Thread(target=lambda i=i: out.__setitem__(
         i, sb.synthesize(feats, text, bert, timeout=600, max_steps=64))) for i in range(2)]
@@ -781,10 +795,16 @@ def phase_slots_bf16(torch, char, feats, phones):
     check(sb.attn_kernel == 1
           and launches == char.t2s_cfg.num_layers * sb.stats["steps"] > 0,
           f"the bf16 slot mode's attention: {launches} slot_attention launches, {sb.stats}")
+    lin = sl.slot_linear.launches
+    check(sb.linear_kernel == 1 and lin == 4 * launches,
+          f"the bf16 slot mode's int8 linears: {lin} slot_linear launches, {launches} "
+          f"slot_attention launches")
     print(f"[slots bf16] 2 requests of 64 steps in {wall:.3f} s, {sb.stats['segments']} "
-          f"segments, {launches} slot_attention launches (24 a step), no int8 launches")
+          f"segments, {launches} slot_attention launches (24 a step), {lin} slot_linear "
+          f"launches (96 a step), no int8 launches")
     exact_slice_check(torch, char)
-    return dict(segment_timing(torch, char, feats, phones), launches=launches)
+    return dict(segment_timing(torch, char, feats, phones), launches=launches,
+                linear_launches=lin)
 
 
 def _slot_rows(torch, char, feats, phones, sx, sp):
@@ -4399,6 +4419,133 @@ def phase_kernel_slot(torch, seg_ms=None, W=32):
                 bound_by=t["by"], library_ms=None)
 
 
+def phase_kernel_slot_linear(torch, seg_ms=None):
+    """slot_linear vs its plain version at the slot decode layer's four
+    shapes (D=512, F=2048, int8 codes with per-column scales, random
+    per-layer biases and norms) at the 8-slot serving geometry, at B=1 and
+    at B=12 (two row tiles), in bf16 and fp32: each against an fp32
+    computation over the dequantized weights (the bf16 kernel's largest
+    error no larger than the plain version's); then device time per launch
+    by CUDA-graph replay over 24 layers' weights (75 MB, more than the 50
+    MB L2), beside the plain version, the library yardstick (the int8 cast
+    and ``torch.matmul``, timed only) and the bound (the launch's bytes at
+    3.35 TB/s)."""
+    from genie_tts_tpu_torch.config import T2SConfig
+    from genie_tts_tpu_torch.models import t2s
+    from genie_tts_tpu_torch.ops import slot_linear as sl
+    from genie_tts_tpu_torch.ops.layers import unstack
+
+    L, D, F = 24, 512, 2048
+    g = torch.Generator(device=DEV).manual_seed(12)
+
+    def int8_layers(n, dt):
+        """n layers' int8 codes and scales, biases in the rows' dtype"""
+        return unstack(t2s.quantize_params(
+            t2s.init_params(g, T2SConfig(num_layers=n), dtype=dt))["layers"])
+
+    layers = int8_layers(L, torch.bfloat16)
+    shapes = {   # name: (in, out, the tail's keyword arguments for a layer)
+        "qkv": (D, 3 * D, lambda lp, res: {}),
+        "out": (D, D, lambda lp, res: dict(res=res, norm=lp["norm1"])),
+        "ffn1": (D, F, lambda lp, res: dict(relu=True)),
+        "ffn2": (F, D, lambda lp, res: dict(res=res, norm=lp["norm2"])),
+    }
+
+    def exact(p, x, relu=False, res=None, norm=None):
+        y = x.float() @ (p["w"].float() * p["scale"]) + p["b"].float()
+        if relu:
+            return torch.relu(y)
+        if norm is None:
+            return y
+        z = res.float() + y
+        mean = z.mean(-1, keepdim=True)
+        var = z.var(-1, unbiased=False, keepdim=True)
+        return ((z - mean) * torch.rsqrt(var + 1e-5) * norm["scale"].float()
+                + norm["bias"].float())
+
+    layers32 = int8_layers(2, torch.float32)
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for B in (8, 1, 12):
+            for name, (K, N, tail) in shapes.items():
+                lp = layers[5] if dt == torch.bfloat16 else layers32[1]
+                x = torch.randn((B, 1, K), generator=g, device=DEV).to(dt)
+                res = torch.randn((B, 1, N), generator=g, device=DEV).to(dt)
+                kw = tail(lp, res)
+                before = sl.slot_linear.launches
+                out = sl.slot_linear(lp[name], x, **kw)
+                plain = sl.slot_linear_plain(lp[name], x, **kw)
+                want = exact(lp[name], x, **kw)
+                sync(torch)
+                check(sl.slot_linear.launches == before + 1, "slot_linear launch count")
+                k_err = float((out.float() - want).abs().max())
+                p_err = float((plain.float() - want).abs().max())
+                # bf16: one rounding of the output (2^-9 of |y|) beside fp32
+                # sums; fp32: sums in another order (1e-4 through a LayerNorm)
+                if dt == torch.bfloat16:
+                    worst = max(worst, float((out.float() - plain.float()).abs().max()))
+                    ok = k_err <= p_err and bool(
+                        ((out.float() - want).abs() <= want.abs() * 2 ** -8 + 1e-4).all())
+                else:
+                    ok = k_err <= 1e-4 * (1 + float(want.abs().max()))
+                print(f"[kernel] slot_linear {str(dt)[6:]} B={B} {name} [{K}, {N}]: max error "
+                      f"vs fp32 over the dequantized weights: kernel {k_err:.3e}, plain "
+                      f"{p_err:.3e}")
+                check(ok, f"slot_linear {dt} B={B} {name}: kernel {k_err}, plain {p_err}")
+    # the same inputs twice give the same bits (partials summed in a fixed order)
+    lp, x = layers[3], torch.randn((8, 1, F), generator=g, device=DEV).to(torch.bfloat16)
+    res = torch.randn((8, 1, D), generator=g, device=DEV).to(torch.bfloat16)
+    a = sl.slot_linear(lp["ffn2"], x, res=res, norm=lp["norm2"])
+    b = sl.slot_linear(lp["ffn2"], x, res=res, norm=lp["norm2"])
+    sync(torch)
+    check(torch.equal(a, b), "slot_linear repeats itself")
+
+    # times, bf16 at B=8: one call per layer's weights, captured and replayed
+    B, dt = 8, torch.bfloat16
+    rows = {}
+    total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    for name, (K, N, tail) in shapes.items():
+        x = torch.randn((B, 1, K), generator=g, device=DEV).to(dt)
+        res = torch.randn((B, 1, N), generator=g, device=DEV).to(dt)
+        ms = graph_ms(torch, [lambda lp=lp: sl.slot_linear(lp[name], x, **tail(lp, res))
+                              for lp in layers])
+        plain_ms = graph_ms(torch, [lambda lp=lp: sl.slot_linear_plain(lp[name], x,
+                                                                       **tail(lp, res))
+                                    for lp in layers])
+        lib_ms = graph_ms(torch, [lambda lp=lp: torch.matmul(x, lp[name]["w"].to(dt))
+                                  for lp in layers])
+        norm = name in ("out", "ffn2")
+        # codes, fp32 scales, bf16 bias, fp32 norm scale and bias; the input,
+        # residual and output rows
+        moved = (K * N + N * (4 + 2) + (8 * N if norm else 0)
+                 + B * 2 * (K + N + (N if norm else 0)))
+        bms, by = bound(moved, 2 * B * K * N, "bfloat16")
+        print(f"[kernel] slot_linear {name} B={B} [{K}, {N}] bf16: device time per launch "
+              f"(CUDA graph) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (int8 cast + "
+              f"torch.matmul, timed only) {lib_ms:.4f} ms; bound {bms:.5f} ms ({by}, "
+              f"{moved / 1e6:.3f} MB), {bms / ms:.1%} of the bound's rate")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms)
+        for k in total:
+            total[k] += rows[name][k]
+    # the fixed cost of a launch: one k-step of 16 rows (2 KB of codes a warp
+    # group), no tail and the LayerNorm tail
+    x16 = torch.randn((B, 1, 16), generator=g, device=DEV).to(dt)
+    res = torch.randn((B, 1, D), generator=g, device=DEV).to(dt)
+    floor = [graph_ms(torch, [lambda lp=lp: sl.slot_linear(
+        dict(lp["out"], w=lp["out"]["w"][:16]), x16, **kw(lp)) for lp in layers])
+        for kw in (lambda lp: {}, lambda lp: dict(res=res, norm=lp["norm1"]))]
+    print(f"[kernel] slot_linear [16, {D}] (the floor of a launch): no tail {floor[0]:.4f} ms, "
+          f"LayerNorm tail {floor[1]:.4f} ms (CUDA graph)")
+    share = ("" if seg_ms is None
+             else f" = {L * 32 * total['ms'] / seg_ms:.2%} of the {seg_ms:.3f} ms segment")
+    print(f"[kernel] slot_linear a layer (4 launches): kernel {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+          f"{total['bound_ms']:.5f} ms; {4 * L} launches a step{share}")
+    return dict(max_abs_err=worst, ms=total["ms"] / 4, plain_ms=total["plain_ms"] / 4,
+                bound_ms=total["bound_ms"] / 4, bound_by="bytes",
+                library_ms=total["library_ms"] / 4, shapes=rows)
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv) -> int:
@@ -4443,6 +4590,13 @@ def main(argv) -> int:
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         print(f"{card}")
         return 0
+    if argv[1:] == ["--slot-linear"]:
+        # the slot decode layer's int8 linear kernel alone: build, compare, time
+        timed(phase_build)
+        timed(phase_kernel_slot_linear, torch)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(f"{card}")
+        return 0
     if argv[1:] == ["--cross-card"]:
         # the cross-card mesh alone (a machine with 2 or 4 cards): the
         # kernels, phase 3's character written, then phase (i)
@@ -4481,6 +4635,7 @@ def main(argv) -> int:
         res = timed(phase_kernels, torch, char, b4["S"], b4)
         res8 = timed(phase_kernel_int8, torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
         res_slot = timed(phase_kernel_slot, torch, bf16["ms"][-1], sl["sb"].W)
+        res_lin = timed(phase_kernel_slot_linear, torch, bf16["ms"][-1])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4492,6 +4647,7 @@ def main(argv) -> int:
         {**FUSED, "launches": tts[2]["launches"], **res["fused", "int8"]},
         {**INT8, "launches": sl["launches"], **res8},
         {**SLOT, "launches": bf16["launches"], **res_slot},
+        {**SLOT_LINEAR, "launches": bf16["linear_launches"], **res_lin},
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"{card}")

@@ -23,7 +23,8 @@ as captured CUDA graphs: the counterpart of the JAX package's one
 compiled ``lax.while_loop``. The slot machine
 (``models/slots.py``) decodes through :func:`_layer_decode_buffered`,
 whose read-only big cache may hold int8 codes (``ops/int8_decode.py``);
-on the card its exact caches are read by ``ops/slot_attention.py``.
+on the card its exact caches are read by ``ops/slot_attention.py`` and its
+int8 linears run through ``ops/slot_linear.py``.
 
 A tp-sharded parameter set (``parallel/mesh.py::shard_serving_params``:
 the layers split over a replica's devices, under ``layer_shards``) takes
@@ -50,6 +51,7 @@ from ..ops.fused_decode import prepare as prepare_fused
 from ..ops.fused_decode import step_buffers as fused_step_buffers
 from ..ops.int8_decode import int8_big_attention
 from ..ops.slot_attention import slot_attention
+from ..ops.slot_linear import slot_linear, slot_linear_plain, takes as slot_linear_takes
 from ..ops.layers import (attention, layer_norm, linear, sine_position_table,
                           unstack)
 from ..ops.sampling import (SamplingConfig, SamplingRows, gumbel_noise_,
@@ -239,17 +241,22 @@ def _layer_decode_buffered(lp: Params, h: torch.Tensor, k_big, v_big,
     first ring copy (``kv_mask`` unused): through ``ops/int8_decode.py``
     for int8 codes (flash partials, merged with the exact buffer and self
     columns in one log-sum-exp step), through ``ops/slot_attention.py``
-    for exact caches (the whole attention, ``buf_mask`` unused)."""
-    q, k_new, v_new = linear(lp["qkv"], h).chunk(3, dim=-1)
+    for exact caches (the whole attention, ``buf_mask`` unused).
+
+    Int8 linear weights take each linear with its tail through
+    ``ops/slot_linear.py`` (one kernel launch each on the card, the same
+    composition on the CPU); other weights run the composition here."""
+    dense = slot_linear if slot_linear_takes(lp["qkv"]) else slot_linear_plain
+    q, k_new, v_new = dense(lp["qkv"], h).chunk(3, dim=-1)
     q = _split_heads(q, num_heads)                           # [B,H,1,Dh]
     k_new = _split_heads(k_new, num_heads)[:, :, 0]          # [B,H,Dh]
     v_new = _split_heads(v_new, num_heads)[:, :, 0]
     att = buffered_attention(q, k_new, v_new, k_big, v_big, k_buf, v_buf, buf_mask,
                              kv_mask, k_scale=k_scale, v_scale=v_scale,
                              kv_kernel_ctx=kv_kernel_ctx, col=col)
-    h = layer_norm(lp["norm1"], h + linear(lp["out"], _merge_heads(att)))
-    ff = linear(lp["ffn2"], torch.relu(linear(lp["ffn1"], h)))
-    h = layer_norm(lp["norm2"], h + ff)
+    h = dense(lp["out"], _merge_heads(att), res=h, norm=lp["norm1"])
+    ff = dense(lp["ffn1"], h, relu=True)
+    h = dense(lp["ffn2"], ff, res=h, norm=lp["norm2"])
     return h, k_new, v_new
 
 

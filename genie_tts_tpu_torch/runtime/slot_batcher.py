@@ -68,8 +68,9 @@ import numpy as np
 import torch
 
 from ..models import slots as slots_mod
-from ..models.t2s import finalize_semantic_tokens, shard_devices
+from ..models.t2s import finalize_semantic_tokens, layer_shards, shard_devices
 from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
+from ..ops.slot_linear import launches_kernel
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
 from . import graphs
@@ -407,6 +408,12 @@ class SlotBatcher:
         # where no host counter sees them
         self.attn_kernel = int(not self.cfg.slot_kv_int8
                                and torch.device(char.device).type == "cuda")
+        # 1 where the decode layer's int8 linears run through the
+        # slot_linear kernel (whole int8 weights on the card; a tp-sharded
+        # set keeps the composition), read by the slot_linear_kernel gauge
+        params = char.t2s_params
+        self.linear_kernel = int(layer_shards(params) is None
+                                 and launches_kernel(params["layers"]["qkv"]))
         # the window pump: every row with slot_stream_finisher, else only
         # rows with a streaming consumer
         self.windows = self.cfg.slot_stream_finisher
@@ -939,6 +946,7 @@ class SlotBatcher:
         occ = sum(r is not None for r in self._slots)
         metrics.gauge("slot_occupancy", occ)
         metrics.gauge("slot_attn_kernel", self.attn_kernel)
+        metrics.gauge("slot_linear_kernel", self.linear_kernel)
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
         seg_fn = self._decode_seg if w == self.W else self._decode_segs[w]
         params = self.char.t2s_params

@@ -15,7 +15,10 @@ order flips (2e-2 absolute at the LayerNorm scale). The int8 slot-cache
 attention runs in fp32 in both versions: relative 1e-4 of each partial's
 largest value, and rows that see nothing exactly. The exact-cache slot
 attention is held to the flash kernel's tolerances (1e-5 fp32, 1e-2
-bf16: the same one output rounding).
+bf16: the same one output rounding). The slot decode layer's int8
+linears are held to fp32 over the dequantized weights: in bf16 no worse
+than the plain version, which rounds four times where the kernel rounds
+once; in fp32 within 1e-4 of the largest output (sum order).
 """
 
 import pytest
@@ -30,6 +33,7 @@ from genie_tts_tpu_torch.ops.flash_decode import (flash_decode_attention,
 from genie_tts_tpu_torch.ops.int8_decode import (int8_big_attention,
                                                  int8_big_attention_plain)
 from genie_tts_tpu_torch.ops.slot_attention import slot_attention, slot_attention_plain
+from genie_tts_tpu_torch.ops.slot_linear import slot_linear, slot_linear_plain
 
 
 @pytest.fixture
@@ -768,3 +772,226 @@ def test_roberta_graph_replays_equal_exact_on_the_card(cuda):
         assert got.shape == want.shape == (int(reps.sum()), cfg.embed_dim)
         assert float((got - want).norm() / want.norm()) <= 1e-5
     assert graphs.cache_for(params).stats["captures"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the slot decode layer's int8 linears (ops/slot_linear.py)
+# ---------------------------------------------------------------------------
+
+def _slot_linear_layers(gen, L=2, dtype=torch.bfloat16):
+    """Int8 decoder layers at the T2S widths (D 512, F 2048), biases in
+    ``dtype`` and fp32 norms drawn per layer."""
+    from genie_tts_tpu_torch.ops.layers import unstack
+
+    return unstack(t2s.quantize_params(
+        t2s.init_params(gen, T2SConfig(num_layers=L), dtype=dtype))["layers"])
+
+
+def _slot_linear_args(name, lp, res):
+    return {"qkv": {}, "ffn1": dict(relu=True), "out": dict(res=res, norm=lp["norm1"]),
+            "ffn2": dict(res=res, norm=lp["norm2"])}[name]
+
+
+def _slot_linear_exact(p, x, relu=False, res=None, norm=None):
+    """The same function in fp32 over the dequantized weights."""
+    y = x.float() @ (p["w"].float() * p["scale"]) + p["b"].float()
+    if relu:
+        return torch.relu(y)
+    if norm is None:
+        return y
+    z = res.float() + y
+    mean = z.mean(-1, keepdim=True)
+    var = z.var(-1, unbiased=False, keepdim=True)
+    return (z - mean) * torch.rsqrt(var + 1e-5) * norm["scale"] + norm["bias"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [8, 1, 12])
+@pytest.mark.parametrize("name", ["qkv", "out", "ffn1", "ffn2"])
+def test_slot_linear_kernel_matches_plain(cuda, dtype, B, name):
+    """Narrate's geometry (8 slots), one row, and two row tiles (12), each
+    tail: kernel and plain version against fp32 over the dequantized
+    weights. bf16: the kernel rounds once (half an ulp, 2^-9 of |y|, beside
+    fp32 sums: held to 2^-8 |y| + 1e-4) where the plain version rounds the
+    product, the scaled product, the biased sum and the residual sum, so its
+    largest error is no larger than the plain version's. fp32: the kernel's
+    products are exact (three bf16 terms of x), so both differ from the
+    reference only by sum order: 1e-4 of the largest output."""
+    lp = _slot_linear_layers(cuda, dtype=dtype)[1]
+    K, N = lp[name]["w"].shape
+    x = torch.randn((B, 1, K), generator=cuda, device="cuda").to(dtype)
+    res = torch.randn((B, 1, N), generator=cuda, device="cuda").to(dtype)
+    kw = _slot_linear_args(name, lp, res)
+    before = slot_linear.launches
+    out = slot_linear(lp[name], x, **kw)
+    plain = slot_linear_plain(lp[name], x, **kw)
+    want = _slot_linear_exact(lp[name], x, **kw)
+    torch.cuda.synchronize()
+    assert slot_linear.launches == before + 1
+    assert out.shape == plain.shape == (B, 1, N) and out.dtype == dtype
+    k_err = (out.float() - want).abs()
+    if dtype == torch.bfloat16:
+        assert float(k_err.max()) <= float((plain.float() - want).abs().max())
+        assert bool((k_err <= want.abs() * 2 ** -8 + 1e-4).all())
+    else:
+        assert float(k_err.max()) <= 1e-4 * (1 + float(want.abs().max()))
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_slot_linear_kernel_repeats_itself(cuda):
+    """Partials are summed in a fixed order (no float atomics): two launches
+    on the same inputs give the same bits."""
+    lp = _slot_linear_layers(cuda)[0]
+    x = torch.randn((8, 1, 2048), generator=cuda, device="cuda").to(torch.bfloat16)
+    res = torch.randn((8, 1, 512), generator=cuda, device="cuda").to(torch.bfloat16)
+    a = slot_linear(lp["ffn2"], x, res=res, norm=lp["norm2"])
+    b = slot_linear(lp["ffn2"], x, res=res, norm=lp["norm2"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slot_linear_kernel_launches_on_a_second_card(cuda, dtype):
+    """The cluster of 16 is opted in per device: after launches on cuda:0,
+    each tail launches on cuda:1 (as a dp replica's segment does, whatever
+    device is current) and equals its launch on cuda:0 bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    lp0 = _slot_linear_layers(cuda, dtype=dtype)[1]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = {n: torch.randn((8, 1, lp0[n]["w"].shape[0]), generator=gen, device="cuda").to(dtype)
+         for n in ("qkv", "out", "ffn1", "ffn2")}
+    res = torch.randn((8, 1, 512), generator=gen, device="cuda").to(dtype)
+    on0 = {n: slot_linear(lp0[n], x[n], **_slot_linear_args(n, lp0, res)) for n in x}
+    lp1 = {k: {n: t.to("cuda:1") for n, t in v.items()} for k, v in lp0.items()}
+    x1, res1 = {n: t.to("cuda:1") for n, t in x.items()}, res.to("cuda:1")
+    with torch.cuda.device(0):
+        on1 = {n: slot_linear(lp1[n], x1[n], **_slot_linear_args(n, lp1, res1)) for n in x}
+    for n in x:
+        assert on1[n].device == torch.device("cuda:1")
+        assert torch.equal(on1[n].cpu(), on0[n].cpu()), n
+
+
+@pytest.mark.cuda
+def test_slot_linear_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    lp = _slot_linear_layers(cuda, L=1)[0]
+    x = torch.randn((8, 1, 512), generator=cuda, device="cuda").to(torch.bfloat16)
+    res = torch.randn((8, 1, 512), generator=cuda, device="cuda").to(torch.bfloat16)
+    with pytest.raises(TypeError):             # int8 codes only: no cast on the card
+        slot_linear(dict(lp["qkv"], w=lp["qkv"]["w"].to(torch.bfloat16)), x)
+    with pytest.raises(TypeError):             # float32 or bfloat16 rows
+        slot_linear(lp["qkv"], x.half())
+    with pytest.raises(ValueError):            # contiguous rows
+        slot_linear(lp["qkv"], torch.cat([x, x], -1)[..., ::2])
+    with pytest.raises(ValueError):            # out a multiple of 128
+        slot_linear(dict(lp["qkv"], w=lp["qkv"]["w"][:, :100].contiguous(),
+                         scale=lp["qkv"]["scale"][:100], b=lp["qkv"]["b"][:100]), x)
+    with pytest.raises(ValueError):            # the LayerNorm tail over a whole row
+        slot_linear(lp["qkv"], x, res=torch.cat([res] * 3, -1), norm=lp["norm1"])
+    with pytest.raises(ValueError):            # one tail
+        slot_linear(lp["out"], x, relu=True, res=res, norm=lp["norm1"])
+    with pytest.raises(TypeError):             # the residual in the rows' dtype
+        slot_linear(lp["out"], x, res=res.float(), norm=lp["norm1"])
+    with pytest.raises(TypeError):             # fp32 scales
+        slot_linear(dict(lp["qkv"], scale=lp["qkv"]["scale"].half()), x)
+    with pytest.raises(TypeError):             # the bias in the rows' dtype
+        slot_linear(lp["qkv"], x.float())
+    with pytest.raises(TypeError):             # fp32 norm parameters
+        slot_linear(lp["out"], x, res=res, norm={k: v.to(torch.bfloat16)
+                                                 for k, v in lp["norm1"].items()})
+
+
+@pytest.mark.cuda
+def test_slot_linear_segment_graph_replays_equal_eager_on_the_card(cuda):
+    """Int8 weights at full widths, bf16 exact caches, occupancy 8: a
+    segment on its captured graph gives the eager segment's tokens and
+    state, twice in a row, with four slot_linear launches a layer a step
+    on both."""
+    import dataclasses
+
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, gumbel_noise, rows_from_config
+
+    cfg = T2SConfig(num_layers=2)
+    params = t2s.quantize_params(t2s.init_params(cuda, cfg, dtype=torch.bfloat16))
+    Sx, Sp, ring, W, V, B = 32, 64, 64, 16, cfg.semantic_vocab, 8
+    samp = rows_from_config(SamplingConfig(), 1)
+    with torch.inference_mode():
+        st = slots.init_slots(cfg, B, Sx, Sp, ring, torch.bfloat16, device="cuda")
+        for b in range(B):
+            phones = torch.randint(1, cfg.phoneme_vocab, (1, Sx), generator=cuda,
+                                   device="cuda")
+            prompts = torch.randint(0, 1024, (1, Sp), generator=cuda, device="cuda")
+            k, v, tok0, hist = slots.prefill_join(
+                params, cfg, phones, None, torch.tensor([20 + b], device="cuda"), prompts,
+                torch.tensor([40 + b], device="cuda"),
+                type(samp)(*(torch.as_tensor(a, device="cuda") for a in samp)),
+                noise=torch.zeros((1, V), device="cuda"))
+            slots.insert_slot(st, b, k, v, tok0, hist, 20 + b, 40 + b, ring, ring,
+                              type(samp)(*(a[0] for a in samp)))
+        runs = {"graph": slots.clone_state(st), "eager": slots.clone_state(st)}
+        for _ in range(2):
+            noise = gumbel_noise((W, B, V), cuda, "cuda")
+            toks, launches = {}, {}
+            for name, s in runs.items():
+                before = slot_linear.launches
+                runs[name], toks[name] = slots.decode_segment(params, s, cfg, W, Sx, Sp, ring,
+                                                              noise=noise,
+                                                              eager=name == "eager")
+                launches[name] = slot_linear.launches - before
+            torch.cuda.synchronize()
+            assert launches == {"graph": 4 * cfg.num_layers * W, "eager": 4 * cfg.num_layers * W}
+            assert torch.equal(toks["graph"], toks["eager"])
+            for f in dataclasses.fields(st):
+                x = getattr(runs["graph"], f.name)
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x, getattr(runs["eager"], f.name)), f.name
+
+
+@pytest.mark.cuda
+def test_int8_slot_segments_on_the_card_match_the_cpus_plain_route(cuda):
+    """Greedy fp32 segments of a tiny character (2 layers at full widths)
+    with int8 weights: the card's slot_linear and slot_attention kernels
+    give the tokens of their plain versions on the CPU. The fp32 kernel's
+    products are exact (x as three bf16 terms), so the two differ only in
+    the order of fp32 sums (~1e-6 of a logit), far inside the greedy margins
+    of this model (the audio embedding scaled by 10, as the exact-cache
+    test's)."""
+    from genie_tts_tpu_torch.ops.sampling import SamplingConfig, rows_from_config
+
+    cfg = T2SConfig(num_layers=2)
+    cpu = t2s.quantize_params(t2s.init_params(torch.Generator().manual_seed(3), cfg,
+                                              dtype=torch.float32))
+    cpu["audio_embed"] *= 10.0
+    Sx, Sp, ring, W, V = 32, 64, 64, 8, cfg.semantic_vocab
+    g = torch.Generator().manual_seed(4)
+    phones = torch.randint(1, cfg.phoneme_vocab, (3, Sx), generator=g)
+    prompts = torch.randint(0, 1024, (3, Sp), generator=g)
+    x_len, p_len = [27, 12, 32], [50, 33, 9]
+    samp = rows_from_config(SamplingConfig(top_k=1), 1)
+    toks, launches = {}, {}
+    for run in ("cpu", "card"):
+        dev = "cpu" if run == "cpu" else "cuda"
+        params = cpu if run == "cpu" else _tree_to(cpu, "cuda")
+        before = slot_linear.launches
+        with torch.inference_mode():
+            st = slots.init_slots(cfg, 3, Sx, Sp, ring, torch.float32, device=dev)
+            out = []
+            for seg in range(6):
+                if seg < 3:
+                    k, v, tok0, hist = slots.prefill_join(
+                        params, cfg, phones[seg:seg + 1].to(dev), None,
+                        torch.tensor([x_len[seg]], device=dev), prompts[seg:seg + 1].to(dev),
+                        torch.tensor([p_len[seg]], device=dev), samp,
+                        noise=torch.zeros((1, V), device=dev))
+                    st = slots.insert_slot(st, seg, k, v, tok0, hist, x_len[seg], p_len[seg],
+                                           ring, ring, type(samp)(*(a[0] for a in samp)))
+                st, tok = slots.decode_segment(params, st, cfg, W, Sx, Sp, ring,
+                                               noise=torch.zeros((W, 3, V), device=dev))
+                out.append(tok.cpu())
+        torch.cuda.synchronize()
+        toks[run], launches[run] = torch.cat(out, 1), slot_linear.launches - before
+    assert torch.equal(toks["card"], toks["cpu"])
+    assert launches == {"cpu": 0, "card": 6 * W * 4 * cfg.num_layers}
