@@ -131,7 +131,7 @@ def _reference_features(char, ref_cfg: dict):
     return reference_audio_cache.get_features(
         engine, char, ref_cfg["audio_path"], ref_cfg["audio_text"],
         ref_cfg["language"], hubert_fn=_hubert_fn(char.device),
-        sv_fn=get_sv_fn(char.device) if char.version == "v2ProPlus" else None)
+        sv_fn=get_sv_fn(char.device) if char.synth.needs_sv else None)
 
 
 # ---------------------------------------------------------------------------

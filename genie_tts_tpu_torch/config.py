@@ -188,11 +188,6 @@ class RuntimeConfig:
     # at once when the machine idles or starves
     slot_finisher_batch: int = 4
     slot_finisher_wait_segs: int = 2
-    # no effect: the slot machine reads its big caches in place on every
-    # device (exact caches through ops/slot_attention.py, int8 ones through
-    # ops/int8_decode.py), so it has no read windows to turn on; the field
-    # stays so that configurations which name it still load
-    slot_windowed_kv: bool = False
     # int8 KV cache for the slot machine (models/slots.py kv_int8): the big
     # caches hold int8 codes + per-column fp32 scales, and the big-cache
     # attention runs through ops/int8_decode.py. GENIE_SLOT_KV_INT8=1 opts
@@ -257,6 +252,22 @@ class RuntimeConfig:
         default_factory=lambda: _env_int("Max_Cached_Character_Models", 3))
     max_cached_reference_audio: int = dataclasses.field(
         default_factory=lambda: _env_int("Max_Cached_Reference_Audio", 10))
+
+
+def _deep_tuple(v):
+    return tuple(_deep_tuple(x) for x in v) if isinstance(v, list) else v
+
+
+def config_from(cls, overrides, **defaults):
+    """``cls`` with the fields of ``overrides`` that it has (a character's
+    or a shared model's ``config.json`` may override hyperparameters;
+    tuple fields arrive as lists)."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw = dict(defaults)
+    for k, v in (overrides or {}).items():
+        if k in fields:
+            kw[k] = _deep_tuple(v)
+    return cls(**kw)
 
 
 # ---------------------------------------------------------------------------

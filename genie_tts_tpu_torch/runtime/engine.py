@@ -27,10 +27,12 @@ warmup sweep captures every replica's graphs for what its row reaches.
 
 Lengths are padded to the same bucket ladders as the JAX package, so both
 packages see the same shapes (and the same masks) for a given input.
-Reference-audio features (HuBERT -> VQ prompt tokens; the V2 style
-embedding, or V2ProPlus's prompt encoder over the clip and its SV
-embedding) are computed once per reference clip and cached by
-``runtime/reference_audio.py``.
+Reference-audio features (HuBERT -> VQ prompt tokens; the speaker
+conditioning of the character's version) are computed once per reference
+clip and cached by ``runtime/reference_audio.py``. What differs between
+GPT-SoVITS versions (the rate, the reference features, the codes ->
+waveform tail, its warm-up, streaming) is the character's synthesizer
+object's (``runtime/synthesizers.py``).
 """
 from __future__ import annotations
 
@@ -47,14 +49,15 @@ import torch
 
 from ..config import RuntimeConfig, SoVITSConfig, T2SConfig, V4Config, resolve_device
 from ..frontend.language import normalize_language
-from ..models import sovits, sovits_v4, t2s
-from ..ops.audio import linear_spectrogram
+from ..models import sovits, t2s
 from ..ops.sampling import SamplingConfig, gumbel_noise
 from ..parallel.mesh import place_tree, shard_serving_params
 from ..parallel.tp import on_device
+from ..utils.host_copy import finish_host_copy, host_to_device, start_host_copy, to_pcm16
 from ..utils.metrics import metrics
 from . import graphs
 from .buckets import pad_to, pick_bucket
+from .synthesizers import V2, pad_rows, sovits_warmup_units, synthesizer
 
 logger = logging.getLogger(__name__)
 
@@ -66,6 +69,7 @@ class CharacterModel:
     ``sovits_params`` hold its whole synthesizer (V2's text side, the
     bridge, ``wns1``, the DiT under ``cfm`` and the 48 kHz vocoder under
     ``dec``) and ``v4_cfg`` its mel side (``models/sovits_v4.py``).
+    ``synth`` is the version's object (``runtime/synthesizers.py``).
 
     On a serving mesh (``TTSEngine.replicate_character`` /
     ``shard_character``) ``replicas`` holds one CharacterModel per dp row,
@@ -85,9 +89,13 @@ class CharacterModel:
     v4_cfg: Optional[V4Config] = None
 
     @property
+    def synth(self) -> V2:
+        return synthesizer(self.version)
+
+    @property
     def sample_rate(self) -> int:
         """The rate of the audio the character's synthesizer makes."""
-        return self.v4_cfg.sample_rate if self.version == "v4" else self.sovits_cfg.sample_rate
+        return self.synth.sample_rate(self)
 
 
 @dataclasses.dataclass
@@ -105,56 +113,12 @@ class ReferenceFeatures:
     fea_ref: Optional[torch.Tensor] = None
 
 
-def refuse_v4_stream(char: "CharacterModel") -> None:
-    """Streaming a V4 character is not supported yet: its chunked CFM
-    makes no audio before a whole chunk is sampled."""
-    if char.version == "v4":
-        raise NotImplementedError(
-            f"character '{char.name}' is GPT-SoVITS V4: streaming routes (the segmented "
-            f"stream, the fused stream head, slot streams and the window pump) do not "
-            f"support V4 yet; use the non-streaming routes")
-
-
-def _to_pcm16(audio: torch.Tensor) -> torch.Tensor:
-    return torch.round(torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
-
-
 def _fit_codes(codes: torch.Tensor, bucket: int) -> torch.Tensor:
     if bucket < codes.shape[1]:
         return codes[:, :bucket]
     if bucket > codes.shape[1]:
         return torch.nn.functional.pad(codes, (0, bucket - codes.shape[1]))
     return codes
-
-
-def host_to_device(a, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` without waiting for the device: through
-    pinned memory with a non-blocking copy (a pageable copy would wait for
-    the work already queued on the stream)."""
-    t = torch.as_tensor(np.asarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-def start_host_copy(t: torch.Tensor):
-    """Enqueue ``t``'s copy to host memory behind the work that made it;
-    :func:`finish_host_copy` waits for it. On the CPU the tensor is its own
-    copy."""
-    if not t.is_cuda:
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(t.device))
-    return host, event
-
-
-def finish_host_copy(handle) -> np.ndarray:
-    host, event = handle
-    if event is not None:
-        event.synchronize()
-    return host.numpy()
 
 
 class _Stages:
@@ -218,7 +182,7 @@ def _t2s_and_vocode(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
     if stages is not None:
         stages.mark("vocode")
     if pcm16:
-        audio = _to_pcm16(audio)
+        audio = to_pcm16(audio)
     return audio, codes_len
 
 
@@ -243,7 +207,7 @@ def _t2s_latent_first(t2s_params, sovits_params, tcfg, vcfg, scfg, generator,
     valid = torch.clamp(2 * codes_len, 0, zc.shape[1])
     a = sovits.vocode(sovits_params, vcfg, zc, ge, valid)
     first = a[:, :min(first_frames * vcfg.hop_length, a.shape[1])]
-    return z, codes_len, _to_pcm16(first) if pcm16 else first
+    return z, codes_len, to_pcm16(first) if pcm16 else first
 
 
 class TTSEngine:
@@ -416,74 +380,6 @@ class TTSEngine:
         toks = t2s.extract_prompt_tokens(char.t2s_params, ssl)
         return toks[0].cpu().numpy().astype(np.int32)
 
-    @torch.inference_mode()
-    def compute_v2_speaker_embedding(self, char: CharacterModel,
-                                     audio_32k: np.ndarray) -> np.ndarray:
-        """V2 path: ref waveform -> linear spec -> MelStyleEncoder -> ge."""
-        cfg = char.sovits_cfg
-        audio = torch.as_tensor(np.asarray(audio_32k, np.float32),
-                                device=char.device)[None]
-        spec = linear_spectrogram(audio, n_fft=cfg.n_fft, hop=cfg.hop_length,
-                                  win_length=cfg.win_length)
-        ge = sovits.reference_embedding(
-            char.sovits_params, cfg, spec,
-            torch.tensor([spec.shape[1]], device=char.device))
-        return ge[0].float().cpu().numpy()
-
-    @torch.inference_mode()
-    def compute_v2pp_speaker_embedding(self, char: CharacterModel, audio_32k: np.ndarray,
-                                       sv_emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """V2ProPlus path: the prompt encoder over the clip's linear
-        spectrogram and its SV embedding -> (ge [gin,1], ge_mrte [512,1])."""
-        from ..models import prompt_encoder
-
-        cfg = char.sovits_cfg
-        if char.prompt_encoder_params is None:
-            raise RuntimeError(f"character '{char.name}' has no prompt encoder")
-        dev = char.device
-        audio = torch.as_tensor(np.asarray(audio_32k, np.float32), device=dev)[None]
-        spec = linear_spectrogram(audio, n_fft=cfg.n_fft, hop=cfg.hop_length,
-                                  win_length=cfg.win_length)
-        ge, ge_mrte = prompt_encoder.apply(
-            char.prompt_encoder_params, spec, torch.tensor([spec.shape[1]], device=dev),
-            torch.as_tensor(np.asarray(sv_emb, np.float32), device=dev)[None])
-        return ge[0].float().cpu().numpy(), ge_mrte[0].float().cpu().numpy()
-
-    @torch.inference_mode()
-    def compute_v4_reference(self, char: CharacterModel, audio_32k: np.ndarray,
-                             clip_samples: int, prompt_tokens: np.ndarray,
-                             ref_phones: np.ndarray):
-        """V4 path: (ge [gin, 1], mel2, fea_ref). ``ge`` is V2's style
-        encoder over the first 704 bins of the clip's linear spectrogram;
-        ``mel2`` the prompt mel of the clip's first ``clip_samples``
-        samples (without the appended silence); ``fea_ref`` the prompt
-        codes' ``decode_encp`` with the transcript's phonemes; both cut to
-        their common length (``sovits_v4.prompt_features``).
-
-        Computed once a clip, with cuDNN's convolutions in true float32
-        (TF32 off while it runs, for every thread): ``ge`` conditions every
-        request, and TF32's rounding in the style encoder's convolutions
-        moved it by up to 1.6e-4 (relative) on the card."""
-        cfg, v4 = char.sovits_cfg, char.v4_cfg
-        dev = char.device
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            audio = torch.as_tensor(np.asarray(audio_32k, np.float32), device=dev)[None]
-            spec = linear_spectrogram(audio, n_fft=cfg.n_fft, hop=cfg.hop_length,
-                                      win_length=cfg.win_length)
-            spec = spec[..., :char.sovits_params["ref_enc"]["spectral0"]["w"].shape[0]]
-            ge = sovits.reference_embedding(char.sovits_params, cfg, spec,
-                                            torch.tensor([spec.shape[1]], device=dev)).float()
-            mel = sovits_v4.reference_mel(audio[0, :clip_samples], v4)
-            codes = torch.as_tensor(np.asarray(prompt_tokens, np.int64), device=dev)[None]
-            phones = torch.as_tensor(np.asarray(ref_phones, np.int64), device=dev)[None]
-            fea = sovits_v4.decode_encp(char.sovits_params, cfg, v4, codes,
-                                        torch.tensor([codes.shape[1]], device=dev), phones,
-                                        torch.tensor([phones.shape[1]], device=dev), ge)[0]
-        mel2, fea_ref = sovits_v4.prompt_features(mel, fea.float(), v4)
-        return ge[0].cpu().numpy(), mel2, fea_ref
-
     # -- synthesis --------------------------------------------------------
 
     def _solo_inputs(self, char: CharacterModel, ref: ReferenceFeatures,
@@ -532,10 +428,10 @@ class TTSEngine:
         """One sentence -> waveform [S] at the character's rate (32 kHz;
         V4 48 kHz), float32, or int16 with ``pcm16``.
 
-        V4 decodes, reads the codes, and runs them through the pooled
-        finisher's tail alone (:meth:`vocode_codes_dispatch`: ``decode_encp``,
-        the chunked CFM with noise from ``cfm_seed``, default ``seed``, and
-        the 48 kHz vocoder).
+        A version that does not vocode in line (``synth.inline`` False:
+        V4) decodes, reads the codes, and runs them through the pooled
+        finisher's tail alone (:meth:`vocode_codes_dispatch`; V4's CFM
+        noise from ``cfm_seed``, default ``seed``).
 
         When the decode cap fits ``solo_fused_max_codes`` (or the length is
         pinned with ``fixed_steps``) the whole cap is vocoded right after
@@ -556,9 +452,9 @@ class TTSEngine:
                else pick_bucket(max_steps, self.cfg.step_caps))
         min_steps = fixed_steps if fixed_steps is not None else min_steps
         stages.mark("host")
+        inline = char.synth.inline
 
-        if char.version != "v4" and (fixed_steps is not None
-                                     or cap <= self.cfg.solo_fused_max_codes):
+        if inline and (fixed_steps is not None or cap <= self.cfg.solo_fused_max_codes):
             audio, codes_len = _t2s_and_vocode(
                 char.t2s_params, char.sovits_params, tcfg, vcfg, scfg, gen,
                 noise_scale=noise_scale, max_steps=cap,
@@ -582,7 +478,7 @@ class TTSEngine:
             if n_codes == 0:
                 logger.warning("T2S produced no semantic tokens; returning silence")
                 return np.zeros(0, np.int16 if pcm16 else np.float32)
-            if char.version == "v4":
+            if not inline:
                 out = self.vocode_codes_fetch(self.vocode_codes_dispatch(
                     char, [(ref, text_phones, codes[0, :n_codes].cpu().numpy())], pcm16=pcm16,
                     b_buckets=(1,), cfm_seeds=[seed if cfm_seed is None else cfm_seed]))[0]
@@ -597,19 +493,12 @@ class TTSEngine:
                     chunk=self.cfg.vocode_chunk, halo=self.cfg.vocode_halo, bound=2 * n_codes)
                 stages.mark("vocode")
                 audio = audio[0, :2 * n_codes * vcfg.hop_length]
-                out = (_to_pcm16(audio) if pcm16 else audio).cpu().numpy()
+                out = (to_pcm16(audio) if pcm16 else audio).cpu().numpy()
         stages.mark("host")
         self.last_stats = {"codes_len": n_codes, **stats, "stages": stages.times}
         return out if pcm16 else out.astype(np.float32)
 
     # -- batched codes -> waveform tail (the slot finisher) ----------------
-
-    def vocode_codes(self, char: CharacterModel, ref: ReferenceFeatures,
-                     text_phones: np.ndarray, codes: np.ndarray, seed: int = 0,
-                     noise_scale: float = 0.5, pcm16: bool = False) -> np.ndarray:
-        """Semantic codes [n] -> waveform for one utterance."""
-        return self.vocode_codes_batch(char, [(ref, text_phones, codes)], seed=seed,
-                                       noise_scale=noise_scale, pcm16=pcm16)[0]
 
     def vocode_codes_batch(self, char: CharacterModel, items, seed: int = 0,
                            noise_scale: float = 0.5, b_buckets=None,
@@ -628,97 +517,29 @@ class TTSEngine:
         """Device half of the batched tail: ``items`` = [(ref, text_phones,
         codes)] vocode as ONE batch, padded to ``b_buckets`` (default
         ``batch_buckets``) with copies of the first row, codes to a
-        ``frame_buckets`` bucket and text to one ``t_buckets`` bucket; one
-        latent program and the chunked HiFi-GAN's (``models/sovits.py``:
-        graph replays on the card), PCM16 made on the device when
-        ``pcm16``. The waveform's copy to host memory is enqueued
-        right behind it; the returned handle goes to
+        ``frame_buckets`` bucket and text to one ``t_buckets`` bucket
+        (``synthesizers.pad_rows``), through the version's tail
+        (``synth.tail``: graph replays on the card), PCM16 made on the
+        device when ``pcm16``. The waveform's copy to host memory is
+        enqueued right behind it; the returned handle goes to
         :meth:`vocode_codes_fetch`, which may run on any thread.
 
-        The flow noise is drawn from a generator seeded with ``seed``, or
-        given as ``noise`` [len(items), F, 192] (frames beyond a row's
-        codes are masked; F is cut or zero-padded to the frame bucket).
-
-        A V4 character's rows take :meth:`_v4_dispatch` instead: each
-        row's CFM noise from its entry of ``cfm_seeds`` (None: a seed of
-        the engine's)."""
-        vcfg = char.sovits_cfg
-        dev = char.device
+        V2's flow noise is drawn from a generator seeded with ``seed``, or
+        given as ``noise`` [len(items), F, 192]; V4's CFM noise of each row
+        from its entry of ``cfm_seeds`` (None: a seed of the engine's)."""
         B = len(items)
         lens = np.array([len(c) for (_, _, c) in items], np.int64)
         if B == 0 or int(lens.max()) == 0:
             empty = torch.zeros((B, 0), dtype=torch.int16 if pcm16 else torch.float32)
             return (empty, None), lens, 0, None
-        if char.version == "v4":
-            return self._v4_dispatch(char, items, cfm_seeds, b_buckets, t_buckets, pcm16)
-        B_pad = max(pick_bucket(B, b_buckets or self.cfg.batch_buckets), B)
-        items = list(items) + [items[0]] * (B_pad - B)
-        lens = np.concatenate([lens, lens[:1].repeat(B_pad - B)])
-        c_bucket = pick_bucket(int(lens.max()), self.cfg.frame_buckets)
-        lens = np.minimum(lens, c_bucket)           # truncated past the ladder
-        codes_b = np.stack([pad_to(np.asarray(c[:c_bucket], np.int64), c_bucket)
-                            for (_, _, c) in items])
-        t_lens = np.array([len(tp) for (_, tp, _) in items], np.int64)
-        t_bucket = pick_bucket(int(t_lens.max()), t_buckets or self.cfg.phoneme_buckets)
-        t_lens = np.minimum(t_lens, t_bucket)
-        text_b = np.stack([pad_to(np.asarray(tp, np.int64), t_bucket)
-                           for (_, tp, _) in items])
-        ge_b = np.stack([r.ge for (r, _, _) in items]).astype(np.float32)
-        gm_b = np.stack([r.ge_mrte for (r, _, _) in items]).astype(np.float32)
-        lens_d = host_to_device(lens, dev)
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=torch.float32)
-            noise = torch.cat([noise, noise[:1].expand(B_pad - B, *noise.shape[1:])])
-            F2 = 2 * c_bucket
-            noise = (noise[:, :F2] if noise.shape[1] >= F2 else
-                     torch.nn.functional.pad(noise, (0, 0, 0, F2 - noise.shape[1])))
-            noise = host_to_device(noise, dev)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        ge = host_to_device(ge_b, dev)
-        z = sovits.latent(
-            char.sovits_params, vcfg, host_to_device(codes_b, dev), lens_d,
-            host_to_device(text_b, dev), host_to_device(t_lens, dev), ge,
-            host_to_device(gm_b, dev), noise_scale, noise=noise, generator=gen)
-        audio = sovits.vocode_frames_chunked(
-            char.sovits_params, vcfg, z, ge, 2 * lens_d, chunk=self.cfg.vocode_chunk,
-            halo=self.cfg.vocode_halo, bound=2 * int(lens.max()))[:B]
-        audio = _to_pcm16(audio) if pcm16 else audio.float()
+        synth = char.synth
+        rows = pad_rows(items, max(pick_bucket(B, b_buckets or self.cfg.batch_buckets), B),
+                        self.cfg.frame_buckets, t_buckets or self.cfg.phoneme_buckets)
+        audio, events = synth.tail(self, char, rows, seed=seed, noise_scale=noise_scale,
+                                   noise=noise, cfm_seeds=cfm_seeds)
+        audio = to_pcm16(audio) if pcm16 else audio.float()
         metrics.incr("utterances", B)
-        return start_host_copy(audio), lens[:B], 2 * vcfg.hop_length, None
-
-    def _v4_dispatch(self, char: CharacterModel, items, cfm_seeds, b_buckets, t_buckets,
-                     pcm16: bool):
-        """V4's batched tail (``sovits_v4.synthesize_rows``): ``decode_encp``
-        over the batch padded as V2's latent is, the chunk loop's CFM
-        launches batched across the rows, the vocoder's windows; the
-        waveform's host copy enqueued behind them."""
-        v4, vcfg = char.v4_cfg, char.sovits_cfg
-        dev = char.device
-        B = len(items)
-        seeds = [s if s is not None else self._next_seed()
-                 for s in (cfm_seeds if cfm_seeds is not None else [None] * B)]
-        B_pad = max(pick_bucket(B, b_buckets or self.cfg.batch_buckets), B)
-        items = list(items) + [items[0]] * (B_pad - B)
-        lens = np.array([len(c) for (_, _, c) in items], np.int64)
-        c_bucket = pick_bucket(int(lens.max()), self.cfg.frame_buckets)
-        lens = np.minimum(lens, c_bucket)
-        codes_b = np.stack([pad_to(np.asarray(c[:c_bucket], np.int64), c_bucket)
-                            for (_, _, c) in items])
-        t_lens = np.array([len(tp) for (_, tp, _) in items], np.int64)
-        t_bucket = pick_bucket(int(t_lens.max()), t_buckets or self.cfg.phoneme_buckets)
-        t_lens = np.minimum(t_lens, t_bucket)
-        text_b = np.stack([pad_to(np.asarray(tp, np.int64), t_bucket) for (_, tp, _) in items])
-        ge = host_to_device(np.stack([r.ge for (r, _, _) in items]).astype(np.float32), dev)
-        events: list = []
-        audio = sovits_v4.synthesize_rows(
-            char.sovits_params, vcfg, v4, host_to_device(codes_b, dev),
-            host_to_device(lens, dev), host_to_device(text_b, dev),
-            host_to_device(t_lens, dev), ge, [(r.fea_ref, r.mel2) for (r, _, _) in items[:B]],
-            seeds, lens[:B], batch_buckets=self.cfg.batch_buckets, chunk=self.cfg.vocode_chunk,
-            halo=self.cfg.vocode_halo, events=events)[:B]
-        audio = _to_pcm16(audio) if pcm16 else audio.float()
-        metrics.incr("utterances", B)
-        return start_host_copy(audio), lens[:B], v4.samples_per_code, events
+        return start_host_copy(audio), rows.lens[:B], synth.samples_per_code(char), events
 
     def vocode_codes_fetch(self, handle):
         """Host half: wait for the waveform's copy and trim each row to its
@@ -789,7 +610,7 @@ class TTSEngine:
         s0 = np.clip(starts - halo, 0, F - win)
         audio = sovits.vocode_rows(char.sovits_params, vcfg, z, ge, host_to_device(s0, dev),
                                    host_to_device(2 * lens, dev), win)
-        audio = _to_pcm16(audio) if pcm16 else audio.float()
+        audio = to_pcm16(audio) if pcm16 else audio.float()
         hop = vcfg.hop_length
         widths = np.array([r[6] for r in rows], np.int64) * hop
         return start_host_copy(audio), (starts - s0) * hop, widths, B
@@ -821,9 +642,9 @@ class TTSEngine:
         Otherwise the fused head: decode (one fused kernel launch per step)
         + latent + the FIRST small vocode window, then one host read; the
         remaining ``vocode_chunk`` windows are all dispatched before the
-        first of them is read. A V4 character raises
+        first of them is read. A version that does not stream (V4) raises
         ``NotImplementedError``."""
-        refuse_v4_stream(char)
+        char.synth.check_streams(char)
         if self.cfg.stream_segmented:
             from .stream import fits_stream, synthesize_stream_segments
 
@@ -874,7 +695,7 @@ class TTSEngine:
             a = sovits.vocode(char.sovits_params, vcfg, z[:, s0:s0 + win], tail["ge"], valid)
             n_frames = min(chunk, total_valid - start)
             a = a[0, (start - s0) * hop:(start - s0 + n_frames) * hop]
-            jobs.append((start_host_copy(_to_pcm16(a) if pcm16 else a), n_frames))
+            jobs.append((start_host_copy(to_pcm16(a) if pcm16 else a), n_frames))
         for copy, n_frames in jobs:
             emitted += n_frames
             yield finish_host_copy(copy)
@@ -996,13 +817,13 @@ class TTSEngine:
 
         decoded = self._rows_map(decode, reps)
         lens = np.concatenate([codes_len.cpu().numpy() for _, codes_len in decoded])
-        if char.version == "v4":
-            # the finisher's V4 tail over every row, on replica 0
+        if stats is not None:
+            stats.update(row_stats[0])
+            stats["decode_steps"] = max(st["decode_steps"] for st in row_stats)
+        if not char.synth.inline:
+            # the finisher's tail over every row, on replica 0
             codes = torch.cat([c.to(dev) for c, _ in decoded]).cpu().numpy()
             rows = [(r, tp, codes[i, :int(lens[i])]) for i, (r, tp, _) in enumerate(items[:B])]
-            if stats is not None:
-                stats.update(row_stats[0])
-                stats["decode_steps"] = max(st["decode_steps"] for st in row_stats)
             return [a.astype(np.float32) for a in self.vocode_codes_fetch(
                 self.vocode_codes_dispatch(char, rows, cfm_seeds=[int(seed) + i
                                                                   for i in range(B)]))]
@@ -1024,9 +845,6 @@ class TTSEngine:
                 halo=self.cfg.vocode_halo, bound=2 * int(lens[rows].max())).cpu().numpy()
 
         audio = np.concatenate(self._rows_map(finish, reps))
-        if stats is not None:
-            stats.update(row_stats[0])
-            stats["decode_steps"] = max(st["decode_steps"] for st in row_stats)
         metrics.incr("utterances", B)
         return [audio[i, : 2 * int(lens[i]) * vcfg.hop_length].astype(np.float32)
                 for i in range(B)]
@@ -1136,7 +954,7 @@ class TTSEngine:
                 from .slot_batcher import slot_warmup_units
 
                 units.extend(slot_warmup_units(self, char))
-            if cfg.stream_segmented and char.version != "v4":
+            if cfg.stream_segmented and char.synth.streams:
                 from .stream import stream_warmup_units
 
                 units.extend(stream_warmup_units(self, char))
@@ -1190,11 +1008,11 @@ class TTSEngine:
         fused stream head; every frame bucket too when the cap takes the
         staged branch) at every text bucket, the chunked vocode's windows
         over them, and the fused stream head's first and later windows. A
-        V4 character's: :meth:`v4_warmup_units` for one row at every text
-        bucket."""
+        version that does not vocode in line: its tail's units for one row
+        at every text bucket."""
         cfg = self.cfg
-        if char.version == "v4":
-            return self.v4_warmup_units(char, b_buckets=(1,), t_buckets=cfg.phoneme_buckets)
+        if not char.synth.inline:
+            return char.synth.tail_warmup_units(self, char, (1,), cfg.phoneme_buckets)
         cap = pick_bucket(char.t2s_cfg.max_decode_steps, cfg.step_caps)
         frames = {cap} | (set(cfg.frame_buckets) if cap > cfg.solo_fused_max_codes else set())
         latents = {(1, fb, tb) for fb in frames for tb in cfg.phoneme_buckets}
@@ -1208,31 +1026,24 @@ class TTSEngine:
                               b_buckets=None) -> list:
         """Warmup thunks for the batched codes -> waveform tails
         (:meth:`vocode_codes_dispatch`, and :meth:`synthesize_batch`'s
-        finish): a capture of the latent program at every (batch, frame,
-        text) bucket they can hit, and of the vocode program at every
-        window of the chunked HiFi-GAN at every batch bucket.
+        finish): the version's tail's (``synth.tail_warmup_units``) at
+        every batch and text bucket they can hit.
         ``t_buckets`` narrows the text ladder (the slot batcher pins one
         text bucket); ``b_buckets`` replaces the batch ladder (a dp row's
-        rows, :meth:`batch_rows`). A V4 character's: :meth:`v4_warmup_units`."""
+        rows, :meth:`batch_rows`)."""
         cfg = self.cfg
         t_buckets = tuple(t_buckets or cfg.phoneme_buckets)
         b_buckets = sorted(cfg.batch_buckets if b_buckets is None else b_buckets)
-        if char.version == "v4":
-            return self.v4_warmup_units(char, b_buckets, t_buckets)
-        latents = {(b, fb, tb) for b in b_buckets for fb in cfg.frame_buckets
-                   for tb in t_buckets}
-        vocodes = {(b, w) for b in b_buckets for fb in cfg.frame_buckets
-                   for w in self.chunk_widths(2 * fb)}
-        return sovits_warmup_units(char, latents, vocodes)
+        return char.synth.tail_warmup_units(self, char, b_buckets, t_buckets)
 
     def window_warmup_units(self, char: CharacterModel, wins, t_bucket: int) -> list:
         """Warmup thunks for the slot window pump
         (:meth:`vocode_windows_dispatch`): a capture of the per-row prefix
         latent at every (batch, frame) bucket a window of ``wins`` can
         take (frame >= win/2) and of the window's vocode there. None for
-        a V4 character (it pumps no windows)."""
+        a version that does not stream (it pumps no windows)."""
         cfg = self.cfg
-        if char.version == "v4":
+        if not char.synth.streams:
             return []
         latents, vocodes = set(), set()
         for b in cfg.batch_buckets:
@@ -1245,37 +1056,6 @@ class TTSEngine:
         return sovits_warmup_units(char, latents, vocodes)
 
 
-    def v4_warmup_units(self, char: CharacterModel, b_buckets, t_buckets) -> list:
-        """Warmup thunks for V4's tail (:meth:`_v4_dispatch`): a capture of
-        ``decode_encp`` at every (batch, frame, text) bucket, of a chunk's
-        CFM loop at every (rows, CFM frame bucket, steps) (rows: the
-        batch buckets), and of the vocoder at every window of the chunked
-        pass at every batch bucket."""
-        cfg, v4 = self.cfg, char.v4_cfg
-        p, vcfg = char.sovits_params, char.sovits_cfg
-        fpc = v4.frames_per_code
-        units = [functools.partial(sovits_v4.prepare, p, v4, "v4_encp", (b, fb, tb), vcfg)
-                 for b in sorted(b_buckets) for fb in cfg.frame_buckets
-                 for tb in sorted(t_buckets)]
-        units += [functools.partial(sovits_v4.prepare, p, v4, "cfm", (r, T, v4.sample_steps),
-                                    vcfg)
-                  for r in sorted(b_buckets) for T in sovits_v4.cfm_buckets(v4)]
-        widths = sorted({w for fb in cfg.frame_buckets for w in self.chunk_widths(fpc * fb)})
-        units += [functools.partial(sovits_v4.prepare, p, v4, "v4_vocode", (b, w), vcfg)
-                  for b in sorted(b_buckets) for w in widths]
-        return units
-
-
-def sovits_warmup_units(char: CharacterModel, latents, vocodes) -> list:
-    """Warmup thunks capturing ``char``'s SoVITS latent programs at the
-    (B, Ts, Tt) keys ``latents`` and vocode programs at the (B, W) keys
-    ``vocodes`` (``models/sovits.py``; on the CPU the keys and buffers
-    are made)."""
-    p, v = char.sovits_params, char.sovits_cfg
-    return ([functools.partial(sovits.prepare, p, v, "latent", k) for k in sorted(latents)]
-            + [functools.partial(sovits.prepare, p, v, "vocode", k) for k in sorted(vocodes)])
-
-
 # ---------------------------------------------------------------------------
 # Random character factory (tests and the chip smoke run)
 # ---------------------------------------------------------------------------
@@ -1285,11 +1065,12 @@ def make_random_character(name: str = "random", language: str = "Japanese",
                           sovits_cfg: Optional[SoVITSConfig] = None,
                           dtype=torch.bfloat16, eos_boost: float = 1.0,
                           device=None, v4_cfg: Optional[V4Config] = None) -> CharacterModel:
-    """Random-weight character. A V2ProPlus ``sovits_cfg`` (its
+    """Random-weight character, its synthesizer made by the version of
+    ``sovits_cfg`` (``synth.init``): a V2ProPlus one (its
     ``gin_channels`` is the caller's: 1024 at full width) gets a random
     prompt encoder, and its synthesizer no style encoder, as a converted
-    V2ProPlus checkpoint has. A V4 ``sovits_cfg`` (``version="v4"``) gets
-    V4's synthesizer (``models/sovits_v4.py::init_params``) at ``v4_cfg``
+    V2ProPlus checkpoint has. A V4 one (``version="v4"``) gets V4's
+    synthesizer (``models/sovits_v4.py::init_params``) at ``v4_cfg``
     (default: the published widths).
 
     ``eos_boost``: scale on the EOS column of the predict layer; random
@@ -1297,8 +1078,6 @@ def make_random_character(name: str = "random", language: str = "Japanese",
     random logit row, so no top-k draw reaches it and every decode runs to
     its cap.
     """
-    from ..models import prompt_encoder
-
     dev = resolve_device(device)
     tcfg = t2s_cfg or T2SConfig()
     vcfg = sovits_cfg or SoVITSConfig()
@@ -1306,54 +1085,29 @@ def make_random_character(name: str = "random", language: str = "Japanese",
     t2s_params = t2s.init_params(gen, tcfg, dtype=dtype)
     if eos_boost != 1.0:
         t2s_params["predict"]["w"][:, tcfg.eos_id] *= eos_boost
-    pe_params = None
-    v4 = None
-    if vcfg.version == "v4":
-        v4 = v4_cfg or V4Config()
-        sovits_params = sovits_v4.init_params(gen, vcfg, v4, dtype=dtype)
-    else:
-        sovits_params = sovits.init_params(gen, vcfg, dtype=dtype)
-    if vcfg.version == "v2ProPlus":
-        del sovits_params["ref_enc"]
-        pe_params = prompt_encoder.init_params(gen, vcfg, dtype=dtype,
-                                               gin=vcfg.gin_channels,
-                                               mrte_dim=vcfg.mrte_channels)
     return CharacterModel(
-        name=name, language=language, version=vcfg.version,
-        t2s_params=t2s_params, sovits_params=sovits_params, t2s_cfg=tcfg,
-        sovits_cfg=vcfg, device=dev, prompt_encoder_params=pe_params, v4_cfg=v4)
+        name=name, language=language, version=vcfg.version, t2s_params=t2s_params,
+        t2s_cfg=tcfg, sovits_cfg=vcfg, device=dev,
+        **synthesizer(vcfg.version).init(gen, vcfg, v4_cfg, dtype))
 
 
 def make_random_reference(char: CharacterModel, engine: TTSEngine,
                           ref_seconds: float = 5.0, seed: int = 0) -> ReferenceFeatures:
     """Reference features from white-noise audio, stand-in HuBERT features
-    at 50 Hz and a random 12-phoneme transcript (warmups and tests); a
-    V2ProPlus character's speaker embedding comes from its prompt encoder
-    over the audio and a random SV embedding; a V4 character's from its
-    style encoder, with its prompt mel and features
-    (:meth:`TTSEngine.compute_v4_reference`)."""
+    at 50 Hz and a random 12-phoneme transcript (warmups and tests); the
+    speaker conditioning is the version's (``synth.reference``), from a
+    random SV embedding where the version clones from one."""
+    synth = char.synth
     rng = np.random.default_rng(seed)
     sr = char.sovits_cfg.sample_rate
     audio_32k = (rng.standard_normal(int(ref_seconds * sr)) * 0.05).astype(np.float32)
     ssl = rng.standard_normal((int(ref_seconds * 50), char.t2s_cfg.ssl_dim)).astype(
         np.float32)
-    n_ref_phones = 12
-    bert = np.zeros((n_ref_phones, char.t2s_cfg.bert_dim), np.float32)
-    if char.version == "v4":
-        phones = rng.integers(1, char.t2s_cfg.phoneme_vocab, n_ref_phones).astype(np.int32)
-        prompts = engine.compute_prompt_tokens(char, ssl)
-        ge, mel2, fea_ref = engine.compute_v4_reference(char, audio_32k, len(audio_32k),
-                                                        prompts, phones)
-        return ReferenceFeatures(phones=phones, bert=bert, prompt_tokens=prompts, ge=ge,
-                                 ge_mrte=ge[: char.sovits_cfg.mrte_channels], mel2=mel2,
-                                 fea_ref=fea_ref)
-    if char.version == "v2ProPlus":
-        sv_emb = rng.standard_normal(char.sovits_cfg.sv_dim).astype(np.float32)
-        ge, ge_mrte = engine.compute_v2pp_speaker_embedding(char, audio_32k, sv_emb)
-    else:
-        ge = engine.compute_v2_speaker_embedding(char, audio_32k)
-        ge_mrte = ge[: char.sovits_cfg.mrte_channels]
+    sv_emb = (rng.standard_normal(char.sovits_cfg.sv_dim).astype(np.float32)
+              if synth.needs_sv else None)
+    phones = rng.integers(1, char.t2s_cfg.phoneme_vocab, 12).astype(np.int32)
+    prompts = engine.compute_prompt_tokens(char, ssl)
     return ReferenceFeatures(
-        phones=rng.integers(1, char.t2s_cfg.phoneme_vocab, n_ref_phones).astype(np.int32),
-        bert=bert, prompt_tokens=engine.compute_prompt_tokens(char, ssl), ge=ge,
-        ge_mrte=ge_mrte)
+        phones=phones, bert=np.zeros((12, char.t2s_cfg.bert_dim), np.float32),
+        prompt_tokens=prompts, **synth.reference(char, audio_32k, prompt_tokens=prompts,
+                                                 phones=phones, sv_emb=sv_emb))

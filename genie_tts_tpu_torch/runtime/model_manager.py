@@ -1,9 +1,9 @@
 """Character/model manager: LRU-cached weights + the shared HuBERT model.
 
 The port of ``genie_tts_tpu/runtime/model_manager.py``: model-dir
-validation (a V2ProPlus character also needs its prompt encoder),
-``config.json`` hyperparameter overrides (a V2ProPlus character's
-synthesizer defaults to ``gin_channels=1024``), int8 decode weights at
+validation and ``config.json`` hyperparameter overrides (what a version
+adds, such as V2ProPlus's prompt encoder and its ``gin_channels=1024``,
+is its synthesizer object's: ``runtime/synthesizers.py``), int8 decode weights at
 load (``RuntimeConfig.t2s_int8``), an LRU of loaded characters with reload
 after eviction (an evicted character is dropped, and with it its weights;
 the captured graphs are its configuration's and stay for the next
@@ -15,7 +15,6 @@ again.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 import logging
 import threading
@@ -25,17 +24,16 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import (HubertConfig, RobertaConfig, RuntimeConfig, SoVITSConfig, V4Config,
-                      T2SConfig, hubert_dir, indexed_device, resolve_device,
-                      resolve_dtype, roberta_dir)
+from ..config import (HubertConfig, RobertaConfig, RuntimeConfig, T2SConfig, config_from,
+                      hubert_dir, indexed_device, resolve_device, resolve_dtype, roberta_dir)
 from ..convert.io import load_character_config, load_params
 from ..utils.lru import LRUCache
 from .engine import CharacterModel
+from .synthesizers import synthesizer
 
 logger = logging.getLogger(__name__)
 
 REQUIRED_FILES = ("t2s.safetensors", "vits.safetensors", "config.json")
-V2PP_FILES = ("prompt_encoder.safetensors",)
 
 
 def check_model_dir(model_dir) -> Dict:
@@ -57,27 +55,8 @@ def check_model_dir(model_dir) -> Dict:
             f"A V4 character's vits.safetensors holds its whole synthesizer (the DiT\n"
             f"and the 48 kHz vocoder too) and its config.json a \"v4\" section.")
     cfg = load_character_config(path / "config.json")
-    if cfg.get("version") == "v2ProPlus":
-        missing = [f for f in V2PP_FILES if not (path / f).is_file()]
-        if missing:
-            raise FileNotFoundError(
-                f"V2ProPlus model at '{path}' missing: {', '.join(missing)}")
+    synthesizer(cfg.get("version", "v2")).check_files(path)
     return cfg
-
-
-def _deep_tuple(v):
-    return tuple(_deep_tuple(x) for x in v) if isinstance(v, list) else v
-
-
-def _cfg(cls, overrides, **defaults):
-    """``cls`` with the fields of ``overrides`` that it has (config.json may
-    override model hyperparameters; tuple fields arrive as lists)."""
-    fields = {f.name for f in dataclasses.fields(cls)}
-    kw = dict(defaults)
-    for k, v in (overrides or {}).items():
-        if k in fields:
-            kw[k] = _deep_tuple(v)
-    return cls(**kw)
 
 
 class ModelManager:
@@ -110,8 +89,6 @@ class ModelManager:
         dtype = resolve_dtype(compute_dtype, self.cfg)
         cfg = check_model_dir(model_dir)
         version = cfg.get("version", "v2")
-        v2pp = version == "v2ProPlus"
-        v4 = version == "v4"
         path = Path(model_dir)
         t2s_params = load_params(path / "t2s.safetensors", dtype, dev)
         if self.cfg.t2s_int8:
@@ -121,16 +98,8 @@ class ModelManager:
         with self._lock:
             model = CharacterModel(
                 name=name, language=language, version=version,
-                t2s_params=t2s_params,
-                sovits_params=load_params(path / "vits.safetensors", dtype, dev),
-                t2s_cfg=_cfg(T2SConfig, cfg.get("t2s")),
-                sovits_cfg=_cfg(SoVITSConfig, cfg.get("sovits"), version=version,
-                                gin_channels=1024 if v2pp else 512),
-                device=dev,
-                prompt_encoder_params=(
-                    load_params(path / "prompt_encoder.safetensors", dtype, dev)
-                    if v2pp else None),
-                v4_cfg=_cfg(V4Config, cfg.get("v4")) if v4 else None)
+                t2s_params=t2s_params, t2s_cfg=config_from(T2SConfig, cfg.get("t2s")),
+                device=dev, **synthesizer(version).load(path, cfg, version, dtype, dev))
             self._cache.put(name, model)
             self._registry[name] = (str(model_dir), language, dev, dtype)
             logger.info("loaded character '%s' (%s, %s) on %s", name, version,
@@ -181,7 +150,7 @@ class ModelManager:
             cfg_path = path.with_name("config.json")
             overrides = load_character_config(cfg_path) if cfg_path.is_file() else None
             self._hubert[dev] = (load_params(path, resolve_dtype(None, self.cfg), dev),
-                                 _cfg(HubertConfig, overrides))
+                                 config_from(HubertConfig, overrides))
             return self._hubert[dev]
 
     def set_hubert(self, params: Dict, cfg: HubertConfig) -> None:
@@ -217,7 +186,7 @@ class ModelManager:
             overrides = load_character_config(cfg_path) if cfg_path.is_file() else None
             self._roberta[dev] = (
                 load_params(ckpt, resolve_dtype(None, self.cfg), dev),
-                _cfg(RobertaConfig, overrides), WordPieceTokenizer.from_file(tok_path))
+                config_from(RobertaConfig, overrides), WordPieceTokenizer.from_file(tok_path))
             self._install_bert_hook(dev)
             return self._roberta[dev]
 

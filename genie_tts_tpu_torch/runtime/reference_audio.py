@@ -4,10 +4,10 @@ The port of ``genie_tts_tpu/runtime/reference_audio.py``: load a clip at
 32 kHz (mono mix, +0.3 s silence appended, 3-10 s duration warning),
 resample to 16 kHz, run HuBERT for ``ssl_content`` and phonemize the
 transcript, cached per (path, text). Character-dependent features (VQ
-prompt tokens from the character's codebook; the V2 style embedding, or
+prompt tokens from the character's codebook, and the speaker conditioning
+of its version, ``synth.reference``: the V2 style embedding, or
 V2ProPlus's prompt-encoder embeddings from the clip's SV embedding, or
-V4's style embedding with its CFM prompt: the clip's mel and the prompt
-codes' mel-rate features) are cached per (path, character).
+V4's style embedding with its CFM prompt) are cached per (path, character).
 """
 from __future__ import annotations
 
@@ -85,8 +85,9 @@ class ReferenceAudioCache:
     def get_features(self, engine: TTSEngine, char: CharacterModel,
                      audio_path: str, text: str, language: str,
                      hubert_fn=None, sv_fn=None) -> ReferenceFeatures:
-        """``sv_fn(audio_16k) -> [20480]`` gives a V2ProPlus character's
-        speaker-verification embedding (``models/sv.py::get_sv_fn``)."""
+        """``sv_fn(audio_16k) -> [20480]`` gives the speaker-verification
+        embedding of a character whose version clones from one
+        (``synth.needs_sv``: V2ProPlus; ``models/sv.py::get_sv_fn``)."""
         with self._lock:
             key = (audio_path, char.name)
             feats = self._features.get(key)
@@ -99,31 +100,15 @@ class ReferenceAudioCache:
                     "SSL features. Put hubert.safetensors under "
                     "GENIE_DATA_DIR/chinese-hubert-base (or GENIE_HUBERT_DIR).")
             prompt_tokens = engine.compute_prompt_tokens(char, clip.ssl_content)
-            mel2 = fea_ref = None
-            if char.version == "v4":
-                ge, mel2, fea_ref = engine.compute_v4_reference(
-                    char, clip.audio_32k, clip.clip_samples, prompt_tokens, clip.phones)
-                ge_mrte = ge[: char.sovits_cfg.mrte_channels]
-            elif char.version == "v2ProPlus":
-                if sv_fn is None:
-                    raise RuntimeError(
-                        "V2ProPlus cloning needs a speaker-verification "
-                        "embedding; install the SV model into GenieData.")
-                sv_emb = np.asarray(sv_fn(clip.audio_16k), np.float32)
-                ge, ge_mrte = engine.compute_v2pp_speaker_embedding(
-                    char, clip.audio_32k, sv_emb)
-            else:
-                ge = engine.compute_v2_speaker_embedding(char, clip.audio_32k)
-                ge_mrte = ge[: char.sovits_cfg.mrte_channels]
+            synth = char.synth
+            sv_emb = (np.asarray(sv_fn(clip.audio_16k), np.float32)
+                      if synth.needs_sv and sv_fn is not None else None)
             feats = ReferenceFeatures(
                 phones=np.asarray(clip.phones, np.int32),
                 bert=np.asarray(clip.bert, np.float32),
                 prompt_tokens=prompt_tokens,
-                ge=ge,
-                ge_mrte=ge_mrte,
-                mel2=mel2,
-                fea_ref=fea_ref,
-            )
+                **synth.reference(char, clip.audio_32k, clip.clip_samples, prompt_tokens,
+                                  clip.phones, sv_emb))
             self._features.put(key, feats)
             return feats
 

@@ -71,11 +71,11 @@ from ..models import slots as slots_mod
 from ..models.t2s import finalize_semantic_tokens, layer_shards, shard_devices
 from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
 from ..ops.slot_linear import launches_kernel
+from ..utils.host_copy import finish_host_copy, host_to_device, start_host_copy
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
 from . import graphs
-from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, finish_host_copy,
-                     host_to_device, refuse_v4_stream, start_host_copy)
+from .engine import CharacterModel, ReferenceFeatures, TTSEngine
 from .stream import noise_table
 
 logger = logging.getLogger(__name__)
@@ -213,7 +213,7 @@ def slot_warmup_units(engine: TTSEngine, char: CharacterModel) -> list:
     for w in seg_widths(cfg, ring):
         for top_p in (False, True):
             units.append(functools.partial(segment, w, top_p))
-    spec = spec_geometry(cfg) if char.version != "v4" else None   # V4 streams no pieces
+    spec = spec_geometry(cfg) if char.synth.streams else None   # no pieces, no streams
     if spec is not None:
         count, fb = spec
         rows = sorted({max(pick_bucket(r, cfg.batch_buckets), r) for r in range(1, B + 1)})
@@ -425,8 +425,8 @@ class SlotBatcher:
         # a small window of its own for first pieces and short remainders
         self.win_first, self.win_small, self.win = pump_windows(self.cfg)
         self._spec = spec_geometry(self.cfg)     # (count, fb) of a first piece
-        if char.version == "v4" and self.windows:
-            refuse_v4_stream(char)
+        if self.windows:
+            char.synth.check_streams(char)
         self.stats = {"segments": 0, "steps": 0, "peak_occupancy": 0, "streams": 0}
         self._state = take_slot_state(engine, char)     # this machine's alone
         self._reset_state()
@@ -521,8 +521,7 @@ class SlotBatcher:
         machine). ``cfm_seed``: a V4 request's CFM noise seed (default: one
         of the engine's), so that its audio depends on it alone."""
         max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
-        if cfm_seed is None and self.char.version == "v4":
-            cfm_seed = self.engine._next_seed()
+        cfm_seed = self.char.synth.cfm_seed(self.engine, cfm_seed)
         req = _Request(ref, np.asarray(phones, np.int32), bert,
                        min_steps=min(min_steps, max_steps), max_steps=max_steps,
                        sampling=sampling, t_submit=time.perf_counter(), cfm_seed=cfm_seed)
@@ -542,9 +541,9 @@ class SlotBatcher:
         """Streaming submit: yields PCM pieces as the window pump emits
         them, while the request decodes in flight beside others (the
         counterpart under load of the solo segmented stream). ``timeout``
-        bounds the whole stream. A V4 character raises
+        bounds the whole stream. A version that does not stream (V4) raises
         ``NotImplementedError``."""
-        refuse_v4_stream(self.char)
+        self.char.synth.check_streams(self.char)
         max_steps = min(max_steps or self.char.t2s_cfg.max_decode_steps, self.ring)
         if self.first_piece:
             # the speculative first piece claims this many tokens of the
@@ -907,11 +906,10 @@ class SlotBatcher:
                                                  np.array([count]),
                                                  self.char.t2s_cfg.eos_id)[0]
                 items.append((req.ref, req.phones, codes))
-            kw = ({"cfm_seeds": [r.cfm_seed for r in reqs]} if self.char.version == "v4"
-                  else {})
             with metrics.span("slot_vocode_dispatch"):
                 handle = self.engine.vocode_codes_dispatch(
-                    self.char, items, t_buckets=self._t_buckets, pcm16=self.pcm16, **kw)
+                    self.char, items, t_buckets=self._t_buckets, pcm16=self.pcm16,
+                    cfm_seeds=[r.cfm_seed for r in reqs])
         except BaseException as e:  # noqa: BLE001 — surface to the waiters
             logger.exception("slot vocode dispatch failed")
             for req in reqs:

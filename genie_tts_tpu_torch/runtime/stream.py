@@ -47,11 +47,11 @@ from ..models import slots as slots_mod
 from ..models import sovits
 from ..models.t2s import finalize_semantic_tokens, shard_devices
 from ..ops.sampling import SamplingConfig, SamplingRows, rows_from_config
+from ..utils.host_copy import finish_host_copy, host_to_device, start_host_copy, to_pcm16
 from ..utils.metrics import metrics
 from .buckets import pad_to, pick_bucket
-from .engine import (CharacterModel, ReferenceFeatures, TTSEngine, _to_pcm16,
-                     finish_host_copy, host_to_device, sovits_warmup_units,
-                     start_host_copy)
+from .engine import CharacterModel, ReferenceFeatures, TTSEngine
+from .synthesizers import sovits_warmup_units
 
 
 def stream_geometry(cfg, tcfg) -> "tuple[int, int, int, int]":
@@ -120,7 +120,7 @@ def _stream_head(sovits_params, noise, tok0, seg_tok, counts, done, text, t_len,
                           torch.clamp(2 * n, max=first_window))
     emit = torch.where(done, 2 * n, 2 * torch.clamp(n - lookahead, min=0))
     emit = torch.clamp(emit, max=first_window)
-    return (_to_pcm16(audio) if pcm16 else audio), emit
+    return (to_pcm16(audio) if pcm16 else audio), emit
 
 
 @torch.inference_mode()
@@ -247,7 +247,7 @@ def synthesize_stream_segments(engine: TTSEngine, char: CharacterModel,
                 valid = torch.tensor([min(max(2 * count - s0, 0), win)], device=dev)
                 a = sovits.vocode(char.sovits_params, vcfg, z[:, s0:s0 + win], ge, valid)
                 a = a[0, (start - s0) * hop:(start - s0 + w) * hop]
-                jobs.append(start_host_copy(_to_pcm16(a) if pcm16 else a))
+                jobs.append(start_host_copy(to_pcm16(a) if pcm16 else a))
                 emitted += w
             for copy in jobs:
                 piece = finish_host_copy(copy)

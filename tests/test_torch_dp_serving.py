@@ -271,9 +271,8 @@ def _long(char):
 
 def _slot_ref(char):
     rng = np.random.default_rng(5)
-    eng = TTSEngine(RuntimeConfig())
-    ge = eng.compute_v2_speaker_embedding(
-        char, (rng.standard_normal(int(0.2 * 32000)) * 0.05).astype(np.float32))
+    ge = char.synth.reference(
+        char, (rng.standard_normal(int(0.2 * 32000)) * 0.05).astype(np.float32))["ge"]
     return ReferenceFeatures(
         phones=rng.integers(1, TCFG.phoneme_vocab, 10).astype(np.int32),
         bert=np.zeros((10, TCFG.bert_dim), np.float32),

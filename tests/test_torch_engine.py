@@ -34,12 +34,13 @@ from genie_tts_tpu.ops.sampling import SamplingConfig as JSampling
 from genie_tts_tpu.runtime import engine as jengine
 from genie_tts_tpu.runtime.model_manager import ModelManager as JModelManager
 from genie_tts_tpu_torch import api
-from genie_tts_tpu_torch.config import RuntimeConfig
+from genie_tts_tpu_torch.config import RuntimeConfig, SoVITSConfig, T2SConfig, V4Config
 from genie_tts_tpu_torch.convert.io import flatten_tree
 from genie_tts_tpu_torch.models import t2s as tt2s
 from genie_tts_tpu_torch.ops.sampling import SamplingConfig
 from genie_tts_tpu_torch.runtime import engine as tengine
 from genie_tts_tpu_torch.runtime.model_manager import ModelManager
+from genie_tts_tpu_torch.runtime.slot_batcher import SlotBatcher
 
 REPO = Path(__file__).resolve().parents[1]
 T2S_KW = dict(embed_dim=32, num_layers=2, num_heads=4, ffn_dim=64, bert_dim=1024,
@@ -131,9 +132,10 @@ def refs(pair):
     jeng = jengine.TTSEngine(JRuntimeConfig(**BUCKETS))
     teng = tengine.TTSEngine(RuntimeConfig(**BUCKETS))
     out = []
-    for eng, char, feats in ((jeng, jchar, jengine.ReferenceFeatures),
-                             (teng, tchar, tengine.ReferenceFeatures)):
-        ge = eng.compute_v2_speaker_embedding(char, audio_32k)
+    for eng, char, feats, ge in (
+            (jeng, jchar, jengine.ReferenceFeatures,
+             jeng.compute_v2_speaker_embedding(jchar, audio_32k)),
+            (teng, tchar, tengine.ReferenceFeatures, tchar.synth.reference(tchar, audio_32k)["ge"])):
         out.append(feats(
             phones=phones, bert=np.zeros((12, 1024), np.float32),
             prompt_tokens=eng.compute_prompt_tokens(char, ssl), ge=ge,
@@ -283,3 +285,69 @@ def test_entry_point_without_device_raises_when_no_gpu(assets, monkeypatch):
         api.load_character("nodev", assets["char"], "ja")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.make_random_character()
+
+
+# -- one synthesizer object per GPT-SoVITS version ------------------------------
+
+V4_TINY = V4Config(fea_channels=16, wn_layers=2, dit_dim=32, dit_depth=2, dit_heads=2,
+                   dit_head_dim=16, freq_embed_dim=16, sample_steps=4, T_ref=16, T_chunk=40,
+                   upsample_rates=(2, 2, 2), upsample_kernels=(4, 4, 4), upsample_initial=32,
+                   resblock_kernels=(3,), resblock_dilations=((1, 3),))
+VERSION_RCFG = RuntimeConfig(
+    phoneme_buckets=(16, 32, 64), prompt_buckets=(32, 64), frame_buckets=(16, 32, 64),
+    step_caps=(16, 32, 64), slot_batch=4, slot_steps=8, slot_join_steps=4, slot_ring=32,
+    slot_phoneme_bucket=64, slot_prompt_bucket=64, vocode_chunk=16, vocode_halo=12,
+    batch_window_ms=1.0, t2s_int8=False, stream_segmented=False)
+
+
+@pytest.mark.parametrize("version,rate,per_code", [("v2", 32000, 1280),
+                                                   ("v2ProPlus", 32000, 1280),
+                                                   ("v4", 48000, 32)])
+def test_each_version_serves_through_its_synthesizer(version, rate, per_code):
+    """A random character of each version and its random reference through
+    the solo route, the batched tail and the slot machine: each waveform is
+    its codes times the version's samples a code, at the version's rate;
+    V4's per-request CFM seed reaches its tail (V2's tails ignore it); and
+    the streaming route refuses exactly the versions that do not stream."""
+    char = tengine.make_random_character(
+        version, seed=1, t2s_cfg=T2SConfig(**T2S_KW),
+        sovits_cfg=SoVITSConfig(**VITS_KW, version=version, sv_dim=64),
+        dtype=torch.float32, device="cpu", v4_cfg=V4_TINY, eos_boost=0.0)
+    synth = char.synth
+    assert char.sample_rate == rate and synth.samples_per_code(char) == per_code
+    eng = tengine.TTSEngine(VERSION_RCFG)
+    ref = tengine.make_random_reference(char, eng, ref_seconds=1.0, seed=2)
+    assert (ref.mel2 is not None) == (version == "v4")
+    phones = np.arange(1, 12).astype(np.int32)
+    bert = np.zeros((len(phones), T2S_KW["bert_dim"]), np.float32)
+
+    solo = eng.synthesize_utterance(char, ref, phones, bert, sampling=GREEDY, seed=5,
+                                    fixed_steps=9)
+    assert solo.shape == (9 * per_code,) and np.isfinite(solo).all()
+
+    rng = np.random.default_rng(3)
+    items = [(ref, phones[:n], rng.integers(0, 1024, k)) for n, k in ((11, 7), (6, 12))]
+    a, b = eng.vocode_codes_batch(char, items, cfm_seeds=[10, 11])
+    assert a.shape == (7 * per_code,) and b.shape == (12 * per_code,)
+    same = eng.vocode_codes_batch(char, items, cfm_seeds=[10, 11])
+    other = eng.vocode_codes_batch(char, items, cfm_seeds=[12, 13])
+    np.testing.assert_array_equal(same[0], a)
+    assert np.array_equal(other[0], a) == synth.inline
+
+    sb = SlotBatcher(eng, char)
+    try:
+        slot = [sb.synthesize(ref, phones, bert, sampling=GREEDY, min_steps=9, max_steps=9,
+                              cfm_seed=s) for s in (77, 77, 78)]
+    finally:
+        sb.stop()
+    assert all(x.shape == (9 * per_code,) for x in slot)
+    np.testing.assert_array_equal(slot[1], slot[0])
+    assert np.array_equal(slot[2], slot[0]) == synth.inline
+
+    stream = eng.synthesize_utterance_stream(char, ref, phones, bert, sampling=GREEDY,
+                                             max_steps=8)
+    if synth.streams:
+        assert len(next(stream)) > 0
+    else:
+        with pytest.raises(NotImplementedError, match=synth.__class__.__name__):
+            next(stream)

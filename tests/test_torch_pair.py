@@ -88,9 +88,10 @@ def make_refs(jchar, tchar, jcfg, tcfg, ssl_frames=60):
     phones = rng.integers(1, 732, 12).astype(np.int32)
     jeng, teng = jengine.TTSEngine(jcfg), tengine.TTSEngine(tcfg)
     out = []
-    for eng, char, feats in ((jeng, jchar, jengine.ReferenceFeatures),
-                             (teng, tchar, tengine.ReferenceFeatures)):
-        ge = eng.compute_v2_speaker_embedding(char, audio_32k)
+    for eng, char, feats, ge in (
+            (jeng, jchar, jengine.ReferenceFeatures,
+             jeng.compute_v2_speaker_embedding(jchar, audio_32k)),
+            (teng, tchar, tengine.ReferenceFeatures, tchar.synth.reference(tchar, audio_32k)["ge"])):
         out.append(feats(phones=phones, bert=np.zeros((12, 1024), np.float32),
                          prompt_tokens=eng.compute_prompt_tokens(char, ssl), ge=ge,
                          ge_mrte=ge[:16]))

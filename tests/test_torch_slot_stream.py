@@ -66,8 +66,8 @@ def _batcher(char, windows: bool, **over):
         **over, "slot_stream_finisher": windows})
     eng = TTSEngine(cfg)
     rng = np.random.default_rng(0)
-    ge = eng.compute_v2_speaker_embedding(
-        char, (rng.standard_normal(int(0.2 * 32000)) * 0.05).astype(np.float32))
+    ge = char.synth.reference(
+        char, (rng.standard_normal(int(0.2 * 32000)) * 0.05).astype(np.float32))["ge"]
     # prompt tokens inside this character's 33-token vocabulary
     ref = ReferenceFeatures(
         phones=rng.integers(1, TCFG.phoneme_vocab, 12).astype(np.int32),

@@ -229,9 +229,8 @@ def char():
 
 def _reference(char, seed=0):
     rng = np.random.default_rng(seed)
-    eng = TTSEngine(RuntimeConfig(**BUCKETS))
-    ge = eng.compute_v2_speaker_embedding(
-        char, (rng.standard_normal(int(0.2 * 32000)) * 0.05).astype(np.float32))
+    ge = char.synth.reference(
+        char, (rng.standard_normal(int(0.2 * 32000)) * 0.05).astype(np.float32))["ge"]
     return ReferenceFeatures(
         phones=rng.integers(1, TCFG.phoneme_vocab, 12).astype(np.int32),
         bert=np.zeros((12, TCFG.bert_dim), np.float32),

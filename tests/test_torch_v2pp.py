@@ -305,9 +305,11 @@ def refs(pair):
     jeng = jengine.TTSEngine(JRuntimeConfig(**BUCKETS))
     teng = tengine.TTSEngine(RuntimeConfig(**BUCKETS))
     out = []
-    for eng, char, feats in ((jeng, jchar, jengine.ReferenceFeatures),
-                             (teng, tchar, tengine.ReferenceFeatures)):
-        ge, ge_mrte = eng.compute_v2pp_speaker_embedding(char, audio_32k, sv_emb)
+    tr = tchar.synth.reference(tchar, audio_32k, sv_emb=sv_emb)
+    for eng, char, feats, (ge, ge_mrte) in (
+            (jeng, jchar, jengine.ReferenceFeatures,
+             jeng.compute_v2pp_speaker_embedding(jchar, audio_32k, sv_emb)),
+            (teng, tchar, tengine.ReferenceFeatures, (tr["ge"], tr["ge_mrte"]))):
         out.append(feats(phones=phones, bert=np.zeros((12, 1024), np.float32),
                          prompt_tokens=eng.compute_prompt_tokens(char, ssl), ge=ge,
                          ge_mrte=ge_mrte))
@@ -400,10 +402,10 @@ def test_api_drives_v2pp_on_cpu(assets, monkeypatch, tmp_path):
         assert feats is not None and feats.ge.shape == (GIN, 1) and feats.ge_mrte.shape == (16, 1)
         clip = reference_audio_cache.get_clip(str(assets["ref"]), "こんにちは、てすとです",
                                               "Japanese")
-        ge, gm = api.engine.compute_v2pp_speaker_embedding(
-            char, clip.audio_32k, sv.get_sv_fn("cpu")(clip.audio_16k))
-        np.testing.assert_array_equal(feats.ge, ge)
-        np.testing.assert_array_equal(feats.ge_mrte, gm)
+        tr = char.synth.reference(char, clip.audio_32k,
+                                  sv_emb=sv.get_sv_fn("cpu")(clip.audio_16k))
+        np.testing.assert_array_equal(feats.ge, tr["ge"])
+        np.testing.assert_array_equal(feats.ge_mrte, tr["ge_mrte"])
         n_calls = len(calls)
         out = tmp_path / "pp.wav"
         wav = api.tts("pp", "きょうはいいてんきですね。", save_path=out)
