@@ -233,6 +233,24 @@ Phases, each of which must pass:
    (the floor of a launch); the bf16 slot pass requires 96 of its
    launches a step. ``python3 chip_smoke.py --slot-linear`` runs the build
    and this kernel's part alone (~25 s).
+16. dit (V4's DiT at the published widths, random bf16 weights): the
+   glue kernels of ``ops/dit_glue.py`` against their plain versions at rows
+   1/2/4/8 and frames 768/896/1000 in bf16 and fp32 (``dit_adanorm``
+   gated and ungated: h' identical, n within one rounding; ``dit_rope``
+   identical, channels 64 on untouched; the same bits twice), each timed
+   by CUDA-graph replay at rows 4, frames 1000 over input sets that
+   together outgrow the L2 three times, beside its plain version and its bound;
+   ``cfm_graph`` at (2, 896, 4 steps) captured and replayed against its
+   eager run (identical), with 2 x 22 + 1 ``dit_adanorm`` and 22
+   ``dit_rope`` launches a forward; one request of 900 new frames through
+   ``sovits_v4.cfm_rows`` (the finisher's entry to the CFM), whose
+   launches of both kernels are the ``kernels`` line's, 45 and 22 a
+   forward, with the ``dit_fused`` gauge at 1; then at (4, 1000, 32
+   steps) a forward's kernels by torch.profiler (each kernel's time a
+   launch in the program), beside the same program with the glue as its
+   plain versions, and the two sampled mels' relative L2 distance.
+   ``python3 chip_smoke.py --dit`` runs the build and this phase alone
+   (~1 min).
 
 The last two lines are the ``kernels`` JSON and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -253,6 +271,7 @@ DEV = "cuda"
 
 # H100 SXM data sheet (dense): memory rate and peak rates by operand type
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20          # the H100's L2
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 FLASH = {"name": "flash_decode_attention", "route": "cuda",
@@ -267,6 +286,8 @@ INT8 = {"name": "int8_big_attention", "route": "cuda",
 SLOT = {"name": "slot_attention", "route": "cuda",
         "source": "genie_tts_tpu_torch/csrc/slot_attention.cu",
         "replaces": "none (the JAX package's exact-KV slot route is XLA ops)"}
+DIT_GLUE = {"route": "cuda", "source": "genie_tts_tpu_torch/csrc/dit_glue.cu",
+            "replaces": "none (the JAX package has no V4; the DiT's glue was PyTorch ops)"}
 SLOT_LINEAR = {"name": "slot_linear", "route": "cuda",
                "source": "genie_tts_tpu_torch/csrc/slot_linear.cu",
                "replaces": "none (the JAX package's slot decode layer's linears are XLA ops)"}
@@ -4546,6 +4567,331 @@ def phase_kernel_slot_linear(torch, seg_ms=None):
                 library_ms=total["library_ms"] / 4, shapes=rows)
 
 
+def v4_params(torch, seed=23):
+    """V4's synthesizer at the published widths (``V4Config()``: the DiT
+    d1024, 22 blocks, 16 heads of 64), random, bf16, on the card."""
+    from genie_tts_tpu_torch.config import SoVITSConfig, V4Config
+    from genie_tts_tpu_torch.models import sovits_v4
+
+    cfg = V4Config()
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return cfg, sovits_v4.init_params(g, SoVITSConfig(version="v4"), cfg, dtype=torch.bfloat16)
+
+
+def cfm_program(torch, params, cfg, R, T, steps, seed=5):
+    """``cfm_graph`` at (R, T, steps) over the bound bank, its buffers
+    filled from ``seed``: rows of T, T-97, T-211, ... frames (at least
+    T // 2) after prompts of 470. Returns (graph, fn, bank hold): the
+    caller exits the hold."""
+    from genie_tts_tpu_torch.models import sovits_v4
+    from genie_tts_tpu_torch.runtime import graphs
+
+    hold = graphs.cache_for(params).bind(params)
+    bank = hold.__enter__()
+    g, fn = sovits_v4.cfm_graph(bank, cfg, R, T, steps)
+    b = g.static
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b.mu.copy_(torch.randn(b.mu.shape, generator=gen, device=DEV))
+    b.prompt.copy_(torch.rand(b.prompt.shape, generator=gen, device=DEV) * 2 - 1)
+    b.noise.copy_(torch.randn(b.noise.shape, generator=gen, device=DEV))
+    b.lens.copy_(torch.tensor([max(T - (97 * i) % (T // 2), T // 2) for i in range(R)],
+                              device=DEV))
+    b.plens.fill_(min(470, T // 2))
+    return g, fn, hold
+
+
+def forward_kernels(torch, replay, steps):
+    """One call of ``replay`` (a CFM program of ``steps`` forwards) under
+    torch.profiler: [(kernel name, device us a forward, launches a
+    forward)] by time, the device-busy ms a forward, and the program's ms a
+    forward by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    replay()
+    sync(torch)
+    ms = cuda_ms(torch, replay, 3, warmup=0) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+        sync(torch)
+    rows = [(a.key, (getattr(a, "self_device_time_total", None)
+                     or getattr(a, "self_cuda_time_total", 0.0)) / steps, a.count / steps)
+            for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    return rows, sum(r[1] for r in rows) / 1e3, ms
+
+
+def print_forward_kernels(what, rows, busy_ms, ms, top=24):
+    print(f"[dit] {what}: {ms:.3f} ms a forward (CUDA events over replays), device busy "
+          f"{busy_ms:.3f} ms a forward over {sum(r[2] for r in rows):.0f} launches (profiler)")
+    for name, us, n in rows[:top]:
+        print(f"[dit]   {us:9.1f} us {n:7.1f} x  {name[:110]}")
+
+
+def dit_glue_inputs(torch, g, dt, R, T, D=1024, rot=64):
+    """Inputs of the DiT's glue at rows R, frames T: h and y [R, T, D] (y at
+    a third of h's scale, as a branch's output), an ``ada`` row [1, 6D]
+    read in place as (shift, scale, gate) chunks, q and k [R, T, D], and
+    the rotary's fp32 cos and sin [T, rot]."""
+    from genie_tts_tpu_torch.models import sovits_v4
+
+    h = torch.randn((R, T, D), generator=g, device=DEV).to(dt)
+    y = (torch.randn((R, T, D), generator=g, device=DEV) / 3).to(dt)
+    ada = (torch.randn((1, 6 * D), generator=g, device=DEV) * 0.3).to(dt)
+    sh, sc, gate = ada.chunk(6, dim=-1)[:3]
+    q, k = (torch.randn((R, T, D), generator=g, device=DEV).to(dt) for _ in range(2))
+    cos, sin = sovits_v4._rope(T, rot, DEV)
+    return h, y, sh, sc, gate, q, k, cos, sin
+
+
+def dit_glue_checks(torch):
+    """Each kernel of ops/dit_glue.py against its plain version on the card
+    at rows 1/2/4/8 and frames 768/896/1000, bf16 and fp32: ``dit_adanorm``
+    gated and ungated (h' identical; n within one
+    rounding of the dtype in bf16, 1e-5 in fp32), ``dit_rope`` identical
+    (the same fp32 products and sums, one rounding) and channels 64 on
+    untouched; the same inputs twice give the same bits."""
+    from genie_tts_tpu_torch.ops import dit_glue as dg
+
+    g = torch.Generator(device=DEV).manual_seed(231)
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for R in (1, 2, 4, 8):
+            for T in (768, 896, 1000):
+                h, y, sh, sc, gate, q, k, cos, sin = dit_glue_inputs(torch, g, dt, R, T)
+                for form, kw in (("gated", dict(y=y, g=gate)), ("ungated", dict(y=y))):
+                    before = dg.dit_adanorm.launches
+                    h2, n2 = dg.dit_adanorm(h, sc, sh, **kw)
+                    hp, np_ = dg.dit_adanorm_plain(h, sc, sh, **kw)
+                    sync(torch)
+                    check(dg.dit_adanorm.launches == before + 1, "dit_adanorm launch count")
+                    check(torch.equal(h2, hp), f"dit_adanorm {dt} R={R} T={T} {form}: h' differs")
+                    d = (n2.float() - np_.float()).abs()
+                    if dt == torch.bfloat16:
+                        ok = bool((d <= np_.float().abs() * 2 ** -7 + 1e-6).all())
+                    else:
+                        ok = bool((d <= 1e-5 * (1 + np_.abs())).all())
+                    key = (str(dt)[6:], form)
+                    worst[key] = max(worst.get(key, 0.0), float(d.max()))
+                    check(ok, f"dit_adanorm {dt} R={R} T={T} {form}: n off by {float(d.max())}")
+                qk, kk, qp, kp = q.clone(), k.clone(), q.clone(), k.clone()
+                before = dg.dit_rope.launches
+                dg.dit_rope(qk, kk, cos, sin)
+                dg.dit_rope_plain(qp, kp, cos, sin)
+                sync(torch)
+                check(dg.dit_rope.launches == before + 1, "dit_rope launch count")
+                dq = max(float((qk.float() - qp.float()).abs().max()),
+                         float((kk.float() - kp.float()).abs().max()))
+                worst[(str(dt)[6:], "rope")] = max(worst.get((str(dt)[6:], "rope"), 0.0), dq)
+                check(torch.equal(qk, qp) and torch.equal(kk, kp),
+                      f"dit_rope {dt} R={R} T={T}: differs from the plain version by {dq}")
+                check(torch.equal(qk[..., 64:], q[..., 64:]) and torch.equal(kk[..., 64:],
+                                                                            k[..., 64:]),
+                      "dit_rope touched channels past the rotary")
+    h, y, sh, sc, gate, *_ = dit_glue_inputs(torch, g, torch.bfloat16, 4, 1000)
+    a, b = dg.dit_adanorm(h, sc, sh, y=y, g=gate), dg.dit_adanorm(h, sc, sh, y=y, g=gate)
+    sync(torch)
+    check(torch.equal(a[1], b[1]), "dit_adanorm repeats itself")
+    print("[dit] kernels vs plain, largest |difference| at R 1/2/4/8 x T 768/896/1000: "
+          + "; ".join(f"{dt} {form} {v:.3e}" for (dt, form), v in sorted(worst.items())))
+    return worst
+
+
+def dit_glue_times(torch):
+    """Device time per launch (CUDA graph) of each kernel at the narration
+    cell's largest CFM launch (R 4, T 1000, bf16) beside its plain version
+    and its bound (bytes at 3.35 TB/s). The graph runs the kernel once on
+    each of ``n`` input sets whose footprints together are at least three
+    times the L2, so that no launch finds its inputs left in L2 by the last
+    replay, as none does in the program."""
+    from genie_tts_tpu_torch.models import sovits_v4
+    from genie_tts_tpu_torch.ops import dit_glue as dg
+
+    g = torch.Generator(device=DEV).manual_seed(232)
+    R, T, D, rot = 4, 1000, 1024, 64
+    rows, bf = R * T, torch.bfloat16
+
+    def randn(scale=1.0):
+        return (torch.randn((R, T, D), generator=g, device=DEV) * scale).to(bf)
+
+    ada = (torch.randn((1, 6 * D), generator=g, device=DEV) * 0.3).to(bf)
+    sh, sc, gate = ada.chunk(6, dim=-1)[:3]
+    cos, sin = sovits_v4._rope(T, rot, DEV)
+    out = {}
+    # (footprint of one set: the lines a launch reads and writes; bytes
+    # moved: h and y read, h' and n written, or the rotary channels of q
+    # and k read and written, and what every set shares once)
+    for name, footprint, moved in (
+            ("dit_adanorm", rows * D * 2 * 4, rows * D * 2 * 4 + 3 * D * 2),
+            ("dit_rope", rows * rot * 2 * 2, rows * rot * 2 * 2 * 2 + 2 * T * rot * 4)):
+        n = max(4, -(-3 * L2_BYTES // footprint))
+        if name == "dit_adanorm":
+            sets = [(randn(), randn(1 / 3)) for _ in range(n)]
+            kernel = [lambda h=h, y=y: dg.dit_adanorm(h, sc, sh, y=y, g=gate) for h, y in sets]
+            plain = [lambda h=h, y=y: dg.dit_adanorm_plain(h, sc, sh, y=y, g=gate)
+                     for h, y in sets]
+        else:
+            sets = [(randn(), randn()) for _ in range(n)]
+            kernel = [lambda q=q, k=k: dg.dit_rope(q, k, cos, sin) for q, k in sets]
+            plain = [lambda q=q, k=k: dg.dit_rope_plain(q, k, cos, sin) for q, k in sets]
+        ms, plain_ms = graph_ms(torch, kernel), graph_ms(torch, plain)
+        del sets, kernel, plain
+        bms, by = bound(moved, 0, "bfloat16")
+        print(f"[dit] {name} R={R} T={T} D={D} bf16, {n} input sets: device time per launch "
+              f"(CUDA graph) kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
+              f"{bms * 1e3:.2f} us ({by}, {moved / 1e6:.2f} MB), {bms / ms:.1%} of the bound's "
+              f"rate")
+        check(ms >= bms, f"{name} ran faster than its bytes allow: {ms} ms against {bms}")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, input_sets=n)
+    return out
+
+
+def cfm_request_launches(torch, params, cfg):
+    """One V4 request through ``sovits_v4.cfm_rows``, the finisher's entry
+    to the CFM (``synthesizers.V4.tail`` -> ``synthesize_rows``), at the
+    published widths: 900 new frames after a 470-frame prompt, two chunks
+    (1000 and 840 frames: the 1000 and 896 buckets, rows bucket 1). A
+    first call captures the chunks' programs; both kernels' counters are
+    zeroed before a second call, whose launches, forwards and
+    ``dit_fused`` gauge are returned; the two calls' mels are identical
+    (the same CFM seed)."""
+    from genie_tts_tpu_torch.models import sovits_v4
+    from genie_tts_tpu_torch.ops import dit_glue as dg
+    from genie_tts_tpu_torch.utils.metrics import metrics
+
+    g = torch.Generator(device=DEV).manual_seed(233)
+    P, F_ = 470, 900
+    row = sovits_v4.Row(
+        fea=torch.randn((F_, cfg.fea_channels), generator=g, device=DEV),
+        fea_ref=torch.randn((P, cfg.fea_channels), generator=g, device=DEV),
+        mel2=torch.rand((P, cfg.mel_dim), generator=g, device=DEV) * 2 - 1, seed=7)
+    first = sovits_v4.cfm_rows(params, cfg, [row], (1, 2, 4, 8))[0]
+    sync(torch)
+    metrics.reset()
+    dg.dit_adanorm.launches = dg.dit_rope.launches = 0
+    events: list = []
+    again = sovits_v4.cfm_rows(params, cfg, [row], (1, 2, 4, 8), events)[0]
+    sync(torch)
+    launches = {"dit_adanorm": dg.dit_adanorm.launches, "dit_rope": dg.dit_rope.launches}
+    forwards = len(events) * cfg.sample_steps
+    gauge = metrics.snapshot()["gauges"].get("dit_fused", {})
+    print(f"[dit] one request of {F_} frames through cfm_rows: {len(events)} chunks, "
+          f"{forwards} forwards; dit_adanorm {launches['dit_adanorm']} and dit_rope "
+          f"{launches['dit_rope']} launches ({launches['dit_adanorm'] / forwards:g} and "
+          f"{launches['dit_rope'] / forwards:g} a forward); gauge dit_fused "
+          f"{gauge.get('mean')} over {gauge.get('count')} launches; mels of the two calls "
+          f"{'identical' if torch.equal(first, again) else 'differ'}")
+    check(len(events) == 2, f"cfm_rows: {len(events)} chunks, not 2")
+    check(launches == {"dit_adanorm": (2 * cfg.dit_depth + 1) * forwards,
+                       "dit_rope": cfg.dit_depth * forwards},
+          f"cfm_rows launches {launches} over {forwards} forwards")
+    check(gauge.get("mean") == 1 and gauge.get("count") == 2, f"dit_fused gauge {gauge}")
+    check(torch.equal(first, again), "cfm_rows: one request's mel differs between two calls")
+    return launches, forwards
+
+
+def program_launch_ms(rows, kernel):
+    """ms a launch of the kernel whose name starts ``kernel`` in a forward's
+    profile (``forward_kernels``): its device us a forward over its
+    launches a forward."""
+    hits = [(us, n) for name, us, n in rows if kernel in name]
+    check(len(hits) == 1, f"{kernel}: {len(hits)} entries in the forward's profile")
+    return hits[0][0] / hits[0][1] / 1e3
+
+
+def composition_graph(torch, fn, static):
+    """``fn(static)`` captured with the DiT's glue as its plain versions
+    (the composition) on the card: (replay thunk, the capture's buffers)."""
+    from genie_tts_tpu_torch.ops import dit_glue as dg
+
+    saved = dg.dit_adanorm, dg.dit_rope
+    dg.dit_adanorm, dg.dit_rope = dg.dit_adanorm_plain, dg.dit_rope_plain
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(static)
+    finally:
+        dg.dit_adanorm, dg.dit_rope = saved
+    return graph.replay
+
+
+def phase_dit(torch):
+    """The V4 DiT on the card: its two glue kernels against their plain
+    versions (``dit_glue_checks``) and timed (``dit_glue_times``); the CFM
+    program ``cfm_graph`` at (rows 2, frames 896, 4 steps) captured and
+    replayed against its eager run on the same buffers (identical), with
+    both kernels' launch counts over a replay (2 x 22 + 1 and 22 a
+    forward); one request through ``cfm_rows`` (``cfm_request_launches``:
+    the launches the ``kernels`` line reports); then at the narration
+    cell's largest CFM launch (rows 4, frames 1000, 32 Euler steps) the
+    kernels of one replay by torch.profiler, a forward's device time per
+    kernel and each glue kernel's time a launch in the program, beside the
+    same program with the glue as its plain versions (the composition),
+    and the two outputs' relative L2 distance."""
+    from genie_tts_tpu_torch.models import sovits_v4
+    from genie_tts_tpu_torch.ops import dit_glue as dg
+
+    checks = dit_glue_checks(torch)
+    times = dit_glue_times(torch)
+    cfg, params = v4_params(torch)
+    L = cfg.dit_depth
+
+    R, T, steps = 2, 896, 4
+    g, fn, hold = cfm_program(torch, params, cfg, R, T, steps)
+    try:
+        with g.lock:
+            g.run(fn, eager=True)
+            sync(torch)
+            eager = g.static.out.clone()
+            g.run(fn)                                  # the capture
+            sync(torch)
+            n0 = (dg.dit_adanorm.launches, dg.dit_rope.launches)
+            g.run(fn)
+            sync(torch)
+            n1 = (dg.dit_adanorm.launches, dg.dit_rope.launches)
+            replayed = g.static.out.clone()
+    finally:
+        hold.__exit__(None, None, None)
+    diff = float((replayed - eager).abs().max())
+    print(f"[dit] cfm_graph R={R} T={T} steps={steps}: replay vs eager max |difference| "
+          f"{diff:.3e} ({'identical' if torch.equal(replayed, eager) else 'not identical'}); "
+          f"a replay launched dit_adanorm {n1[0] - n0[0]} and dit_rope {n1[1] - n0[1]} times")
+    check(n1[0] - n0[0] == (2 * L + 1) * steps and n1[1] - n0[1] == L * steps,
+          f"cfm_graph launches: dit_adanorm {n1[0] - n0[0]}, dit_rope {n1[1] - n0[1]}")
+    check(diff <= 1e-6 * max(float(eager.abs().max()), 1.0), "cfm_graph replay vs eager")
+    launches, forwards = cfm_request_launches(torch, params, cfg)
+
+    R, T, steps = 4, 1000, cfg.sample_steps
+    g, fn, hold = cfm_program(torch, params, cfg, R, T, steps)
+    try:
+        with g.lock:
+            rows, busy, ms = forward_kernels(torch, lambda: g.run(fn), steps)
+            out = g.static.out.clone()
+            prow, pbusy, pms = forward_kernels(torch, composition_graph(torch, fn, g.static),
+                                               steps)
+            plain_out = g.static.out.clone()
+    finally:
+        hold.__exit__(None, None, None)
+    print_forward_kernels(f"cfm_graph R={R} T={T} steps={steps}, the kernels", rows, busy, ms)
+    print_forward_kernels("the same program, the glue as its plain versions", prow, pbusy, pms)
+    d = float((out - plain_out).norm() / plain_out.norm())
+    print(f"[dit] {steps} Euler steps, kernels vs plain versions: relative L2 of the sampled "
+          f"mel {d:.3e}")
+    check(d < 5e-2, f"the CFM program with the kernels drifts from the composition: {d}")
+    for name, kernel in (("dit_adanorm", "adanorm_kernel"), ("dit_rope", "rope_kernel")):
+        times[name]["program_ms"] = program_launch_ms(rows, kernel)
+        print(f"[dit] {name} in the program (R={R} T={T}): "
+              f"{times[name]['program_ms'] * 1e3:.2f} us a launch (profiler)")
+    return dict(checks=checks, times=times, launches=launches, forwards=forwards, ms=ms,
+                busy_ms=busy, plain_ms=pms, plain_busy_ms=pbusy, kernels=rows,
+                plain_kernels=prow)
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv) -> int:
@@ -4597,6 +4943,13 @@ def main(argv) -> int:
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         print(f"{card}")
         return 0
+    if argv[1:] == ["--dit"]:
+        # the V4 DiT alone: build, its kernels, one CFM program's profile
+        timed(phase_build)
+        timed(phase_dit, torch)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(f"{card}")
+        return 0
     if argv[1:] == ["--cross-card"]:
         # the cross-card mesh alone (a machine with 2 or 4 cards): the
         # kernels, phase 3's character written, then phase (i)
@@ -4636,6 +4989,7 @@ def main(argv) -> int:
         res8 = timed(phase_kernel_int8, torch, sl["live"], sl["seg_ms"][-1], sl["sb"].W)
         res_slot = timed(phase_kernel_slot, torch, bf16["ms"][-1], sl["sb"].W)
         res_lin = timed(phase_kernel_slot_linear, torch, bf16["ms"][-1])
+        res_dit = timed(phase_dit, torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4648,6 +5002,12 @@ def main(argv) -> int:
         {**INT8, "launches": sl["launches"], **res8},
         {**SLOT, "launches": bf16["launches"], **res_slot},
         {**SLOT_LINEAR, "launches": bf16["linear_launches"], **res_lin},
+        *({**DIT_GLUE, "name": name, "launches": res_dit["launches"][name],
+           "launches_a_forward": res_dit["launches"][name] / res_dit["forwards"],
+           "max_abs_err": max(v for (_, form), v in res_dit["checks"].items()
+                              if (form == "rope") == (name == "dit_rope")),
+           "library_ms": None, **res_dit["times"][name]}
+          for name in ("dit_adanorm", "dit_rope")),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"{card}")

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SoVITSConfig, V4Config
+from ..ops import dit_glue
 from ..ops.audio import log_mel_spectrogram
 from ..ops.layers import conv1d, unstack
 from ..runtime import graphs
@@ -189,29 +190,19 @@ def _conv_pos(convs, h: torch.Tensor, maskf: torch.Tensor, groups: int) -> torch
     return h * maskf
 
 
-def _rotate_(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x-transformers' ``apply_rotary_pos_emb`` on the first ``rot``
-    channels of [R, T, C] (interleaved pairs), in float32, in place."""
-    rot = cos.shape[-1]
-    xr = x[..., :rot].float()
-    pairs = xr.unflatten(-1, (rot // 2, 2))
-    half = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
-    x[..., :rot] = xr * cos + half * sin
-    return x
-
-
-def _modulate(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """``LayerNorm(h) * (1 + scale) + shift`` (no affine of its own, eps
-    1e-6) as one LayerNorm: the modulation is the same for every row and
-    frame (it reads the step's time embedding alone)."""
-    return F.layer_norm(h, (h.shape[-1],), (1 + scale).reshape(-1), shift.reshape(-1), eps=1e-6)
-
-
 def _rope(T: int, dim: int, device):
     inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, device=device).float() / dim))
     f = torch.outer(torch.arange(T, device=device, dtype=torch.float32), inv)
     f = torch.stack([f, f], dim=-1).flatten(-2)                 # [T, dim], pairs
     return f.cos(), f.sin()
+
+
+def _key_mask(mask: torch.Tensor, dtype) -> torch.Tensor:
+    """The attention's additive key mask [R, 1, 1, T] (0 where a key is
+    valid, -inf past the row's length), as SDPA converts a boolean one:
+    made once a forward instead of by each block's attention."""
+    return torch.zeros(mask[:, None, None, :].shape, dtype=dtype, device=mask.device
+                       ).masked_fill_(~mask[:, None, None, :], float("-inf"))
 
 
 def dit(p, cfg: V4Config, x, cond, text, t_emb, mask, rope) -> torch.Tensor:
@@ -220,29 +211,39 @@ def dit(p, cfg: V4Config, x, cond, text, t_emb, mask, rope) -> torch.Tensor:
     [R, T, *] in the DiT's dtype), the time embedding ``t_emb`` [1, dim];
     ``mask`` [R, T] bool, the rows' valid frames. Frames past a row's
     length feed only frames past it after the input embedding (keys there
-    are masked), so the attention output is not zeroed there."""
-    R, T, _ = x.shape
+    are masked), so the attention output is not zeroed there.
+
+    Between the GEMMs and the attention a block runs two kernels of
+    ``ops/dit_glue.py`` (their plain versions on the CPU): the rotary of q
+    and k (``dit_rope``), and each gated residual with the
+    adaLN-modulated LayerNorm after it (``dit_adanorm``): the input's
+    ``h + conv_pos(h)`` with block 0's attention norm, each attention
+    residual with its block's FF norm, each FF residual with the next
+    block's attention norm or, after the last, ``norm_out``'s."""
     maskf = mask[..., None].to(x.dtype)
     h = _dense(p["input"]["proj"], torch.cat([x, cond, text], dim=-1))
-    h = h + _conv_pos(p["input"]["conv_pos"], h, maskf, cfg.conv_pos_groups)
     cos, sin = rope
     H, Dh = cfg.dit_heads, cfg.dit_head_dim
-    attn_mask = mask[:, None, None, :]
+    attn_mask = _key_mask(mask, x.dtype)
     st = F.silu(t_emb)
-    for lp in unstack(p["blocks"]):
-        sh_a, sc_a, g_a, sh_f, sc_f, g_f = _dense(lp["ada"], st).chunk(6, dim=-1)
-        n = _modulate(h, sc_a, sh_a)
-        q = _rotate_(_dense(lp["q"], n), cos, sin)
-        k = _rotate_(_dense(lp["k"], n), cos, sin)
-        v = _dense(lp["v"], n)
+    blocks = unstack(p["blocks"])
+    # each block's (shift, scale, gate) of its attention, then of its FF;
+    # the (scale, shift) of the norm after each block: the next block's
+    # attention norm, after the last ``norm_out``'s
+    mods = [_dense(lp["ada"], st).chunk(6, dim=-1) for lp in blocks]
+    nexts = [(m[1], m[0]) for m in mods[1:]] + [_dense(p["norm_out"], st).chunk(2, dim=-1)]
+    y = _conv_pos(p["input"]["conv_pos"], h, maskf, cfg.conv_pos_groups).contiguous()
+    h, n = dit_glue.dit_adanorm(h, mods[0][1], mods[0][0], y=y)
+    for lp, (_, _, g_a, sh_f, sc_f, g_f), (scale, shift) in zip(blocks, mods, nexts):
+        q, k, v = _dense(lp["q"], n), _dense(lp["k"], n), _dense(lp["v"], n)
+        dit_glue.dit_rope(q, k, cos, sin)
         q, k, v = (a.unflatten(-1, (H, Dh)).transpose(1, 2) for a in (q, k, v))
         a = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
-        h = torch.addcmul(h, g_a, _dense(lp["out"], a.transpose(1, 2).flatten(-2)))
-        n = _modulate(h, sc_f, sh_f)
-        h = torch.addcmul(h, g_f, _dense(lp["ff2"], F.gelu(_dense(lp["ff1"], n),
-                                                           approximate="tanh")))
-    scale, shift = _dense(p["norm_out"], st).chunk(2, dim=-1)
-    return _dense(p["proj_out"], _modulate(h, scale, shift))
+        y = _dense(lp["out"], a.transpose(1, 2).flatten(-2))
+        h, n = dit_glue.dit_adanorm(h, sc_f, sh_f, y=y, g=g_a)
+        y = _dense(lp["ff2"], F.gelu(_dense(lp["ff1"], n), approximate="tanh"))
+        h, n = dit_glue.dit_adanorm(h, scale, shift, y=y, g=g_f)
+    return _dense(p["proj_out"], n)
 
 
 def euler_step(x: torch.Tensor, v: torch.Tensor, d: float) -> torch.Tensor:
@@ -502,6 +503,7 @@ def cfm_rows(params, cfg: V4Config, rows: List[Row], batch_buckets,
         metrics.incr("cfm_frames", steps * sum(lens))
         metrics.incr("cfm_frames_sq", steps * sum(n * n for n in lens))
         metrics.gauge("cfm_rows", R)
+        metrics.gauge("dit_fused", int(dit_glue.engages(params["cfm"]["proj_out"]["w"])))
     return [torch.cat(o) if o else torch.zeros((0, cfg.mel_dim), device=dev) for o in outs]
 
 

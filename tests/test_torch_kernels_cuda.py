@@ -18,7 +18,11 @@ attention is held to the flash kernel's tolerances (1e-5 fp32, 1e-2
 bf16: the same one output rounding). The slot decode layer's int8
 linears are held to fp32 over the dequantized weights: in bf16 no worse
 than the plain version, which rounds four times where the kernel rounds
-once; in fp32 within 1e-4 of the largest output (sum order).
+once; in fp32 within 1e-4 of the largest output (sum order). The V4
+DiT's glue: the gated residual and the rotary identical to their plain
+versions (the same fp32 arithmetic, one rounding), the modulated
+LayerNorm within one rounding of bf16 (fp32 statistics summed in another
+order), 1e-5 in fp32; the CFM program's replay identical to its eager run.
 """
 
 import pytest
@@ -995,3 +999,122 @@ def test_int8_slot_segments_on_the_card_match_the_cpus_plain_route(cuda):
         toks[run], launches[run] = torch.cat(out, 1), slot_linear.launches - before
     assert torch.equal(toks["card"], toks["cpu"])
     assert launches == {"cpu": 0, "card": 6 * W * 4 * cfg.num_layers}
+
+
+# -- the V4 DiT's glue (ops/dit_glue.py) ----------------------------------------
+
+def _dit_glue_inputs(gen, dtype, R, T, D=1024, rot=64):
+    """h and y [R, T, D], an ``ada`` row read in place as (shift, scale,
+    gate), q and k [R, T, D] and the rotary's cos and sin [T, rot]."""
+    from genie_tts_tpu_torch.models import sovits_v4
+
+    h = torch.randn((R, T, D), generator=gen, device="cuda").to(dtype)
+    y = (torch.randn((R, T, D), generator=gen, device="cuda") / 3).to(dtype)
+    ada = (torch.randn((1, 6 * D), generator=gen, device="cuda") * 0.3).to(dtype)
+    sh, sc, gate = ada.chunk(6, dim=-1)[:3]
+    q, k = (torch.randn((R, T, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    return (h, y, sh, sc, gate, q, k) + sovits_v4._rope(T, rot, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [768, 896, 1000])
+@pytest.mark.parametrize("form", ["gated", "ungated"])
+def test_dit_adanorm_kernel_matches_plain(cuda, dtype, R, T, form):
+    """h' identical (one rounding of h + g y, a bf16 product being exact in
+    fp32); n within one rounding of the dtype in bf16 (the fp32 statistics
+    summed in another order can flip it), 1e-5 in fp32."""
+    from genie_tts_tpu_torch.ops.dit_glue import dit_adanorm, dit_adanorm_plain
+
+    h, y, sh, sc, gate = _dit_glue_inputs(cuda, dtype, R, T)[:5]
+    kw = {"gated": dict(y=y, g=gate), "ungated": dict(y=y)}[form]
+    before = dit_adanorm.launches
+    h2, n = dit_adanorm(h, sc, sh, **kw)
+    hp, n_p = dit_adanorm_plain(h, sc, sh, **kw)
+    torch.cuda.synchronize()
+    assert dit_adanorm.launches == before + 1
+    assert torch.equal(h2, hp)
+    d = (n.float() - n_p.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((d <= n_p.float().abs() * 2 ** -7 + 1e-6).all()), float(d.max())
+    else:
+        torch.testing.assert_close(n, n_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [768, 896, 1000])
+def test_dit_rope_kernel_matches_plain(cuda, dtype, R, T):
+    """The same fp32 products and sums, rounded once: identical; channels
+    from 64 on untouched."""
+    from genie_tts_tpu_torch.ops.dit_glue import dit_rope, dit_rope_plain
+
+    q, k, cos, sin = _dit_glue_inputs(cuda, dtype, R, T)[5:]
+    q1, k1, q2, k2 = q.clone(), k.clone(), q.clone(), k.clone()
+    before = dit_rope.launches
+    dit_rope(q1, k1, cos, sin)
+    dit_rope_plain(q2, k2, cos, sin)
+    torch.cuda.synchronize()
+    assert dit_rope.launches == before + 1
+    assert torch.equal(q1, q2) and torch.equal(k1, k2)
+    assert torch.equal(q1[..., 64:], q[..., 64:]) and torch.equal(k1[..., 64:], k[..., 64:])
+
+
+@pytest.mark.cuda
+def test_dit_glue_kernels_repeat_themselves_and_refuse_what_they_do_not_take(cuda):
+    from genie_tts_tpu_torch.ops.dit_glue import dit_adanorm, dit_rope
+
+    h, y, sh, sc, gate, q, k, cos, sin = _dit_glue_inputs(cuda, torch.bfloat16, 4, 1000)
+    a, b = dit_adanorm(h, sc, sh, y=y, g=gate), dit_adanorm(h, sc, sh, y=y, g=gate)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with pytest.raises(TypeError):
+        dit_adanorm(h.half(), sc, sh, y=y.half())
+    with pytest.raises(TypeError):
+        dit_adanorm(h, sc, sh, y=y.cpu())
+    with pytest.raises(TypeError):
+        dit_adanorm(h, sc, sh, y=y.transpose(0, 1).contiguous().transpose(0, 1))
+    wide = torch.zeros((2, 3, 4096), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        dit_adanorm(wide, sc, sh, y=wide)
+    with pytest.raises(TypeError):
+        dit_rope(q, k[:, :999], cos, sin)
+    with pytest.raises(TypeError):
+        dit_rope(q[:, :, :512], k[:, :, :512], cos, sin)      # a strided view
+
+
+@pytest.mark.cuda
+def test_cfm_graph_replays_equal_eager_through_both_kernels(cuda):
+    """V4's CFM program at the published DiT widths (rows 2, frames 768, 2
+    Euler steps): its replay equals its eager run on the same buffers, and
+    each forward launched dit_adanorm 2 x 22 + 1 and dit_rope 22 times."""
+    from genie_tts_tpu_torch.config import SoVITSConfig, V4Config
+    from genie_tts_tpu_torch.models import sovits_v4
+    from genie_tts_tpu_torch.ops.dit_glue import dit_adanorm, dit_rope
+    from genie_tts_tpu_torch.runtime import graphs
+
+    cfg = V4Config()
+    params = sovits_v4.init_params(cuda, SoVITSConfig(version="v4"), cfg, dtype=torch.bfloat16)
+    R, T, steps = 2, 768, 2
+    with graphs.cache_for(params).bind(params) as bank:
+        g, fn = sovits_v4.cfm_graph(bank, cfg, R, T, steps)
+        with g.lock:
+            b = g.static
+            b.mu.copy_(torch.randn(b.mu.shape, generator=cuda, device="cuda"))
+            b.prompt.copy_(torch.rand(b.prompt.shape, generator=cuda, device="cuda") * 2 - 1)
+            b.noise.copy_(torch.randn(b.noise.shape, generator=cuda, device="cuda"))
+            b.lens.copy_(torch.tensor([T, 701], device="cuda"))
+            b.plens.fill_(300)
+            g.run(fn, eager=True)
+            eager = b.out.clone()
+            g.run(fn)                                  # captured here
+            before = (dit_adanorm.launches, dit_rope.launches)
+            g.run(fn)
+            torch.cuda.synchronize()
+            launched = (dit_adanorm.launches - before[0], dit_rope.launches - before[1])
+            replayed = b.out.clone()
+    assert torch.equal(replayed, eager)
+    assert launched == ((2 * cfg.dit_depth + 1) * steps, cfg.dit_depth * steps)
+    assert float(replayed[:, 300:].abs().mean()) > 0.1
